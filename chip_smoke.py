@@ -1,0 +1,530 @@
+"""Drive the PyTorch port on one NVIDIA GPU and hold every kernel to its plain version.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and carried on):
+
+1. card: name and power limit from nvidia-smi; build the CUDA kernels from
+   ``src/repro_torch/csrc/`` (one nvcc per source, all started together);
+2. GEMM kernel: ``spoga_gemm_dequant`` against its plain version, bitwise, at
+   the main path's shapes for W8A8, w4a8 and w16a16; times beside the bound
+   and ``torch._int_mm``;
+3. paged-attention kernel: bf16 and int8 pools against the plain version at
+   rtol/atol 2e-5, with a poisoned stale page; times beside the bound and
+   ``scaled_dot_product_attention`` on the gathered view;
+4. main path: full-width llama3.2-1b, ``int8_spoga``, int8 paged KV, random
+   weights from seed 0, served by ``ServingEngine`` (8 staggered requests);
+   launch counts of both kernels are read around the run, the plain
+   versions must not run; every request again on a 1-slot engine; then a
+   4-request pass over a bf16 pool; a profile of a few decode steps
+   (device time by kernel);
+5. card against CPU: a 2-layer full-width model, the same weights on both,
+   one prefill: the first greedy token equal, the logits within tolerance;
+6. the ``kernels`` JSON line, then the ``ok`` line last.
+
+Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+INT8_OPS_PER_S = 1979e12       # H100 SXM dense int8 tensor rate
+BF16_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor rate
+L2_BYTES = 50 * 2**20
+
+GEMM_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+GEMM_SPECS = {"w8a8": "int8_spoga", "w4a8": "w4a8", "w16a16": "w16a16"}
+ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
+# card vs CPU logits: bf16 rounding of sums taken in another order
+LOGIT_TOL = 2e-2
+ENGINE_SEED = 0
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def time_ms(fn, n_bufs: int, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn(i)`` over ``iters`` calls (CUDA events),
+    cycling ``i`` over ``n_bufs`` input copies so that L2 stays cold."""
+    for i in range(warmup):
+        fn(i % n_bufs)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i % n_bufs)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies_for(nbytes: int) -> int:
+    """Copies of an input that together exceed twice the L2 cache."""
+    return max(1, min(16, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+
+
+def bound(nbytes: int, ops: float, rate: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# 1. card
+# ---------------------------------------------------------------------------
+
+def phase_card():
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+    print(card, flush=True)
+    print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
+          flush=True)
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.library()
+    print(f"[card] kernels built in {time.perf_counter() - t0:.1f} s -> "
+          f"{path.relative_to(Path(__file__).resolve().parent)}", flush=True)
+    return card
+
+
+# ---------------------------------------------------------------------------
+# 2. GEMM kernel
+# ---------------------------------------------------------------------------
+
+def _gemm_operands(m, k, n, mode, gen):
+    from repro_torch.backends import effective_bits, parse_quant_mode
+    spec, _ = parse_quant_mode(mode)
+    a_bits, w_bits = effective_bits(spec, k)
+    qa, qw = 2 ** (a_bits - 1) - 1, 2 ** (w_bits - 1) - 1
+    x = torch.randint(-qa, qa + 1, (m, k), generator=gen, device="cuda").to(spec.a_dtype)
+    w = torch.randint(-qw, qw + 1, (k, n), generator=gen, device="cuda").to(spec.w_dtype)
+    xs = torch.rand((m, 1), generator=gen, device="cuda") * 0.1 + 1e-3
+    ws = torch.rand((1, n), generator=gen, device="cuda") * 0.1 + 1e-3
+    return spec, x, w, xs, ws
+
+
+def phase_gemm():
+    from repro_torch.kernels.spoga_gemm_dequant import (
+        spoga_gemm_dequant,
+        spoga_gemm_dequant_plain,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    shapes = [(m, k, n) for m in (1, 4, 128) for k, n in GEMM_KN]
+    shapes += [(130, 257, 100), (1, 249, 16)]
+    checked, max_err = 0, 0.0
+    for name, mode in GEMM_SPECS.items():
+        for m, k, n in shapes:
+            spec, x, w, xs, ws = _gemm_operands(m, k, n, mode, gen)
+            got = spoga_gemm_dequant(x, w, xs, ws, n_x_slices=spec.n_a_slices,
+                                     n_w_slices=spec.n_w_slices, slice_bits=spec.slice_bits)
+            want = spoga_gemm_dequant_plain(x, w, xs, ws)
+            err = (got - want).abs().max().item()
+            max_err = max(max_err, err)
+            require(torch.equal(got, want), f"GEMM {name} ({m},{k},{n}): max |diff| {err}")
+            checked += 1
+    print(f"[gemm] {checked} cases bitwise equal to the plain version (max |diff| "
+          f"{max_err})", flush=True)
+
+    timings = {}
+    for name, mode in GEMM_SPECS.items():
+        for m in (4, 128):
+            for k, n in GEMM_KN:
+                spec, x, w, xs, ws = _gemm_operands(m, k, n, mode, gen)
+                nb = copies_for(w.numel() * w.element_size())
+                ws_copies = [w.clone() for _ in range(nb)]
+                kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
+                          slice_bits=spec.slice_bits)
+                t_kernel = time_ms(lambda i: spoga_gemm_dequant(x, ws_copies[i], xs, ws, **kw),
+                                   nb, iters=40)
+                t_plain = time_ms(lambda i: spoga_gemm_dequant_plain(x, ws_copies[i], xs, ws),
+                                  nb, iters=5, warmup=1)
+                t_lib = None
+                if m > 16 and x.dtype == w.dtype == torch.int8 and k % 8 == 0 and n % 8 == 0:
+                    try:
+                        t_lib = time_ms(lambda i: torch._int_mm(x, ws_copies[i]), nb, iters=40)
+                    except RuntimeError as e:  # a yardstick only; its absence is reported
+                        print(f"[gemm] torch._int_mm unavailable at ({m},{k},{n}): {e}",
+                              flush=True)
+                nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+                          + 4 * (m + n) + 4 * m * n)
+                ops = 2.0 * m * k * n * spec.n_a_slices * spec.n_w_slices
+                b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
+                timings[(name, m, k, n)] = dict(ms=t_kernel, plain_ms=t_plain,
+                                                library_ms=t_lib, bound_ms=b_ms,
+                                                bound_by=b_by)
+                lib = f"{t_lib:.4f}" if t_lib is not None else "n/a"
+                print(f"[gemm] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms, "
+                      f"plain {t_plain:.4f} ms, _int_mm {lib} ms, bound {b_ms:.4f} ms "
+                      f"({b_by})", flush=True)
+                del ws_copies
+    # one decode step's projections (q, k, v, o, gate, up, down) per layer
+    layer = [(2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
+             (2048, 8192), (2048, 8192), (8192, 2048)]
+    per_layer = sum(timings[("w8a8", 4, k, n)]["ms"] for k, n in layer)
+    print(f"[gemm] W8A8 decode step at M=4, 16 layers x 7 projections: "
+          f"{16 * per_layer:.3f} ms of kernel time", flush=True)
+    return timings, max_err
+
+
+# ---------------------------------------------------------------------------
+# 3. paged-attention kernel
+# ---------------------------------------------------------------------------
+
+def _attn_case(kind, gen, poison):
+    b, hkv, g, d, ps, n_pages, n_tbl = 4, 8, 4, 64, 16, 45, 11
+    q = torch.randn((b, hkv, g, d), generator=gen, device="cuda").bfloat16()
+    shp = (n_pages, ps, hkv, d)
+    scales = {}
+    if kind == "int8":
+        kp = torch.randint(-127, 128, shp, generator=gen, device="cuda").to(torch.int8)
+        vp = torch.randint(-127, 128, shp, generator=gen, device="cuda").to(torch.int8)
+        scales = {"k_scale": torch.rand(shp[:3], generator=gen, device="cuda") * 0.02 + 1e-3,
+                  "v_scale": torch.rand(shp[:3], generator=gen, device="cuda") * 0.02 + 1e-3}
+    else:
+        kp = torch.randn(shp, generator=gen, device="cuda").bfloat16()
+        vp = torch.randn(shp, generator=gen, device="cuda").bfloat16()
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * n_tbl] + 1
+    tables = perm.reshape(b, n_tbl).to(torch.int32)
+    lengths = torch.tensor([1, 17, 100, 165], dtype=torch.int32, device="cuda")
+    clean = (kp.clone(), vp.clone())
+    if poison:
+        big = 127 if kind == "int8" else 3.0e4
+        for lane in range(b):
+            n = int(lengths[lane])
+            last, off = tables[lane, (n - 1) // ps], (n - 1) % ps + 1
+            for pool in (kp, vp):
+                pool[last, off:] = big                       # stale rows of the last page
+                pool[tables[lane, (n + ps - 1) // ps:].long()] = -big   # pages past the length
+    return q, kp, vp, tables, lengths, scales, clean
+
+
+def phase_attention():
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {}
+    for kind in ("bf16", "int8"):
+        q, kp, vp, tables, lengths, scales, (kc, vc) = _attn_case(kind, gen, poison=True)
+        got = paged_attention(q, kp, vp, tables, lengths, **scales)
+        want = paged_attention_plain(q, kc, vc, tables, lengths, **scales)
+        want_p = paged_attention_plain(q, kp, vp, tables, lengths, **scales)
+        torch.cuda.synchronize()
+        err = max((got - want).abs().max().item(), (got - want_p).abs().max().item())
+        require(torch.allclose(got, want, **ATTN_TOL) and torch.allclose(got, want_p, **ATTN_TOL),
+                f"paged attention {kind}: max |diff| {err}")
+        require(bool(torch.isfinite(got).all()), f"paged attention {kind}: non-finite output")
+
+        b, hkv, g, d = q.shape
+        ps = kp.shape[1]
+        rows = int(lengths.sum())
+        t_kernel = time_ms(lambda i: paged_attention(q, kp, vp, tables, lengths, **scales),
+                           1, iters=200)
+        t_plain = time_ms(lambda i: paged_attention_plain(q, kp, vp, tables, lengths, **scales),
+                          1, iters=20)
+        t_lib = None
+        if kind == "bf16":
+            n_tbl = tables.shape[1]
+            k_all = kp[tables.long()].reshape(b, n_tbl * ps, hkv, d).permute(0, 2, 1, 3)
+            v_all = vp[tables.long()].reshape(b, n_tbl * ps, hkv, d).permute(0, 2, 1, 3)
+            mask = (torch.arange(n_tbl * ps, device="cuda")[None, :] < lengths[:, None])
+            mask = mask[:, None, None, :]
+            t_lib = time_ms(lambda i: F.scaled_dot_product_attention(q, k_all, v_all,
+                                                                     attn_mask=mask),
+                            1, iters=200)
+        kv_bytes = 2 * rows * hkv * d * kp.element_size()
+        if scales:
+            kv_bytes += 2 * rows * hkv * 4
+        nbytes = (q.numel() * q.element_size() + kv_bytes + tables.numel() * 4 + b * 4
+                  + b * hkv * g * d * 4)
+        ops = 4.0 * rows * hkv * g * d
+        b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        out[kind] = dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                         bound_by=b_by, max_abs_err=err)
+        lib = f"{t_lib:.4f}" if t_lib is not None else "n/a"
+        print(f"[attn] {kind} B={b} Hkv={hkv} G={g} D={d} ps={ps} lengths="
+              f"{lengths.tolist()}: max |diff| {err:.3g} (stale rows poisoned); kernel "
+              f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, sdpa {lib} ms, bound "
+              f"{b_ms:.5f} ms ({b_by})", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 4. main path
+# ---------------------------------------------------------------------------
+
+def _traffic(n, vocab, seed):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(17, 129, n)
+    gens = rng.integers(16, 33, n)
+    return [(2 * i, rng.integers(0, vocab, int(p)).tolist(), int(g))
+            for i, (p, g) in enumerate(zip(lens, gens))]
+
+
+def _serve(cfg, params, arrivals, n_slots):
+    from repro_torch.configs import default_cache_len
+    from repro_torch.serving import EngineConfig, ServingEngine
+    ecfg = EngineConfig(n_slots=n_slots, page_size=16, prefill_buckets=(32, 64, 128),
+                        cache_len=default_cache_len(128, 32), cache_mode="paged")
+    engine = ServingEngine(cfg, params, ecfg, device="cuda")
+    metrics = engine.run(arrivals)
+    torch.cuda.synchronize()
+    return engine, metrics
+
+
+def _counted_run(cfg, params, arrivals, n_slots, label):
+    """Serve ``arrivals`` with every kernel count at 0 just before; return
+    (metrics, engine, launches) read just after."""
+    from repro_torch.kernels import paged_attention as attn_mod
+    from repro_torch.kernels import spoga_gemm_dequant as gemm_mod
+    gemm_mod.reset_counts()
+    attn_mod.reset_counts()
+    engine, metrics = _serve(cfg, params, arrivals, n_slots)
+    launches = {"spoga_gemm_dequant": gemm_mod.LAUNCHES, "paged_attention": attn_mod.LAUNCHES}
+    plain = {"spoga_gemm_dequant": gemm_mod.PLAIN_CALLS, "paged_attention": attn_mod.PLAIN_CALLS}
+    print(f"[main] {label}: launches {launches}, plain-version calls {plain}", flush=True)
+    require(all(v > 0 for v in launches.values()), f"{label}: a kernel never launched")
+    require(all(v == 0 for v in plain.values()), f"{label}: a plain version ran on the card")
+    return metrics, engine, launches
+
+
+def _check_finished(metrics, arrivals, vocab, label):
+    require(len(metrics.finished) == len(arrivals),
+            f"{label}: {len(metrics.finished)} of {len(arrivals)} requests finished")
+    streams = {r.req_id: r.output_tokens for r in metrics.finished}
+    for rid, (_, _, gen) in enumerate(arrivals):
+        toks = streams[rid]
+        require(len(toks) == gen, f"{label}: request {rid} gave {len(toks)} of {gen} tokens")
+        require(all(0 <= t < vocab for t in toks), f"{label}: token out of range")
+    return streams
+
+
+def phase_main(card):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=ENGINE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[main] llama3.2-1b full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+          f"int8_spoga, int8 paged KV; weights in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    metrics, engine, launches = _counted_run(cfg, params, arrivals, 4, "int8 KV, 8 requests")
+    streams = _check_finished(metrics, arrivals, cfg.vocab_size, "int8 KV")
+    rep = metrics.report()
+    require(not engine.store.manager.invariant_violations(), "page bookkeeping broken")
+    require(engine.store.manager.pages_in_use == 0, "pages leaked after the run")
+    print(f"[main] {rep['finished']} finished, {rep['generated_tokens']} tokens in "
+          f"{rep['wall_s']:.3f} s: {rep['tokens_per_s']:.1f} tok/s, TTFT mean "
+          f"{1e3 * rep['ttft_mean_s']:.1f} ms, decode step mean "
+          f"{1e3 * rep['decode_step_mean_s']:.2f} ms ({rep['decode_steps']} steps, "
+          f"{rep['prefills']} prefills, peak lanes {rep['peak_running']}), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+    expect_gemm = 7 * cfg.n_layers * (rep["decode_steps"] + rep["prefills"])
+    expect_attn = cfg.n_layers * rep["decode_steps"]
+    require(launches["spoga_gemm_dequant"] == expect_gemm,
+            f"GEMM launches {launches['spoga_gemm_dequant']} != {expect_gemm}")
+    require(launches["paged_attention"] == expect_attn,
+            f"attention launches {launches['paged_attention']} != {expect_attn}")
+
+    agree = total = 0
+    for rid, (_, prompt, gen) in enumerate(arrivals):
+        _, solo = _serve(cfg, params, [(0, prompt, gen)], 1)
+        toks = solo.finished[0].output_tokens
+        require(toks[0] == streams[rid][0],
+                f"request {rid}: solo first token {toks[0]} != batched {streams[rid][0]}")
+        agree += sum(a == b for a, b in zip(toks, streams[rid]))
+        total += len(toks)
+    print(f"[main] solo runs: first tokens equal, greedy agreement {agree}/{total}", flush=True)
+
+    cfg16 = cfg.with_(kv_cache_dtype="bf16")
+    arrivals16 = _traffic(4, cfg.vocab_size, ENGINE_SEED + 1)
+    m16, _, launches16 = _counted_run(cfg16, params, arrivals16, 4, "bf16 KV, 4 requests")
+    _check_finished(m16, arrivals16, cfg.vocab_size, "bf16 KV")
+    r16 = m16.report()
+    print(f"[main] bf16 KV: {r16['tokens_per_s']:.1f} tok/s, decode step mean "
+          f"{1e3 * r16['decode_step_mean_s']:.2f} ms [{card}]", flush=True)
+    phase_profile(cfg, params, card)
+    del params
+    torch.cuda.empty_cache()
+    return launches, launches16
+
+
+def _kernel_group(name: str) -> str:
+    if "spoga_gemm_dequant_kernel" in name:
+        return "spoga_gemm_dequant kernel"
+    if "paged_attention_kernel" in name:
+        return "paged_attention kernel"
+    if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "cublas", "matmul", "nvjet")):
+        return "library matmul (bf16 unembed)"
+    return "elementwise and reductions (weight + activation quantization, norms, rope)"
+
+
+def _busy_engine(cfg, params):
+    """A 4-lane engine with 4 requests admitted and decoding (same every call)."""
+    from repro_torch.configs import default_cache_len
+    from repro_torch.serving import EngineConfig, ServingEngine
+    engine = ServingEngine(cfg, params, EngineConfig(
+        n_slots=4, page_size=16, prefill_buckets=(32, 64, 128),
+        cache_len=default_cache_len(128, 32), cache_mode="paged"), device="cuda")
+    rng = np.random.default_rng(ENGINE_SEED + 2)
+    for _ in range(4):
+        engine.add_request(rng.integers(0, cfg.vocab_size, 64).tolist(), 32)
+    for _ in range(6):                       # 4 admissions, then decode only
+        engine.step()
+    torch.cuda.synchronize()
+    return engine
+
+
+def _timed_steps(engine, steps):
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        engine.step()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_profile(cfg, params, card, steps=5):
+    """Device time by kernel over ``steps`` decode steps with 4 busy lanes.
+
+    Two engines fed the same requests do the same steps: the first is
+    timed without the profiler (wall), the second under it (device time
+    per kernel), so the busy share divides like by like."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_plain = _timed_steps(_busy_engine(cfg, params), steps)
+    engine = _busy_engine(cfg, params)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = _timed_steps(engine, steps)
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms per step
+    if not kernels or total <= 0:
+        print("[profile] the profiler recorded no device time: breakdown not measured",
+              flush=True)
+        return
+    step_ms, plain_ms = 1e3 * wall / steps, 1e3 * wall_plain / steps
+    print(f"[profile] {steps} decode steps, 4 lanes: {total:.3f} ms/step device time; "
+          f"wall {plain_ms:.3f} ms/step without the profiler (device busy "
+          f"{100 * total / plain_ms:.1f}%), {step_ms:.3f} ms/step with it (busy "
+          f"{100 * total / step_ms:.1f}%) [{card}]", flush=True)
+    groups: dict[str, float] = {}
+    for e in kernels:
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / steps
+    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[profile]   {ms:.3f} ms/step ({100 * ms / total:.1f}% of device time) {g}",
+              flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[profile]   top: {e.self_device_time_total / 1e3 / steps:.3f} ms/step, "
+              f"{e.count // steps} launches/step  {e.key[:90]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 5. card against CPU
+# ---------------------------------------------------------------------------
+
+def phase_cpu_parity():
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8",
+                                          n_layers=2)
+    params = init_params(cfg, seed=3, device="cuda")
+
+    def to_cpu(t):
+        if isinstance(t, dict):
+            return {k: to_cpu(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(to_cpu(v) for v in t)
+        return t.cpu()
+
+    cpu_params = to_cpu(params)
+    rng = np.random.default_rng(3)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 16)).astype(np.int32))
+    t0 = time.perf_counter()
+    got, _ = prefill(params, cfg, tokens.cuda(), 16)
+    got = got.cpu()
+    want, _ = prefill(cpu_params, cfg, tokens, 16)
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    top2 = torch.topk(want[0], 2).values
+    print(f"[cpu] 2-layer full width, 16-token prefill: max |logit diff| {err:.4g} of "
+          f"max |logit| {scale:.4g} (tolerance {LOGIT_TOL} x max), greedy token card "
+          f"{int(got.argmax())} cpu {int(want.argmax())} (cpu top-2 margin "
+          f"{(top2[0] - top2[1]).item():.4g}); {time.perf_counter() - t0:.1f} s", flush=True)
+    require(bool(torch.isfinite(got).all()), "card logits not finite")
+    require(int(got.argmax()) == int(want.argmax()), "first greedy token differs from the CPU's")
+    require(err <= LOGIT_TOL * scale, f"card logits off the CPU's by {err} > {LOGIT_TOL * scale}")
+
+
+# ---------------------------------------------------------------------------
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    src = Path(__file__).resolve().parent / "src"
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: the port's package is missing ({src / 'repro_torch'})",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    card = phase_card()
+    gemm, gemm_err = phase_gemm()
+    attn = phase_attention()
+    launches, launches16 = phase_main(card)
+    phase_cpu_parity()
+
+    g = gemm[("w8a8", 4, 2048, 8192)]
+    kernels = [
+        {"name": "spoga_gemm_dequant", "route": "cuda",
+         "source": "src/repro_torch/csrc/spoga_gemm_dequant.cu",
+         "replaces": "src/repro/kernels/spoga_gemm_dequant.py:62",
+         "launches": launches["spoga_gemm_dequant"], "max_abs_err": gemm_err,
+         "shape": "W8A8 M=4 K=2048 N=8192", **g},
+    ]
+    for kind, count in (("int8", launches["paged_attention"]),
+                        ("bf16", launches16["paged_attention"])):
+        a = dict(attn[kind])
+        kernels.append({"name": f"paged_attention/{kind}", "route": "cuda",
+                        "source": "src/repro_torch/csrc/paged_attention.cu",
+                        "replaces": "src/repro/kernels/paged_attention.py:91",
+                        "launches": count, "max_abs_err": a.pop("max_abs_err"),
+                        "shape": f"{kind} pool B=4 Hkv=8 G=4 D=64 ps=16", **a})
+    print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

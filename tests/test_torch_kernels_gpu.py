@@ -1,0 +1,125 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+This file imports no JAX, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
+
+Every test needs a CUDA device and skips inside the test without one.
+The GEMM is held bitwise (same int32 accumulator, same two f32 multiplies);
+paged attention at rtol/atol 2e-5, the JAX package's contract.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.backends import effective_bits, parse_quant_mode
+from repro_torch.kernels import paged_attention as attn_mod
+from repro_torch.kernels import spoga_gemm_dequant as gemm_mod
+from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+from repro_torch.kernels.spoga_gemm_dequant import (
+    spoga_gemm_dequant,
+    spoga_gemm_dequant_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+# tiny, exact tiles, ragged, the paper's DPU shape, decode and prefill widths
+SHAPES = [(8, 16, 8), (128, 128, 128), (130, 257, 100), (1, 249, 16),
+          (4, 2048, 512), (16, 2048, 2048), (17, 8192, 2048), (128, 2048, 8192)]
+MODES = ["int8_spoga", "w4a8", "w4a4", "w16a16", "w8a8_s2", "w8a8_s3", "w6a6_s1"]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _operands(m, k, n, mode, seed):
+    spec, _ = parse_quant_mode(mode)
+    a_bits, w_bits = effective_bits(spec, k)
+    rng = np.random.default_rng(seed)
+    qa, qw = 2 ** (a_bits - 1) - 1, 2 ** (w_bits - 1) - 1
+    x = torch.from_numpy(rng.integers(-qa, qa + 1, (m, k))).to(spec.a_dtype)
+    w = torch.from_numpy(rng.integers(-qw, qw + 1, (k, n))).to(spec.w_dtype)
+    xs = torch.from_numpy(rng.uniform(1e-3, 0.1, (m, 1)).astype(np.float32))
+    ws = torch.from_numpy(rng.uniform(1e-3, 0.1, (1, n)).astype(np.float32))
+    return spec, [t.cuda() for t in (x, w, xs, ws)]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_gemm_kernel_matches_plain_bitwise(mode):
+    _card()
+    for m, k, n in SHAPES:
+        spec, ops = _operands(m, k, n, mode, seed=m + k + n)
+        launches = gemm_mod.LAUNCHES
+        got = spoga_gemm_dequant(*ops, n_x_slices=spec.n_a_slices,
+                                 n_w_slices=spec.n_w_slices, slice_bits=spec.slice_bits)
+        assert gemm_mod.LAUNCHES == launches + 1
+        want = spoga_gemm_dequant_plain(*ops)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (mode, m, k, n)
+
+
+def test_gemm_wrapper_raises_on_what_the_kernel_does_not_take():
+    _card()
+    spec, (x, w, xs, ws) = _operands(8, 64, 16, "int8_spoga", seed=0)
+    with pytest.raises(ValueError):
+        spoga_gemm_dequant(x, w.t().contiguous().t(), xs, ws)   # not contiguous
+    with pytest.raises(ValueError):
+        spoga_gemm_dequant(x, w.cpu(), xs, ws)                  # mixed devices
+    with pytest.raises(ValueError):
+        spoga_gemm_dequant(x, w, xs, ws, slice_bits=8)
+
+
+def _pool_case(kind, seed, q_dtype=torch.bfloat16):
+    b, hkv, g, d, ps, n_pages, n_tbl = 4, 8, 4, 64, 16, 45, 11
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.normal(size=(b, hkv, g, d)).astype(np.float32)).to(q_dtype)
+    shp = (n_pages, ps, hkv, d)
+    scales = {}
+    if kind == "int8":
+        kp = torch.from_numpy(rng.integers(-127, 128, shp).astype(np.int8))
+        vp = torch.from_numpy(rng.integers(-127, 128, shp).astype(np.int8))
+        scales = {k: torch.from_numpy(rng.uniform(1e-3, 0.02, shp[:3]).astype(np.float32))
+                  for k in ("k_scale", "v_scale")}
+    else:
+        kp = torch.from_numpy(rng.normal(size=shp).astype(np.float32)).bfloat16()
+        vp = torch.from_numpy(rng.normal(size=shp).astype(np.float32)).bfloat16()
+    tables = torch.from_numpy((rng.permutation(n_pages - 1)[:b * n_tbl] + 1)
+                              .reshape(b, n_tbl).astype(np.int32))
+    lengths = torch.tensor([1, 17, 100, 165], dtype=torch.int32)
+    scales = {k: v.cuda() for k, v in scales.items()}
+    return [t.cuda() for t in (q, kp, vp, tables, lengths)], scales
+
+
+@pytest.mark.parametrize("kind,q_dtype", [("bf16", torch.bfloat16), ("int8", torch.bfloat16),
+                                          ("bf16", torch.float32), ("int8", torch.float32)])
+def test_paged_attention_kernel_matches_plain(kind, q_dtype):
+    _card()
+    args, scales = _pool_case(kind, seed=3, q_dtype=q_dtype)
+    launches = attn_mod.LAUNCHES
+    got = paged_attention(*args, **scales)
+    assert attn_mod.LAUNCHES == launches + 1
+    want = paged_attention_plain(*args, **scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_paged_attention_kernel_never_reads_stale_rows(kind):
+    """Rows at or past a lane's length, in its last page and in the pages
+    after it, are poisoned; the kernel's output must not move."""
+    _card()
+    (q, kp, vp, tables, lengths), scales = _pool_case(kind, seed=4)
+    clean = paged_attention(q, kp, vp, tables, lengths, **scales)
+    big = 127 if kind == "int8" else 3.0e4
+    ps = kp.shape[1]
+    for lane, n in enumerate(lengths.tolist()):
+        last, off = tables[lane, (n - 1) // ps], (n - 1) % ps + 1
+        for pool in (kp, vp):
+            pool[last, off:] = big
+            pool[tables[lane, (n + ps - 1) // ps:].long()] = -big
+    poisoned = paged_attention(q, kp, vp, tables, lengths, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, clean)

@@ -1,0 +1,229 @@
+"""The port's model entry points against the JAX package, end to end.
+
+Both packages run the same weights (the JAX ``init_params`` tree, its
+projection weights scaled by 8 so that greedy decoding does not collapse
+onto one repeated token, carried across with ``params_from_jax``): a
+batch=1 prefill per lane scattered into a paged cache, then 4 batched
+``decode_step``s with one idle lane.  The port rounds to bf16 where the
+reference's compiled graph does.  With 4 KV heads, and in the main path's
+mode (``int8_spoga`` over an int8 cache) with 2, the logits are bitwise
+equal.  The other 2-KV-head cases agree within LOGIT_TOL of the logits'
+largest magnitude, with greedy tokens equal: XLA's CPU code and
+PyTorch's take some f32 sums in another order (the bf16 projections,
+which XLA computes as an f32 dot of widened operands; the RMSNorm mean,
+which XLA sums in four 32-wide windows; the attention sums).  One f32 ulp
+now and then flips a bf16 rounding, and the flipped bf16 ulp grows
+through the later layers.  GQA head order itself is held exactly by
+``test_gqa_attention_matches_jax``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
+from repro.models.attention import multihead_attention as jax_multihead_attention
+from repro.models import decode_step as jax_decode_step
+from repro.models import init_cache as jax_init_cache
+from repro.models import init_params as jax_init_params
+from repro.models import prefill as jax_prefill
+from repro.models.model import paged_cache_shapes as jax_paged_cache_shapes
+from repro.models.model import param_shapes as jax_param_shapes
+from repro.paging import PagedCache as JaxPagedCache
+from repro_torch import configs as tconfigs
+from repro_torch.models import (
+    decode_step,
+    init_cache,
+    init_params,
+    paged_cache_shapes,
+    params_from_jax,
+    prefill,
+)
+from repro_torch.models.attention import multihead_attention
+from repro_torch.models.kvcache import zeros_like_shapes
+from repro_torch.paging import PagedCache
+
+WEIGHT_SCALE = 8.0
+# logits of the cases that are not bitwise equal (see the module
+# docstring): bf16-rounding tolerance, relative to the logits' scale
+LOGIT_TOL = 2e-2
+
+
+def _configs(n_kv_heads, quant_mode, kv_dtype):
+    kw = dict(n_kv_heads=n_kv_heads, quant_mode=quant_mode, kv_cache_dtype=kv_dtype)
+    jcfg = jax_reduced(jax_get_config("llama3.2-1b")).with_(remat=False, **kw)
+    tcfg = tconfigs.reduced(tconfigs.get_config("llama3.2-1b")).with_(**kw)
+    return jcfg, tcfg
+
+
+def scaled_params(jcfg, seed=0):
+    """The JAX init as numpy, projection weights times WEIGHT_SCALE."""
+    tree = jax.tree_util.tree_map(np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(seed)))
+
+    def scale(path, a):
+        if "'w" in jax.tree_util.keystr(path):
+            return (a.astype(np.float32) * WEIGHT_SCALE).astype(a.dtype)
+        return a
+
+    return jax.tree_util.tree_map_with_path(scale, tree)
+
+
+def _assert_logits_close(got, want, what, exact):
+    if exact:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+        return
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_TOL * scale, err_msg=what)
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1), err_msg=what)
+
+
+PROMPTS = (11, 6)       # two lanes; lane 2 stays idle
+CACHE_LEN, PAGE, SINGLE = 32, 8, 16
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("quant_mode", ["bf16", "int8_spoga"])
+@pytest.mark.parametrize("n_kv_heads", [4, 2])
+def test_prefill_and_paged_decode_match_jax(n_kv_heads, quant_mode, kv_dtype):
+    jcfg, tcfg = _configs(n_kv_heads, quant_mode, kv_dtype)
+    exact = n_kv_heads == 4 or (quant_mode, kv_dtype) == ("int8_spoga", "int8")
+    tree = scaled_params(jcfg)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    tparams = params_from_jax(tree, tcfg, "cpu")
+    rng = np.random.default_rng(n_kv_heads)
+    n_lanes = 3
+    jpool = JaxPagedCache(jcfg, n_lanes, CACHE_LEN, PAGE)
+    tpool = PagedCache(tcfg, n_lanes, CACHE_LEN, PAGE, device="cpu")
+    first = []
+    for lane, n in enumerate(PROMPTS):
+        toks = np.zeros((1, SINGLE), np.int32)
+        toks[0, :n] = rng.integers(0, jcfg.vocab_size, n)
+        lengths = np.asarray([n], np.int32)
+        jl, jsingle = jax_prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, SINGLE,
+                                  lengths=jnp.asarray(lengths))
+        tl, tsingle = prefill(tparams, tcfg, torch.from_numpy(toks), SINGLE,
+                              lengths=torch.from_numpy(lengths))
+        _assert_logits_close(tl.numpy(), np.asarray(jl), f"prefill lane {lane}", exact)
+        for pool in (jpool, tpool):
+            pool.manager.admit(lane, CACHE_LEN)
+            ids = pool.manager.alloc(lane, SINGLE // PAGE)
+            pool.manager.set_length(lane, n)
+        jpool.insert(jsingle, lane, ids, new_len=n)
+        tpool.insert(tsingle, lane, ids, new_len=n)
+        first.append(int(np.asarray(jl).argmax(-1)[0]))
+
+    tokens = np.asarray(first + [0], np.int32)
+    active = np.asarray([True, True, False])
+    for step in range(4):
+        for pool in (jpool, tpool):
+            for lane in range(len(PROMPTS)):
+                pool.manager.ensure(lane, int(pool.manager.lengths[lane]) + 1)
+            pool.sync_tables()
+        jl, jpool.cache = jax_decode_step(jparams, jcfg, jnp.asarray(tokens), jpool.cache,
+                                          jnp.asarray(active))
+        tl, _ = decode_step(tparams, tcfg, torch.from_numpy(tokens), tpool.cache,
+                            torch.from_numpy(active))
+        for pool in (jpool, tpool):
+            pool.manager.advance(range(len(PROMPTS)))
+        jl = np.asarray(jl)[:2]
+        _assert_logits_close(tl.numpy()[:2], jl, f"decode step {step}", exact)
+        np.testing.assert_array_equal(tpool.cache["pos"].numpy(),
+                                      np.asarray(jpool.cache["pos"]))
+        tokens = np.asarray(list(jl.argmax(-1)) + [0], np.int32)
+
+
+def _bf16_torch(a):
+    return torch.from_numpy(np.asarray(a).view(np.int16)).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("n_kv_heads", [4, 2, 1])
+def test_gqa_attention_matches_jax(n_kv_heads):
+    """Causal GQA on identical bf16 q/k/v: bitwise equal to the jitted JAX
+    attention for 1, 2 and 4 query heads per KV head.  Query head ``h``
+    reads KV head ``h % n_kv_heads``; the other order (``h // g``) is far
+    off."""
+    rng = np.random.default_rng(n_kv_heads)
+    q, k, v = (jnp.asarray(rng.normal(size=(2, 16, h, 32)).astype(np.float32) * 2)
+               .astype(jnp.bfloat16) for h in (4, n_kv_heads, n_kv_heads))
+    want = np.asarray(jax.jit(jax_multihead_attention)(q, k, v).astype(jnp.float32))
+    tq, tk, tv = (_bf16_torch(a) for a in (q, k, v))
+    got = multihead_attention(tq, tk, tv)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, 16, 4, 32)
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    if n_kv_heads == 2:          # the orders differ only when 1 < Hkv < Hq
+        other = multihead_attention(tq, torch.repeat_interleave(tk, 2, 2),
+                                    torch.repeat_interleave(tv, 2, 2)).float().numpy()
+        assert np.abs(other - want).max() > 1.0
+
+
+def test_params_layout_matches_jax():
+    """The port's own init gives the reference's tree: same keys, shapes
+    and dtypes (other numbers: a torch.Generator, not jax.random)."""
+    jcfg, tcfg = _configs(2, "int8_spoga", "int8")
+    jshapes = jax_param_shapes(jcfg)
+    tparams = init_params(tcfg, seed=0, device="cpu")
+    jflat = jax.tree_util.tree_flatten_with_path(jshapes)[0]
+    tflat = jax.tree_util.tree_flatten_with_path(tparams)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in jflat] == \
+        [jax.tree_util.keystr(p) for p, _ in tflat]
+    for (path, s), (_, t) in zip(jflat, tflat):
+        assert tuple(s.shape) == tuple(t.shape), jax.tree_util.keystr(path)
+        assert str(s.dtype) == str(t.dtype).replace("torch.", ""), jax.tree_util.keystr(path)
+    a = init_params(tcfg, seed=0, device="cpu")["embed"]
+    b = init_params(tcfg, seed=1, device="cpu")["embed"]
+    assert torch.equal(a, init_params(tcfg, seed=0, device="cpu")["embed"])
+    assert not torch.equal(a, b)
+    assert float(a.float().abs().max()) <= 2.0 / tcfg.d_model ** 0.5 + 1e-6
+
+
+def _layout(tree):
+    return [(jax.tree_util.keystr(p), tuple(x.shape), str(x.dtype).replace("torch.", ""))
+            for p, x in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_cache_layouts_match_jax(kv_dtype):
+    """Contiguous and paged caches: the reference's paths, shapes and dtypes;
+    a prefill returns the contiguous layout."""
+    jcfg, tcfg = _configs(2, "int8_spoga", kv_dtype)
+    assert _layout(init_cache(tcfg, 3, CACHE_LEN, "cpu")) == \
+        _layout(jax_init_cache(jcfg, 3, CACHE_LEN))
+    assert _layout(zeros_like_shapes(paged_cache_shapes(tcfg, 3, CACHE_LEN, PAGE, 13), "cpu")) \
+        == _layout(jax_paged_cache_shapes(jcfg, 3, CACHE_LEN, PAGE, 13))
+    tparams = init_params(tcfg, seed=0, device="cpu")
+    _, cache = prefill(tparams, tcfg, torch.zeros((3, 8), dtype=torch.int32), CACHE_LEN)
+    assert _layout(cache) == _layout(init_cache(tcfg, 3, CACHE_LEN, "cpu"))
+
+
+def test_entry_points_default_to_the_card():
+    """Without a card, entry points raise unless the caller asks for CPU."""
+    _, tcfg = _configs(2, "bf16", "bf16")
+    if torch.cuda.is_available():
+        assert init_params(tcfg, seed=0)["embed"].device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(tcfg, seed=0)
+    with pytest.raises(RuntimeError):
+        PagedCache(tcfg, 2, CACHE_LEN, PAGE)
+    with pytest.raises(RuntimeError):
+        params_from_jax(scaled_params(_configs(2, "bf16", "bf16")[0]), tcfg)
+
+
+def test_config_port_matches_reference():
+    for name in ("llama3.2-1b",):
+        j = jax_get_config(name)
+        t = tconfigs.get_config(name)
+        for cfg_j, cfg_t in ((j, t), (jax_reduced(j), tconfigs.reduced(t))):
+            for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+                      "vocab_size", "resolved_head_dim", "rope_theta",
+                      "tie_embeddings", "norm_eps", "block_pattern"):
+                assert getattr(cfg_j, f) == getattr(cfg_t, f), (name, f)
+    with pytest.raises(ValueError):
+        tconfigs.get_config("llama3.2-1b").with_(paged_attn_impl="jnp")
+    with pytest.raises(NotImplementedError):
+        tconfigs.get_config("llama3.2-1b").with_(block_pattern=("mlstm",))
+    assert tconfigs.default_cache_len(128, 32) == 168
+    assert tconfigs.default_page_count(4, 168, 16) == 45
