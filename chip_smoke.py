@@ -6,9 +6,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 
 1. card: name and power limit from nvidia-smi; build the CUDA kernels from
    ``src/repro_torch/csrc/`` (one nvcc per source, all started together);
-2. GEMM kernel: ``spoga_gemm_dequant`` against its plain version, bitwise, at
-   the main path's shapes for W8A8, w4a8 and w16a16; times beside the bound
-   and ``torch._int_mm``;
+2. GEMM kernels: ``spoga_gemm_dequant`` and the int32 ``spoga_gemm``
+   against their plain versions, bitwise, at the main path's shapes for
+   W8A8, w4a8 and w16a16; the DEAS kernels (``nibble_gemm`` x4 +
+   ``deas_combine``) at W8A8 against their plain versions and
+   ``spoga_gemm``, 5 launches per call; times beside the bound and
+   ``torch._int_mm``;
 3. paged-attention kernel: bf16 and int8 pools against the plain version at
    rtol/atol 2e-5, with a poisoned stale page; times beside the bound and
    ``scaled_dot_product_attention`` on the gathered view;
@@ -18,9 +21,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    versions must not run; every request again on a 1-slot engine; then a
    4-request pass over a bf16 pool; a profile of a few decode steps
    (device time by kernel);
-5. card against CPU: a 2-layer full-width model, the same weights on both,
+5. the paper's dataflows through the ``LLM`` facade: the same weights and
+   prompts served by ``int8_spoga`` fused, ``int8_spoga`` with
+   ``gemm_backend="cuda_spoga"``, ``int8_deas`` and ``int8_direct``, in
+   two rounds of opposite order, each run's kernel counts read around it;
+   the greedy streams must be identical; tok/s, decode step and TTFT per
+   dataflow; decode-step profiles of the DEAS and direct paths;
+6. card against CPU: a 2-layer full-width model, the same weights on both,
    one prefill: the first greedy token equal, the logits within tolerance;
-6. the ``kernels`` JSON line, then the ``ok`` line last.
+7. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -109,8 +118,41 @@ def phase_card():
 
 
 # ---------------------------------------------------------------------------
-# 2. GEMM kernel
+# 2. GEMM kernels
 # ---------------------------------------------------------------------------
+
+def _lib_int_mm(x, w_copies, m, k, n):
+    """``torch._int_mm``'s time on int8 operands, else None.  Where it does
+    not take the shape as it is (M <= 16, K or N not a multiple of 8) the
+    operands are zero-padded as the ``cuda_direct`` backend pads them
+    (``impls.int_mm_padded``, M up to 24), the padding timed with it."""
+    from repro_torch.backends.impls import int_mm_padded
+    if not (x.dtype == w_copies[0].dtype == torch.int8):
+        return None
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        return time_ms(lambda i: torch._int_mm(x, w_copies[i]), len(w_copies), iters=40)
+    return time_ms(lambda i: int_mm_padded(x, w_copies[i]), len(w_copies), iters=40)
+
+
+def _lib_label(m, k, n):
+    if m > 16 and k % 8 == 0 and n % 8 == 0:
+        return "torch._int_mm (int32 product)"
+    return "torch._int_mm on operands zero-padded to M=24 (int32 product, padding included)"
+
+
+def _int_product_ops(m, k, n):
+    """Operations of the function, one integer (M, K) @ (K, N) product,
+    counted at the int8 rate whatever the operand width: however many
+    plane pairs a kernel multiplies, the function needs 2*M*K*N.  For int16
+    operands (w16a16) the card has no faster integer rate than int8, so
+    this still bounds the time from below."""
+    return 2.0 * m * k * n
+
+
+def _gemm_case_shapes():
+    shapes = [(m, k, n) for m in (1, 4, 128) for k, n in GEMM_KN]
+    return shapes + [(130, 257, 100), (1, 249, 16)]
+
 
 def _gemm_operands(m, k, n, mode, gen):
     from repro_torch.backends import effective_bits, parse_quant_mode
@@ -130,11 +172,9 @@ def phase_gemm():
         spoga_gemm_dequant_plain,
     )
     gen = torch.Generator(device="cuda").manual_seed(1)
-    shapes = [(m, k, n) for m in (1, 4, 128) for k, n in GEMM_KN]
-    shapes += [(130, 257, 100), (1, 249, 16)]
     checked, max_err = 0, 0.0
     for name, mode in GEMM_SPECS.items():
-        for m, k, n in shapes:
+        for m, k, n in _gemm_case_shapes():
             spec, x, w, xs, ws = _gemm_operands(m, k, n, mode, gen)
             got = spoga_gemm_dequant(x, w, xs, ws, n_x_slices=spec.n_a_slices,
                                      n_w_slices=spec.n_w_slices, slice_bits=spec.slice_bits)
@@ -159,23 +199,18 @@ def phase_gemm():
                                    nb, iters=40)
                 t_plain = time_ms(lambda i: spoga_gemm_dequant_plain(x, ws_copies[i], xs, ws),
                                   nb, iters=5, warmup=1)
-                t_lib = None
-                if m > 16 and x.dtype == w.dtype == torch.int8 and k % 8 == 0 and n % 8 == 0:
-                    try:
-                        t_lib = time_ms(lambda i: torch._int_mm(x, ws_copies[i]), nb, iters=40)
-                    except RuntimeError as e:  # a yardstick only; its absence is reported
-                        print(f"[gemm] torch._int_mm unavailable at ({m},{k},{n}): {e}",
-                              flush=True)
+                t_lib = _lib_int_mm(x, ws_copies, m, k, n)
                 nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
                           + 4 * (m + n) + 4 * m * n)
-                ops = 2.0 * m * k * n * spec.n_a_slices * spec.n_w_slices
+                ops = _int_product_ops(m, k, n)
                 b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
                 timings[(name, m, k, n)] = dict(ms=t_kernel, plain_ms=t_plain,
                                                 library_ms=t_lib, bound_ms=b_ms,
                                                 bound_by=b_by)
-                lib = f"{t_lib:.4f}" if t_lib is not None else "n/a"
+                lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
+                lib += " (padded)" if m <= 16 and t_lib is not None else ""
                 print(f"[gemm] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms, "
-                      f"plain {t_plain:.4f} ms, _int_mm {lib} ms, bound {b_ms:.4f} ms "
+                      f"plain {t_plain:.4f} ms, _int_mm {lib}, bound {b_ms:.4f} ms "
                       f"({b_by})", flush=True)
                 del ws_copies
     # one decode step's projections (q, k, v, o, gate, up, down) per layer
@@ -184,6 +219,123 @@ def phase_gemm():
     per_layer = sum(timings[("w8a8", 4, k, n)]["ms"] for k, n in layer)
     print(f"[gemm] W8A8 decode step at M=4, 16 layers x 7 projections: "
           f"{16 * per_layer:.3f} ms of kernel time", flush=True)
+    return timings, max_err
+
+
+def phase_int_gemm():
+    """The int32 SPOGA kernel: bitwise against its plain version on phase
+    2's grid; times at the decode and prefill widths."""
+    from repro_torch.kernels.spoga_gemm import spoga_gemm, spoga_gemm_plain
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    checked, max_err = 0, 0
+    for name, mode in GEMM_SPECS.items():
+        for m, k, n in _gemm_case_shapes():
+            spec, x, w, _, _ = _gemm_operands(m, k, n, mode, gen)
+            got = spoga_gemm(x, w, n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
+                             slice_bits=spec.slice_bits)
+            want = spoga_gemm_plain(x, w)
+            err = (got.long() - want.long()).abs().max().item()
+            max_err = max(max_err, err)
+            require(got.dtype == torch.int32 and torch.equal(got, want),
+                    f"spoga_gemm {name} ({m},{k},{n}): max |diff| {err}")
+            checked += 1
+    print(f"[spoga_gemm] {checked} cases bitwise equal to the plain version (max |diff| "
+          f"{max_err})", flush=True)
+
+    timings = {}
+    for name, mode in GEMM_SPECS.items():
+        for m in (4, 128):
+            for k, n in GEMM_KN:
+                spec, x, w, _, _ = _gemm_operands(m, k, n, mode, gen)
+                nb = copies_for(w.numel() * w.element_size())
+                w_copies = [w.clone() for _ in range(nb)]
+                kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
+                          slice_bits=spec.slice_bits)
+                t_kernel = time_ms(lambda i: spoga_gemm(x, w_copies[i], **kw), nb, iters=40)
+                t_plain = time_ms(lambda i: spoga_gemm_plain(x, w_copies[i]), nb, iters=5,
+                                  warmup=1)
+                t_lib = _lib_int_mm(x, w_copies, m, k, n)
+                nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+                          + 4 * m * n)
+                ops = _int_product_ops(m, k, n)
+                b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
+                timings[(name, m, k, n)] = dict(ms=t_kernel, plain_ms=t_plain,
+                                                library_ms=t_lib, bound_ms=b_ms,
+                                                bound_by=b_by)
+                lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
+                lib += " (padded)" if m <= 16 and t_lib is not None else ""
+                print(f"[spoga_gemm] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms, "
+                      f"plain {t_plain:.4f} ms, _int_mm {lib}, bound {b_ms:.4f} ms "
+                      f"({b_by})", flush=True)
+                del w_copies
+    return timings, max_err
+
+
+def phase_deas(int_timings):
+    """The DEAS kernels at W8A8: each call 4 nibble_gemm launches + 1
+    deas_combine launch; bitwise against the plain versions and against
+    spoga_gemm; times beside spoga_gemm's at the same shapes."""
+    from repro_torch.core.slicing import slice_tc
+    from repro_torch.kernels import deas_gemm as deas_mod
+    from repro_torch.kernels.spoga_gemm import spoga_gemm
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    checked, max_err = 0, 0
+    for m, k, n in _gemm_case_shapes():
+        x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda").to(torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+        before = (deas_mod.CALLS, deas_mod.NIBBLE_LAUNCHES, deas_mod.COMBINE_LAUNCHES)
+        got = deas_mod.deas_gemm(x, w)
+        after = (deas_mod.CALLS, deas_mod.NIBBLE_LAUNCHES, deas_mod.COMBINE_LAUNCHES)
+        require(tuple(a - b for a, b in zip(after, before)) == (1, 4, 1),
+                f"deas_gemm ({m},{k},{n}): launches {before} -> {after}, want +(1, 4, 1)")
+        want = deas_mod.deas_gemm_plain(x, w)
+        fused = spoga_gemm(x, w)
+        xm, xl = slice_tc(x)
+        wm, wl = slice_tc(w)
+        parts = [deas_mod.nibble_gemm(a, b) for a, b in ((xm, wm), (xm, wl), (xl, wm), (xl, wl))]
+        require(len({p.data_ptr() for p in parts}) == 4, "partials share a buffer")
+        for p, (a, b) in zip(parts, ((xm, wm), (xm, wl), (xl, wm), (xl, wl))):
+            require(torch.equal(p, deas_mod.nibble_gemm_plain(a, b)),
+                    f"nibble_gemm ({m},{k},{n}) differs from its plain version")
+        require(torch.equal(deas_mod.deas_combine(*parts), deas_mod.deas_combine_plain(*parts)),
+                f"deas_combine ({m},{k},{n}) differs from its plain version")
+        err = (got.long() - want.long()).abs().max().item()
+        max_err = max(max_err, err)
+        require(torch.equal(got, want), f"deas_gemm ({m},{k},{n}): max |diff| {err}")
+        require(torch.equal(got, fused), f"deas_gemm ({m},{k},{n}) differs from spoga_gemm")
+        checked += 1
+    print(f"[deas] {checked} W8A8 cases bitwise equal to the plain versions and to "
+          f"spoga_gemm, 4 + 1 launches per call (max |diff| {max_err})", flush=True)
+
+    timings = {}
+    for m in (4, 128):
+        for k, n in GEMM_KN:
+            x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda").to(torch.int8)
+            w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
+            nb = copies_for(w.numel())
+            w_copies = [w.clone() for _ in range(nb)]
+            t_kernel = time_ms(lambda i: deas_mod.deas_gemm(x, w_copies[i]), nb, iters=40)
+            t_plain = time_ms(lambda i: deas_mod.deas_gemm_plain(x, w_copies[i]), nb, iters=5,
+                              warmup=1)
+            t_lib = _lib_int_mm(x, w_copies, m, k, n)
+            xm, xl = slice_tc(x)
+            wm = [slice_tc(c)[0] for c in w_copies]
+            t_nibble = time_ms(lambda i: deas_mod.nibble_gemm(xm, wm[i]), nb, iters=40)
+            parts = [deas_mod.nibble_gemm(xm, wm[0]) for _ in range(4)]
+            t_combine = time_ms(lambda i: deas_mod.deas_combine(*parts), 1, iters=40)
+            spoga = int_timings[("w8a8", m, k, n)]
+            inter = 8 * m * n * 4
+            timings[(m, k, n)] = dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
+                                      bound_ms=spoga["bound_ms"], bound_by=spoga["bound_by"],
+                                      nibble_gemm_ms=t_nibble, deas_combine_ms=t_combine,
+                                      intermediate_bytes=inter, spoga_gemm_ms=spoga["ms"])
+            lib = f"{t_lib:.4f} ms" + (" (padded)" if m <= 16 else "")
+            print(f"[deas] W8A8 M={m} K={k} N={n}: deas_gemm {t_kernel:.4f} ms (one nibble_gemm "
+                  f"{t_nibble:.4f} ms, deas_combine {t_combine:.4f} ms, intermediates "
+                  f"{inter} B) vs spoga_gemm {spoga['ms']:.4f} ms; plain {t_plain:.4f} ms, "
+                  f"_int_mm {lib}, bound {spoga['bound_ms']:.4f} ms ({spoga['bound_by']})",
+                  flush=True)
+            del w_copies, wm, parts
     return timings, max_err
 
 
@@ -293,19 +445,50 @@ def _serve(cfg, params, arrivals, n_slots):
     return engine, metrics
 
 
+def _kernel_modules():
+    from repro_torch.backends import impls
+    from repro_torch.kernels import deas_gemm, paged_attention, spoga_gemm, spoga_gemm_dequant
+    return impls, deas_gemm, paged_attention, spoga_gemm, spoga_gemm_dequant
+
+
+def reset_counts() -> None:
+    impls, *kernels = _kernel_modules()
+    for mod in kernels:
+        mod.reset_counts()
+    impls.INT_MM_CALLS = 0
+
+
+def read_counts() -> tuple[dict, dict]:
+    """(launches by kernel, plain-version calls by module) since the reset;
+    ``torch._int_mm`` counts the ``cuda_direct`` backend's library calls."""
+    impls, deas, attn, int_gemm, gemm = _kernel_modules()
+    launches = {"spoga_gemm_dequant": gemm.LAUNCHES, "spoga_gemm": int_gemm.LAUNCHES,
+                "nibble_gemm": deas.NIBBLE_LAUNCHES, "deas_combine": deas.COMBINE_LAUNCHES,
+                "paged_attention": attn.LAUNCHES, "torch._int_mm": impls.INT_MM_CALLS}
+    plain = {"spoga_gemm_dequant": gemm.PLAIN_CALLS, "spoga_gemm": int_gemm.PLAIN_CALLS,
+             "deas_gemm": deas.PLAIN_CALLS, "paged_attention": attn.PLAIN_CALLS}
+    return launches, plain
+
+
+def check_counts(launches, plain, expect, label) -> None:
+    """The kernels in ``expect`` launched, every other GEMM route did not,
+    and no plain version ran."""
+    print(f"[counts] {label}: launches {launches}, plain-version calls {plain}", flush=True)
+    for name, n in launches.items():
+        if name in expect:
+            require(n > 0, f"{label}: {name} never launched")
+        else:
+            require(n == 0, f"{label}: {name} launched {n} times off its path")
+    require(all(v == 0 for v in plain.values()), f"{label}: a plain version ran on the card")
+
+
 def _counted_run(cfg, params, arrivals, n_slots, label):
     """Serve ``arrivals`` with every kernel count at 0 just before; return
     (metrics, engine, launches) read just after."""
-    from repro_torch.kernels import paged_attention as attn_mod
-    from repro_torch.kernels import spoga_gemm_dequant as gemm_mod
-    gemm_mod.reset_counts()
-    attn_mod.reset_counts()
+    reset_counts()
     engine, metrics = _serve(cfg, params, arrivals, n_slots)
-    launches = {"spoga_gemm_dequant": gemm_mod.LAUNCHES, "paged_attention": attn_mod.LAUNCHES}
-    plain = {"spoga_gemm_dequant": gemm_mod.PLAIN_CALLS, "paged_attention": attn_mod.PLAIN_CALLS}
-    print(f"[main] {label}: launches {launches}, plain-version calls {plain}", flush=True)
-    require(all(v > 0 for v in launches.values()), f"{label}: a kernel never launched")
-    require(all(v == 0 for v in plain.values()), f"{label}: a plain version ran on the card")
+    launches, plain = read_counts()
+    check_counts(launches, plain, ("spoga_gemm_dequant", "paged_attention"), label)
     return metrics, engine, launches
 
 
@@ -320,16 +503,25 @@ def _check_finished(metrics, arrivals, vocab, label):
     return streams
 
 
-def phase_main(card):
+def full_width_params():
+    """Full-width llama3.2-1b weights from ``init_params(seed=0)`` on the card
+    (the weights do not depend on the quant mode)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    cfg = get_config("llama3.2-1b")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=ENGINE_SEED, device="cuda")
     torch.cuda.synchronize()
-    print(f"[main] llama3.2-1b full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
-          f"int8_spoga, int8 paged KV; weights in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[weights] llama3.2-1b full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}) "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    return params
+
+
+def phase_main(card, params):
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    print("[main] int8_spoga, int8 paged KV, ServingEngine", flush=True)
 
     arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
     torch.cuda.reset_peak_memory_stats()
@@ -368,20 +560,21 @@ def phase_main(card):
     r16 = m16.report()
     print(f"[main] bf16 KV: {r16['tokens_per_s']:.1f} tok/s, decode step mean "
           f"{1e3 * r16['decode_step_mean_s']:.2f} ms [{card}]", flush=True)
-    phase_profile(cfg, params, card)
-    del params
-    torch.cuda.empty_cache()
+    phase_profile(cfg, params, card, "int8_spoga")
     return launches, launches16
 
 
 def _kernel_group(name: str) -> str:
-    if "spoga_gemm_dequant_kernel" in name:
-        return "spoga_gemm_dequant kernel"
+    for kernel in ("spoga_gemm_dequant_kernel", "spoga_gemm_kernel", "nibble_gemm_kernel",
+                   "deas_combine_kernel"):
+        if kernel in name:
+            return kernel.replace("_kernel", " kernel")
     if "paged_attention_kernel" in name:
         return "paged_attention kernel"
     if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "cublas", "matmul", "nvjet")):
         return "library matmul (bf16 unembed)"
-    return "elementwise and reductions (weight + activation quantization, norms, rope)"
+    return ("elementwise and reductions (weight + activation quantization, nibble slicing, "
+            "norms, rope)")
 
 
 def _busy_engine(cfg, params):
@@ -408,7 +601,7 @@ def _timed_steps(engine, steps):
     return time.perf_counter() - t0
 
 
-def phase_profile(cfg, params, card, steps=5):
+def phase_profile(cfg, params, card, label, steps=5):
     """Device time by kernel over ``steps`` decode steps with 4 busy lanes.
 
     Two engines fed the same requests do the same steps: the first is
@@ -423,11 +616,11 @@ def phase_profile(cfg, params, card, steps=5):
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms per step
     if not kernels or total <= 0:
-        print("[profile] the profiler recorded no device time: breakdown not measured",
-              flush=True)
+        print(f"[profile] {label}: the profiler recorded no device time: breakdown not "
+              f"measured", flush=True)
         return
     step_ms, plain_ms = 1e3 * wall / steps, 1e3 * wall_plain / steps
-    print(f"[profile] {steps} decode steps, 4 lanes: {total:.3f} ms/step device time; "
+    print(f"[profile] {label}, {steps} decode steps, 4 lanes: {total:.3f} ms/step device time; "
           f"wall {plain_ms:.3f} ms/step without the profiler (device busy "
           f"{100 * total / plain_ms:.1f}%), {step_ms:.3f} ms/step with it (busy "
           f"{100 * total / step_ms:.1f}%) [{card}]", flush=True)
@@ -444,7 +637,88 @@ def phase_profile(cfg, params, card, steps=5):
 
 
 # ---------------------------------------------------------------------------
-# 5. card against CPU
+# 5. the paper's dataflows through the LLM facade
+# ---------------------------------------------------------------------------
+
+# (label, QuantRuntime arguments, the GEMM route its run must launch)
+DATAFLOWS = [
+    ("spoga fused", ("int8_spoga", None), ("spoga_gemm_dequant",)),
+    ("spoga unfused", ("int8_spoga", "cuda_spoga"), ("spoga_gemm",)),
+    ("deas", ("int8_deas", None), ("nibble_gemm", "deas_combine")),
+    ("direct", ("int8_direct", None), ("torch._int_mm",)),
+]
+FACADE_NEW_TOKENS = 24
+
+
+def phase_dataflows(card, params):
+    """The same weights and prompts through one ``LLM`` per dataflow, in two
+    rounds in opposite orders (so that drift on the card or its host shows
+    as a difference between rounds); every kernel count is set to 0 just
+    before each ``generate`` and read just after.  Returns {label: launches}
+    of the first round."""
+    from repro_torch.api import LLM, KVConfig, QuantRuntime, RuntimeConfig, SchedulerConfig
+    from repro_torch.configs import default_cache_len, get_config
+    prompts = [p for _, p, _ in _traffic(8, 128_256, ENGINE_SEED)]
+    kv = KVConfig(mode="paged", dtype="int8", page_size=16,
+                  cache_len=default_cache_len(128, 32))
+    sched = SchedulerConfig(n_slots=4, prefill_buckets=(32, 64, 128))
+    per_call = {"spoga_gemm_dequant": 1, "spoga_gemm": 1, "nibble_gemm": 4,
+                "deas_combine": 1, "torch._int_mm": 1}
+    first, counts = None, {}
+    reports: dict[str, list] = {label: [] for label, _, _ in DATAFLOWS}
+    for rnd, order in enumerate((DATAFLOWS, DATAFLOWS[::-1])):
+        for label, (mode, backend), route in order:
+            llm = LLM(arch="llama3.2-1b", params=params, runtime=RuntimeConfig(
+                quant=QuantRuntime(mode=mode, gemm_backend=backend), kv=kv, scheduler=sched))
+            reset_counts()
+            outs = llm.generate(prompts, max_new_tokens=FACADE_NEW_TOKENS)
+            torch.cuda.synchronize()
+            launches, plain = read_counts()
+            check_counts(launches, plain, route + ("paged_attention",),
+                         f"facade {label}, round {rnd + 1}")
+            streams = [o.token_ids for o in outs]
+            require(all(len(t) == FACADE_NEW_TOKENS and o.finish_reason == "length"
+                        for t, o in zip(streams, outs)),
+                    f"facade {label}: a request did not finish")
+            require(all(0 <= t < llm.config.vocab_size for s in streams for t in s),
+                    f"facade {label}: token out of range")
+            if first is None:
+                first = streams
+                require(len({t for s in streams for t in s}) > 2, "facade streams collapsed")
+            require(streams == first, f"facade {label}: greedy streams differ from the "
+                                      f"first run's")
+            rep = llm.metrics.report()
+            gemms = 7 * llm.config.n_layers * (rep["decode_steps"] + rep["prefills"])
+            for name in route:
+                require(launches[name] == per_call[name] * gemms,
+                        f"facade {label}: {name} launched {launches[name]}, want "
+                        f"{per_call[name] * gemms}")
+            counts.setdefault(label, launches)
+            reports[label].append(rep)
+            print(f"[facade] round {rnd + 1} {label} ({mode}, gemm_backend={backend}): "
+                  f"{rep['finished']} finished, {rep['generated_tokens']} tokens, "
+                  f"{rep['tokens_per_s']:.1f} tok/s, decode step mean "
+                  f"{1e3 * rep['decode_step_mean_s']:.2f} ms ({rep['decode_steps']} steps), "
+                  f"TTFT mean {1e3 * rep['ttft_mean_s']:.1f} ms, prefill total "
+                  f"{rep['prefill_s']:.3f} s [{card}]", flush=True)
+            del llm
+    base = reports[DATAFLOWS[0][0]]
+    for label, reps in reports.items():
+        ratios = [(r["decode_step_mean_s"] / b["decode_step_mean_s"],
+                   r["tokens_per_s"] / b["tokens_per_s"]) for r, b in zip(reps, base)]
+        print(f"[facade] {label} against spoga fused, rounds 1 and 2: decode step "
+              f"{', '.join(f'{d:.2f}x' for d, _ in ratios)}; tok/s "
+              f"{', '.join(f'{t:.2f}x' for _, t in ratios)}", flush=True)
+    print(f"[facade] 4 dataflows x 2 rounds, 8 prompts x {FACADE_NEW_TOKENS} tokens: greedy "
+          f"streams identical", flush=True)
+    for mode in ("int8_deas", "int8_direct"):
+        phase_profile(get_config("llama3.2-1b").with_(quant_mode=mode, kv_cache_dtype="int8"),
+                      params, card, mode)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 6. card against CPU
 # ---------------------------------------------------------------------------
 
 def phase_cpu_parity():
@@ -498,8 +772,14 @@ def main() -> int:
     t0 = time.perf_counter()
     card = phase_card()
     gemm, gemm_err = phase_gemm()
+    int_gemm, int_err = phase_int_gemm()
+    deas, deas_err = phase_deas(int_gemm)
     attn = phase_attention()
-    launches, launches16 = phase_main(card)
+    params = full_width_params()
+    launches, launches16 = phase_main(card, params)
+    facade = phase_dataflows(card, params)
+    del params
+    torch.cuda.empty_cache()
     phase_cpu_parity()
 
     g = gemm[("w8a8", 4, 2048, 8192)]
@@ -508,7 +788,7 @@ def main() -> int:
          "source": "src/repro_torch/csrc/spoga_gemm_dequant.cu",
          "replaces": "src/repro/kernels/spoga_gemm_dequant.py:62",
          "launches": launches["spoga_gemm_dequant"], "max_abs_err": gemm_err,
-         "shape": "W8A8 M=4 K=2048 N=8192", **g},
+         "shape": "W8A8 M=4 K=2048 N=8192", "library": _lib_label(4, 2048, 8192), **g},
     ]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
@@ -518,6 +798,24 @@ def main() -> int:
                         "replaces": "src/repro/kernels/paged_attention.py:91",
                         "launches": count, "max_abs_err": a.pop("max_abs_err"),
                         "shape": f"{kind} pool B=4 Hkv=8 G=4 D=64 ps=16", **a})
+    unfused, deas_run = facade["spoga unfused"], facade["deas"]
+    kernels.append({"name": "spoga_gemm", "route": "cuda",
+                    "source": "src/repro_torch/csrc/spoga_gemm.cu",
+                    "replaces": "src/repro/kernels/spoga_gemm.py:116",
+                    "launches": unfused["spoga_gemm"], "max_abs_err": int_err,
+                    "shape": "W8A8 M=4 K=2048 N=8192", "library": _lib_label(4, 2048, 8192),
+                    **int_gemm[("w8a8", 4, 2048, 8192)]})
+    kernels.append({"name": "deas_gemm", "route": "cuda",
+                    "source": "src/repro_torch/csrc/deas_gemm.cu",
+                    "replaces": "src/repro/kernels/deas_gemm.py:95",
+                    "replaces_parts": {"nibble_gemm": "src/repro/kernels/deas_gemm.py:50",
+                                       "deas_combine": "src/repro/kernels/deas_gemm.py:79"},
+                    "launches": deas_run["nibble_gemm"] + deas_run["deas_combine"],
+                    "nibble_gemm_launches": deas_run["nibble_gemm"],
+                    "deas_combine_launches": deas_run["deas_combine"],
+                    "max_abs_err": deas_err, "shape": "W8A8 M=4 K=2048 N=8192",
+                    "library": _lib_label(4, 2048, 8192),
+                    **deas[(4, 2048, 8192)]})
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,9 +16,11 @@ import torch
 
 from repro_torch.backends import impls  # noqa: F401  (populates the registry)
 from repro_torch.backends.registry import resolve_backend
+from repro_torch.backends.spec import parse_quant_mode
 from repro_torch.quant.qtensor import quantize
 
-__all__ = ["ACC_BITS", "dynamic_quant", "effective_bits", "quantized_linear"]
+__all__ = ["ACC_BITS", "dynamic_quant", "effective_bits", "gemm_int",
+           "quant_mode_summary", "quantized_linear"]
 
 ACC_BITS = 32  # the kernels accumulate in int32
 
@@ -44,10 +46,12 @@ def effective_bits(spec, k: int) -> tuple[int, int]:
 
 
 def quantized_linear(x: torch.Tensor, w: torch.Tensor, quant_mode: str, *,
+                     backend: Optional[str] = None,
                      out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x (..., K) fp @ w (K, N) fp -> (..., N) fp via the quantized pipeline,
-    on the backend that serves ``x``'s device."""
-    b, spec = resolve_backend(quant_mode, x.device.type)
+    on ``backend`` (a registry name) or, by default, the backend that
+    serves ``x``'s device."""
+    b, spec = resolve_backend(quant_mode, x.device.type, backend)
     a_bits, w_bits = effective_bits(spec, x.shape[-1])
     xq, xs = dynamic_quant(x, dim=-1, bits=a_bits)
     wq, ws = dynamic_quant(w, dim=0, bits=w_bits)
@@ -66,3 +70,21 @@ def quantized_linear(x: torch.Tensor, w: torch.Tensor, quant_mode: str, *,
         out = b.gemm(x2, wq, spec).float() * xs2 * ws2
     out = out.reshape(*lead, n)
     return out.to(out_dtype if out_dtype is not None else x.dtype)
+
+
+def gemm_int(x_q: torch.Tensor, w_q: torch.Tensor, *, quant_mode: str = "int8_spoga",
+             backend: Optional[str] = None) -> torch.Tensor:
+    """Already-quantized (..., K) @ (K, N) -> (..., N) int32 accumulator.
+    Leading dims flatten around the backend call (the kernels are 2-D)."""
+    b, spec = resolve_backend(quant_mode, x_q.device.type, backend)
+    lead = x_q.shape[:-1]
+    k = x_q.shape[-1]
+    acc = b.gemm(x_q.reshape(-1, k), w_q, spec)
+    return acc.reshape(*lead, w_q.shape[-1])
+
+
+def quant_mode_summary(quant_mode: str) -> str:
+    """Human-readable one-liner for logs: 'w4a8: spoga, a8/w4, 2x1 planes of 4b'."""
+    spec, family = parse_quant_mode(quant_mode)
+    return (f"{quant_mode}: {family}, a{spec.a_bits}/w{spec.w_bits}, "
+            f"{spec.n_a_slices}x{spec.n_w_slices} planes of {spec.slice_bits}b")

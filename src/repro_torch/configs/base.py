@@ -56,9 +56,12 @@ class ModelConfig:
     head_dim: Optional[int] = None       # defaults to d_model // n_heads
     block_pattern: tuple = ("attn",)     # cycled through the stack
     rope_theta: float = 10_000.0
-    # "bf16" or a quantized mode (backends/spec.py); the GEMM backend
-    # follows the tensors' device (backends/registry.py)
+    # "bf16" or a quantized mode (backends/spec.py)
     quant_mode: str = "bf16"
+    # GEMM backend registry name ("cuda_spoga", "cuda_deas", ...); None =
+    # auto-select by dataflow family and the tensors' device
+    # (backends/registry.py)
+    gemm_backend: Optional[str] = None
     norm_eps: float = 1e-6
     act: str = "silu"
     tie_embeddings: bool = False
@@ -78,6 +81,10 @@ class ModelConfig:
                     f"quant_mode must be in {QUANT_MODES} or a parametric "
                     f"'w<bits>a<bits>[_s<slice>]' string, got {self.quant_mode!r}"
                 ) from None
+        if self.gemm_backend is not None:
+            from repro_torch.backends import get_backend  # lazy: keeps layering one-way
+
+            get_backend(self.gemm_backend)  # raises KeyError on unknown names
         if self.paged_attn_impl not in (None, "gather"):
             raise ValueError("paged_attn_impl must be None (auto) or 'gather', "
                              f"got {self.paged_attn_impl!r}")

@@ -1,5 +1,8 @@
-"""Two's-complement bit-plane slicing (the port of ``repro/core/slicing.py``).
+"""Bit-plane slicing (the port of ``repro/core/slicing.py``).
 
+``slice_tc`` splits an int8 tensor into the paper's most and least
+significant nibbles, ``x == 16 * msn + lsn``, in two's complement: a
+signed high nibble in [-8, 7], an unsigned low one in [0, 15].
 ``slice_planes(x, n, b)`` splits a signed integer tensor into ``n`` planes
 of ``b`` bits, least significant first: the lower planes are the unsigned
 digits ``(x >> j*b) & (2^b - 1)``, the top plane is the arithmetically
@@ -11,7 +14,18 @@ from __future__ import annotations
 
 import torch
 
+RADIX = 16  # one nibble
+RADIX_BITS = 4
+
 _SIGNED_INTS = (torch.int8, torch.int16, torch.int32, torch.int64)
+
+
+def slice_tc(x: torch.Tensor) -> tuple:
+    """Two's-complement nibbles of an int8 tensor: ``(x >> 4, x & 15)``,
+    int8, the shift arithmetic."""
+    if x.dtype != torch.int8:
+        raise TypeError(f"slice_tc expects int8, got {x.dtype}")
+    return x >> RADIX_BITS, x & (RADIX - 1)
 
 
 def _plane_dtype(slice_bits: int) -> torch.dtype:

@@ -1,13 +1,17 @@
 """Bit-sliced integer GEMM dataflows (the port of ``repro/core/spoga.py``).
 
-The algebraic reference the CPU backends run:
+The algebraic reference the CPU backends run, after the paper's Fig. 2:
 
 * :func:`direct_matmul` — the plain integer product, int32 out;
 * :func:`sliced_matmul` — every operand split into bit planes, every plane
   pair multiplied, the partials grouped into ``i + j`` radix lanes and each
   lane shifted once into one accumulator (SPOGA); ``materialize=True``
   keeps every partial as its own tensor before the combine (the DEAS
-  prior-work baseline — eager execution materializes them anyway).
+  prior-work baseline — eager execution materializes them anyway);
+  :func:`spoga_matmul` / :func:`deas_matmul` are its W8A8 nibble cases and
+  :func:`spoga_dot_slices` the combine of given nibbles;
+* :func:`quantized_matmul` — the integer product through the backend
+  registry (``backends.gemm_int``) plus the dequantizing epilogue.
 
 All are exactly equal in int32 arithmetic, wrapping mod 2^32 like the
 reference's int32 accumulators.  PyTorch has no int32 matrix product on
@@ -19,9 +23,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.slicing import slice_planes
+from repro_torch.core.slicing import RADIX_BITS, slice_planes
 
-__all__ = ["direct_matmul", "int_matmul", "sliced_dot_planes", "sliced_matmul",
+__all__ = ["deas_matmul", "direct_matmul", "int_matmul", "quantized_matmul",
+           "sliced_dot_planes", "sliced_matmul", "spoga_dot_slices", "spoga_matmul",
            "wrap_int32"]
 
 _TWO32 = 1 << 32
@@ -76,3 +81,38 @@ def sliced_matmul(x: torch.Tensor, w: torch.Tensor, *, n_x_slices: int = 2,
     xp = slice_planes(x, n_x_slices, slice_bits)
     wp = slice_planes(w, n_w_slices, slice_bits)
     return sliced_dot_planes(xp, wp, slice_bits, materialize=materialize)
+
+
+def spoga_dot_slices(xm, xl, wm, wl) -> torch.Tensor:
+    """The four nibble partial GEMMs, radix-weighted in one accumulator:
+    ``O = (Xm.Wm << 8) + ((Xm.Wl + Xl.Wm) << 4) + Xl.Wl``, int32 out."""
+    return sliced_dot_planes((xl, xm), (wl, wm), RADIX_BITS)
+
+
+def spoga_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Fused nibble-sliced int8 GEMM (the paper's SPOGA dataflow), int32 out."""
+    return sliced_matmul(x, w, slice_bits=RADIX_BITS)
+
+
+def deas_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Prior-work baseline: four separate nibble GEMMs, each kept as its own
+    tensor, then the shift-and-add over the stored partials."""
+    return sliced_matmul(x, w, slice_bits=RADIX_BITS, materialize=True)
+
+
+def quantized_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                     w_scale: torch.Tensor, *, mode: str = "int8_spoga",
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """W8A8 GEMM with dequantizing epilogue.
+
+    ``x_q`` (..., K) int8 with row scales ``x_scale`` (..., 1); ``w_q``
+    (K, N) int8 with per-output-channel scales ``w_scale`` (N,) or (1, N).
+    The integer product goes through the backend registry
+    (``backends.gemm_int``, imported lazily: backends builds on this
+    module), so the mode strings that configure model layers pick the
+    dataflow here too."""
+    from repro_torch.backends import gemm_int  # lazy: avoids the import cycle
+
+    acc = gemm_int(x_q, w_q, quant_mode=mode)
+    ws = w_scale.reshape((1,) * (acc.ndim - 1) + (-1,))
+    return (acc.float() * x_scale * ws).to(out_dtype)

@@ -34,6 +34,22 @@ SIGNATURES = {
         _I, _I, _I,                  # n_x_slices, n_w_slices, slice_bits
         _P,                          # stream
     ],
+    "spoga_gemm_launch": [
+        _P, _I, _P, _I, _P,          # x, x_bytes, w, w_bytes, out
+        _I, _I, _I,                  # M, K, N
+        _I, _I, _I,                  # n_x_slices, n_w_slices, slice_bits
+        _P,                          # stream
+    ],
+    "nibble_gemm_launch": [
+        _P, _P, _P,                  # a, b, out
+        _I, _I, _I,                  # M, K, N
+        _P,                          # stream
+    ],
+    "deas_combine_launch": [
+        _P, _P, _P, _P, _P,          # mm, ml, lm, ll, out
+        _I, _I,                      # M, N
+        _P,                          # stream
+    ],
     "paged_attention_launch": [
         _P, _I,                      # q, q_is_bf16
         _P, _P, _I,                  # kp, vp, kv_int8

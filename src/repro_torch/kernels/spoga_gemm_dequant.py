@@ -17,11 +17,10 @@ import torch
 
 from repro_torch.core.spoga import direct_matmul
 from repro_torch.kernels import _build
+from repro_torch.kernels.spoga_gemm import check_launchable, check_operands
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
-
-_INT_TYPES = (torch.int8, torch.int16)
 
 
 def reset_counts() -> None:
@@ -40,23 +39,14 @@ def spoga_gemm_dequant_plain(x, w, x_scale, w_scale):
 
 
 def _check(x, w, x_scale, w_scale, slice_bits):
-    if x.dtype not in _INT_TYPES or w.dtype not in _INT_TYPES:
-        raise TypeError(f"spoga_gemm_dequant expects int8/int16 operands, got "
-                        f"{x.dtype}, {w.dtype}")
-    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
-        raise ValueError(f"expected x (M, K) and w (K, N), got {tuple(x.shape)} "
-                         f"and {tuple(w.shape)}")
+    check_operands("spoga_gemm_dequant", x, w, slice_bits)
     m, n = x.shape[0], w.shape[1]
     if tuple(x_scale.shape) != (m, 1) or tuple(w_scale.shape) != (1, n):
         raise ValueError(f"expected x_scale ({m}, 1) and w_scale (1, {n}), got "
                          f"{tuple(x_scale.shape)} and {tuple(w_scale.shape)}")
     if x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32:
         raise TypeError("x_scale and w_scale must be float32")
-    if not 1 <= slice_bits <= 7:
-        raise ValueError(f"slice_bits must be in [1, 7] (int8 planes), got {slice_bits}")
-    devices = {t.device for t in (x, w, x_scale, w_scale)}
-    if len(devices) != 1:
-        raise ValueError(f"operands on different devices: {sorted(map(str, devices))}")
+    check_launchable("spoga_gemm_dequant", x, w, x_scale, w_scale)
 
 
 def spoga_gemm_dequant(x, w, x_scale, w_scale, *, n_x_slices: int = 2,
@@ -71,10 +61,6 @@ def spoga_gemm_dequant(x, w, x_scale, w_scale, *, n_x_slices: int = 2,
     _check(x, w, x_scale, w_scale, slice_bits)
     if x.device.type == "cpu":
         return spoga_gemm_dequant_plain(x, w, x_scale, w_scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"spoga_gemm_dequant runs on CUDA or CPU tensors, got {x.device}")
-    if not all(t.is_contiguous() for t in (x, w, x_scale, w_scale)):
-        raise ValueError("spoga_gemm_dequant's kernel takes contiguous tensors")
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)

@@ -70,14 +70,14 @@ def attention_block(x, p, cfg: ModelConfig, positions):
     Returns (out, (k, v)) with the fresh K/V for the cache."""
     b, s, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    qm = cfg.quant_mode
-    q = linear(x, p["wq"], qm).reshape(b, s, hq, hd)
-    k = linear(x, p["wk"], qm).reshape(b, s, hkv, hd)
-    v = linear(x, p["wv"], qm).reshape(b, s, hkv, hd)
+    qm, be = cfg.quant_mode, cfg.gemm_backend
+    q = linear(x, p["wq"], qm, be).reshape(b, s, hq, hd)
+    k = linear(x, p["wk"], qm, be).reshape(b, s, hkv, hd)
+    v = linear(x, p["wv"], qm, be).reshape(b, s, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = multihead_attention(q, k, v)
-    return linear(out.reshape(b, s, hq * hd), p["wo"], qm), (k, v)
+    return linear(out.reshape(b, s, hq * hd), p["wo"], qm, be), (k, v)
 
 
 def quantize_kv(t):
@@ -94,10 +94,10 @@ def _decode_qkv(x_t, p, cfg: ModelConfig, pos):
     """Decode-side projections + RoPE. Returns q, k, v (B, 1, H, D)."""
     b = x_t.shape[0]
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
-    qm = cfg.quant_mode
-    q = linear(x_t, p["wq"], qm).reshape(b, 1, hq, hd)
-    k = linear(x_t, p["wk"], qm).reshape(b, 1, hkv, hd)
-    v = linear(x_t, p["wv"], qm).reshape(b, 1, hkv, hd)
+    qm, be = cfg.quant_mode, cfg.gemm_backend
+    q = linear(x_t, p["wq"], qm, be).reshape(b, 1, hq, hd)
+    k = linear(x_t, p["wk"], qm, be).reshape(b, 1, hkv, hd)
+    v = linear(x_t, p["wv"], qm, be).reshape(b, 1, hkv, hd)
     posb = pos[:, None]
     return apply_rope(q, posb, cfg.rope_theta), apply_rope(k, posb, cfg.rope_theta), v
 
@@ -203,4 +203,4 @@ def paged_attention_decode(x_t, p, cfg: ModelConfig, cache, pos, tables, *,
             k_scale=cache.get("kp_scale"), v_scale=cache.get("vp_scale"))
         out = out.permute(0, 2, 1, 3)[:, None]          # (B, 1, G, Hkv, D)
     out = out.to(x_t.dtype).reshape(b, 1, hq * hd)
-    return linear(out, p["wo"], cfg.quant_mode), cache
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache

@@ -29,15 +29,17 @@ def init_linear(gen, device, shape, scale=0.02):
     return truncated_normal(gen, device, shape, scale)
 
 
-def linear(x, w, quant_mode: str = "bf16"):
+def linear(x, w, quant_mode: str = "bf16", backend=None):
     """The single matmul entry point for every model layer; bf16 out.
 
-    A quantized mode quantizes ``x`` as given: an f32 input is not rounded
-    to bf16 first (the reference's compiled graph drops that rounding too,
-    see :func:`glu_mlp`)."""
+    ``backend`` is an optional GEMM-backend registry name (from
+    ``ModelConfig.gemm_backend``); ``None`` defers to the registry's
+    resolution order.  A quantized mode quantizes ``x`` as given: an f32
+    input is not rounded to bf16 first (the reference's compiled graph
+    drops that rounding too, see :func:`glu_mlp`)."""
     if quant_mode == "bf16":
         return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
-    return quantized_linear(x, w, quant_mode, out_dtype=COMPUTE_DTYPE)
+    return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE)
 
 
 def rmsnorm(x, gamma, eps=1e-6, dtype=None):
@@ -57,14 +59,14 @@ def _silu(x):
 _ACTS = {"silu": _silu, "gelu": torch.nn.functional.gelu, "relu": torch.relu}
 
 
-def glu_mlp(x, p, act="silu", quant_mode="bf16"):
+def glu_mlp(x, p, act="silu", quant_mode="bf16", backend=None):
     """``down(act(gate(x)) * up(x))``.  The product is formed in f32 and
     quantized unrounded, as the reference's compiled graph does (XLA keeps
     the excess precision there); a bf16 matmul rounds it to the same bf16
     either way."""
-    g = _ACTS[act](linear(x, p["w_gate"], quant_mode))
-    u = linear(x, p["w_up"], quant_mode)
-    return linear(g.float() * u.float(), p["w_down"], quant_mode)
+    g = _ACTS[act](linear(x, p["w_gate"], quant_mode, backend))
+    u = linear(x, p["w_up"], quant_mode, backend)
+    return linear(g.float() * u.float(), p["w_down"], quant_mode, backend)
 
 
 def embed(tokens, table):

@@ -45,7 +45,7 @@ def _residual_mlp(x, a, p, cfg: ModelConfig):
     add, where the reference's compiled graph rounds it."""
     mid = x.float() + a.float()
     h = rmsnorm(mid, p["norm2"], cfg.norm_eps, dtype=x.dtype)
-    m = glu_mlp(h, p["mlp"], cfg.act, cfg.quant_mode)
+    m = glu_mlp(h, p["mlp"], cfg.act, cfg.quant_mode, cfg.gemm_backend)
     return mid.to(x.dtype) + m
 
 

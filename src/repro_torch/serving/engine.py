@@ -152,7 +152,8 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def add_request(self, prompt: Sequence[int], max_new_tokens: int,
                     sampling: Optional[SamplingParams] = None,
-                    eos_token: Optional[int] = None) -> Request:
+                    eos_token: Optional[int] = None, on_token=None, on_text=None,
+                    detokenizer=None) -> Request:
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -174,6 +175,7 @@ class ServingEngine:
             req_id=self._next_id, prompt=prompt, max_new_tokens=max_new_tokens,
             sampling=sampling or SamplingParams(),
             eos_token=self.engine_cfg.eos_token if eos_token is None else eos_token,
+            on_token=on_token, on_text=on_text, detokenizer=detokenizer,
             submit_time=time.perf_counter())
         self._next_id += 1
         self.scheduler.submit(req)

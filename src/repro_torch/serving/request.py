@@ -2,8 +2,9 @@
 
 Port of ``repro/serving/request.py``: a request moves WAITING -> RUNNING
 -> FINISHED; admission (prefill + first token) happens inside one engine
-step.  All bookkeeping is host-side Python.  Cost attribution, deadlines,
-priorities and token streaming are later slices (ROADMAP queue 1).
+step.  All bookkeeping is host-side Python.  Token and text streaming
+ride the ``on_token`` / ``on_text`` hooks.  Cost attribution, deadlines
+and priorities are later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -11,9 +12,16 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 from repro_torch.serving.sampling import SamplingParams
+
+
+def default_detokenizer(token_ids: Sequence[int]) -> str:
+    """Fallback detokenizer: renders each token id as ``<id>`` (the repo
+    carries no vocabulary; real deployments pass their tokenizer's
+    ``decode``)."""
+    return "".join(f"<{int(t)}>" for t in token_ids)
 
 
 class RequestState(enum.Enum):
@@ -36,6 +44,16 @@ class Request:
     slot: Optional[int] = None
     output_tokens: list[int] = dataclasses.field(default_factory=list)
 
+    # streaming hooks, called as each token reaches the host: the token id,
+    # and the new text fragment (the whole output re-decoded through
+    # ``detokenizer``, so a multi-token character surfaces once complete)
+    on_token: Optional[Callable[[int], None]] = dataclasses.field(default=None, repr=False)
+    on_text: Optional[Callable[[str], None]] = dataclasses.field(default=None, repr=False)
+    detokenizer: Optional[Callable[[Sequence[int]], str]] = dataclasses.field(
+        default=None, repr=False)
+    # text already emitted through ``on_text``
+    emitted_text: str = dataclasses.field(default="", repr=False)
+
     # wall-clock timeline (engine-stamped)
     submit_time: float = 0.0
     admit_time: Optional[float] = None
@@ -57,6 +75,18 @@ class Request:
         if self.first_token_time is None:
             self.first_token_time = time.perf_counter()
         self.output_tokens.append(tok)
+        if self.on_token is not None:
+            self.on_token(tok)
+        if self.on_text is not None:
+            full = self.decode_text()
+            delta = full[len(self.emitted_text):]
+            if delta:
+                self.on_text(delta)
+            self.emitted_text = full
+
+    def decode_text(self) -> str:
+        """The output so far through the request's detokenizer."""
+        return (self.detokenizer or default_detokenizer)(self.output_tokens)
 
     @property
     def ttft_s(self) -> Optional[float]:

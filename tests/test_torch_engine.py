@@ -135,12 +135,14 @@ def test_engine_refuses_what_is_not_ported():
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
-    """Loading the port's serving stack pulls in no ``jax*`` module and no
-    module of the JAX package."""
+    """Loading the port's facade, serving stack and kernels pulls in no
+    ``jax*`` module and no module of the JAX package."""
     code = (
         "import sys\n"
-        "import repro_torch.serving, repro_torch.models, repro_torch.paging\n"
+        "import repro_torch.serving, repro_torch.models, repro_torch.paging, repro_torch.api\n"
         "import repro_torch.kernels.spoga_gemm_dequant, repro_torch.kernels.paged_attention\n"
+        "import repro_torch.kernels.spoga_gemm, repro_torch.kernels.deas_gemm\n"
+        "import repro_torch.kernels.ops, repro_torch.core.spoga, repro_torch.backends\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(','.join(bad))\n"
     )
@@ -166,5 +168,8 @@ def test_no_source_of_the_port_names_jax_or_repro():
     import statements (also the ones inside functions)."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 20
+    for new in ("api/llm.py", "api/config.py", "kernels/spoga_gemm.py",
+                "kernels/deas_gemm.py", "kernels/ops.py"):
+        assert ROOT / "src" / "repro_torch" / new in files, new
     for f in files:
         assert not _imported_roots(f) & {"jax", "jaxlib", "repro"}, f

@@ -134,9 +134,11 @@ def test_backend_resolution_follows_device():
     assert resolve_backend("int8_deas", "cpu")[0].name == "torch_deas"
     assert resolve_backend("int8_direct", "cpu")[0].name == "direct"
     assert resolve_backend("w4a8", "cpu")[0].name == "torch_spoga"
-    for mode in ("int8_deas", "int8_direct"):   # kernels not ported yet
-        with pytest.raises(NotImplementedError):
-            resolve_backend(mode, "cuda")
+    assert resolve_backend("int8_deas", "cuda")[0].name == "cuda_deas"
+    assert resolve_backend("int8_direct", "cuda")[0].name == "cuda_direct"
+    for twin in ("torch_spoga", "torch_deas", "direct"):
+        with pytest.raises(ValueError):
+            resolve_backend("int8_spoga", "cuda", twin)
     with pytest.raises(ValueError):
         resolve_backend("w8a8_s8", "cuda")       # 8-bit planes: not int8
     with pytest.raises(KeyError):

@@ -5,18 +5,24 @@ This file imports no JAX, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_kernels_gpu.py
 
 Every test needs a CUDA device and skips inside the test without one.
-The GEMM is held bitwise (same int32 accumulator, same two f32 multiplies);
-paged attention at rtol/atol 2e-5, the JAX package's contract.
+The GEMMs are held bitwise (same int32 accumulator, same two f32
+multiplies); paged attention at rtol/atol 2e-5, the JAX package's contract.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.backends import effective_bits, parse_quant_mode
+from repro_torch.backends import effective_bits, get_backend, parse_quant_mode
+from repro_torch.backends import impls
+from repro_torch.core.spoga import direct_matmul
+from repro_torch.kernels import deas_gemm as deas_mod
 from repro_torch.kernels import paged_attention as attn_mod
+from repro_torch.kernels import spoga_gemm as int_gemm_mod
 from repro_torch.kernels import spoga_gemm_dequant as gemm_mod
+from repro_torch.kernels.deas_gemm import deas_gemm, deas_gemm_plain
 from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+from repro_torch.kernels.spoga_gemm import spoga_gemm, spoga_gemm_plain
 from repro_torch.kernels.spoga_gemm_dequant import (
     spoga_gemm_dequant,
     spoga_gemm_dequant_plain,
@@ -70,6 +76,77 @@ def test_gemm_wrapper_raises_on_what_the_kernel_does_not_take():
         spoga_gemm_dequant(x, w.cpu(), xs, ws)                  # mixed devices
     with pytest.raises(ValueError):
         spoga_gemm_dequant(x, w, xs, ws, slice_bits=8)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_int32_gemm_kernel_matches_plain_bitwise(mode):
+    _card()
+    for m, k, n in SHAPES:
+        spec, (x, w, _, _) = _operands(m, k, n, mode, seed=m * k + n)
+        launches = int_gemm_mod.LAUNCHES
+        got = spoga_gemm(x, w, n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
+                         slice_bits=spec.slice_bits)
+        assert int_gemm_mod.LAUNCHES == launches + 1
+        want = spoga_gemm_plain(x, w)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want), (mode, m, k, n)
+
+
+def test_int32_gemm_wraps_like_the_plain_version():
+    """Past the int32 range (w16a16 operands at full width) both wrap mod
+    2^32 the same way."""
+    _card()
+    x = torch.full((3, 64), 32767, dtype=torch.int16, device="cuda")
+    w = torch.full((64, 5), -32767, dtype=torch.int16, device="cuda")
+    got = spoga_gemm(x, w, n_x_slices=4, n_w_slices=4, slice_bits=4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, spoga_gemm_plain(x, w))
+
+
+def test_deas_gemm_kernels_match_plain_bitwise():
+    """Four nibble_gemm launches and one deas_combine launch per call, equal
+    to the plain version and to the SPOGA kernel, over the full int8 range."""
+    _card()
+    rng = np.random.default_rng(5)
+    for m, k, n in SHAPES:
+        x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).cuda()
+        w = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).cuda()
+        before = (deas_mod.CALLS, deas_mod.NIBBLE_LAUNCHES, deas_mod.COMBINE_LAUNCHES)
+        got = deas_gemm(x, w)
+        after = (deas_mod.CALLS, deas_mod.NIBBLE_LAUNCHES, deas_mod.COMBINE_LAUNCHES)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, 4, 1)
+        want = deas_gemm_plain(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (m, k, n)
+        assert torch.equal(got, spoga_gemm(x, w)), (m, k, n)
+
+
+def test_cuda_direct_backend_matches_direct_matmul():
+    """torch._int_mm, with M, K and N padded to what it takes, is bitwise
+    the plain integer product."""
+    _card()
+    spec, _ = parse_quant_mode("int8_direct")
+    gemm = get_backend("cuda_direct").gemm
+    rng = np.random.default_rng(6)
+    for m, k, n in SHAPES:
+        x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).cuda()
+        w = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).cuda()
+        calls = impls.INT_MM_CALLS
+        got = gemm(x, w, spec)
+        assert impls.INT_MM_CALLS == calls + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, direct_matmul(x, w)), (m, k, n)
+
+
+def test_new_wrappers_raise_on_what_the_kernels_do_not_take():
+    _card()
+    _, (x, w, _, _) = _operands(8, 64, 16, "int8_spoga", seed=0)
+    with pytest.raises(ValueError):
+        spoga_gemm(x, w.t().contiguous().t())                   # not contiguous
+    with pytest.raises(ValueError):
+        deas_gemm(x, w.cpu())                                   # mixed devices
+    with pytest.raises(TypeError):
+        deas_gemm(x.to(torch.int16), w)                         # W8A8 only
 
 
 def _pool_case(kind, seed, q_dtype=torch.bfloat16):
