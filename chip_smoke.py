@@ -10,11 +10,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    against their plain versions, bitwise, at the main path's shapes for
    W8A8, w4a8 and w16a16; the DEAS kernels (``nibble_gemm`` x4 +
    ``deas_combine``) at W8A8 against their plain versions and
-   ``spoga_gemm``, 5 launches per call; times beside the bound and
-   ``torch._int_mm``;
+   ``spoga_gemm``, 5 launches per call; each time the profiler's device
+   time (the event time of back-to-back calls beside it), against the bound
+   and ``torch._int_mm``;
 3. paged-attention kernel: bf16 and int8 pools against the plain version at
-   rtol/atol 2e-5, with a poisoned stale page; times beside the bound and
-   ``scaled_dot_product_attention`` on the gathered view;
+   rtol/atol 2e-5, with a poisoned stale page; device and event times
+   beside the bound and ``scaled_dot_product_attention`` on the gathered
+   view;
 4. main path: full-width llama3.2-1b, ``int8_spoga``, int8 paged KV, random
    weights from seed 0, served by ``ServingEngine`` (8 staggered requests);
    launch counts of both kernels are read around the run, the plain
@@ -69,8 +71,9 @@ def require(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, n_bufs: int, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn(i)`` over ``iters`` calls (CUDA events),
-    cycling ``i`` over ``n_bufs`` input copies so that L2 stays cold."""
+    """Mean time of ``fn(i)`` over ``iters`` back-to-back calls between two
+    CUDA events, cycling ``i`` over ``n_bufs`` input copies so that L2 stays
+    cold.  A call shorter than its host cost reads as the launch rate."""
     for i in range(warmup):
         fn(i % n_bufs)
     torch.cuda.synchronize()
@@ -82,6 +85,61 @@ def time_ms(fn, n_bufs: int, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, n_bufs: int, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn(i)``: the profiler's kernel time summed over
+    ``iters`` calls (every kernel the call launches, gaps between them not
+    counted), cycling ``i`` over ``n_bufs`` input copies.  The profiler
+    now and then records no kernel in a session: after three such sessions
+    the calls are timed as one CUDA-graph replay."""
+    from torch.profiler import ProfilerActivity, profile
+    for i in range(warmup):
+        fn(i % n_bufs)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i % n_bufs)
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if str(e.device_type).endswith("CUDA"))
+        if total > 0:
+            return total / 1e3 / iters
+    print("[timing] the profiler recorded no kernel in three sessions: timed by a CUDA-graph "
+          "replay instead", flush=True)
+    return graph_ms(fn, n_bufs, iters)
+
+
+def graph_ms(fn, n_bufs: int, iters: int, replays: int = 5) -> float:
+    """Mean time of ``fn(i)`` captured ``iters`` times into one CUDA graph
+    and replayed between two CUDA events: no host launch cost, but the
+    graph's own gap between kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i % n_bufs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i % n_bufs)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def kernel_times(fn, n_bufs: int, iters: int) -> tuple[float, float]:
+    """(device time by the profiler, event time of back-to-back calls)."""
+    return device_ms(fn, n_bufs, iters), time_ms(fn, n_bufs, iters)
 
 
 def copies_for(nbytes: int) -> int:
@@ -122,7 +180,7 @@ def phase_card():
 # ---------------------------------------------------------------------------
 
 def _lib_int_mm(x, w_copies, m, k, n):
-    """``torch._int_mm``'s time on int8 operands, else None.  Where it does
+    """``torch._int_mm``'s device time on int8 operands, else None.  Where it does
     not take the shape as it is (M <= 16, K or N not a multiple of 8) the
     operands are zero-padded as the ``cuda_direct`` backend pads them
     (``impls.int_mm_padded``, M up to 24), the padding timed with it."""
@@ -130,8 +188,8 @@ def _lib_int_mm(x, w_copies, m, k, n):
     if not (x.dtype == w_copies[0].dtype == torch.int8):
         return None
     if m > 16 and k % 8 == 0 and n % 8 == 0:
-        return time_ms(lambda i: torch._int_mm(x, w_copies[i]), len(w_copies), iters=40)
-    return time_ms(lambda i: int_mm_padded(x, w_copies[i]), len(w_copies), iters=40)
+        return device_ms(lambda i: torch._int_mm(x, w_copies[i]), len(w_copies), iters=40)
+    return device_ms(lambda i: int_mm_padded(x, w_copies[i]), len(w_copies), iters=40)
 
 
 def _lib_label(m, k, n):
@@ -195,8 +253,8 @@ def phase_gemm():
                 ws_copies = [w.clone() for _ in range(nb)]
                 kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
                           slice_bits=spec.slice_bits)
-                t_kernel = time_ms(lambda i: spoga_gemm_dequant(x, ws_copies[i], xs, ws, **kw),
-                                   nb, iters=40)
+                t_kernel, t_event = kernel_times(
+                    lambda i: spoga_gemm_dequant(x, ws_copies[i], xs, ws, **kw), nb, iters=40)
                 t_plain = time_ms(lambda i: spoga_gemm_dequant_plain(x, ws_copies[i], xs, ws),
                                   nb, iters=5, warmup=1)
                 t_lib = _lib_int_mm(x, ws_copies, m, k, n)
@@ -204,21 +262,21 @@ def phase_gemm():
                           + 4 * (m + n) + 4 * m * n)
                 ops = _int_product_ops(m, k, n)
                 b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
-                timings[(name, m, k, n)] = dict(ms=t_kernel, plain_ms=t_plain,
-                                                library_ms=t_lib, bound_ms=b_ms,
-                                                bound_by=b_by)
+                timings[(name, m, k, n)] = dict(ms=t_kernel, event_ms=t_event,
+                                                plain_ms=t_plain, library_ms=t_lib,
+                                                bound_ms=b_ms, bound_by=b_by)
                 lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
                 lib += " (padded)" if m <= 16 and t_lib is not None else ""
-                print(f"[gemm] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms, "
-                      f"plain {t_plain:.4f} ms, _int_mm {lib}, bound {b_ms:.4f} ms "
-                      f"({b_by})", flush=True)
+                print(f"[gemm] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms device "
+                      f"({t_event:.4f} ms by events), plain {t_plain:.4f} ms, _int_mm {lib}, "
+                      f"bound {b_ms:.4f} ms ({b_by}, {b_ms / t_kernel:.1%} of it)", flush=True)
                 del ws_copies
     # one decode step's projections (q, k, v, o, gate, up, down) per layer
     layer = [(2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
              (2048, 8192), (2048, 8192), (8192, 2048)]
     per_layer = sum(timings[("w8a8", 4, k, n)]["ms"] for k, n in layer)
     print(f"[gemm] W8A8 decode step at M=4, 16 layers x 7 projections: "
-          f"{16 * per_layer:.3f} ms of kernel time", flush=True)
+          f"{16 * per_layer:.3f} ms of kernel device time", flush=True)
     return timings, max_err
 
 
@@ -251,7 +309,8 @@ def phase_int_gemm():
                 w_copies = [w.clone() for _ in range(nb)]
                 kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
                           slice_bits=spec.slice_bits)
-                t_kernel = time_ms(lambda i: spoga_gemm(x, w_copies[i], **kw), nb, iters=40)
+                t_kernel, t_event = kernel_times(lambda i: spoga_gemm(x, w_copies[i], **kw), nb,
+                                                 iters=40)
                 t_plain = time_ms(lambda i: spoga_gemm_plain(x, w_copies[i]), nb, iters=5,
                                   warmup=1)
                 t_lib = _lib_int_mm(x, w_copies, m, k, n)
@@ -259,14 +318,14 @@ def phase_int_gemm():
                           + 4 * m * n)
                 ops = _int_product_ops(m, k, n)
                 b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
-                timings[(name, m, k, n)] = dict(ms=t_kernel, plain_ms=t_plain,
-                                                library_ms=t_lib, bound_ms=b_ms,
-                                                bound_by=b_by)
+                timings[(name, m, k, n)] = dict(ms=t_kernel, event_ms=t_event,
+                                                plain_ms=t_plain, library_ms=t_lib,
+                                                bound_ms=b_ms, bound_by=b_by)
                 lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
                 lib += " (padded)" if m <= 16 and t_lib is not None else ""
-                print(f"[spoga_gemm] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms, "
-                      f"plain {t_plain:.4f} ms, _int_mm {lib}, bound {b_ms:.4f} ms "
-                      f"({b_by})", flush=True)
+                print(f"[spoga_gemm] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms device "
+                      f"({t_event:.4f} ms by events), plain {t_plain:.4f} ms, _int_mm {lib}, "
+                      f"bound {b_ms:.4f} ms ({b_by}, {b_ms / t_kernel:.1%} of it)", flush=True)
                 del w_copies
     return timings, max_err
 
@@ -307,36 +366,52 @@ def phase_deas(int_timings):
     print(f"[deas] {checked} W8A8 cases bitwise equal to the plain versions and to "
           f"spoga_gemm, 4 + 1 launches per call (max |diff| {max_err})", flush=True)
 
-    timings = {}
+    timings, nibble = {}, {}
     for m in (4, 128):
         for k, n in GEMM_KN:
             x = torch.randint(-128, 128, (m, k), generator=gen, device="cuda").to(torch.int8)
             w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda").to(torch.int8)
             nb = copies_for(w.numel())
             w_copies = [w.clone() for _ in range(nb)]
-            t_kernel = time_ms(lambda i: deas_mod.deas_gemm(x, w_copies[i]), nb, iters=40)
+            t_kernel, t_event = kernel_times(lambda i: deas_mod.deas_gemm(x, w_copies[i]), nb,
+                                             iters=40)
             t_plain = time_ms(lambda i: deas_mod.deas_gemm_plain(x, w_copies[i]), nb, iters=5,
                               warmup=1)
             t_lib = _lib_int_mm(x, w_copies, m, k, n)
             xm, xl = slice_tc(x)
             wm = [slice_tc(c)[0] for c in w_copies]
-            t_nibble = time_ms(lambda i: deas_mod.nibble_gemm(xm, wm[i]), nb, iters=40)
+            t_nibble, t_nibble_event = kernel_times(lambda i: deas_mod.nibble_gemm(xm, wm[i]), nb,
+                                                    iters=40)
+            t_nibble_plain = time_ms(lambda i: deas_mod.nibble_gemm_plain(xm, wm[i]), nb, iters=5,
+                                     warmup=1)
+            t_nibble_lib = _lib_int_mm(xm, wm, m, k, n)
             parts = [deas_mod.nibble_gemm(xm, wm[0]) for _ in range(4)]
-            t_combine = time_ms(lambda i: deas_mod.deas_combine(*parts), 1, iters=40)
+            t_combine, t_combine_event = kernel_times(lambda i: deas_mod.deas_combine(*parts), 1,
+                                                      iters=40)
             spoga = int_timings[("w8a8", m, k, n)]
             inter = 8 * m * n * 4
-            timings[(m, k, n)] = dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
-                                      bound_ms=spoga["bound_ms"], bound_by=spoga["bound_by"],
-                                      nibble_gemm_ms=t_nibble, deas_combine_ms=t_combine,
+            # one plane product: its plane operands read once, its int32 output written once
+            n_bytes = m * k + k * n + 4 * m * n
+            nb_ms, nb_by = bound(n_bytes, _int_product_ops(m, k, n), INT8_OPS_PER_S)
+            timings[(m, k, n)] = dict(ms=t_kernel, event_ms=t_event, plain_ms=t_plain,
+                                      library_ms=t_lib, bound_ms=spoga["bound_ms"],
+                                      bound_by=spoga["bound_by"], deas_combine_ms=t_combine,
+                                      deas_combine_event_ms=t_combine_event,
                                       intermediate_bytes=inter, spoga_gemm_ms=spoga["ms"])
+            nibble[(m, k, n)] = dict(ms=t_nibble, event_ms=t_nibble_event,
+                                     plain_ms=t_nibble_plain, library_ms=t_nibble_lib,
+                                     bound_ms=nb_ms, bound_by=nb_by)
             lib = f"{t_lib:.4f} ms" + (" (padded)" if m <= 16 else "")
-            print(f"[deas] W8A8 M={m} K={k} N={n}: deas_gemm {t_kernel:.4f} ms (one nibble_gemm "
-                  f"{t_nibble:.4f} ms, deas_combine {t_combine:.4f} ms, intermediates "
+            print(f"[deas] W8A8 M={m} K={k} N={n}: deas_gemm {t_kernel:.4f} ms device "
+                  f"({t_event:.4f} ms by events; one nibble_gemm {t_nibble:.4f} ms device, "
+                  f"{t_nibble_event:.4f} by events, plain {t_nibble_plain:.4f} ms, _int_mm on "
+                  f"the planes {t_nibble_lib:.4f} ms, bound {nb_ms:.4f} ms; deas_combine "
+                  f"{t_combine:.4f} ms device, {t_combine_event:.4f} by events; intermediates "
                   f"{inter} B) vs spoga_gemm {spoga['ms']:.4f} ms; plain {t_plain:.4f} ms, "
-                  f"_int_mm {lib}, bound {spoga['bound_ms']:.4f} ms ({spoga['bound_by']})",
-                  flush=True)
+                  f"_int_mm {lib}, bound {spoga['bound_ms']:.4f} ms ({spoga['bound_by']}, "
+                  f"{spoga['bound_ms'] / t_kernel:.1%} of it)", flush=True)
             del w_copies, wm, parts
-    return timings, max_err
+    return timings, nibble, max_err
 
 
 # ---------------------------------------------------------------------------
@@ -391,8 +466,8 @@ def phase_attention():
         b, hkv, g, d = q.shape
         ps = kp.shape[1]
         rows = int(lengths.sum())
-        t_kernel = time_ms(lambda i: paged_attention(q, kp, vp, tables, lengths, **scales),
-                           1, iters=200)
+        t_kernel, t_event = kernel_times(
+            lambda i: paged_attention(q, kp, vp, tables, lengths, **scales), 1, iters=200)
         t_plain = time_ms(lambda i: paged_attention_plain(q, kp, vp, tables, lengths, **scales),
                           1, iters=20)
         t_lib = None
@@ -402,9 +477,9 @@ def phase_attention():
             v_all = vp[tables.long()].reshape(b, n_tbl * ps, hkv, d).permute(0, 2, 1, 3)
             mask = (torch.arange(n_tbl * ps, device="cuda")[None, :] < lengths[:, None])
             mask = mask[:, None, None, :]
-            t_lib = time_ms(lambda i: F.scaled_dot_product_attention(q, k_all, v_all,
-                                                                     attn_mask=mask),
-                            1, iters=200)
+            t_lib = device_ms(lambda i: F.scaled_dot_product_attention(q, k_all, v_all,
+                                                                       attn_mask=mask),
+                              1, iters=200)
         kv_bytes = 2 * rows * hkv * d * kp.element_size()
         if scales:
             kv_bytes += 2 * rows * hkv * 4
@@ -412,13 +487,13 @@ def phase_attention():
                   + b * hkv * g * d * 4)
         ops = 4.0 * rows * hkv * g * d
         b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
-        out[kind] = dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
-                         bound_by=b_by, max_abs_err=err)
+        out[kind] = dict(ms=t_kernel, event_ms=t_event, plain_ms=t_plain, library_ms=t_lib,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
         lib = f"{t_lib:.4f}" if t_lib is not None else "n/a"
         print(f"[attn] {kind} B={b} Hkv={hkv} G={g} D={d} ps={ps} lengths="
               f"{lengths.tolist()}: max |diff| {err:.3g} (stale rows poisoned); kernel "
-              f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, sdpa {lib} ms, bound "
-              f"{b_ms:.5f} ms ({b_by})", flush=True)
+              f"{t_kernel:.4f} ms device ({t_event:.4f} ms by events), plain {t_plain:.4f} ms, "
+              f"sdpa {lib} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
     return out
 
 
@@ -773,7 +848,7 @@ def main() -> int:
     card = phase_card()
     gemm, gemm_err = phase_gemm()
     int_gemm, int_err = phase_int_gemm()
-    deas, deas_err = phase_deas(int_gemm)
+    deas, nibble, deas_err = phase_deas(int_gemm)
     attn = phase_attention()
     params = full_width_params()
     launches, launches16 = phase_main(card, params)
@@ -782,14 +857,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cpu_parity()
 
-    g = gemm[("w8a8", 4, 2048, 8192)]
-    kernels = [
-        {"name": "spoga_gemm_dequant", "route": "cuda",
-         "source": "src/repro_torch/csrc/spoga_gemm_dequant.cu",
-         "replaces": "src/repro/kernels/spoga_gemm_dequant.py:62",
-         "launches": launches["spoga_gemm_dequant"], "max_abs_err": gemm_err,
-         "shape": "W8A8 M=4 K=2048 N=8192", "library": _lib_label(4, 2048, 8192), **g},
-    ]
+    from repro_torch.configs import get_config
+    calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
+
+    def gemm_row(name, source, replaces, launches, per_call, err, times, **extra):
+        """A GEMM kernel's line: W8A8 K=2048 N=8192, decode M=4 at the top
+        level (device time), prefill M=128 under "prefill"."""
+        dec, pre = times[4], times[128]
+        frac = {"fraction_of_bound": dec["bound_ms"] / dec["ms"]}
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "launches_per_decode_step": per_call * calls_per_step,
+                "max_abs_err": err, "shape": "W8A8 M=4 K=2048 N=8192",
+                "library": _lib_label(4, 2048, 8192), **dec, **frac, **extra,
+                "prefill": {"shape": "W8A8 M=128 K=2048 N=8192",
+                            "library": _lib_label(128, 2048, 8192), **pre,
+                            "fraction_of_bound": pre["bound_ms"] / pre["ms"]},
+                "card": card}
+
+    def at(table, key):
+        return {m: table[key(m)] for m in (4, 128)}
+
+    kernels = [gemm_row("spoga_gemm_dequant", "src/repro_torch/csrc/spoga_gemm_dequant.cu",
+                        "src/repro/kernels/spoga_gemm_dequant.py:62",
+                        launches["spoga_gemm_dequant"], 1, gemm_err,
+                        at(gemm, lambda m: ("w8a8", m, 2048, 8192)))]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
         a = dict(attn[kind])
@@ -799,23 +890,21 @@ def main() -> int:
                         "launches": count, "max_abs_err": a.pop("max_abs_err"),
                         "shape": f"{kind} pool B=4 Hkv=8 G=4 D=64 ps=16", **a})
     unfused, deas_run = facade["spoga unfused"], facade["deas"]
-    kernels.append({"name": "spoga_gemm", "route": "cuda",
-                    "source": "src/repro_torch/csrc/spoga_gemm.cu",
-                    "replaces": "src/repro/kernels/spoga_gemm.py:116",
-                    "launches": unfused["spoga_gemm"], "max_abs_err": int_err,
-                    "shape": "W8A8 M=4 K=2048 N=8192", "library": _lib_label(4, 2048, 8192),
-                    **int_gemm[("w8a8", 4, 2048, 8192)]})
-    kernels.append({"name": "deas_gemm", "route": "cuda",
-                    "source": "src/repro_torch/csrc/deas_gemm.cu",
-                    "replaces": "src/repro/kernels/deas_gemm.py:95",
-                    "replaces_parts": {"nibble_gemm": "src/repro/kernels/deas_gemm.py:50",
-                                       "deas_combine": "src/repro/kernels/deas_gemm.py:79"},
-                    "launches": deas_run["nibble_gemm"] + deas_run["deas_combine"],
-                    "nibble_gemm_launches": deas_run["nibble_gemm"],
-                    "deas_combine_launches": deas_run["deas_combine"],
-                    "max_abs_err": deas_err, "shape": "W8A8 M=4 K=2048 N=8192",
-                    "library": _lib_label(4, 2048, 8192),
-                    **deas[(4, 2048, 8192)]})
+    kernels.append(gemm_row("spoga_gemm", "src/repro_torch/csrc/spoga_gemm.cu",
+                            "src/repro/kernels/spoga_gemm.py:116", unfused["spoga_gemm"], 1,
+                            int_err, at(int_gemm, lambda m: ("w8a8", m, 2048, 8192))))
+    kernels.append(gemm_row("nibble_gemm", "src/repro_torch/csrc/deas_gemm.cu",
+                            "src/repro/kernels/deas_gemm.py:50", deas_run["nibble_gemm"], 4,
+                            deas_err, at(nibble, lambda m: (m, 2048, 8192)),
+                            library_operands="the int8 nibble planes of this call"))
+    kernels.append(gemm_row("deas_gemm", "src/repro_torch/csrc/deas_gemm.cu",
+                            "src/repro/kernels/deas_gemm.py:95",
+                            deas_run["nibble_gemm"] + deas_run["deas_combine"], 5, deas_err,
+                            at(deas, lambda m: (m, 2048, 8192)),
+                            replaces_parts={"nibble_gemm": "src/repro/kernels/deas_gemm.py:50",
+                                            "deas_combine": "src/repro/kernels/deas_gemm.py:79"},
+                            nibble_gemm_launches=deas_run["nibble_gemm"],
+                            deas_combine_launches=deas_run["deas_combine"]))
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -17,9 +17,10 @@
 //
 // nibble_gemm is the sliced core of spoga_tile.cuh with one plane per
 // operand (the planes are already int8 nibbles: the high one signed in
-// [-8, 7], the low one unsigned in [0, 15]), so it multiplies with dp4a and
-// stores int32 once per element.  deas_combine is elementwise; its
-// shift-add runs in uint32, which wraps like the TPU's int32.
+// [-8, 7], the low one unsigned in [0, 15]), so it multiplies on the int8
+// tensor cores and stores int32 once per element.  deas_combine is
+// elementwise; its shift-add runs in uint32, which wraps like the TPU's
+// int32.
 //
 // What bounds them on an H100: each nibble_gemm reads its weight plane once
 // (K * N bytes) and writes M * N * 4 bytes; at decode the weight planes'
@@ -33,16 +34,23 @@ namespace {
 
 using namespace spoga_tile;
 
-template <int TM, int TN>
-__global__ void __launch_bounds__(THREADS)
-nibble_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
-                   int32_t* __restrict__ out, int M, int K, int N) {
-    __shared__ Smem<TM, TN> smem;
-    uint32_t total[TM][TN];
-    // one int8 plane per operand: lane 0 only, no shift
-    radix_accumulate<TM, TN, 1, 1>(a, 1, b, 1, M, K, N, 1, 1, 4, smem, total);
-    store_int32<TM, TN>(out, M, N, total);
+// one int8 plane per operand: lane 0 only, no shift
+template <class C>
+__global__ void __launch_bounds__(THREADS, 1)
+nibble_gemm_kernel(Problem p, StoreInt32 epi) {
+    extern __shared__ __align__(128) char smem[];
+    gemm_block<C>(p, epi, smem);
 }
+
+struct NibbleLauncher {
+    Problem p;
+    StoreInt32 epi;
+    cudaStream_t stream;
+    mutable cudaError_t err;
+
+    template <class C>
+    void run() const { err = launch<C, nibble_gemm_kernel<C>>(p, epi, stream); }
+};
 
 constexpr int COMBINE_THREADS = 256;
 
@@ -67,17 +75,11 @@ deas_combine_kernel(const int32_t* __restrict__ mm, const int32_t* __restrict__ 
 extern "C" int nibble_gemm_launch(const void* a, const void* b, void* out,
                                   int M, int K, int N, void* stream) {
     if (M <= 0 || K <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    const int8_t* pa = static_cast<const int8_t*>(a);
-    const int8_t* pb = static_cast<const int8_t*>(b);
-    int32_t* po = static_cast<int32_t*>(out);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (M <= 16) {
-        const dim3 grid = spoga_tile::grid_for<1, 2>(M, N);
-        nibble_gemm_kernel<1, 2><<<grid, spoga_tile::THREADS, 0, s>>>(pa, pb, po, M, K, N);
-    } else {
-        const dim3 grid = spoga_tile::grid_for<4, 4>(M, N);
-        nibble_gemm_kernel<4, 4><<<grid, spoga_tile::THREADS, 0, s>>>(pa, pb, po, M, K, N);
-    }
+    const NibbleLauncher launcher{spoga_tile::make_problem(a, 1, b, 1, M, K, N, 1, 1, 4),
+                                  StoreInt32{static_cast<int32_t*>(out), N},
+                                  static_cast<cudaStream_t>(stream), cudaSuccess};
+    spoga_tile::dispatch_fixed<1, 1>(launcher, M);
+    if (launcher.err != cudaSuccess) return static_cast<int>(launcher.err);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -86,9 +88,12 @@ extern "C" int nibble_gemm_launch(const void* a, const void* b, void* out,
 extern "C" int deas_combine_launch(const void* mm, const void* ml, const void* lm,
                                    const void* ll, void* out, int M, int N, void* stream) {
     if (M <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    int sms = 0;
+    const cudaError_t err = spoga_tile::sm_count(&sms);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const size_t count = static_cast<size_t>(M) * N;
     const size_t want = (count + COMBINE_THREADS - 1) / COMBINE_THREADS;
-    const size_t max_blocks = 132 * 32;  // 32 blocks per SM, grid-stride beyond
+    const size_t max_blocks = static_cast<size_t>(sms) * 32;  // 32 per SM, grid-stride beyond
     const unsigned blocks = static_cast<unsigned>(want < max_blocks ? want : max_blocks);
     deas_combine_kernel<<<blocks, COMBINE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(mm), static_cast<const int32_t*>(ml),

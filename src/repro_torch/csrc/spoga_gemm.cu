@@ -7,7 +7,7 @@
 //   out (M, N) int32 = x (M, K) int8|int16  @  w (K, N) int8|int16   (mod 2^32)
 //
 // The same arithmetic as spoga_gemm_dequant.cu without the epilogue: every
-// plane pair is an int8 product (dp4a), partials are grouped into i + j
+// plane pair is an int8 tensor-core product, partials are grouped into i + j
 // radix lanes, each lane is shifted once, the shift-add runs in uint32 and
 // each output element is stored once (the core is spoga_tile.cuh).  This is
 // the `gemm` half of the SPOGA backends (`cuda_spoga`, `cuda_spoga_dequant`),
@@ -26,42 +26,28 @@ namespace {
 
 using namespace spoga_tile;
 
-template <int TM, int TN, int NXW, int NWW>
-__global__ void __launch_bounds__(THREADS)
-spoga_gemm_kernel(const void* __restrict__ x, int x_bytes,
-                  const void* __restrict__ w, int w_bytes,
-                  int32_t* __restrict__ out,
-                  int M, int K, int N, int nx, int nw, int bits) {
-    __shared__ Smem<TM, TN> smem;
-    uint32_t total[TM][TN];
-    radix_accumulate<TM, TN, NXW, NWW>(x, x_bytes, w, w_bytes, M, K, N, nx, nw, bits,
-                                       smem, total);
 
-    store_int32<TM, TN>(out, M, N, total);
+template <class C>
+__global__ void __launch_bounds__(THREADS, 1)
+spoga_gemm_kernel(Problem p, StoreInt32 epi) {
+    extern __shared__ __align__(128) char smem[];
+    gemm_block<C>(p, epi, smem);
 }
 
 struct Launcher {
-    const void* x;
-    int xb;
-    const void* w;
-    int wb;
-    int32_t* out;
-    int M, K, N, nx, nw, bits;
+    Problem p;
+    StoreInt32 epi;
     cudaStream_t stream;
+    mutable cudaError_t err;
 
-    template <int TM, int TN, int NXW, int NWW>
-    void run() const {
-        const dim3 grid = grid_for<TM, TN>(M, N);
-        spoga_gemm_kernel<TM, TN, NXW, NWW>
-            <<<grid, THREADS, 0, stream>>>(
-                x, xb, w, wb, out, M, K, N, nx, nw, bits);
-    }
+    template <class C>
+    void run() const { err = launch<C, spoga_gemm_kernel<C>>(p, epi, stream); }
 };
 
 }  // namespace
 
 // C entry point.  x_bytes / w_bytes: 1 (int8) or 2 (int16).  All tensors
-// contiguous; out (M, N) int32.  Returns cudaGetLastError().
+// contiguous; out (M, N) int32.  Returns the launch's cudaError_t.
 extern "C" int spoga_gemm_launch(
     const void* x, int x_bytes, const void* w, int w_bytes, void* out,
     int M, int K, int N, int n_x_slices, int n_w_slices, int slice_bits,
@@ -69,9 +55,12 @@ extern "C" int spoga_gemm_launch(
     if (!spoga_tile::valid_spoga_args(M, K, N, x_bytes, w_bytes, n_x_slices, n_w_slices, slice_bits)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const Launcher launcher{x, x_bytes, w, w_bytes, static_cast<int32_t*>(out),
-                            M, K, N, n_x_slices, n_w_slices, slice_bits,
-                            static_cast<cudaStream_t>(stream)};
-    spoga_tile::dispatch(launcher, M, n_x_slices, n_w_slices);
+    const Launcher launcher{
+        spoga_tile::make_problem(x, x_bytes, w, w_bytes, M, K, N, n_x_slices, n_w_slices,
+                                 slice_bits),
+        StoreInt32{static_cast<int32_t*>(out), N}, static_cast<cudaStream_t>(stream),
+        cudaSuccess};
+    spoga_tile::dispatch(launcher, M, x_bytes, w_bytes, n_x_slices, n_w_slices);
+    if (launcher.err != cudaSuccess) return static_cast<int>(launcher.err);
     return static_cast<int>(cudaGetLastError());
 }

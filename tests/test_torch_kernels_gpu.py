@@ -30,9 +30,17 @@ from repro_torch.kernels.spoga_gemm_dequant import (
 
 pytestmark = pytest.mark.gpu
 
-# tiny, exact tiles, ragged, the paper's DPU shape, decode and prefill widths
+# tiny, exact tiles, ragged, the paper's DPU shape, decode and prefill widths;
+# then one shape of every class the core's tiling creates: M in {1, 4, 16,
+# 17, 64, 128, 130} (one and two 8-row decode tiles, prefill tiles with
+# ragged M), K in {249, 257, 2048, 8192} (unaligned rows, ragged stages,
+# cluster K splits up to 8), N in {16, 100, 512, 8192} (one partial N tile
+# to 64 of them)
 SHAPES = [(8, 16, 8), (128, 128, 128), (130, 257, 100), (1, 249, 16),
-          (4, 2048, 512), (16, 2048, 2048), (17, 8192, 2048), (128, 2048, 8192)]
+          (4, 2048, 512), (16, 2048, 2048), (17, 8192, 2048), (128, 2048, 8192),
+          (1, 2048, 8192), (4, 8192, 512), (4, 257, 100), (16, 249, 16), (16, 8192, 8192),
+          (17, 2048, 100), (64, 2048, 512), (64, 249, 8192), (130, 8192, 512),
+          (128, 257, 16)]
 MODES = ["int8_spoga", "w4a8", "w4a4", "w16a16", "w8a8_s2", "w8a8_s3", "w6a6_s1"]
 
 
@@ -92,15 +100,30 @@ def test_int32_gemm_kernel_matches_plain_bitwise(mode):
         assert got.dtype == torch.int32 and torch.equal(got, want), (mode, m, k, n)
 
 
-def test_int32_gemm_wraps_like_the_plain_version():
-    """Past the int32 range (w16a16 operands at full width) both wrap mod
-    2^32 the same way."""
+# (x value, w value, dtype, planes per operand, (M, K, N)): operands at the
+# extremes of their type, constant so that every partial sum is extreme too
+EXTREMES = {
+    "int16 max x -max": (32767, -32767, torch.int16, 4, (3, 64, 5)),
+    "int16 min x max": (-32768, 32767, torch.int16, 4, (16, 257, 100)),
+    "int8 min x max": (-128, 127, torch.int8, 2, (4, 2048, 512)),
+    "int8 min x min": (-128, -128, torch.int8, 2, (17, 8192, 512)),
+    # decode at N=512 splits K=8192 over 8 blocks of a cluster: each block's
+    # partial sum (1024 x 32767^2) is past 2^31 before the cluster adds them
+    "split-K partials past 2^31": (32767, 32767, torch.int16, 4, (4, 8192, 512)),
+}
+
+
+@pytest.mark.parametrize("case", list(EXTREMES))
+def test_int32_gemm_wraps_like_the_plain_version(case):
+    """Past the int32 range (w16a16 operands at full width, K split across a
+    cluster) both wrap mod 2^32 the same way."""
     _card()
-    x = torch.full((3, 64), 32767, dtype=torch.int16, device="cuda")
-    w = torch.full((64, 5), -32767, dtype=torch.int16, device="cuda")
-    got = spoga_gemm(x, w, n_x_slices=4, n_w_slices=4, slice_bits=4)
+    xv, wv, dtype, planes, (m, k, n) = EXTREMES[case]
+    x = torch.full((m, k), xv, dtype=dtype, device="cuda")
+    w = torch.full((k, n), wv, dtype=dtype, device="cuda")
+    got = spoga_gemm(x, w, n_x_slices=planes, n_w_slices=planes, slice_bits=4)
     torch.cuda.synchronize()
-    assert torch.equal(got, spoga_gemm_plain(x, w))
+    assert torch.equal(got, spoga_gemm_plain(x, w)), case
 
 
 def test_deas_gemm_kernels_match_plain_bitwise():
