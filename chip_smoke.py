@@ -14,15 +14,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    time (the event time of back-to-back calls beside it), against the bound
    and ``torch._int_mm``;
 3. paged-attention kernel: bf16 and int8 pools against the plain version at
-   rtol/atol 2e-5, with a poisoned stale page; device and event times
-   beside the bound and ``scaled_dot_product_attention`` on the gathered
-   view;
+   rtol/atol 2e-5, stale rows poisoned, two calls bitwise equal, at (a) the
+   main path's decode shape and (b) an 8K-token table (B=16, 8 KV heads,
+   lengths 1,024-8,192 from a seed, pools read cold); device and event
+   times beside the bound and ``scaled_dot_product_attention`` on the
+   gathered view;
 4. main path: full-width llama3.2-1b, ``int8_spoga``, int8 paged KV, random
    weights from seed 0, served by ``ServingEngine`` (8 staggered requests);
    launch counts of both kernels are read around the run, the plain
    versions must not run; every request again on a 1-slot engine; then a
-   4-request pass over a bf16 pool; a profile of a few decode steps
-   (device time by kernel);
+   4-request pass over a bf16 pool; profiles of a few decode steps (device
+   time by kernel, one ``paged_attention`` kernel per layer and step) at
+   64- and 2,048-token prompts;
 5. the paper's dataflows through the ``LLM`` facade: the same weights and
    prompts served by ``int8_spoga`` fused, ``int8_spoga`` with
    ``gemm_backend="cuda_spoga"``, ``int8_deas`` and ``int8_direct``, in
@@ -31,6 +34,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    dataflow; decode-step profiles of the DEAS and direct paths;
 6. card against CPU: a 2-layer full-width model, the same weights on both,
    one prefill: the first greedy token equal, the logits within tolerance;
+   then a 1,000-token paged decode over int8 KV, 4 steps fed the CPU's
+   tokens, the logits within tolerance at every step;
 7. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
@@ -388,6 +393,13 @@ def phase_deas(int_timings):
             parts = [deas_mod.nibble_gemm(xm, wm[0]) for _ in range(4)]
             t_combine, t_combine_event = kernel_times(lambda i: deas_mod.deas_combine(*parts), 1,
                                                       iters=40)
+            # the same partials cold: copies rotated past the L2 (the main path
+            # finds them warm, just written by nibble_gemm)
+            nc = copies_for(4 * parts[0].numel() * 4)
+            cold = [[t.clone() for t in parts] for _ in range(nc)]
+            t_combine_cold = device_ms(lambda i: deas_mod.deas_combine(*cold[i]), nc, iters=40)
+            del cold
+            c_ms, _ = bound(20 * m * n, 0.0, INT8_OPS_PER_S)
             spoga = int_timings[("w8a8", m, k, n)]
             inter = 8 * m * n * 4
             # one plane product: its plane operands read once, its int32 output written once
@@ -397,6 +409,8 @@ def phase_deas(int_timings):
                                       library_ms=t_lib, bound_ms=spoga["bound_ms"],
                                       bound_by=spoga["bound_by"], deas_combine_ms=t_combine,
                                       deas_combine_event_ms=t_combine_event,
+                                      deas_combine_cold_ms=t_combine_cold,
+                                      deas_combine_bound_ms=c_ms,
                                       intermediate_bytes=inter, spoga_gemm_ms=spoga["ms"])
             nibble[(m, k, n)] = dict(ms=t_nibble, event_ms=t_nibble_event,
                                      plain_ms=t_nibble_plain, library_ms=t_nibble_lib,
@@ -406,7 +420,9 @@ def phase_deas(int_timings):
                   f"({t_event:.4f} ms by events; one nibble_gemm {t_nibble:.4f} ms device, "
                   f"{t_nibble_event:.4f} by events, plain {t_nibble_plain:.4f} ms, _int_mm on "
                   f"the planes {t_nibble_lib:.4f} ms, bound {nb_ms:.4f} ms; deas_combine "
-                  f"{t_combine:.4f} ms device, {t_combine_event:.4f} by events; intermediates "
+                  f"{t_combine:.4f} ms device warm, {t_combine_cold:.4f} cold ({nc} copies; "
+                  f"bound {c_ms:.5f} ms, {c_ms / t_combine_cold:.1%} of it), "
+                  f"{t_combine_event:.4f} by events; intermediates "
                   f"{inter} B) vs spoga_gemm {spoga['ms']:.4f} ms; plain {t_plain:.4f} ms, "
                   f"_int_mm {lib}, bound {spoga['bound_ms']:.4f} ms ({spoga['bound_by']}, "
                   f"{spoga['bound_ms'] / t_kernel:.1%} of it)", flush=True)
@@ -418,82 +434,153 @@ def phase_deas(int_timings):
 # 3. paged-attention kernel
 # ---------------------------------------------------------------------------
 
-def _attn_case(kind, gen, poison):
-    b, hkv, g, d, ps, n_pages, n_tbl = 4, 8, 4, 64, 16, 45, 11
-    q = torch.randn((b, hkv, g, d), generator=gen, device="cuda").bfloat16()
-    shp = (n_pages, ps, hkv, d)
-    scales = {}
+# (a) the main path's decode shape; (b) llama3.2-1b's heads at an 8K-token table
+ATTN_SHAPES = {
+    "main": dict(b=4, hkv=8, g=4, d=64, ps=16, n_tbl=11),
+    "long": dict(b=16, hkv=8, g=4, d=64, ps=16, n_tbl=512),
+}
+ATTN_MAIN_LENGTHS = [1, 17, 100, 165]
+ATTN_LONG_SEED = 7
+
+
+def long_lengths(shape):
+    """Lengths between 1,024 and the table's 8,192 rows, from the seed: one
+    lane at 8,192, one on a page boundary, one on a split boundary (a whole
+    number of pages in every split)."""
+    rows = shape["n_tbl"] * shape["ps"]
+    lens = np.random.default_rng(ATTN_LONG_SEED).integers(1024, rows + 1, shape["b"])
+    from repro_torch.kernels.paged_attention import table_splits
+    edge = table_splits(shape["b"], shape["hkv"], shape["g"], shape["d"], shape["ps"],
+                        shape["n_tbl"], int8=True) * shape["ps"]
+    lens[:3] = [rows, 313 * shape["ps"], edge * (rows // edge * 5 // 8)]
+    return lens.tolist()
+
+
+def _attn_pools(kind, gen, n_pages, shape):
+    shp = (n_pages, shape["ps"], shape["hkv"], shape["d"])
     if kind == "int8":
         kp = torch.randint(-127, 128, shp, generator=gen, device="cuda").to(torch.int8)
         vp = torch.randint(-127, 128, shp, generator=gen, device="cuda").to(torch.int8)
         scales = {"k_scale": torch.rand(shp[:3], generator=gen, device="cuda") * 0.02 + 1e-3,
                   "v_scale": torch.rand(shp[:3], generator=gen, device="cuda") * 0.02 + 1e-3}
-    else:
-        kp = torch.randn(shp, generator=gen, device="cuda").bfloat16()
-        vp = torch.randn(shp, generator=gen, device="cuda").bfloat16()
-    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * n_tbl] + 1
-    tables = perm.reshape(b, n_tbl).to(torch.int32)
-    lengths = torch.tensor([1, 17, 100, 165], dtype=torch.int32, device="cuda")
+        return kp, vp, scales
+    kp = torch.randn(shp, generator=gen, device="cuda").bfloat16()
+    vp = torch.randn(shp, generator=gen, device="cuda").bfloat16()
+    return kp, vp, {}
+
+
+def _attn_case(kind, gen, shape, lengths):
+    """The pool holds each lane's pages below its length (distinct, in
+    shuffled order) and the trash page 0, which every table entry past a
+    lane's length names.  Returns the poisoned inputs and the clean pools:
+    stale rows of each lane's last page and the whole trash page poisoned."""
+    b, ps, n_tbl = shape["b"], shape["ps"], shape["n_tbl"]
+    used = [-(-n // ps) for n in lengths]
+    n_pages = 1 + sum(used)
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1).to(torch.int32)
+    tables = torch.zeros((b, n_tbl), dtype=torch.int32, device="cuda")
+    start = 0
+    for lane, n in enumerate(used):
+        tables[lane, :n] = perm[start:start + n]
+        start += n
+    q = torch.randn((b, shape["hkv"], shape["g"], shape["d"]), generator=gen,
+                    device="cuda").bfloat16()
+    kp, vp, scales = _attn_pools(kind, gen, n_pages, shape)
     clean = (kp.clone(), vp.clone())
-    if poison:
-        big = 127 if kind == "int8" else 3.0e4
-        for lane in range(b):
-            n = int(lengths[lane])
-            last, off = tables[lane, (n - 1) // ps], (n - 1) % ps + 1
-            for pool in (kp, vp):
-                pool[last, off:] = big                       # stale rows of the last page
-                pool[tables[lane, (n + ps - 1) // ps:].long()] = -big   # pages past the length
+    big = 127 if kind == "int8" else 3.0e4
+    for lane, n in enumerate(lengths):
+        last, off = tables[lane, (n - 1) // ps], (n - 1) % ps + 1
+        for pool in (kp, vp):
+            pool[last, off:] = big
+    for pool in (kp, vp):
+        pool[0] = -big
+    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, kp, vp, tables, lengths, scales, clean
 
 
-def phase_attention():
-    import torch.nn.functional as F
+def _attn_bound(q, kp, tables, lengths, scales):
+    """Bytes the function needs: q, the K and V rows below each length (and
+    their scales), the table entries naming them, lengths and the output;
+    operations: QK and PV, 4 per row, head and element, at the bf16 rate."""
+    b, hkv, g, d = q.shape
+    ps = kp.shape[1]
+    rows = int(lengths.sum())
+    pages = int(((lengths + ps - 1) // ps).sum())
+    kv_bytes = 2 * rows * hkv * d * kp.element_size() + (2 * rows * hkv * 4 if scales else 0)
+    nbytes = q.numel() * q.element_size() + kv_bytes + 4 * pages + 4 * b + 4 * b * hkv * g * d
+    return bound(nbytes, 4.0 * rows * hkv * g * d, BF16_OPS_PER_S)
 
+
+def _sdpa_ms(q, kp, vp, tables, lengths):
+    """``scaled_dot_product_attention`` on the gathered bf16 view (the G query
+    heads of a KV head as its queries, the table's rows as keys, masked
+    past each length)."""
+    import torch.nn.functional as F
+    b, hkv, g, d = q.shape
+    n_tbl, ps = tables.shape[1], kp.shape[1]
+    k_all = kp[tables.long()].reshape(b, n_tbl * ps, hkv, d).permute(0, 2, 1, 3)
+    v_all = vp[tables.long()].reshape(b, n_tbl * ps, hkv, d).permute(0, 2, 1, 3)
+    mask = (torch.arange(n_tbl * ps, device="cuda")[None, :] < lengths[:, None])[:, None, None, :]
+    return device_ms(lambda i: F.scaled_dot_product_attention(q, k_all, v_all, attn_mask=mask),
+                     1, iters=50)
+
+
+def phase_attention(card):
+    """Both pools at shapes (a) and (b): the kernel against the plain version
+    on clean and on poisoned pools, two calls bitwise equal; device and
+    event time (shape (b) cold: pool copies rotated past the L2), plain
+    time, bound and ``scaled_dot_product_attention`` (bf16 pools)."""
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
-    for kind in ("bf16", "int8"):
-        q, kp, vp, tables, lengths, scales, (kc, vc) = _attn_case(kind, gen, poison=True)
-        got = paged_attention(q, kp, vp, tables, lengths, **scales)
-        want = paged_attention_plain(q, kc, vc, tables, lengths, **scales)
-        want_p = paged_attention_plain(q, kp, vp, tables, lengths, **scales)
-        torch.cuda.synchronize()
-        err = max((got - want).abs().max().item(), (got - want_p).abs().max().item())
-        require(torch.allclose(got, want, **ATTN_TOL) and torch.allclose(got, want_p, **ATTN_TOL),
-                f"paged attention {kind}: max |diff| {err}")
-        require(bool(torch.isfinite(got).all()), f"paged attention {kind}: non-finite output")
+    for name, shape in ATTN_SHAPES.items():
+        lengths = ATTN_MAIN_LENGTHS if name == "main" else long_lengths(shape)
+        for kind in ("bf16", "int8"):
+            q, kp, vp, tables, lengths_t, scales, (kc, vc) = _attn_case(kind, gen, shape, lengths)
+            got = paged_attention(q, kp, vp, tables, lengths_t, **scales)
+            again = paged_attention(q, kp, vp, tables, lengths_t, **scales)
+            want = paged_attention_plain(q, kc, vc, tables, lengths_t, **scales)
+            want_p = paged_attention_plain(q, kp, vp, tables, lengths_t, **scales)
+            torch.cuda.synchronize()
+            err = max((got - want).abs().max().item(), (got - want_p).abs().max().item())
+            label = f"paged attention {kind} {name}"
+            require(torch.allclose(got, want, **ATTN_TOL)
+                    and torch.allclose(got, want_p, **ATTN_TOL), f"{label}: max |diff| {err}")
+            require(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+            require(torch.equal(got, again), f"{label}: two calls differ")
+            del kc, vc, want, want_p, again
 
-        b, hkv, g, d = q.shape
-        ps = kp.shape[1]
-        rows = int(lengths.sum())
-        t_kernel, t_event = kernel_times(
-            lambda i: paged_attention(q, kp, vp, tables, lengths, **scales), 1, iters=200)
-        t_plain = time_ms(lambda i: paged_attention_plain(q, kp, vp, tables, lengths, **scales),
-                          1, iters=20)
-        t_lib = None
-        if kind == "bf16":
-            n_tbl = tables.shape[1]
-            k_all = kp[tables.long()].reshape(b, n_tbl * ps, hkv, d).permute(0, 2, 1, 3)
-            v_all = vp[tables.long()].reshape(b, n_tbl * ps, hkv, d).permute(0, 2, 1, 3)
-            mask = (torch.arange(n_tbl * ps, device="cuda")[None, :] < lengths[:, None])
-            mask = mask[:, None, None, :]
-            t_lib = device_ms(lambda i: F.scaled_dot_product_attention(q, k_all, v_all,
-                                                                       attn_mask=mask),
-                              1, iters=200)
-        kv_bytes = 2 * rows * hkv * d * kp.element_size()
-        if scales:
-            kv_bytes += 2 * rows * hkv * 4
-        nbytes = (q.numel() * q.element_size() + kv_bytes + tables.numel() * 4 + b * 4
-                  + b * hkv * g * d * 4)
-        ops = 4.0 * rows * hkv * g * d
-        b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
-        out[kind] = dict(ms=t_kernel, event_ms=t_event, plain_ms=t_plain, library_ms=t_lib,
-                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-        lib = f"{t_lib:.4f}" if t_lib is not None else "n/a"
-        print(f"[attn] {kind} B={b} Hkv={hkv} G={g} D={d} ps={ps} lengths="
-              f"{lengths.tolist()}: max |diff| {err:.3g} (stale rows poisoned); kernel "
-              f"{t_kernel:.4f} ms device ({t_event:.4f} ms by events), plain {t_plain:.4f} ms, "
-              f"sdpa {lib} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+            nb = copies_for(kp.numel() * kp.element_size() * 2) if name == "long" else 1
+            pools = [(kp, vp, scales)] + [(kp.clone(), vp.clone(),
+                                           {k: v.clone() for k, v in scales.items()})
+                                          for _ in range(nb - 1)]
+            iters = 200 if name == "main" else 50
+            t_kernel, t_event = kernel_times(
+                lambda i: paged_attention(q, pools[i][0], pools[i][1], tables, lengths_t,
+                                          **pools[i][2]), nb, iters=iters)
+            t_plain = time_ms(lambda i: paged_attention_plain(q, pools[i][0], pools[i][1], tables,
+                                                              lengths_t, **pools[i][2]),
+                              nb, iters=20 if name == "main" else 5, warmup=1)
+            t_lib = _sdpa_ms(q, kp, vp, tables, lengths_t) if kind == "bf16" else None
+            b_ms, b_by = _attn_bound(q, kp, tables, lengths_t, scales)
+            b, hkv, g, d = q.shape
+            out[(kind, name)] = dict(
+                ms=t_kernel, event_ms=t_event, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=b_ms, bound_by=b_by, fraction_of_bound=b_ms / t_kernel,
+                max_abs_err=err, copies=nb,
+                shape=(f"{kind} pool B={b} Hkv={hkv} G={g} D={d} ps={kp.shape[1]} "
+                       f"P={tables.shape[1]}, {int(lengths_t.sum())} rows"))
+            lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
+            lens = (lengths if name == "main"
+                    else f"{min(lengths)}..{max(lengths)} (mean {np.mean(lengths):.0f})")
+            print(f"[attn] {kind} {name} B={b} Hkv={hkv} G={g} D={d} ps={kp.shape[1]} "
+                  f"P={tables.shape[1]} lengths {lens}: max |diff| {err:.3g} (stale rows "
+                  f"poisoned), two calls bitwise equal; kernel {t_kernel:.4f} ms device "
+                  f"({t_event:.4f} ms by events; {nb} pool cop{'y' if nb == 1 else 'ies'}), "
+                  f"plain {t_plain:.4f} ms, sdpa {lib}, bound {b_ms:.5f} ms ({b_by}, "
+                  f"{b_ms / t_kernel:.1%} of it) [{card}]", flush=True)
+            del pools, q, kp, vp, tables, scales
+            torch.cuda.empty_cache()
     return out
 
 
@@ -635,8 +722,10 @@ def phase_main(card, params):
     r16 = m16.report()
     print(f"[main] bf16 KV: {r16['tokens_per_s']:.1f} tok/s, decode step mean "
           f"{1e3 * r16['decode_step_mean_s']:.2f} ms [{card}]", flush=True)
-    phase_profile(cfg, params, card, "int8_spoga")
-    return launches, launches16
+    profile = {"cache_len_168": phase_profile(cfg, params, card, "int8_spoga"),
+               "context_2048": phase_profile(cfg, params, card, "int8_spoga", steps=4,
+                                             prompt_len=2048)}
+    return launches, launches16, profile
 
 
 def _kernel_group(name: str) -> str:
@@ -652,16 +741,19 @@ def _kernel_group(name: str) -> str:
             "norms, rope)")
 
 
-def _busy_engine(cfg, params):
-    """A 4-lane engine with 4 requests admitted and decoding (same every call)."""
+def _busy_engine(cfg, params, prompt_len=64):
+    """A 4-lane engine with 4 requests of ``prompt_len`` tokens admitted and
+    decoding (same every call)."""
     from repro_torch.configs import default_cache_len
     from repro_torch.serving import EngineConfig, ServingEngine
+    buckets = (32, 64, 128) if prompt_len <= 128 else (prompt_len,)
     engine = ServingEngine(cfg, params, EngineConfig(
-        n_slots=4, page_size=16, prefill_buckets=(32, 64, 128),
-        cache_len=default_cache_len(128, 32), cache_mode="paged"), device="cuda")
+        n_slots=4, page_size=16, prefill_buckets=buckets,
+        cache_len=default_cache_len(max(128, prompt_len), 32), cache_mode="paged"),
+        device="cuda")
     rng = np.random.default_rng(ENGINE_SEED + 2)
     for _ in range(4):
-        engine.add_request(rng.integers(0, cfg.vocab_size, 64).tolist(), 32)
+        engine.add_request(rng.integers(0, cfg.vocab_size, prompt_len).tolist(), 32)
     for _ in range(6):                       # 4 admissions, then decode only
         engine.step()
     torch.cuda.synchronize()
@@ -676,24 +768,27 @@ def _timed_steps(engine, steps):
     return time.perf_counter() - t0
 
 
-def phase_profile(cfg, params, card, label, steps=5):
-    """Device time by kernel over ``steps`` decode steps with 4 busy lanes.
+def phase_profile(cfg, params, card, label, steps=5, prompt_len=64):
+    """Device time by kernel over ``steps`` decode steps with 4 busy lanes of
+    ``prompt_len``-token prompts; returns ``paged_attention``'s device time
+    per step (ms), or None where the profiler recorded no device time.
 
     Two engines fed the same requests do the same steps: the first is
     timed without the profiler (wall), the second under it (device time
     per kernel), so the busy share divides like by like."""
     from torch.profiler import ProfilerActivity, profile
 
-    wall_plain = _timed_steps(_busy_engine(cfg, params), steps)
-    engine = _busy_engine(cfg, params)
+    wall_plain = _timed_steps(_busy_engine(cfg, params, prompt_len), steps)
+    engine = _busy_engine(cfg, params, prompt_len)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = _timed_steps(engine, steps)
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms per step
+    label = f"{label}, {prompt_len}-token prompts"
     if not kernels or total <= 0:
         print(f"[profile] {label}: the profiler recorded no device time: breakdown not "
               f"measured", flush=True)
-        return
+        return None
     step_ms, plain_ms = 1e3 * wall / steps, 1e3 * wall_plain / steps
     print(f"[profile] {label}, {steps} decode steps, 4 lanes: {total:.3f} ms/step device time; "
           f"wall {plain_ms:.3f} ms/step without the profiler (device busy "
@@ -709,6 +804,15 @@ def phase_profile(cfg, params, card, label, steps=5):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[profile]   top: {e.self_device_time_total / 1e3 / steps:.3f} ms/step, "
               f"{e.count // steps} launches/step  {e.key[:90]}", flush=True)
+    attn = [e for e in kernels if "paged_attention_kernel" in e.key]
+    n_attn = sum(e.count for e in attn)
+    require(n_attn == cfg.n_layers * steps,
+            f"{label}: {n_attn} paged_attention kernels in {steps} steps, want one per layer "
+            f"per step ({cfg.n_layers * steps})")
+    attn_ms = groups.get("paged_attention kernel", 0.0)
+    print(f"[profile]   paged_attention: {attn_ms:.4f} ms/step, {100 * attn_ms / total:.2f}% of "
+          f"device time, {n_attn // steps} launches/step (one per layer)", flush=True)
+    return attn_ms
 
 
 # ---------------------------------------------------------------------------
@@ -796,21 +900,21 @@ def phase_dataflows(card, params):
 # 6. card against CPU
 # ---------------------------------------------------------------------------
 
+def _to_cpu(t):
+    if isinstance(t, dict):
+        return {k: _to_cpu(v) for k, v in t.items()}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_to_cpu(v) for v in t)
+    return t.cpu()
+
+
 def phase_cpu_parity():
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, prefill
     cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8",
                                           n_layers=2)
     params = init_params(cfg, seed=3, device="cuda")
-
-    def to_cpu(t):
-        if isinstance(t, dict):
-            return {k: to_cpu(v) for k, v in t.items()}
-        if isinstance(t, (list, tuple)):
-            return type(t)(to_cpu(v) for v in t)
-        return t.cpu()
-
-    cpu_params = to_cpu(params)
+    cpu_params = _to_cpu(params)
     rng = np.random.default_rng(3)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 16)).astype(np.int32))
     t0 = time.perf_counter()
@@ -827,6 +931,93 @@ def phase_cpu_parity():
     require(bool(torch.isfinite(got).all()), "card logits not finite")
     require(int(got.argmax()) == int(want.argmax()), "first greedy token differs from the CPU's")
     require(err <= LOGIT_TOL * scale, f"card logits off the CPU's by {err} > {LOGIT_TOL * scale}")
+
+
+LONG_PROMPT = 1000
+LONG_STEPS = 4
+
+
+def phase_cpu_long_decode(card):
+    """Paged decode over a long context, card against CPU: the same 2-layer
+    full-width model and int8 paged KV on both, a 1,000-token prompt, then
+    LONG_STEPS decode steps fed the CPU's greedy tokens; the card's logits
+    within LOGIT_TOL x max of the CPU's at every step.
+
+    ``quant_mode="bf16"`` keeps the CPU's prefill of 1,000 tokens within
+    seconds: the plain sliced GEMMs on the CPU would take minutes there.
+    The card's decode attention is the ``paged_attention`` kernel over 8
+    KV heads of one lane: the prompt spans several of its splits."""
+    from repro_torch.configs import default_cache_len, get_config, pages_for
+    from repro_torch.kernels import paged_attention as attn_mod
+    from repro_torch.kernels.paged_attention import table_splits
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.paging.cache import PagedCache
+    cfg = get_config("llama3.2-1b").with_(quant_mode="bf16", kv_cache_dtype="int8", n_layers=2)
+    ps = 16
+    cache_len = default_cache_len(LONG_PROMPT, LONG_STEPS)
+    splits = table_splits(1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                          cfg.resolved_head_dim, ps, pages_for(cache_len, ps), int8=True)
+    require(splits >= 4 and LONG_PROMPT >= 4 * splits * ps,
+            f"the {LONG_PROMPT}-token prompt gives fewer than 4 pages to each of 4 or more "
+            f"splits ({splits} splits)")
+    params = init_params(cfg, seed=3, device="cuda")
+    rng = np.random.default_rng(4)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LONG_PROMPT)).astype(np.int32))
+    single_len = pages_for(LONG_PROMPT, ps) * ps
+    tokens = torch.zeros((1, single_len), dtype=torch.int32)
+    tokens[0, :LONG_PROMPT] = prompt[0]
+    lengths = torch.tensor([LONG_PROMPT], dtype=torch.int32)
+
+    def start(device, p):
+        store = PagedCache(cfg, n_lanes=1, cache_len=cache_len, page_size=ps, device=device)
+        mgr = store.manager
+        mgr.admit(0, LONG_PROMPT + LONG_STEPS)
+        page_ids = mgr.alloc(0, single_len // ps)
+        mgr.set_length(0, LONG_PROMPT)
+        logits, single = prefill(p, cfg, tokens.to(device), single_len,
+                                 lengths=lengths.to(device))
+        store.insert(single, 0, page_ids, LONG_PROMPT)
+        return store, logits
+
+    def step(store, p, tok):
+        mgr = store.manager
+        mgr.ensure(0, int(mgr.lengths[0]) + 1)
+        store.sync_tables()
+        device = store.device
+        logits, _ = decode_step(p, cfg, tok.to(device), store.cache,
+                                active=torch.ones((1,), dtype=torch.bool, device=device))
+        mgr.advance([0])
+        return logits
+
+    t0 = time.perf_counter()
+    card_store, card_logits = start("cuda", params)
+    cpu_params = _to_cpu(params)
+    cpu_store, cpu_logits = start("cpu", cpu_params)
+    agree, worst = 0, 0.0
+    launches = attn_mod.LAUNCHES
+    for i in range(LONG_STEPS + 1):
+        got, want = card_logits.float().cpu(), cpu_logits.float()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err / scale)
+        require(bool(torch.isfinite(got).all()), f"long decode step {i}: card logits not finite")
+        require(err <= LOGIT_TOL * scale, f"long decode step {i}: card logits off the CPU's by "
+                                          f"{err} > {LOGIT_TOL * scale}")
+        agree += int(got.argmax()) == int(want.argmax())
+        if i == LONG_STEPS:
+            break
+        tok = want.argmax(dim=-1).to(torch.int32)          # the CPU's greedy token
+        card_logits = step(card_store, params, tok)
+        cpu_logits = step(cpu_store, cpu_params, tok)
+    torch.cuda.synchronize()
+    n_launch = attn_mod.LAUNCHES - launches
+    require(n_launch == cfg.n_layers * LONG_STEPS,
+            f"long decode: {n_launch} paged_attention launches, want {cfg.n_layers * LONG_STEPS}")
+    print(f"[cpu] 2-layer full width, bf16 GEMMs, int8 paged KV, {LONG_PROMPT}-token prompt "
+          f"({splits} splits) + {LONG_STEPS} decode steps fed the CPU's tokens: max "
+          f"|logit diff| {worst:.4g} x max |logit| (tolerance {LOGIT_TOL}), greedy agreement "
+          f"{agree}/{LONG_STEPS + 1}, {n_launch} kernel launches; "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -849,13 +1040,14 @@ def main() -> int:
     gemm, gemm_err = phase_gemm()
     int_gemm, int_err = phase_int_gemm()
     deas, nibble, deas_err = phase_deas(int_gemm)
-    attn = phase_attention()
+    attn = phase_attention(card)
     params = full_width_params()
-    launches, launches16 = phase_main(card, params)
+    launches, launches16, attn_profile = phase_main(card, params)
     facade = phase_dataflows(card, params)
     del params
     torch.cuda.empty_cache()
     phase_cpu_parity()
+    phase_cpu_long_decode(card)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -883,12 +1075,14 @@ def main() -> int:
                         at(gemm, lambda m: ("w8a8", m, 2048, 8192)))]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
-        a = dict(attn[kind])
+        a, long = dict(attn[(kind, "main")]), dict(attn[(kind, "long")])
         kernels.append({"name": f"paged_attention/{kind}", "route": "cuda",
                         "source": "src/repro_torch/csrc/paged_attention.cu",
                         "replaces": "src/repro/kernels/paged_attention.py:91",
-                        "launches": count, "max_abs_err": a.pop("max_abs_err"),
-                        "shape": f"{kind} pool B=4 Hkv=8 G=4 D=64 ps=16", **a})
+                        "launches": count, "max_abs_err": max(a.pop("max_abs_err"),
+                                                              long["max_abs_err"]),
+                        **a, "long_context": long,
+                        "decode_profile_ms_per_step": attn_profile, "card": card})
     unfused, deas_run = facade["spoga unfused"], facade["deas"]
     kernels.append(gemm_row("spoga_gemm", "src/repro_torch/csrc/spoga_gemm.cu",
                             "src/repro/kernels/spoga_gemm.py:116", unfused["spoga_gemm"], 1,

@@ -21,7 +21,11 @@ from repro_torch.kernels import paged_attention as attn_mod
 from repro_torch.kernels import spoga_gemm as int_gemm_mod
 from repro_torch.kernels import spoga_gemm_dequant as gemm_mod
 from repro_torch.kernels.deas_gemm import deas_gemm, deas_gemm_plain
-from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+from repro_torch.kernels.paged_attention import (
+    paged_attention,
+    paged_attention_plain,
+    table_splits,
+)
 from repro_torch.kernels.spoga_gemm import spoga_gemm, spoga_gemm_plain
 from repro_torch.kernels.spoga_gemm_dequant import (
     spoga_gemm_dequant,
@@ -172,32 +176,91 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take():
         deas_gemm(x.to(torch.int16), w)                         # W8A8 only
 
 
-def _pool_case(kind, seed, q_dtype=torch.bfloat16):
-    b, hkv, g, d, ps, n_pages, n_tbl = 4, 8, 4, 64, 16, 45, 11
+# Paged-attention shapes: (B, Hkv, G, D, page size, table pages, lengths).
+# Lengths are a list, or a name the test resolves on the card:
+# "edges" (split and page edges), "long" (8K context, drawn from the seed).
+ATTN_CASES = {
+    "main": (4, 8, 4, 64, 16, 11, [1, 17, 100, 165]),       # the main path's decode
+    "edges": (8, 4, 4, 64, 16, 64, "edges"),
+    "wide table, short lanes": (4, 8, 4, 64, 16, 512, [1, 9, 16, 40]),
+    "long": (16, 8, 4, 64, 16, 512, "long"),
+    "G1 D128 ps8": (3, 2, 1, 128, 8, 40, "random"),
+    "G2 D64 ps32": (3, 2, 2, 64, 32, 20, "random"),
+    "G8 D128 ps16": (2, 4, 8, 128, 16, 24, "random"),
+    "G3 D64 ps8": (3, 2, 3, 64, 8, 30, "random"),
+    "G16 D64 ps16": (2, 2, 16, 64, 16, 12, "random"),
+    "G32 D256 ps8": (2, 1, 32, 256, 8, 12, "random"),
+    "D24 (element loads)": (3, 2, 4, 24, 16, 10, "random"),
+}
+ATTN_KINDS = [("bf16", torch.bfloat16), ("int8", torch.bfloat16), ("bf16", torch.float32),
+              ("int8", torch.float32)]
+
+
+def _lengths(spec, b, hkv, g, d, ps, n_tbl, rng):
+    if isinstance(spec, list):
+        return spec
+    rows = n_tbl * ps
+    # split r takes pages r, r + S, ...: at S pages every split holds one
+    split_edge = table_splits(b, hkv, g, d, ps, n_tbl, int8=True) * ps
+    if spec == "edges":   # page edges; the last split idle, all busy, split 0 a page ahead
+        return [1, ps - 1, ps, ps + 1, split_edge - ps, split_edge, split_edge + 1, rows][:b]
+    if spec == "long":    # one lane at the table's end, one on a page edge, one on a split edge
+        lens = rng.integers(1024, rows + 1, b)
+        lens[:3] = [rows, 313 * ps, split_edge * (rows // split_edge * 5 // 8)]
+        return lens.tolist()
+    return rng.integers(1, rows + 1, b).tolist()
+
+
+def _pool_case(kind, seed, q_dtype=torch.bfloat16, case="main"):
+    """Inputs on the card.  Each lane's pages below its length are distinct
+    pages of the pool; its table entries past the length name page 0, the
+    trash page.  The pool holds those pages and nothing else."""
+    b, hkv, g, d, ps, n_tbl, spec = ATTN_CASES[case]
     rng = np.random.default_rng(seed)
+    lengths = _lengths(spec, b, hkv, g, d, ps, n_tbl, rng)
+    used = [-(-n // ps) for n in lengths]
+    n_pages = 1 + sum(used)
+    ids = rng.permutation(n_pages - 1) + 1
+    tables = np.zeros((b, n_tbl), np.int32)
+    start = 0
+    for lane, n in enumerate(used):
+        tables[lane, :n] = ids[start:start + n]
+        start += n
     q = torch.from_numpy(rng.normal(size=(b, hkv, g, d)).astype(np.float32)).to(q_dtype)
     shp = (n_pages, ps, hkv, d)
     scales = {}
     if kind == "int8":
         kp = torch.from_numpy(rng.integers(-127, 128, shp).astype(np.int8))
         vp = torch.from_numpy(rng.integers(-127, 128, shp).astype(np.int8))
-        scales = {k: torch.from_numpy(rng.uniform(1e-3, 0.02, shp[:3]).astype(np.float32))
+        scales = {k: torch.from_numpy(rng.uniform(1e-3, 0.02, shp[:3]).astype(np.float32)).cuda()
                   for k in ("k_scale", "v_scale")}
     else:
         kp = torch.from_numpy(rng.normal(size=shp).astype(np.float32)).bfloat16()
         vp = torch.from_numpy(rng.normal(size=shp).astype(np.float32)).bfloat16()
-    tables = torch.from_numpy((rng.permutation(n_pages - 1)[:b * n_tbl] + 1)
-                              .reshape(b, n_tbl).astype(np.int32))
-    lengths = torch.tensor([1, 17, 100, 165], dtype=torch.int32)
-    scales = {k: v.cuda() for k, v in scales.items()}
-    return [t.cuda() for t in (q, kp, vp, tables, lengths)], scales
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    return [t.cuda() for t in (q, kp, vp, torch.from_numpy(tables), lengths)], scales
 
 
-@pytest.mark.parametrize("kind,q_dtype", [("bf16", torch.bfloat16), ("int8", torch.bfloat16),
-                                          ("bf16", torch.float32), ("int8", torch.float32)])
-def test_paged_attention_kernel_matches_plain(kind, q_dtype):
+def _poison(kp, vp, tables, lengths, kind):
+    """Stale rows of each lane's last page, and the trash page, poisoned."""
+    big = 127 if kind == "int8" else 3.0e4
+    ps = kp.shape[1]
+    for lane, n in enumerate(lengths.tolist()):
+        last, off = tables[lane, (n - 1) // ps], (n - 1) % ps + 1
+        for pool in (kp, vp):
+            pool[last, off:] = big
+    for pool in (kp, vp):
+        pool[0] = -big
+
+
+@pytest.mark.parametrize("case,kind,q_dtype",
+                         [("main", k, q) for k, q in ATTN_KINDS]
+                         + [(c, k, q) for c in list(ATTN_CASES)[1:]
+                            for k, q in ATTN_KINDS[:2]]
+                         + [("edges", "int8", torch.float32), ("long", "bf16", torch.float32)])
+def test_paged_attention_kernel_matches_plain(case, kind, q_dtype):
     _card()
-    args, scales = _pool_case(kind, seed=3, q_dtype=q_dtype)
+    args, scales = _pool_case(kind, seed=3, q_dtype=q_dtype, case=case)
     launches = attn_mod.LAUNCHES
     got = paged_attention(*args, **scales)
     assert attn_mod.LAUNCHES == launches + 1
@@ -206,20 +269,30 @@ def test_paged_attention_kernel_matches_plain(kind, q_dtype):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("case", ["main", "edges", "long", "G3 D64 ps8", "D24 (element loads)"])
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
-def test_paged_attention_kernel_never_reads_stale_rows(kind):
+def test_paged_attention_kernel_never_reads_stale_rows(kind, case):
     """Rows at or past a lane's length, in its last page and in the pages
     after it, are poisoned; the kernel's output must not move."""
     _card()
-    (q, kp, vp, tables, lengths), scales = _pool_case(kind, seed=4)
+    (q, kp, vp, tables, lengths), scales = _pool_case(kind, seed=4, case=case)
     clean = paged_attention(q, kp, vp, tables, lengths, **scales)
-    big = 127 if kind == "int8" else 3.0e4
-    ps = kp.shape[1]
-    for lane, n in enumerate(lengths.tolist()):
-        last, off = tables[lane, (n - 1) // ps], (n - 1) % ps + 1
-        for pool in (kp, vp):
-            pool[last, off:] = big
-            pool[tables[lane, (n + ps - 1) // ps:].long()] = -big
+    _poison(kp, vp, tables, lengths, kind)
     poisoned = paged_attention(q, kp, vp, tables, lengths, **scales)
     torch.cuda.synchronize()
     assert torch.equal(poisoned, clean)
+
+
+@pytest.mark.parametrize("case", ["main", "long"])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_paged_attention_kernel_is_deterministic(kind, case):
+    """The splits combine in a fixed order: two calls are bitwise equal, and
+    each call is one launch."""
+    _card()
+    args, scales = _pool_case(kind, seed=5, case=case)
+    launches = attn_mod.LAUNCHES
+    first = paged_attention(*args, **scales)
+    second = paged_attention(*args, **scales)
+    torch.cuda.synchronize()
+    assert attn_mod.LAUNCHES == launches + 2
+    assert torch.equal(first, second)

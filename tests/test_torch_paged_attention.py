@@ -1,9 +1,10 @@
 """The port's paged decode attention against the JAX package.
 
 The kernel's plain version is held to the Pallas kernel (run through the
-interpreter) at rtol/atol 2e-5 — the JAX package's own contract
-(``test_paging.py``) — for f32, bf16 and int8 pools, including stale
-rows past ``lengths``.  The layer-level ``paged_attention_decode`` is held
+interpreter) and to its gather reference at rtol/atol 2e-5 — the JAX
+package's own contract (``test_paging.py``) — for f32, bf16 and int8
+pools, at short and 2K-token tables, including stale rows past
+``lengths``.  The layer-level ``paged_attention_decode`` is held
 to the JAX layer on the same weights and pools, through both the gather
 twin (``"gather"`` vs ``"jnp"``) and the kernel route (the wrapper's plain
 version vs ``"pallas_interpret"``).
@@ -18,7 +19,10 @@ import torch
 import repro.models.attention as jax_attn
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
-from repro.kernels.paged_attention import paged_attention as jax_paged_attention
+from repro.kernels.paged_attention import (
+    paged_attention as jax_paged_attention,
+    paged_attention_ref as jax_paged_attention_ref,
+)
 from repro.models import init_params as jax_init_params
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import paged_attention as attn_mod
@@ -40,12 +44,13 @@ def _to_torch(a):
     return torch.from_numpy(a)
 
 
-def _pool_case(kind, seed, b=3, hkv=2, g=4, d=32, ps=8, n_pages=16, n_tbl=4):
+def _pool_case(kind, seed, b=3, hkv=2, g=4, d=32, ps=8, n_pages=16, n_tbl=4,
+               lengths=(1, 17, 32)):                 # partial / multi / full
     rng = np.random.default_rng(seed)
     q = rng.normal(size=(b, hkv, g, d)).astype(np.float32)
     tables = (rng.permutation(np.arange(1, n_pages))[:b * n_tbl]
               .reshape(b, n_tbl).astype(np.int32))
-    lengths = np.asarray([1, 17, 32][:b], np.int32)  # partial / multi / full
+    lengths = np.asarray(lengths[:b], np.int32)
     scales = {}
     if kind == "int8":
         kp = rng.integers(-127, 128, (n_pages, ps, hkv, d)).astype(np.int8)
@@ -61,18 +66,29 @@ def _pool_case(kind, seed, b=3, hkv=2, g=4, d=32, ps=8, n_pages=16, n_tbl=4):
     return q, kp, vp, tables, lengths, scales
 
 
+# The card's kernel is held to the plain version up to 8K-token tables, so
+# the plain version is held to the JAX package at a long table too: 128
+# pages of 16 rows, lanes at 1 row, on page edges, and at the table's end.
+LONG = dict(b=2, hkv=2, g=4, d=64, ps=16, n_pages=257, n_tbl=128)
+POOL_CASES = {"short": {}, "long": dict(LONG, lengths=(1, 2048)),
+              "long, page edges": dict(LONG, lengths=(1024, 1041))}
+
+
+@pytest.mark.parametrize("case", list(POOL_CASES))
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-def test_plain_matches_pallas_kernel(kind):
-    q, kp, vp, tables, lengths, scales = _pool_case(kind, seed=0)
-    want = jax_paged_attention(
-        *map(jnp.asarray, (q, kp, vp, tables, lengths)), interpret=True,
-        **{k: jnp.asarray(v) for k, v in scales.items()})
+def test_plain_matches_pallas_kernel(kind, case):
+    q, kp, vp, tables, lengths, scales = _pool_case(kind, seed=0, **POOL_CASES[case])
+    jargs = [jnp.asarray(a) for a in (q, kp, vp, tables, lengths)]
+    jscales = {k: jnp.asarray(v) for k, v in scales.items()}
+    want = jax_paged_attention(*jargs, interpret=True, **jscales)
+    ref = jax_paged_attention_ref(*jargs, **jscales)
     calls = attn_mod.PLAIN_CALLS
     got = paged_attention(*map(_to_torch, (q, kp, vp, tables, lengths)),
                           **{k: _to_torch(v) for k, v in scales.items()})
     assert attn_mod.PLAIN_CALLS == calls + 1  # CPU tensors -> plain version
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
