@@ -453,12 +453,12 @@ paged_attention_kernel(const Params p) {
 
 // ---------------------------------------------------------------------------
 // The tensor-core kernel: D of 64 or 128, at most 8 query heads, 16-byte
-// aligned rows.  A warp takes its rows 16 at a time (a tile): QK^T and PV
-// run as bf16 mma.sync m16n8k16 with f32 sums, the block's query heads as
-// the 16 rows of A (the upper 8 used).  bf16 carries int8 values exactly;
-// an f32 operand (q, and the probabilities times v_scale) is split into
-// three bf16 parts whose sum is it to 24 bits, one product each, so the
-// sums keep f32 accuracy.
+// aligned rows.  A warp takes its rows 16 at a time (a tile): QK^T runs as
+// bf16 mma.sync m16n8k16 with the block's query heads as the first 8 of
+// the 16 rows of A, PV as O^T = V^T P^T with D as the rows; sums in f32.
+// bf16 carries int8 values exactly; an f32 operand (q, and the
+// probabilities times v_scale) is split into three bf16 parts whose sum is
+// it to 24 bits, one product each, so the sums keep f32 accuracy.
 // ---------------------------------------------------------------------------
 
 constexpr int MGT = 8;  // query heads of a tensor-core block
