@@ -147,9 +147,10 @@ def kernel_times(fn, n_bufs: int, iters: int) -> tuple[float, float]:
     return device_ms(fn, n_bufs, iters), time_ms(fn, n_bufs, iters)
 
 
-def copies_for(nbytes: int) -> int:
-    """Copies of an input that together exceed twice the L2 cache."""
-    return max(1, min(16, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
+def copies_for(nbytes: int, cap: int = 16) -> int:
+    """Copies of an input that together exceed twice the L2 cache (at most
+    ``cap``: past it the copies are only cooler)."""
+    return max(1, min(cap, math.ceil(2 * L2_BYTES / max(nbytes, 1))))
 
 
 def bound(nbytes: int, ops: float, rate: float) -> tuple[float, str]:
@@ -393,11 +394,13 @@ def phase_deas(int_timings):
             parts = [deas_mod.nibble_gemm(xm, wm[0]) for _ in range(4)]
             t_combine, t_combine_event = kernel_times(lambda i: deas_mod.deas_combine(*parts), 1,
                                                       iters=40)
-            # the same partials cold: copies rotated past the L2 (the main path
-            # finds them warm, just written by nibble_gemm)
-            nc = copies_for(4 * parts[0].numel() * 4)
+            # the same partials cold: copies rotated past twice the L2, each
+            # read once a round (the main path finds them warm, just written
+            # by nibble_gemm)
+            nc = copies_for(4 * parts[0].numel() * 4, cap=256)
             cold = [[t.clone() for t in parts] for _ in range(nc)]
-            t_combine_cold = device_ms(lambda i: deas_mod.deas_combine(*cold[i]), nc, iters=40)
+            t_combine_cold = device_ms(lambda i: deas_mod.deas_combine(*cold[i]), nc,
+                                       iters=max(40, nc))
             del cold
             c_ms, _ = bound(20 * m * n, 0.0, INT8_OPS_PER_S)
             spoga = int_timings[("w8a8", m, k, n)]
@@ -434,24 +437,32 @@ def phase_deas(int_timings):
 # 3. paged-attention kernel
 # ---------------------------------------------------------------------------
 
-# (a) the main path's decode shape; (b) llama3.2-1b's heads at an 8K-token table
+# (a) the main path's decode shape; (b) llama3.2-1b's heads at an 8K-token table;
+# (c) the same table with every lane at length 1: the launch and clusters alone
 ATTN_SHAPES = {
     "main": dict(b=4, hkv=8, g=4, d=64, ps=16, n_tbl=11),
     "long": dict(b=16, hkv=8, g=4, d=64, ps=16, n_tbl=512),
+    "short": dict(b=16, hkv=8, g=4, d=64, ps=16, n_tbl=512),
 }
 ATTN_MAIN_LENGTHS = [1, 17, 100, 165]
 ATTN_LONG_SEED = 7
 
 
+def attn_lengths(name, shape):
+    if name == "main":
+        return ATTN_MAIN_LENGTHS
+    return [1] * shape["b"] if name == "short" else long_lengths(shape)
+
+
 def long_lengths(shape):
     """Lengths between 1,024 and the table's 8,192 rows, from the seed: one
-    lane at 8,192, one on a page boundary, one on a split boundary (a whole
-    number of pages in every split)."""
+    lane at 8,192, one on a page boundary, one on a split boundary (a
+    multiple of MAX_SPLITS pages: as many pages in every split at the
+    shape's S = MAX_SPLITS; split r takes pages r, r + S, ...)."""
+    from repro_torch.kernels.paged_attention import MAX_SPLITS
     rows = shape["n_tbl"] * shape["ps"]
     lens = np.random.default_rng(ATTN_LONG_SEED).integers(1024, rows + 1, shape["b"])
-    from repro_torch.kernels.paged_attention import table_splits
-    edge = table_splits(shape["b"], shape["hkv"], shape["g"], shape["d"], shape["ps"],
-                        shape["n_tbl"], int8=True) * shape["ps"]
+    edge = MAX_SPLITS * shape["ps"]
     lens[:3] = [rows, 313 * shape["ps"], edge * (rows // edge * 5 // 8)]
     return lens.tolist()
 
@@ -526,7 +537,7 @@ def _sdpa_ms(q, kp, vp, tables, lengths):
 
 
 def phase_attention(card):
-    """Both pools at shapes (a) and (b): the kernel against the plain version
+    """Both pools at shapes (a), (b) and (c): the kernel against the plain version
     on clean and on poisoned pools, two calls bitwise equal; device and
     event time (shape (b) cold: pool copies rotated past the L2), plain
     time, bound and ``scaled_dot_product_attention`` (bf16 pools)."""
@@ -534,7 +545,7 @@ def phase_attention(card):
     gen = torch.Generator(device="cuda").manual_seed(2)
     out = {}
     for name, shape in ATTN_SHAPES.items():
-        lengths = ATTN_MAIN_LENGTHS if name == "main" else long_lengths(shape)
+        lengths = attn_lengths(name, shape)
         for kind in ("bf16", "int8"):
             q, kp, vp, tables, lengths_t, scales, (kc, vc) = _attn_case(kind, gen, shape, lengths)
             got = paged_attention(q, kp, vp, tables, lengths_t, **scales)
@@ -554,7 +565,7 @@ def phase_attention(card):
             pools = [(kp, vp, scales)] + [(kp.clone(), vp.clone(),
                                            {k: v.clone() for k, v in scales.items()})
                                           for _ in range(nb - 1)]
-            iters = 200 if name == "main" else 50
+            iters = 50 if name == "long" else 200
             t_kernel, t_event = kernel_times(
                 lambda i: paged_attention(q, pools[i][0], pools[i][1], tables, lengths_t,
                                           **pools[i][2]), nb, iters=iters)
@@ -946,20 +957,19 @@ def phase_cpu_long_decode(card):
     ``quant_mode="bf16"`` keeps the CPU's prefill of 1,000 tokens within
     seconds: the plain sliced GEMMs on the CPU would take minutes there.
     The card's decode attention is the ``paged_attention`` kernel over 8
-    KV heads of one lane: the prompt spans several of its splits."""
+    KV heads of one lane: the prompt gives every one of its splits (at most
+    MAX_SPLITS; split r takes pages r, r + S, ...) at least 4 pages."""
     from repro_torch.configs import default_cache_len, get_config, pages_for
     from repro_torch.kernels import paged_attention as attn_mod
-    from repro_torch.kernels.paged_attention import table_splits
+    from repro_torch.kernels.paged_attention import MAX_SPLITS
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.paging.cache import PagedCache
     cfg = get_config("llama3.2-1b").with_(quant_mode="bf16", kv_cache_dtype="int8", n_layers=2)
     ps = 16
     cache_len = default_cache_len(LONG_PROMPT, LONG_STEPS)
-    splits = table_splits(1, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
-                          cfg.resolved_head_dim, ps, pages_for(cache_len, ps), int8=True)
-    require(splits >= 4 and LONG_PROMPT >= 4 * splits * ps,
-            f"the {LONG_PROMPT}-token prompt gives fewer than 4 pages to each of 4 or more "
-            f"splits ({splits} splits)")
+    require(LONG_PROMPT >= 4 * MAX_SPLITS * ps,
+            f"the {LONG_PROMPT}-token prompt gives fewer than 4 pages to each of "
+            f"{MAX_SPLITS} splits")
     params = init_params(cfg, seed=3, device="cuda")
     rng = np.random.default_rng(4)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LONG_PROMPT)).astype(np.int32))
@@ -1014,7 +1024,7 @@ def phase_cpu_long_decode(card):
     require(n_launch == cfg.n_layers * LONG_STEPS,
             f"long decode: {n_launch} paged_attention launches, want {cfg.n_layers * LONG_STEPS}")
     print(f"[cpu] 2-layer full width, bf16 GEMMs, int8 paged KV, {LONG_PROMPT}-token prompt "
-          f"({splits} splits) + {LONG_STEPS} decode steps fed the CPU's tokens: max "
+          f"({pages_for(LONG_PROMPT, ps)} pages) + {LONG_STEPS} decode steps fed the CPU's tokens: max "
           f"|logit diff| {worst:.4g} x max |logit| (tolerance {LOGIT_TOL}), greedy agreement "
           f"{agree}/{LONG_STEPS + 1}, {n_launch} kernel launches; "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
@@ -1075,13 +1085,14 @@ def main() -> int:
                         at(gemm, lambda m: ("w8a8", m, 2048, 8192)))]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
-        a, long = dict(attn[(kind, "main")]), dict(attn[(kind, "long")])
+        a, long, short = (dict(attn[(kind, name)]) for name in ("main", "long", "short"))
         kernels.append({"name": f"paged_attention/{kind}", "route": "cuda",
                         "source": "src/repro_torch/csrc/paged_attention.cu",
                         "replaces": "src/repro/kernels/paged_attention.py:91",
                         "launches": count, "max_abs_err": max(a.pop("max_abs_err"),
-                                                              long["max_abs_err"]),
-                        **a, "long_context": long,
+                                                              long["max_abs_err"],
+                                                              short["max_abs_err"]),
+                        **a, "long_context": long, "long_table_short_lanes": short,
                         "decode_profile_ms_per_step": attn_profile, "card": card})
     unfused, deas_run = facade["spoga unfused"], facade["deas"]
     kernels.append(gemm_row("spoga_gemm", "src/repro_torch/csrc/spoga_gemm.cu",

@@ -30,10 +30,11 @@
 //   never from `lengths` (they live on the device).  A split whose pages
 //   all lie past the length loads no K or V and contributes m = -1e30,
 //   l = 0.
-// * The splits meet in distributed shared memory: each block stores its
-//   (m, l, acc) into its own slot of rank 0's shared memory, one cluster
-//   barrier later rank 0 combines the slots in rank order and stores the
-//   output.  A call is one launch with one store per output element, no
+// * The splits meet in distributed shared memory: every block arrives at
+//   the cluster barrier on entry and waits on it (every block of the
+//   cluster has started) only before it stores its (m, l, acc) into its own
+//   slot of rank 0's shared memory; one more barrier later rank 0 combines
+//   the slots in rank order and stores the output.  A call is one launch with one store per output element, no
 //   scratch in device memory, and the same result on every run.
 // * Inside a block 4 warps take the split's pages in turn; the page ids
 //   are read once into shared memory first.  K and V rows (and scales)
@@ -77,6 +78,7 @@ constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
 constexpr int DEPTH = 8;          // passes in flight per warp (CUDA-core kernel)
 constexpr int MAX_CLUSTER = 8;    // portable cluster size
+constexpr int CGT = 4;            // query heads of a CUDA-core block
 constexpr int MAX_G = 32;
 constexpr int MAX_D = 256;
 constexpr int WAVES = 8;          // blocks aimed for, in multiples of the SM count
@@ -132,12 +134,12 @@ struct Params {
     float inv_ps;   // 1 / page size
 };
 
-// Shared memory of a block, in bytes: the pass ring, page ids, the warps'
-// partials and one slot per split.
-inline size_t smem_bytes(bool int8, int per, int splits, int gt, int D) {
+// Shared memory of a CUDA-core block, in bytes: the pass ring, page ids,
+// the warps' partials and one slot per split.
+inline size_t smem_bytes(bool int8, int per, int splits, int D) {
     const size_t slot = 2 * sizeof(uint4) + (int8 ? 2 * sizeof(float) : 0);
     const size_t ring = (size_t)DEPTH * THREADS * slot;
-    return ring + sizeof(float) * ((size_t)per + (size_t)(WARPS + splits) * gt * (D + 2));
+    return ring + sizeof(float) * ((size_t)per + (size_t)(WARPS + splits) * CGT * (D + 2));
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -166,8 +168,15 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-// The cluster barrier that rank 0 waits on: every other block arrives once,
-// after storing its slot, and leaves.
+// The cluster barrier, two phases: every block arrives (relaxed) on entry,
+// and waits for that phase before it touches rank 0's shared memory, since
+// distributed shared memory may be accessed only once every block of the
+// cluster has started; every block arrives again after storing its slot,
+// and rank 0 waits for that before it reads the slots.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+    asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cluster_arrive() {
     asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
 }
@@ -177,26 +186,28 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // A split whose pages all lie past the length (never rank 0, which holds
-// the first page) loads nothing: it arrives at the cluster barrier and
-// leaves.  Returns whether it left.
+// the first page) loads nothing: it completes both phases of the cluster
+// barrier and leaves.  Returns whether it left.
 __device__ __forceinline__ bool leave_if_empty(int nv, int rank) {
     if (nv > 0 || rank == 0) return false;
+    cluster_wait();
     cluster_arrive();
     return true;
 }
 
 // The warps' (m, l, acc) in red_* -> the block's, in warp order, stored
 // into this split's slot of rank 0's shared memory (distributed shared
-// memory); after the cluster barrier rank 0 combines the slots of the
-// n_splits splits that hold pages, in rank order, and stores the output,
-// one store per element.  A split without pages stores nothing: it only
-// arrives (see `leave_if_empty`).
+// memory) once the entry phase of the cluster barrier is complete; after
+// the second phase rank 0 combines the slots of the n_splits splits that
+// hold pages, in rank order, and stores the output, one store per
+// element.  A split without pages stores nothing (see `leave_if_empty`).
 template <int GT>
 __device__ __forceinline__ void combine_and_store(
     const Params& p, const float* red_m, const float* red_l, const float* red_acc,
     float* push_m, float* push_l, float* push_acc, int rank, int bh, int g0, int n_splits) {
     const int tid = threadIdx.x;
     __syncthreads();
+    cluster_wait();   // every block of the cluster has started
     cg::cluster_group cluster = cg::this_cluster();
     float* pm = cluster.map_shared_rank(push_m, 0) + rank * GT;
     float* pl = cluster.map_shared_rank(push_l, 0) + rank * GT;
@@ -242,11 +253,12 @@ __device__ __forceinline__ void combine_and_store(
 // int8 pools with 4 heads hold 64 q and 64 accumulator floats a thread: at
 // three blocks an SM (168 registers, a few spilled) the long-context walk is
 // faster than at two.
-template <bool INT8, int GT, bool VEC>
-__global__ void __launch_bounds__(THREADS, INT8 && GT == 4 ? 3 : 1)
+template <bool INT8, bool VEC>
+__global__ void __launch_bounds__(THREADS, INT8 ? 3 : 1)
 paged_attention_kernel(const Params p) {
     using Raw = typename Pool<INT8>::Raw;
     constexpr int EL = Pool<INT8>::EL;
+    constexpr int GT = CGT;
     extern __shared__ uint4 smem[];
     // ring of DEPTH passes, each thread its own slot: K and V chunks (and scales)
     uint4* kring = smem;                                                  // DEPTH * THREADS
@@ -270,6 +282,7 @@ paged_attention_kernel(const Params p) {
     const int L = p.L, RW = 32 / L;                 // lanes per row, rows per pass
     const int lr = lane & (L - 1), rg = lane / L;   // lane in its row, row in the pass
     const int d0 = lr * EL;
+    cluster_arrive_relaxed();
 
     // lanes past D feed zeros to the dot products (their q is 0 too)
     if (d0 >= p.D) {
@@ -557,6 +570,7 @@ __global__ void __launch_bounds__(THREADS) paged_attention_kernel_mma(const Para
     const int b = bh / p.Hkv, h = bh % p.Hkv;
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int gq = lane >> 2, j = lane & 3;   // fragment row (query head), column pair
+    cluster_arrive_relaxed();
 
     const int length = __ldg(p.lengths + b);
     const int n_valid = min(p.P, (length + p.ps - 1) / p.ps);
@@ -860,11 +874,9 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int splits, size_t smem, cudaStream
 // it takes for about WAVES blocks per SM, at most MAX_CLUSTER and at most
 // one page each, and no more than a cluster the occupancy query says can
 // be resident.  Clusters beyond one wave run in later waves.  `smem_of`
-// gives a block's shared memory for (per, S).  With `splits_only` set the
-// call stores S there and launches nothing.
+// gives a block's shared memory for (per, S).
 template <auto Kernel, class SmemOf>
-cudaError_t launch(Params p, int B, int HG, SmemOf smem_of, cudaStream_t stream,
-                   int* splits_only) {
+cudaError_t launch(Params p, int B, int HG, SmemOf smem_of, cudaStream_t stream) {
     int sms = 0;
     cudaError_t err = sm_count(&sms);
     if (err != cudaSuccess) return err;
@@ -897,10 +909,6 @@ cudaError_t launch(Params p, int B, int HG, SmemOf smem_of, cudaStream_t stream,
         if (resident[p.S] >= 1) break;
         splits = p.S - 1;
     }
-    if (splits_only != nullptr) {
-        *splits_only = p.S;
-        return cudaSuccess;
-    }
     const long long grid_x = static_cast<long long>(p.S) * B * p.Hkv;
     if (grid_x > 0x7fffffffLL) return cudaErrorInvalidValue;
     cudaLaunchAttribute attr[1];
@@ -911,39 +919,31 @@ cudaError_t launch(Params p, int B, int HG, SmemOf smem_of, cudaStream_t stream,
     return cudaGetLastError();
 }
 
-// The CUDA-core kernel, for every shape the kernel accepts.
-template <bool INT8, int GT>
-cudaError_t launch_cores(Params p, int B, bool vec, cudaStream_t stream, int* splits_only) {
-    const int HG = (p.G + GT - 1) / GT;
-    auto smem_of = [&](int per, int splits) { return smem_bytes(INT8, per, splits, GT, p.D); };
-    return vec ? launch<paged_attention_kernel<INT8, GT, true>>(p, B, HG, smem_of, stream,
-                                                                splits_only)
-               : launch<paged_attention_kernel<INT8, GT, false>>(p, B, HG, smem_of, stream,
-                                                                 splits_only);
+// The CUDA-core kernel, for every shape the kernel accepts: CGT heads a
+// block (heads at or past G are masked).
+template <bool INT8>
+cudaError_t launch_cores(Params p, int B, bool vec, cudaStream_t stream) {
+    const int HG = (p.G + CGT - 1) / CGT;
+    auto smem_of = [&](int per, int splits) { return smem_bytes(INT8, per, splits, p.D); };
+    return vec ? launch<paged_attention_kernel<INT8, true>>(p, B, HG, smem_of, stream)
+               : launch<paged_attention_kernel<INT8, false>>(p, B, HG, smem_of, stream);
 }
 
 template <bool INT8, int DK>
-cudaError_t launch_mma(Params p, int B, cudaStream_t stream, int* splits_only) {
+cudaError_t launch_mma(Params p, int B, cudaStream_t stream) {
     auto smem_of = [](int per, int splits) { return smem_bytes_mma<INT8, DK>(per, splits); };
-    return launch<paged_attention_kernel_mma<INT8, DK>>(p, B, 1, smem_of, stream, splits_only);
+    return launch<paged_attention_kernel_mma<INT8, DK>>(p, B, 1, smem_of, stream);
 }
 
 // Tensor cores where the shape allows (D of 64 or 128, at most 8 query
 // heads, 16-byte aligned rows, tables short enough for the f32 row
 // arithmetic), the CUDA-core kernel otherwise.
 template <bool INT8>
-cudaError_t dispatch(Params p, int B, bool vec, cudaStream_t stream, int* splits_only) {
+cudaError_t dispatch(Params p, int B, bool vec, cudaStream_t stream) {
     const bool mma = vec && p.G <= MGT && static_cast<long long>(p.P) * p.ps < (1LL << 22);
-    if (mma && p.D == 64) return launch_mma<INT8, 64>(p, B, stream, splits_only);
-    if (mma && p.D == 128) return launch_mma<INT8, 128>(p, B, stream, splits_only);
-    if (p.G == 1) return launch_cores<INT8, 1>(p, B, vec, stream, splits_only);
-    if (p.G == 2) return launch_cores<INT8, 2>(p, B, vec, stream, splits_only);
-    return launch_cores<INT8, 4>(p, B, vec, stream, splits_only);
-}
-
-bool valid_args(int B, int Hkv, int G, int D, int page_size, int P) {
-    return B > 0 && Hkv > 0 && G > 0 && G <= MAX_G && D > 0 && D <= MAX_D && page_size > 0
-        && P > 0;
+    if (mma && p.D == 64) return launch_mma<INT8, 64>(p, B, stream);
+    if (mma && p.D == 128) return launch_mma<INT8, 128>(p, B, stream);
+    return launch_cores<INT8>(p, B, vec, stream);
 }
 
 Params make_params(const void* q, int q_is_bf16, const void* kp, const void* vp,
@@ -973,8 +973,8 @@ extern "C" int paged_attention_launch(
     const void* k_scale, const void* v_scale, const void* tables,
     const void* lengths, void* out, int B, int Hkv, int G, int D,
     int page_size, int P, void* stream) {
-    if (!valid_args(B, Hkv, G, D, page_size, P)
-        || (kv_int8 && (k_scale == nullptr || v_scale == nullptr))) {
+    if (B <= 0 || Hkv <= 0 || G <= 0 || G > MAX_G || D <= 0 || D > MAX_D || page_size <= 0
+        || P <= 0 || (kv_int8 && (k_scale == nullptr || v_scale == nullptr))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const int elem = kv_int8 ? 1 : 2;
@@ -982,23 +982,6 @@ extern "C" int paged_attention_launch(
     const Params p = make_params(q, q_is_bf16, kp, vp, k_scale, v_scale, tables, lengths, out,
                                  kv_int8, Hkv, G, D, page_size, P);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t err = kv_int8 ? dispatch<true>(p, B, vec, s, nullptr)
-                                    : dispatch<false>(p, B, vec, s, nullptr);
+    const cudaError_t err = kv_int8 ? dispatch<true>(p, B, vec, s) : dispatch<false>(p, B, vec, s);
     return static_cast<int>(err);
-}
-
-// The number of splits S a launch gives each lane's table of P pages, for
-// 16-byte aligned pools: page r of a table goes to split r mod S.  Returns
-// S, or minus a CUDA error.
-extern "C" int paged_attention_splits(int B, int Hkv, int G, int D, int page_size, int P,
-                                      int kv_int8) {
-    if (!valid_args(B, Hkv, G, D, page_size, P)) return -static_cast<int>(cudaErrorInvalidValue);
-    const int elem = kv_int8 ? 1 : 2;
-    const Params p = make_params(nullptr, 1, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                 nullptr, kv_int8, Hkv, G, D, page_size, P);
-    int splits = 0;
-    const bool vec = (D * elem) % 16 == 0;
-    const cudaError_t err = kv_int8 ? dispatch<true>(p, B, vec, nullptr, &splits)
-                                    : dispatch<false>(p, B, vec, nullptr, &splits);
-    return err == cudaSuccess ? splits : -static_cast<int>(err);
 }

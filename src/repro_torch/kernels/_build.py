@@ -26,8 +26,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", *ARCH_FLAGS]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# C entry points: name -> argtypes (every entry returns an int: a cudaError_t,
-# or for paged_attention_splits the split count or minus the error)
+# C entry points: name -> argtypes (every entry returns a cudaError_t)
 SIGNATURES = {
     "spoga_gemm_dequant_launch": [
         _P, _I, _P, _I, _P, _P, _P,  # x, x_bytes, w, w_bytes, xs, ws, out
@@ -59,10 +58,6 @@ SIGNATURES = {
         _I, _I, _I, _I,              # B, Hkv, G, D
         _I, _I,                      # page_size, pages per table row
         _P,                          # stream
-    ],
-    "paged_attention_splits": [
-        _I, _I, _I, _I,              # B, Hkv, G, D
-        _I, _I, _I,                  # page_size, pages per table row, kv_int8
     ],
 }
 

@@ -23,6 +23,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
+# the kernel splits each lane's table at most this many ways (MAX_CLUSTER in
+# csrc/paged_attention.cu; split r takes pages r, r + S, ...)
+MAX_SPLITS = 8
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
@@ -122,13 +125,3 @@ def paged_attention(q, kp, vp, tables, lengths, *, k_scale=None, v_scale=None):
     _build.check(err, "paged_attention")
     LAUNCHES += 1
     return out
-
-
-def table_splits(b: int, hkv: int, g: int, d: int, page_size: int, pages: int,
-                 int8: bool) -> int:
-    """The number of splits S the kernel gives each lane's table of ``pages``
-    pages (page r goes to split r mod S), as its launch chooses it from the
-    shape and the card, for 16-byte aligned pools.  Needs a CUDA device."""
-    s = _build.library().paged_attention_splits(b, hkv, g, d, page_size, pages, int(int8))
-    _build.check(-s if s < 0 else 0, "paged_attention_splits")
-    return s

@@ -21,11 +21,7 @@ from repro_torch.kernels import paged_attention as attn_mod
 from repro_torch.kernels import spoga_gemm as int_gemm_mod
 from repro_torch.kernels import spoga_gemm_dequant as gemm_mod
 from repro_torch.kernels.deas_gemm import deas_gemm, deas_gemm_plain
-from repro_torch.kernels.paged_attention import (
-    paged_attention,
-    paged_attention_plain,
-    table_splits,
-)
+from repro_torch.kernels.paged_attention import MAX_SPLITS, paged_attention, paged_attention_plain
 from repro_torch.kernels.spoga_gemm import spoga_gemm, spoga_gemm_plain
 from repro_torch.kernels.spoga_gemm_dequant import (
     spoga_gemm_dequant,
@@ -181,7 +177,7 @@ def test_new_wrappers_raise_on_what_the_kernels_do_not_take():
 # "edges" (split and page edges), "long" (8K context, drawn from the seed).
 ATTN_CASES = {
     "main": (4, 8, 4, 64, 16, 11, [1, 17, 100, 165]),       # the main path's decode
-    "edges": (8, 4, 4, 64, 16, 64, "edges"),
+    "edges": (26, 4, 4, 64, 16, 64, "edges"),
     "wide table, short lanes": (4, 8, 4, 64, 16, 512, [1, 9, 16, 40]),
     "long": (16, 8, 4, 64, 16, 512, "long"),
     "G1 D128 ps8": (3, 2, 1, 128, 8, 40, "random"),
@@ -191,22 +187,27 @@ ATTN_CASES = {
     "G16 D64 ps16": (2, 2, 16, 64, 16, 12, "random"),
     "G32 D256 ps8": (2, 1, 32, 256, 8, 12, "random"),
     "D24 (element loads)": (3, 2, 4, 24, 16, 10, "random"),
+    "G1 D20 (element loads)": (3, 2, 1, 20, 16, 10, "random"),
+    "G2 D32 ps8": (3, 2, 2, 32, 8, 20, "random"),
 }
 ATTN_KINDS = [("bf16", torch.bfloat16), ("int8", torch.bfloat16), ("bf16", torch.float32),
               ("int8", torch.float32)]
 
 
-def _lengths(spec, b, hkv, g, d, ps, n_tbl, rng):
+def _lengths(spec, b, ps, n_tbl, rng):
     if isinstance(spec, list):
         return spec
     rows = n_tbl * ps
-    # split r takes pages r, r + S, ...: at S pages every split holds one
-    split_edge = table_splits(b, hkv, g, d, ps, n_tbl, int8=True) * ps
-    if spec == "edges":   # page edges; the last split idle, all busy, split 0 a page ahead
-        return [1, ps - 1, ps, ps + 1, split_edge - ps, split_edge, split_edge + 1, rows][:b]
-    if spec == "long":    # one lane at the table's end, one on a page edge, one on a split edge
-        lens = rng.integers(1024, rows + 1, b)
-        lens[:3] = [rows, 313 * ps, split_edge * (rows // split_edge * 5 // 8)]
+    # split r takes pages r, r + S, ... with S <= MAX_SPLITS: a lane of k pages,
+    # k up to MAX_SPLITS, ends on every split edge the kernel can choose
+    if spec == "edges":   # one row; k pages less a row, exactly, plus a row; the whole table
+        lens = [1] + [k * ps + o for k in range(1, MAX_SPLITS + 1) for o in (-1, 0, 1)] + [rows]
+        assert len(lens) == b
+        return lens
+    if spec == "long":    # one lane at the table's end, one on a page edge, one on a split
+        lens = rng.integers(1024, rows + 1, b)   # edge (a multiple of MAX_SPLITS pages)
+        edge = MAX_SPLITS * ps
+        lens[:3] = [rows, 313 * ps, edge * (rows // edge * 5 // 8)]
         return lens.tolist()
     return rng.integers(1, rows + 1, b).tolist()
 
@@ -217,7 +218,7 @@ def _pool_case(kind, seed, q_dtype=torch.bfloat16, case="main"):
     trash page.  The pool holds those pages and nothing else."""
     b, hkv, g, d, ps, n_tbl, spec = ATTN_CASES[case]
     rng = np.random.default_rng(seed)
-    lengths = _lengths(spec, b, hkv, g, d, ps, n_tbl, rng)
+    lengths = _lengths(spec, b, ps, n_tbl, rng)
     used = [-(-n // ps) for n in lengths]
     n_pages = 1 + sum(used)
     ids = rng.permutation(n_pages - 1) + 1
@@ -269,7 +270,8 @@ def test_paged_attention_kernel_matches_plain(case, kind, q_dtype):
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("case", ["main", "edges", "long", "G3 D64 ps8", "D24 (element loads)"])
+@pytest.mark.parametrize("case", ["main", "edges", "long", "G3 D64 ps8", "D24 (element loads)",
+                                  "G1 D20 (element loads)"])
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 def test_paged_attention_kernel_never_reads_stale_rows(kind, case):
     """Rows at or past a lane's length, in its last page and in the pages
