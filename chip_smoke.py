@@ -10,9 +10,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    against their plain versions, bitwise, at the main path's shapes for
    W8A8, w4a8 and w16a16; the DEAS kernels (``nibble_gemm`` x4 +
    ``deas_combine``) at W8A8 against their plain versions and
-   ``spoga_gemm``, 5 launches per call; each time the profiler's device
+   ``spoga_gemm``, 5 launches per call, and ``deas_combine`` alone over
+   the int32 range, aligned and misaligned; each time the profiler's device
    time (the event time of back-to-back calls beside it), against the bound
-   and ``torch._int_mm``;
+   and ``torch._int_mm``; ``deas_combine`` warm and cold, each in one
+   profiler session with a no-op kernel on its grid;
 3. paged-attention kernel: bf16 and int8 pools against the plain version at
    rtol/atol 2e-5, stale rows poisoned, two calls bitwise equal, at (a) the
    main path's decode shape and (b) an 8K-token table (B=16, 8 KV heads,
@@ -26,12 +28,26 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    4-request pass over a bf16 pool; profiles of a few decode steps (device
    time by kernel, one ``paged_attention`` kernel per layer and step) at
    64- and 2,048-token prompts;
+   4b. slot mode: phase 4's traffic through slot-mode ``ServingEngine``s
+   (int8, then bf16 KV), every projection on ``spoga_gemm_dequant`` (112
+   launches a decode step), no ``paged_attention`` and no plain version;
+   tok/s, TTFT and decode step beside the paged run's; a profiled slot
+   decode step; then slot against paged inside the port: the same prompts
+   prefilled once, 8 teacher-forced decode steps over a slot and a paged
+   int8 cache, on phase 6's 2-layer bf16-GEMM model the logits within
+   tolerance at every step; at ``int8_spoga`` (2 layers, full depth) the
+   difference printed;
 5. the paper's dataflows through the ``LLM`` facade: the same weights and
    prompts served by ``int8_spoga`` fused, ``int8_spoga`` with
    ``gemm_backend="cuda_spoga"``, ``int8_deas`` and ``int8_direct``, in
    two rounds of opposite order, each run's kernel counts read around it;
    the greedy streams must be identical; tok/s, decode step and TTFT per
    dataflow; decode-step profiles of the DEAS and direct paths;
+   5b. a 16,384-token full-width prefill at ``int8_spoga`` into an int8
+   cache (finite logits, time, peak memory), and ``multihead_attention``
+   at that length: rows on and beside its chunk edges against the same
+   rows computed alone; then ``LLM("llama3.2-1b").generate`` with the
+   default runtime (bf16 GEMMs, slot bf16 KV), no kernel launched;
 6. card against CPU: a 2-layer full-width model, the same weights on both,
    one prefill: the first greedy token equal, the logits within tolerance;
    then a 1,000-token paged decode over int8 KV, 4 steps fed the CPU's
@@ -140,6 +156,37 @@ def graph_ms(fn, n_bufs: int, iters: int, replays: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * iters)
+
+
+def device_ms_by_kernel(fns: dict, n_bufs: int, iters: int, warmup: int = 3) -> dict:
+    """Mean device time per call of ``fns`` {kernel name: function launching
+    that one kernel}, all in one profiler session: ``iters`` calls of the
+    first function, then of the next, ... (back-to-back calls of one kernel,
+    as ``device_ms`` times them): {kernel name: ms}.  After three sessions
+    that miss a kernel each function is timed alone by a CUDA-graph replay."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns.values():
+        for i in range(warmup):
+            fn(i % n_bufs)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for fn in fns.values():
+                for i in range(iters):
+                    fn(i % n_bufs)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        times = {}
+        for name in fns:
+            hits = [e.self_device_time_total for e in kernels if name in e.key]
+            require(len(hits) <= 1, f"{name}: {len(hits)} kernels of that name")
+            if hits and hits[0] > 0:
+                times[name] = hits[0] / 1e3 / iters
+        if len(times) == len(fns):
+            return times
+    print("[timing] the profiler missed a kernel in three sessions: timed by CUDA-graph "
+          "replays instead", flush=True)
+    return {name: graph_ms(fn, n_bufs, iters) for name, fn in fns.items()}
 
 
 def kernel_times(fn, n_bufs: int, iters: int) -> tuple[float, float]:
@@ -336,6 +383,89 @@ def phase_int_gemm():
     return timings, max_err
 
 
+def combine_times(m, n, parts):
+    """``deas_combine``'s device time at (M, N), warm (its partials rewritten
+    by a copy kernel just before each call, as the main path finds them just
+    written by ``nibble_gemm``) and cold (copies rotated past twice the L2,
+    each read once a round), each in one profiler session with as many
+    launches of the no-op kernel on the same grid; the event time and the
+    plain version's time.  Re-reading the same partials call after call is
+    no warm time: the streaming loads mark them evict-first, and L1 may
+    keep part of them, so such a loop reads neither as the main path does."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import deas_gemm as deas_mod
+    lib = _build.library()
+
+    def noop(_i):
+        _build.check(lib.noop_launch(m, n, torch.cuda.current_stream().cuda_stream), "noop")
+
+    sources = [t.clone() for t in parts]
+
+    def fresh(_i):
+        for dst, src in zip(parts, sources):
+            dst.copy_(src)
+        deas_mod.deas_combine(*parts)
+
+    warm = device_ms_by_kernel({"deas_combine_kernel": fresh, "noop_kernel": noop}, 1, iters=40)
+    nc = copies_for(4 * parts[0].numel() * 4, cap=256)
+    cold_parts = [[t.clone() for t in parts] for _ in range(nc)]
+    cold = device_ms_by_kernel({"deas_combine_kernel":
+                                lambda i: deas_mod.deas_combine(*cold_parts[i]),
+                                "noop_kernel": noop}, nc, iters=max(40, nc))
+    del cold_parts, sources
+    return dict(warm_ms=warm["deas_combine_kernel"], noop_warm_ms=warm["noop_kernel"],
+                cold_ms=cold["deas_combine_kernel"], noop_cold_ms=cold["noop_kernel"],
+                copies=nc, event_ms=time_ms(lambda i: deas_mod.deas_combine(*parts), 1, iters=40),
+                plain_ms=time_ms(lambda i: deas_mod.deas_combine_plain(*parts), 1, iters=5,
+                                 warmup=1))
+
+
+# deas_combine alone: decode and prefill widths and a count % 4 != 0 shape
+COMBINE_CHECKS = [(4, 8192), (128, 8192), (3, 8191)]
+
+
+def check_combine(gen):
+    """``deas_combine`` bitwise against its plain version over the full int32
+    range (every shift and add wraps), on aligned partials (16-byte vectors
+    and the scalar tail) and on views one element past a 16-byte boundary
+    (the scalar path).  Returns the largest |difference| (0)."""
+    from repro_torch.kernels import deas_gemm as deas_mod
+    max_err = 0
+    for m, n in COMBINE_CHECKS:
+        parts = [torch.randint(-2 ** 31, 2 ** 31, (m, n), generator=gen, device="cuda",
+                               dtype=torch.int64).to(torch.int32) for _ in range(4)]
+        bufs = [torch.empty(m * n + 4, dtype=torch.int32, device="cuda") for _ in range(4)]
+        shifted = [b[1:1 + m * n].view(m, n) for b in bufs]
+        for dst, src in zip(shifted, parts):
+            dst.copy_(src)
+        require(all(t.data_ptr() % 16 == 4 for t in shifted), "misaligned views are aligned")
+        for label, inputs in (("aligned", parts), ("misaligned", shifted)):
+            got = deas_mod.deas_combine(*inputs)
+            want = deas_mod.deas_combine_plain(*inputs)
+            torch.cuda.synchronize()
+            err = (got.long() - want.long()).abs().max().item()
+            max_err = max(max_err, err)
+            require(torch.equal(got, want), f"deas_combine {label} ({m},{n}): max |diff| {err}")
+    print(f"[deas] deas_combine bitwise equal to its plain version over the int32 range at "
+          f"(M, N) {COMBINE_CHECKS}, aligned and one element off a 16-byte boundary",
+          flush=True)
+    return max_err
+
+
+def combine_sustained(gen, m=2048, n=8192):
+    """``deas_combine`` on 335 MB of partials (M=2048, N=8192, one copy,
+    past the L2 several times over): the rate a long streaming call
+    sustains on this card, against the 3.35 TB/s of the bound."""
+    from repro_torch.kernels import deas_gemm as deas_mod
+    parts = [torch.randint(-2 ** 31, 2 ** 31, (m, n), generator=gen, device="cuda",
+                           dtype=torch.int64).to(torch.int32) for _ in range(4)]
+    ms = device_ms(lambda i: deas_mod.deas_combine(*parts), 1, iters=20)
+    b_ms, _ = bound(20 * m * n, 0.0, INT8_OPS_PER_S)
+    print(f"[deas] deas_combine M={m} N={n} (335 MB a call): {ms:.4f} ms device, "
+          f"{20 * m * n / ms / 1e9:.3f} TB/s, {b_ms / ms:.1%} of the bytes bound", flush=True)
+    return {"shape": f"M={m} N={n}", "ms": ms, "bound_ms": b_ms, "fraction_of_bound": b_ms / ms}
+
+
 def phase_deas(int_timings):
     """The DEAS kernels at W8A8: each call 4 nibble_gemm launches + 1
     deas_combine launch; bitwise against the plain versions and against
@@ -371,6 +501,8 @@ def phase_deas(int_timings):
         checked += 1
     print(f"[deas] {checked} W8A8 cases bitwise equal to the plain versions and to "
           f"spoga_gemm, 4 + 1 launches per call (max |diff| {max_err})", flush=True)
+    combine_err = check_combine(gen)
+    sustained = combine_sustained(gen)
 
     timings, nibble = {}, {}
     for m in (4, 128):
@@ -392,16 +524,7 @@ def phase_deas(int_timings):
                                      warmup=1)
             t_nibble_lib = _lib_int_mm(xm, wm, m, k, n)
             parts = [deas_mod.nibble_gemm(xm, wm[0]) for _ in range(4)]
-            t_combine, t_combine_event = kernel_times(lambda i: deas_mod.deas_combine(*parts), 1,
-                                                      iters=40)
-            # the same partials cold: copies rotated past twice the L2, each
-            # read once a round (the main path finds them warm, just written
-            # by nibble_gemm)
-            nc = copies_for(4 * parts[0].numel() * 4, cap=256)
-            cold = [[t.clone() for t in parts] for _ in range(nc)]
-            t_combine_cold = device_ms(lambda i: deas_mod.deas_combine(*cold[i]), nc,
-                                       iters=max(40, nc))
-            del cold
+            comb = combine_times(m, n, parts)
             c_ms, _ = bound(20 * m * n, 0.0, INT8_OPS_PER_S)
             spoga = int_timings[("w8a8", m, k, n)]
             inter = 8 * m * n * 4
@@ -410,9 +533,7 @@ def phase_deas(int_timings):
             nb_ms, nb_by = bound(n_bytes, _int_product_ops(m, k, n), INT8_OPS_PER_S)
             timings[(m, k, n)] = dict(ms=t_kernel, event_ms=t_event, plain_ms=t_plain,
                                       library_ms=t_lib, bound_ms=spoga["bound_ms"],
-                                      bound_by=spoga["bound_by"], deas_combine_ms=t_combine,
-                                      deas_combine_event_ms=t_combine_event,
-                                      deas_combine_cold_ms=t_combine_cold,
+                                      bound_by=spoga["bound_by"], deas_combine=comb,
                                       deas_combine_bound_ms=c_ms,
                                       intermediate_bytes=inter, spoga_gemm_ms=spoga["ms"])
             nibble[(m, k, n)] = dict(ms=t_nibble, event_ms=t_nibble_event,
@@ -423,14 +544,17 @@ def phase_deas(int_timings):
                   f"({t_event:.4f} ms by events; one nibble_gemm {t_nibble:.4f} ms device, "
                   f"{t_nibble_event:.4f} by events, plain {t_nibble_plain:.4f} ms, _int_mm on "
                   f"the planes {t_nibble_lib:.4f} ms, bound {nb_ms:.4f} ms; deas_combine "
-                  f"{t_combine:.4f} ms device warm, {t_combine_cold:.4f} cold ({nc} copies; "
-                  f"bound {c_ms:.5f} ms, {c_ms / t_combine_cold:.1%} of it), "
-                  f"{t_combine_event:.4f} by events; intermediates "
+                  f"{comb['warm_ms']:.4f} ms device warm, just written (no-op kernel "
+                  f"{comb['noop_warm_ms']:.4f}),"
+                  f" {comb['cold_ms']:.4f} cold (no-op {comb['noop_cold_ms']:.4f}; "
+                  f"{comb['copies']} copies; bound {c_ms:.5f} ms, {c_ms / comb['cold_ms']:.1%} of "
+                  f"it), {comb['event_ms']:.4f} by events, plain {comb['plain_ms']:.4f}; "
+                  f"intermediates "
                   f"{inter} B) vs spoga_gemm {spoga['ms']:.4f} ms; plain {t_plain:.4f} ms, "
                   f"_int_mm {lib}, bound {spoga['bound_ms']:.4f} ms ({spoga['bound_by']}, "
                   f"{spoga['bound_ms'] / t_kernel:.1%} of it)", flush=True)
             del w_copies, wm, parts
-    return timings, nibble, max_err
+    return timings, nibble, max_err, combine_err, sustained
 
 
 # ---------------------------------------------------------------------------
@@ -607,11 +731,11 @@ def _traffic(n, vocab, seed):
             for i, (p, g) in enumerate(zip(lens, gens))]
 
 
-def _serve(cfg, params, arrivals, n_slots):
+def _serve(cfg, params, arrivals, n_slots, cache_mode="paged"):
     from repro_torch.configs import default_cache_len
     from repro_torch.serving import EngineConfig, ServingEngine
     ecfg = EngineConfig(n_slots=n_slots, page_size=16, prefill_buckets=(32, 64, 128),
-                        cache_len=default_cache_len(128, 32), cache_mode="paged")
+                        cache_len=default_cache_len(128, 32), cache_mode=cache_mode)
     engine = ServingEngine(cfg, params, ecfg, device="cuda")
     metrics = engine.run(arrivals)
     torch.cuda.synchronize()
@@ -736,7 +860,7 @@ def phase_main(card, params):
     profile = {"cache_len_168": phase_profile(cfg, params, card, "int8_spoga"),
                "context_2048": phase_profile(cfg, params, card, "int8_spoga", steps=4,
                                              prompt_len=2048)}
-    return launches, launches16, profile
+    return launches, launches16, profile, rep
 
 
 def _kernel_group(name: str) -> str:
@@ -752,7 +876,7 @@ def _kernel_group(name: str) -> str:
             "norms, rope)")
 
 
-def _busy_engine(cfg, params, prompt_len=64):
+def _busy_engine(cfg, params, prompt_len=64, cache_mode="paged"):
     """A 4-lane engine with 4 requests of ``prompt_len`` tokens admitted and
     decoding (same every call)."""
     from repro_torch.configs import default_cache_len
@@ -760,7 +884,7 @@ def _busy_engine(cfg, params, prompt_len=64):
     buckets = (32, 64, 128) if prompt_len <= 128 else (prompt_len,)
     engine = ServingEngine(cfg, params, EngineConfig(
         n_slots=4, page_size=16, prefill_buckets=buckets,
-        cache_len=default_cache_len(max(128, prompt_len), 32), cache_mode="paged"),
+        cache_len=default_cache_len(max(128, prompt_len), 32), cache_mode=cache_mode),
         device="cuda")
     rng = np.random.default_rng(ENGINE_SEED + 2)
     for _ in range(4):
@@ -779,23 +903,25 @@ def _timed_steps(engine, steps):
     return time.perf_counter() - t0
 
 
-def phase_profile(cfg, params, card, label, steps=5, prompt_len=64):
+def phase_profile(cfg, params, card, label, steps=5, prompt_len=64, cache_mode="paged"):
     """Device time by kernel over ``steps`` decode steps with 4 busy lanes of
-    ``prompt_len``-token prompts; returns ``paged_attention``'s device time
-    per step (ms), or None where the profiler recorded no device time.
+    ``prompt_len``-token prompts; returns {"attn_ms": ``paged_attention``'s
+    device time per step, "device_ms", "wall_ms", "busy"} per step, or None
+    where the profiler recorded no device time.  A paged engine launches one
+    ``paged_attention`` kernel per layer and step, a slot engine none.
 
     Two engines fed the same requests do the same steps: the first is
     timed without the profiler (wall), the second under it (device time
     per kernel), so the busy share divides like by like."""
     from torch.profiler import ProfilerActivity, profile
 
-    wall_plain = _timed_steps(_busy_engine(cfg, params, prompt_len), steps)
-    engine = _busy_engine(cfg, params, prompt_len)
+    wall_plain = _timed_steps(_busy_engine(cfg, params, prompt_len, cache_mode), steps)
+    engine = _busy_engine(cfg, params, prompt_len, cache_mode)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = _timed_steps(engine, steps)
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms per step
-    label = f"{label}, {prompt_len}-token prompts"
+    label = f"{label}, {cache_mode} KV, {prompt_len}-token prompts"
     if not kernels or total <= 0:
         print(f"[profile] {label}: the profiler recorded no device time: breakdown not "
               f"measured", flush=True)
@@ -817,13 +943,248 @@ def phase_profile(cfg, params, card, label, steps=5, prompt_len=64):
               f"{e.count // steps} launches/step  {e.key[:90]}", flush=True)
     attn = [e for e in kernels if "paged_attention_kernel" in e.key]
     n_attn = sum(e.count for e in attn)
-    require(n_attn == cfg.n_layers * steps,
-            f"{label}: {n_attn} paged_attention kernels in {steps} steps, want one per layer "
-            f"per step ({cfg.n_layers * steps})")
+    want_attn = cfg.n_layers * steps if cache_mode == "paged" else 0
+    require(n_attn == want_attn,
+            f"{label}: {n_attn} paged_attention kernels in {steps} steps, want {want_attn}")
     attn_ms = groups.get("paged_attention kernel", 0.0)
     print(f"[profile]   paged_attention: {attn_ms:.4f} ms/step, {100 * attn_ms / total:.2f}% of "
-          f"device time, {n_attn // steps} launches/step (one per layer)", flush=True)
-    return attn_ms
+          f"device time, {n_attn // steps} launches/step", flush=True)
+    return {"attn_ms": attn_ms, "device_ms": total, "wall_ms": plain_ms,
+            "busy": total / plain_ms}
+
+
+# ---------------------------------------------------------------------------
+# 4b. slot-mode serving
+# ---------------------------------------------------------------------------
+
+def phase_slot(card, params, paged_rep):
+    """Phase 4's traffic through slot-mode ``ServingEngine``s (int8, then
+    bf16 slot KV): every request finishes; every projection launches
+    ``spoga_gemm_dequant`` (112 a step: 7 per layer), ``paged_attention``
+    never launches and no plain version runs; the decode profile of 4 busy
+    lanes.  Returns the int8 run's GEMM launches and the profile."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga")
+    arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
+    out = {}
+    for kv in ("int8", "bf16"):
+        c = cfg.with_(kv_cache_dtype=kv)
+        label = f"slot {kv} KV, 8 requests"
+        reset_counts()
+        engine, metrics = _serve(c, params, arrivals, 4, cache_mode="slot")
+        launches, plain = read_counts()
+        check_counts(launches, plain, ("spoga_gemm_dequant",), label)
+        _check_finished(metrics, arrivals, cfg.vocab_size, label)
+        rep = metrics.report()
+        per_pass = 7 * cfg.n_layers
+        require(launches["spoga_gemm_dequant"] == per_pass * (rep["decode_steps"] + rep["prefills"]),
+                f"{label}: {launches['spoga_gemm_dequant']} GEMM launches, want {per_pass} per "
+                f"decode step and per prefill")
+        require(engine.store.pos.tolist() == [0] * 4, f"{label}: a free lane's pos drifted")
+        print(f"[slot] {kv} KV: {rep['finished']} finished, {rep['generated_tokens']} tokens, "
+              f"{rep['tokens_per_s']:.1f} tok/s, TTFT mean {1e3 * rep['ttft_mean_s']:.1f} ms, "
+              f"decode step mean {1e3 * rep['decode_step_mean_s']:.2f} ms ({rep['decode_steps']} "
+              f"steps, {launches['spoga_gemm_dequant']} spoga_gemm_dequant launches = "
+              f"{per_pass} a step); paged int8 (phase 4): {paged_rep['tokens_per_s']:.1f} tok/s, "
+              f"TTFT mean {1e3 * paged_rep['ttft_mean_s']:.1f} ms, decode step mean "
+              f"{1e3 * paged_rep['decode_step_mean_s']:.2f} ms [{card}]", flush=True)
+        out[kv] = launches["spoga_gemm_dequant"]
+    prof = phase_profile(cfg.with_(kv_cache_dtype="int8"), params, card, "int8_spoga",
+                         cache_mode="slot")
+    return out, prof
+
+
+SLOT_VS_PAGED_STEPS = 8
+
+
+def _slot_vs_paged(cfg, params):
+    """4 prompts of phase 4's traffic prefilled once each, their caches
+    inserted into a slot cache and into a paged one (int8 KV), then
+    SLOT_VS_PAGED_STEPS decode steps over each, both fed the paged run's
+    greedy tokens.  Returns (max |logit diff| / max |logit| over the steps,
+    greedy agreement, the steps' paged_attention launches)."""
+    from repro_torch.configs import pages_for
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.paging.cache import PagedCache
+    from repro_torch.serving import SlotCache
+    ps, cache_len, steps = 16, 176, SLOT_VS_PAGED_STEPS
+    prompts = [p for _, p, _ in _traffic(8, cfg.vocab_size, ENGINE_SEED)][:4]
+    slot = SlotCache(cfg, 4, cache_len, device="cuda")
+    paged = PagedCache(cfg, 4, cache_len, ps, device="cuda")
+    mgr = paged.manager
+    first = []
+    for lane, prompt in enumerate(prompts):
+        single_len = pages_for(len(prompt), ps) * ps
+        tokens = torch.zeros((1, single_len), dtype=torch.int32)
+        tokens[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+        logits, single = prefill(params, cfg, tokens.cuda(), single_len,
+                                 lengths=torch.tensor([len(prompt)], dtype=torch.int32,
+                                                      device="cuda"))
+        slot.insert(single, lane)
+        mgr.admit(lane, len(prompt) + steps + 1)
+        ids = mgr.alloc(lane, single_len // ps)
+        mgr.set_length(lane, len(prompt))
+        paged.insert(single, lane, ids, len(prompt))
+        first.append(int(logits.argmax(-1)[0]))
+    tok = torch.tensor(first, dtype=torch.int32, device="cuda")
+    active = torch.ones((4,), dtype=torch.bool, device="cuda")
+    reset_counts()
+    worst, agree = 0.0, 0
+    for step in range(steps):
+        for lane in range(4):
+            mgr.ensure(lane, int(mgr.lengths[lane]) + 1)
+        paged.sync_tables()
+        lp, _ = decode_step(params, cfg, tok, paged.cache, active=active)
+        ls, _ = decode_step(params, cfg, tok, slot.cache, active=active)
+        mgr.advance(range(4))
+        lp, ls = lp.float(), ls.float()
+        require(bool(torch.isfinite(ls).all()), f"slot vs paged step {step}: slot logits "
+                                                f"not finite")
+        worst = max(worst, (lp - ls).abs().max().item() / lp.abs().max().item())
+        agree += int((lp.argmax(-1) == ls.argmax(-1)).sum())
+        tok = lp.argmax(-1).to(torch.int32)                # teacher: the paged stream
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    gemm = ("spoga_gemm_dequant",) if cfg.quant_mode == "int8_spoga" else ()
+    check_counts(launches, plain, gemm + ("paged_attention",),
+                 f"slot vs paged decode, {cfg.n_layers} layers, {cfg.quant_mode}")
+    require(launches["paged_attention"] == cfg.n_layers * steps,
+            f"slot vs paged: {launches['paged_attention']} paged_attention launches, want "
+            f"{cfg.n_layers * steps} (the paged cache's steps only)")
+    return worst, agree
+
+
+def phase_slot_vs_paged(card, params):
+    """Slot against paged decode inside the port, on the card, int8 KV.
+    Paged attention is the kernel here, slot attention plain torch
+    (bitwise equality is a CPU contract only).
+
+    Held: phase 6's decode model (2 layers at full width, bf16 GEMMs,
+    weights from seed 3), the logits within phase 6's LOGIT_TOL x max at
+    every step.  Printed: the same model at ``int8_spoga`` and the full
+    16-layer model at ``int8_spoga``, where every projection re-quantizes
+    its input to int8 per row, so that a difference of one f32 ulp can move
+    a value by a whole quantization step; card and CPU differ there by as
+    much as slot and paged do."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    small = cfg.with_(quant_mode="bf16", n_layers=2)
+    small_params = init_params(small, seed=3, device="cuda")
+    n = 4 * SLOT_VS_PAGED_STEPS
+    for c, p, what in ((small, small_params, "2 layers at full width, bf16 GEMMs"),
+                       (small.with_(quant_mode="int8_spoga"), small_params,
+                        "2 layers at full width, int8_spoga"),
+                       (cfg, params, f"{cfg.n_layers} layers, int8_spoga, phase 4's weights")):
+        worst, agree = _slot_vs_paged(c, p)
+        print(f"[slot] slot vs paged, {what}, int8 KV, 4 lanes, {SLOT_VS_PAGED_STEPS} decode "
+              f"steps fed the paged tokens: max |logit diff| {worst:.4g} x max |logit|, greedy "
+              f"agreement {agree}/{n} [{card}]", flush=True)
+        if c is small:
+            require(worst <= LOGIT_TOL, f"slot vs paged: logits differ by {worst:.4g} x max > "
+                                        f"{LOGIT_TOL}")
+
+
+def phase_default_llm(card):
+    """``LLM("llama3.2-1b").generate(...)`` with no runtime: bf16 GEMMs (no
+    kernel of the port runs), slot bf16 KV, its own random weights."""
+    from repro_torch.api import LLM
+    prompts = [p for _, p, _ in _traffic(4, 128_256, ENGINE_SEED + 3)]
+    t0 = time.perf_counter()
+    llm = LLM("llama3.2-1b")
+    require(llm.runtime.kv.mode == "slot" and llm.config.quant_mode == "bf16",
+            "the default runtime is not slot KV with bf16 GEMMs")
+    reset_counts()
+    outs = llm.generate(prompts, max_new_tokens=12)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    check_counts(launches, plain, (), "default LLM")
+    require(all(len(o.token_ids) == 12 and o.finish_reason == "length" for o in outs),
+            "default LLM: a request did not finish")
+    require(all(0 <= t < llm.config.vocab_size for o in outs for t in o.token_ids),
+            "default LLM: token out of range")
+    rep = llm.metrics.report()
+    print(f"[default] LLM('llama3.2-1b').generate: {rep['finished']} prompts x 12 tokens on "
+          f"{llm.device}, slot bf16 KV, bf16 GEMMs; {rep['tokens_per_s']:.1f} tok/s, decode "
+          f"step mean {1e3 * rep['decode_step_mean_s']:.2f} ms; "
+          f"{time.perf_counter() - t0:.1f} s with its init [{card}]", flush=True)
+    del llm
+
+
+LONG_PREFILL = 16_384
+
+
+def phase_long_prefill(card, params):
+    """Full-width llama3.2-1b prefills LONG_PREFILL tokens at ``int8_spoga``
+    into an int8 cache: finite logits, time and peak memory.  Then
+    ``multihead_attention`` alone at that length (B=1, 32/8 heads, D=64):
+    64 query rows on and beside chunk edges equal those rows computed on
+    their own (a one-row chunk at the row's offset) within one bf16 ulp of
+    the output's largest magnitude (cuBLAS may sum a one-row product in
+    another order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import prefill
+    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, LONG_PREFILL))
+                              .astype(np.int32)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cfg, tokens, LONG_PREFILL)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches, plain = read_counts()
+    check_counts(launches, plain, ("spoga_gemm_dequant",), f"{LONG_PREFILL}-token prefill")
+    require(launches["spoga_gemm_dequant"] == 7 * cfg.n_layers,
+            f"long prefill: {launches['spoga_gemm_dequant']} GEMM launches, want "
+            f"{7 * cfg.n_layers}")
+    require(tuple(logits.shape) == (1, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+            "long prefill: logits not finite")
+    require(int(cache["pos"][0]) == LONG_PREFILL, "long prefill: cache pos wrong")
+    print(f"[long] llama3.2-1b full width, int8_spoga, int8 KV, {LONG_PREFILL}-token prefill: "
+          f"{elapsed:.3f} s, logits finite, peak memory {peak / 2**30:.2f} GiB "
+          f"({(peak - base) / 2**30:.2f} GiB above the weights and inputs) [{card}]", flush=True)
+    del logits, cache
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    q = torch.randn((1, LONG_PREFILL, 32, 64), generator=g, device="cuda").bfloat16()
+    k, v = (torch.randn((1, LONG_PREFILL, 8, 64), generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = attn.multihead_attention(q, k, v)
+    torch.cuda.synchronize()
+    attn_s = time.perf_counter() - t0
+    attn_peak = torch.cuda.max_memory_allocated() - base
+    chunk = attn._pick_chunk(LONG_PREFILL)
+    edges = range(chunk, LONG_PREFILL, chunk)
+    rows = sorted({0, LONG_PREFILL - 1} | {e + d for e in edges for d in (-1, 0)})[:64]
+    qg = q.reshape(1, LONG_PREFILL, 4, 8, 64)
+    kf, vf = k.float(), v.float()
+    want = torch.cat([attn._attend_chunk(qg[:, r:r + 1], kf, vf, r, v.dtype).reshape(1, 1, 32, 64)
+                      for r in rows], dim=1).float()
+    got = out[:, rows].float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    same = int((got == want).all(dim=-1).all(dim=-1).sum())
+    require(bool(torch.isfinite(out.float()).all()), "16K attention: output not finite")
+    require(err <= 2.0 ** -7 * scale, f"16K attention: chunked rows off their own by {err} > "
+                                      f"{2.0 ** -7 * scale}")
+    print(f"[long] multihead_attention B=1 S={LONG_PREFILL} 32/8 heads D=64: {chunk}-row chunks, "
+          f"{attn_s:.3f} s, peak memory {attn_peak / 2**30:.2f} GiB above its inputs; {len(rows)} "
+          f"rows on and beside chunk edges against their own one-row chunks: max |diff| "
+          f"{err:.3g} (scale {scale:.3g}), {same} of {len(rows)} rows bitwise [{card}]",
+          flush=True)
+    return {"prefill_s": elapsed, "prefill_peak_gib": peak / 2**30, "attention_s": attn_s,
+            "attention_peak_gib": attn_peak / 2**30, "attention_max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -1049,13 +1410,17 @@ def main() -> int:
     card = phase_card()
     gemm, gemm_err = phase_gemm()
     int_gemm, int_err = phase_int_gemm()
-    deas, nibble, deas_err = phase_deas(int_gemm)
+    deas, nibble, deas_err, combine_err, combine_long = phase_deas(int_gemm)
     attn = phase_attention(card)
     params = full_width_params()
-    launches, launches16, attn_profile = phase_main(card, params)
+    launches, launches16, attn_profile, paged_rep = phase_main(card, params)
+    slot_launches, slot_profile = phase_slot(card, params, paged_rep)
+    phase_slot_vs_paged(card, params)
     facade = phase_dataflows(card, params)
+    long_prefill = phase_long_prefill(card, params)
     del params
     torch.cuda.empty_cache()
+    phase_default_llm(card)
     phase_cpu_parity()
     phase_cpu_long_decode(card)
 
@@ -1082,7 +1447,9 @@ def main() -> int:
     kernels = [gemm_row("spoga_gemm_dequant", "src/repro_torch/csrc/spoga_gemm_dequant.cu",
                         "src/repro/kernels/spoga_gemm_dequant.py:62",
                         launches["spoga_gemm_dequant"], 1, gemm_err,
-                        at(gemm, lambda m: ("w8a8", m, 2048, 8192)))]
+                        at(gemm, lambda m: ("w8a8", m, 2048, 8192)),
+                        launches_slot={f"{kv} KV": n for kv, n in slot_launches.items()},
+                        slot_decode_profile=slot_profile, long_prefill=long_prefill)]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
         a, long, short = (dict(attn[(kind, name)]) for name in ("main", "long", "short"))
@@ -1093,7 +1460,9 @@ def main() -> int:
                                                               long["max_abs_err"],
                                                               short["max_abs_err"]),
                         **a, "long_context": long, "long_table_short_lanes": short,
-                        "decode_profile_ms_per_step": attn_profile, "card": card})
+                        "decode_profile_ms_per_step": {
+                            k: v and v["attn_ms"] for k, v in attn_profile.items()},
+                        "card": card})
     unfused, deas_run = facade["spoga unfused"], facade["deas"]
     kernels.append(gemm_row("spoga_gemm", "src/repro_torch/csrc/spoga_gemm.cu",
                             "src/repro/kernels/spoga_gemm.py:116", unfused["spoga_gemm"], 1,
@@ -1110,6 +1479,24 @@ def main() -> int:
                                             "deas_combine": "src/repro/kernels/deas_gemm.py:79"},
                             nibble_gemm_launches=deas_run["nibble_gemm"],
                             deas_combine_launches=deas_run["deas_combine"]))
+
+    def combine_at(m):
+        t = deas[(m, 2048, 8192)]
+        c = t["deas_combine"]
+        return {"shape": f"M={m} N=8192, partials cold", "ms": c["cold_ms"],
+                "warm_ms": c["warm_ms"], "noop_ms": c["noop_cold_ms"],
+                "noop_warm_ms": c["noop_warm_ms"], "event_ms": c["event_ms"],
+                "plain_ms": c["plain_ms"], "bound_ms": t["deas_combine_bound_ms"],
+                "bound_by": "bytes", "fraction_of_bound": t["deas_combine_bound_ms"] / c["cold_ms"],
+                "library_ms": None}
+
+    kernels.append({"name": "deas_combine", "route": "cuda",
+                    "source": "src/repro_torch/csrc/deas_gemm.cu",
+                    "replaces": "src/repro/kernels/deas_gemm.py:79",
+                    "launches": deas_run["deas_combine"], "launches_per_decode_step": calls_per_step,
+                    "max_abs_err": combine_err, **combine_at(4), "prefill": combine_at(128),
+                    "sustained": combine_long,
+                    "library": "none: no one PyTorch call computes the shift-add", "card": card})
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

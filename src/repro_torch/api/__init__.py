@@ -2,20 +2,23 @@
 
     from repro_torch.api import LLM, RuntimeConfig, QuantRuntime, KVConfig
 
+    out, = LLM("llama3.2-1b").generate([1, 2, 3, 4], max_new_tokens=8)
+
     llm = LLM(arch="llama3.2-1b",
               runtime=RuntimeConfig(quant=QuantRuntime(mode="int8_spoga"),
                                     kv=KVConfig(mode="paged", dtype="int8")))
-    out, = llm.generate([1, 2, 3, 4], max_new_tokens=8)
 
 ``QuantRuntime(mode=...)`` picks the paper's dataflow: ``int8_spoga`` (the
 fused kernel with its dequant epilogue; ``gemm_backend="cuda_spoga"`` for
 the int32 kernel plus the epilogue after it), ``int8_deas`` (the
 prior-work baseline kernels) or ``int8_direct`` (the plain int8 product).
-Entry points run on the card; pass ``device="cpu"`` to run the plain
-versions on the CPU.  ``api/baseline.serve_batch`` needs slot-mode decode
-and is a later slice (ROADMAP queue 1, item 5).
+The KV cache is a slot cache by default (``KVConfig()``), or a page pool
+with ``KVConfig(mode="paged")``.  Entry points run on the card; pass
+``device="cpu"`` to run the plain versions on the CPU.  ``serve_batch`` is
+the static-batch lockstep baseline the engine is held against.
 """
 
+from repro_torch.api.baseline import serve_batch
 from repro_torch.api.config import (
     KVConfig,
     QuantRuntime,
@@ -38,4 +41,5 @@ __all__ = [
     "SamplingParams",
     "SchedulerConfig",
     "auto_buckets",
+    "serve_batch",
 ]

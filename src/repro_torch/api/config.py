@@ -16,8 +16,7 @@ and the ``EngineConfig`` the port's engine consumes.
 A setting that validates but that the port's engine does not serve yet
 raises ``NotImplementedError`` naming its ROADMAP item, from
 :meth:`RuntimeConfig.check_served` (called by ``resolve_engine`` and by
-``LLM``): slot mode (still ``KVConfig.mode``'s default), chunked prefill,
-the prefix cache, stacked or several admissions per step, non-FIFO
+``LLM``): chunked prefill, the prefix cache, stacked or several admissions per step, non-FIFO
 admission, deadline eviction, a defrag threshold other than the default,
 stochastic sampling, and the ``mesh``, ``spec`` and ``obs`` sub-configs
 (their classes are not ported yet; ``None`` stands for the reference's
@@ -240,7 +239,6 @@ class RuntimeConfig:
         does not serve yet, naming its ROADMAP item."""
         s, kv = self.scheduler, self.kv
         refused = [
-            (kv.mode == "slot", "KVConfig.mode='slot' (use mode='paged')", "5"),
             (kv.prefix_cache, "KVConfig.prefix_cache", "6"),
             (s.prefill_chunk is not None, "SchedulerConfig.prefill_chunk", "5"),
             (s.batched_admission, "SchedulerConfig.batched_admission", "5"),

@@ -1,8 +1,9 @@
-"""The ``LLM`` facade: one entry point over configs, params and the paged
+"""The ``LLM`` facade: one entry point over configs, params and the
 continuous-batching engine (port of ``repro/api/llm.py``).
 
     from repro_torch.api import LLM, RuntimeConfig, QuantRuntime, KVConfig
 
+    outs = LLM("llama3.2-1b").generate([[1, 2, 3]])    # bf16 GEMMs, slot bf16 KV
     llm = LLM(arch="llama3.2-1b",
               runtime=RuntimeConfig(quant=QuantRuntime(mode="int8_deas"),
                                     kv=KVConfig(mode="paged", dtype="int8")))

@@ -20,13 +20,15 @@
 // [-8, 7], the low one unsigned in [0, 15]), so it multiplies on the int8
 // tensor cores and stores int32 once per element.  deas_combine is
 // elementwise; its shift-add runs in uint32, which wraps like the TPU's
-// int32.
+// int32 (its design is described above deas_combine_kernel).
 //
 // What bounds them on an H100: each nibble_gemm reads its weight plane once
 // (K * N bytes) and writes M * N * 4 bytes; at decode the weight planes'
 // bytes bound it, and at prefill (M = 128) still the bytes: one plane
 // product is 2 * M * K * N operations at the int8 rate.
-// deas_combine moves 20 bytes per output element: memory bandwidth.
+// deas_combine moves 20 bytes per output element: memory bandwidth at
+// prefill; at decode (M = 4, N = 8192) its 640 KB would take 0.2 us at the
+// full rate, so the launch and one memory round trip set its time.
 
 #include "spoga_tile.cuh"
 
@@ -52,20 +54,85 @@ struct NibbleLauncher {
     void run() const { err = launch<C, nibble_gemm_kernel<C>>(p, epi, stream); }
 };
 
-constexpr int COMBINE_THREADS = 256;
+// deas_combine, designed for Hopper.  Each thread takes four consecutive
+// outputs: it issues its four 16-byte loads (one per partial) before any
+// arithmetic, with the streaming hint (ld.global.cs: each partial is read
+// exactly once), and writes one 16-byte streaming store.  The grid is at
+// most one resident wave (grid-stride beyond it); the block shrinks from 256
+// threads towards 32 until the grid covers every SM, so a decode-sized call
+// (M = 4, N = 8192: 8,192 vectors) still spreads over the whole card instead
+// of 32 blocks.  count % 4 trailing outputs, and every output when a pointer
+// is not 16-byte aligned, take the scalar path with the same hints.
+constexpr int COMBINE_MAX_THREADS = 256;
+constexpr int COMBINE_MIN_THREADS = 32;
+constexpr int SM_MAX_THREADS = 2048;
+constexpr int SM_MAX_BLOCKS = 32;
 
-__global__ void __launch_bounds__(COMBINE_THREADS)
+__device__ __forceinline__ int32_t shift_add(int32_t mm, int32_t ml, int32_t lm, int32_t ll) {
+    const uint32_t mid = static_cast<uint32_t>(ml) + static_cast<uint32_t>(lm);
+    return static_cast<int32_t>((static_cast<uint32_t>(mm) << 8) + (mid << 4) +
+                                static_cast<uint32_t>(ll));
+}
+
+__global__ void __launch_bounds__(COMBINE_MAX_THREADS)
 deas_combine_kernel(const int32_t* __restrict__ mm, const int32_t* __restrict__ ml,
                     const int32_t* __restrict__ lm, const int32_t* __restrict__ ll,
-                    int32_t* __restrict__ out, size_t count) {
+                    int32_t* __restrict__ out, size_t count, int vectorized) {
+    const size_t tid = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
     const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-    for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < count;
-         i += stride) {
-        const uint32_t hi = static_cast<uint32_t>(mm[i]);
-        const uint32_t mid = static_cast<uint32_t>(ml[i]) + static_cast<uint32_t>(lm[i]);
-        const uint32_t lo = static_cast<uint32_t>(ll[i]);
-        out[i] = static_cast<int32_t>((hi << 8) + (mid << 4) + lo);
+    size_t scalar_from = 0;
+    if (vectorized) {
+        const size_t n4 = count / 4;
+        const int4* a = reinterpret_cast<const int4*>(mm);
+        const int4* b = reinterpret_cast<const int4*>(ml);
+        const int4* c = reinterpret_cast<const int4*>(lm);
+        const int4* d = reinterpret_cast<const int4*>(ll);
+        int4* o = reinterpret_cast<int4*>(out);
+        for (size_t i = tid; i < n4; i += stride) {
+            const int4 hi = __ldcs(a + i);
+            const int4 m1 = __ldcs(b + i);
+            const int4 m2 = __ldcs(c + i);
+            const int4 lo = __ldcs(d + i);
+            int4 r;
+            r.x = shift_add(hi.x, m1.x, m2.x, lo.x);
+            r.y = shift_add(hi.y, m1.y, m2.y, lo.y);
+            r.z = shift_add(hi.z, m1.z, m2.z, lo.z);
+            r.w = shift_add(hi.w, m1.w, m2.w, lo.w);
+            __stcs(o + i, r);
+        }
+        scalar_from = n4 * 4;
     }
+    for (size_t i = scalar_from + tid; i < count; i += stride) {
+        __stcs(out + i, shift_add(__ldcs(mm + i), __ldcs(ml + i), __ldcs(lm + i), __ldcs(ll + i)));
+    }
+}
+
+// The launch alone: the yardstick deas_combine's decode shape is timed against.
+__global__ void noop_kernel() {}
+
+struct CombineGrid {
+    unsigned blocks;
+    int threads;
+};
+
+// deas_combine's grid for `count` outputs (vectors of four when vectorized).
+cudaError_t combine_grid(size_t count, int vectorized, CombineGrid* grid) {
+    int sms = 0;
+    const cudaError_t err = spoga_tile::sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    const size_t items = vectorized ? count / 4 + count % 4 : count;
+    int threads = COMBINE_MAX_THREADS;
+    while (threads > COMBINE_MIN_THREADS &&
+           (items + threads - 1) / threads < static_cast<size_t>(sms)) {
+        threads /= 2;
+    }
+    const int per_sm = SM_MAX_THREADS / threads < SM_MAX_BLOCKS ? SM_MAX_THREADS / threads
+                                                                 : SM_MAX_BLOCKS;
+    const size_t want = (items + threads - 1) / threads;
+    const size_t wave = static_cast<size_t>(sms) * per_sm;
+    grid->blocks = static_cast<unsigned>(want < wave ? want : wave);
+    grid->threads = threads;
+    return cudaSuccess;
 }
 
 }  // namespace
@@ -84,20 +151,36 @@ extern "C" int nibble_gemm_launch(const void* a, const void* b, void* out,
 }
 
 // C entry point: the DEAS shift-add over four int32 (M, N) intermediates
-// into out (M, N) int32, all contiguous.  Returns cudaGetLastError().
+// into out (M, N) int32, all contiguous.  `vectorized` (from the wrapper)
+// says every pointer is 16-byte aligned; it is refused if one is not.
+// Returns cudaGetLastError().
 extern "C" int deas_combine_launch(const void* mm, const void* ml, const void* lm,
-                                   const void* ll, void* out, int M, int N, void* stream) {
+                                   const void* ll, void* out, int M, int N, int vectorized,
+                                   void* stream) {
     if (M <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    int sms = 0;
-    const cudaError_t err = spoga_tile::sm_count(&sms);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (vectorized && !(spoga_tile::is_aligned16(mm) && spoga_tile::is_aligned16(ml) &&
+                        spoga_tile::is_aligned16(lm) && spoga_tile::is_aligned16(ll) &&
+                        spoga_tile::is_aligned16(out))) {
+        return static_cast<int>(cudaErrorMisalignedAddress);
+    }
     const size_t count = static_cast<size_t>(M) * N;
-    const size_t want = (count + COMBINE_THREADS - 1) / COMBINE_THREADS;
-    const size_t max_blocks = static_cast<size_t>(sms) * 32;  // 32 per SM, grid-stride beyond
-    const unsigned blocks = static_cast<unsigned>(want < max_blocks ? want : max_blocks);
-    deas_combine_kernel<<<blocks, COMBINE_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+    CombineGrid grid{};
+    const cudaError_t err = combine_grid(count, vectorized, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    deas_combine_kernel<<<grid.blocks, grid.threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(mm), static_cast<const int32_t*>(ml),
         static_cast<const int32_t*>(lm), static_cast<const int32_t*>(ll),
-        static_cast<int32_t*>(out), count);
+        static_cast<int32_t*>(out), count, vectorized);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// C entry point: an empty kernel on deas_combine's grid for an (M, N) call,
+// vectorized.  Returns cudaGetLastError().
+extern "C" int noop_launch(int M, int N, void* stream) {
+    if (M <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    CombineGrid grid{};
+    const cudaError_t err = combine_grid(static_cast<size_t>(M) * N, 1, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    noop_kernel<<<grid.blocks, grid.threads, 0, static_cast<cudaStream_t>(stream)>>>();
     return static_cast<int>(cudaGetLastError());
 }

@@ -47,7 +47,11 @@ SIGNATURES = {
     ],
     "deas_combine_launch": [
         _P, _P, _P, _P, _P,          # mm, ml, lm, ll, out
-        _I, _I,                      # M, N
+        _I, _I, _I,                  # M, N, vectorized (all pointers 16-byte aligned)
+        _P,                          # stream
+    ],
+    "noop_launch": [
+        _I, _I,                      # M, N: deas_combine's grid for that call
         _P,                          # stream
     ],
     "paged_attention_launch": [

@@ -90,7 +90,9 @@ def nibble_gemm(a, b):
 
 def deas_combine(mm, ml, lm, ll):
     """The DEAS shift-add over four stored int32 (M, N) partials: one
-    ``deas_combine`` launch on CUDA tensors."""
+    ``deas_combine`` launch on CUDA tensors, on 16-byte vectors when every
+    partial is 16-byte aligned (a fresh ``torch.empty`` output always is),
+    element by element otherwise."""
     global COMBINE_LAUNCHES
     parts = (mm, ml, lm, ll)
     if any(t.dtype != torch.int32 or t.shape != mm.shape or t.ndim != 2 for t in parts):
@@ -100,8 +102,9 @@ def deas_combine(mm, ml, lm, ll):
         return deas_combine_plain(*parts)
     m, n = mm.shape
     out = torch.empty((m, n), dtype=torch.int32, device=mm.device)
+    vectorized = int(all(t.data_ptr() % 16 == 0 for t in (*parts, out)))
     err = _build.library().deas_combine_launch(
-        *(t.data_ptr() for t in parts), out.data_ptr(), m, n, _stream(mm))
+        *(t.data_ptr() for t in parts), out.data_ptr(), m, n, vectorized, _stream(mm))
     _build.check(err, "deas_combine")
     COMBINE_LAUNCHES += 1
     return out

@@ -1,17 +1,23 @@
-"""GQA attention: full-sequence prefill and paged single-token decode.
+"""GQA attention: chunked prefill, slot-cache decode and paged decode.
 
 Port of the ``"attn"`` parts of ``repro/models/attention.py``.  Query heads
 group as ``q.reshape(b, s, g, hkv, d)`` exactly as in the reference, so
 query head ``h`` reads KV head ``h % hkv``.
 
-Prefill attention (:func:`multihead_attention`) is plain PyTorch, as the
-reference computes it outside Pallas.  Paged decode attention
-(:func:`paged_attention_decode`) writes the new token's K/V into its page
-in place, then attends through the CUDA kernel
+Plain PyTorch, as the reference computes these outside Pallas:
+
+* prefill attention (:func:`multihead_attention`), query-chunked at the
+  reference's sizes so that its memory grows as chunk x prompt;
+* slot-cache decode (:func:`attention_decode`): the token's K/V goes into
+  row ``pos`` of its lane's contiguous cache, in place, then
+  :func:`_decode_attend` attends rows ``0..pos``.
+
+Paged decode (:func:`paged_attention_decode`) writes the new token's K/V
+into its page in place, then attends through the CUDA kernel
 (``kernels/paged_attention``) on CUDA tensors, or through the gather twin
-(``_gather_pages`` + ``_decode_attend``) on CPU tensors, with the
-reference's ``"jnp"`` numerics: bf16 operands and probabilities cast to
-bf16 before PV.
+(``_gather_pages`` + ``_decode_attend``) on CPU tensors.  Both decode paths
+use the reference's ``"jnp"`` numerics: bf16 operands and probabilities
+cast to bf16 before PV.
 """
 
 from __future__ import annotations
@@ -39,30 +45,50 @@ def _neg_inf_like(t):
     return torch.tensor(NEG_INF, dtype=t.dtype, device=t.device)
 
 
-def _attend_chunk(q, k, v):
-    """Causal attention. q: (B, C, G, Hkv, D); k/v: (B, S, Hkv, D) bf16.
-    Exact f32 softmax: bf16 operands, f32 accumulation, probabilities cast
-    to v's dtype."""
+def _pick_chunk(s: int) -> int:
+    """Query rows per chunk: the reference's sizes and rule (one pass when
+    none divides ``s`` with more than one chunk)."""
+    for c in (512, 256, 128, 64):
+        if s % c == 0 and s > c:
+            return c
+    return s
+
+
+def _attend_chunk(q, k, v, q_offset: int, prob_dtype):
+    """Causal attention of query rows ``q_offset ..`` over every key.
+
+    q: (B, C, G, Hkv, D) bf16; k/v: (B, S, Hkv, D) f32 copies of the bf16
+    keys and values.  Exact f32 softmax: f32 accumulation, probabilities
+    rounded to ``prob_dtype`` (v's own dtype) before PV."""
     d = q.shape[-1]
-    scores = torch.einsum("bcghd,bshd->bcghs", q.float(), k.float()) * (d ** -0.5)
-    qpos = torch.arange(q.shape[1], device=q.device)[:, None]
+    scores = torch.einsum("bcghd,bshd->bcghs", q.float(), k) * (d ** -0.5)
+    qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
     kpos = torch.arange(k.shape[1], device=q.device)[None, :]
     mask = kpos <= qpos
     scores = torch.where(mask[None, :, None, None, :], scores, _neg_inf_like(scores))
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bcghs,bshd->bcghd", probs.to(v.dtype).float(), v.float())
+    out = torch.einsum("bcghs,bshd->bcghd", probs.to(prob_dtype).float(), v)
     return out.to(q.dtype)
 
 
 def multihead_attention(q, k, v):
     """Causal GQA. q: (B, Sq, Hq, D), k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
-    One pass over the whole query (the reference's query chunking only
-    bounds memory; every query row is computed the same way)."""
+    Query-chunked as the reference chunks it (:func:`_pick_chunk`: 512,
+    256, 128 or 64 rows), so the f32 scores of one chunk, (B, C, G, Hkv,
+    Skv), are the largest tensor and memory grows as C x Skv, not Sq x Skv.
+    That bound is what lets a long prompt prefill: at 16,384 tokens and 32
+    heads, unchunked scores would take 34 GB a copy.  Every query row is
+    computed the same way in either form; a prompt length that the
+    reference leaves in one pass stays in one pass here."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, sq, hq // hkv, hkv, d)
-    return _attend_chunk(qg, k, v).reshape(b, sq, hq, v.shape[-1])
+    kf, vf = k.float(), v.float()
+    chunk = _pick_chunk(sq)
+    out = torch.cat([_attend_chunk(qg[:, i:i + chunk], kf, vf, i, v.dtype)
+                     for i in range(0, sq, chunk)], dim=1)
+    return out.reshape(b, sq, hq, v.shape[-1])
 
 
 def attention_block(x, p, cfg: ModelConfig, positions):
@@ -122,6 +148,46 @@ def _decode_attend(qg, k_cache, v_cache, k_scale, v_scale, valid):
     else:
         v_op = v_cache
     return torch.einsum("bcghs,bshd->bcghd", probs.to(v_op.dtype).float(), v_op.float())
+
+
+def attention_decode(x_t, p, cfg: ModelConfig, cache, pos, *, window=None):
+    """One-token decode over a slot cache.
+
+    cache: {"k","v"[,"k_scale","v_scale"]} (B, Smax, Hkv, D) lanes; pos
+    (B,) int32.  The token's K/V (quantized for int8 caches) is written
+    into row ``pos`` of each lane IN PLACE, clamped to the last row as the
+    reference's ``dynamic_update_slice`` clamps, then rows ``0..pos`` are
+    attended.  Returns (out (B, 1, d_model), cache)."""
+    if window is not None:
+        raise NotImplementedError("windowed (ring) decode caches belong to local_attn, "
+                                  "not ported yet (ROADMAP queue 1, item 7)")
+    b = x_t.shape[0]
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    int8_cache = cfg.kv_cache_dtype == "int8"
+    q, k, v = _decode_qkv(x_t, p, cfg, pos)
+
+    k_cache, v_cache = cache["k"], cache["v"]
+    smax = k_cache.shape[1]
+    lanes = torch.arange(b, device=pos.device)
+    row = torch.clamp(pos.long(), 0, smax - 1)
+    k_scale = v_scale = None
+    if int8_cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        k_cache[lanes, row] = kq[:, 0]
+        v_cache[lanes, row] = vq[:, 0]
+        k_scale, v_scale = cache["k_scale"], cache["v_scale"]
+        k_scale[lanes, row] = ks[:, 0]
+        v_scale[lanes, row] = vs[:, 0]
+    else:
+        k_cache[lanes, row] = k[:, 0].to(k_cache.dtype)
+        v_cache[lanes, row] = v[:, 0].to(v_cache.dtype)
+
+    qg = q.reshape(b, 1, hq // hkv, hkv, hd)
+    valid = torch.arange(smax, device=pos.device)[None, :] <= pos[:, None]
+    out = _decode_attend(qg, k_cache, v_cache, k_scale, v_scale, valid)
+    out = out.to(x_t.dtype).reshape(b, 1, hq * hd)
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
 
 
 def _resolve_paged_impl(cfg: ModelConfig, device: torch.device) -> str:

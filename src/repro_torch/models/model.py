@@ -10,7 +10,8 @@ layout mirrors the reference's (plain dicts of tensors):
      "head": (V, d) bf16 (absent if tied)}
 
 The reference's ``lax.scan`` over periods is a Python loop here.  Decode
-runs over a *paged* cache only; its page writes land in the pools in place.
+runs over a contiguous (slot) cache or a paged one; its writes land in the
+cache in place.
 """
 
 from __future__ import annotations
@@ -147,15 +148,18 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, lengths=None):
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
-    """One token for every lane over a paged cache.  tokens: (B,) int.
+    """One token for every lane.  tokens: (B,) int.
 
-    ``active`` (B,) bool marks lanes serving a request: idle lanes still
-    ride the fixed-shape step, but their ``pos`` is pinned to 0 and their
-    page writes go to the trash page.  The pools are updated in place and
-    ``cache`` is returned with ``pos`` advanced.  Returns (logits (B, V),
-    cache)."""
+    A ``block_tables`` key in ``cache`` marks a paged cache (see
+    :func:`paged_cache_shapes`); without one, ``cache`` is the contiguous
+    layout of :func:`init_cache` / :func:`prefill`.  ``active`` (B,) bool
+    marks lanes serving a request: idle lanes still ride the fixed-shape
+    step, but their ``pos`` is pinned to 0; their paged writes go to the
+    trash page, their slot writes stay in their own lane at row 0.
+    ``active=None`` advances every lane.  The cache is updated in place and
+    returned with ``pos`` advanced.  Returns (logits (B, V), cache)."""
     pos = cache["pos"]
-    tables = cache["block_tables"]
+    tables = cache.get("block_tables")
     x = embed(tokens[:, None], params["embed"])
     n_periods, tail = layer_layout(cfg)
     for i in range(n_periods):

@@ -83,14 +83,17 @@ def apply_block_prefill(x, p, kind: str, cfg: ModelConfig, positions, cache_len:
 
 def apply_block_decode(x_t, p, kind: str, cfg: ModelConfig, cache, pos,
                        tables=None, active=None):
-    """One-token decode through one block over its paged pool (written in
-    place).  Returns (x_t, cache)."""
+    """One-token decode through one block.  A paged cache is recognized by
+    its pool keys (``kp``); ``tables`` are the block tables threaded down
+    from the cache root, ``active`` the live-lane mask (see
+    ``model.decode_step``).  Either cache is written in place.  Returns
+    (x_t, cache)."""
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    if "kp" not in cache:
-        raise NotImplementedError("the port decodes over paged caches only "
-                                  "(slot caches: ROADMAP queue 1, item 5)")
     h = rmsnorm(x_t, p["norm1"], cfg.norm_eps)
-    a, cache = attn.paged_attention_decode(h, p["attn"], cfg, cache, pos, tables,
-                                           active=active)
+    if "kp" in cache:
+        a, cache = attn.paged_attention_decode(h, p["attn"], cfg, cache, pos, tables,
+                                               active=active)
+    else:
+        a, cache = attn.attention_decode(h, p["attn"], cfg, cache, pos)
     return _residual_mlp(x_t, a, p, cfg), cache

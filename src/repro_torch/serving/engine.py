@@ -1,25 +1,32 @@
-"""Continuous-batching serving engine over a paged KV cache.
+"""Continuous-batching serving engine (port of ``repro/serving/engine.py``).
 
-Port of ``repro/serving/engine.py`` in paged mode.  One ``ServingEngine``
-owns ``n_slots`` lanes over a global page pool and runs an iteration-level
-loop; every ``step()``
+One ``ServingEngine`` owns ``n_slots`` KV-cache lanes and runs an
+iteration-level loop.  The cache is one of two stores:
 
-1. **admits** the FIFO head, if the pool can reserve its worst case: a batch=1 prefill, padded to the
-   smallest prefill bucket and rounded up to whole pages, whose cache is
-   scattered into the lane's fresh pages and whose last-position logits
-   give the request's first token;
+* ``"slot"`` (the default) -- ``slots.SlotCache``: every lane holds
+  ``cache_len`` contiguous rows;
+* ``"paged"`` -- ``paging.PagedCache``: KV lives in a global page pool,
+  each lane's rows found through its block-table row.
+
+Every ``step()``
+
+1. **admits** the FIFO head (in paged mode only if the pool can reserve
+   its worst case): a batch=1 prefill, padded to the smallest prefill
+   bucket, whose cache is copied into the lane (slot mode: ``cache_len``
+   rows; paged mode: the bucket rounded up to whole pages, into the lane's
+   fresh pages) and whose last-position logits give the first token;
 2. **decodes** one token for every occupied lane in one ``decode_step``
-   over the whole pool, with the ``active`` mask pinning idle lanes;
-3. **evicts** lanes that reached their budget or EOS, returning their
-   pages to the pool the same step.
+   over the whole store, with the ``active`` mask pinning idle lanes;
+3. **evicts** lanes that reached their budget or EOS, freeing the lane
+   (and returning its pages to the pool) the same step.
 
 Tokens reach the host every step (the reference defers the pull while no
 scheduling decision needs it; the streams are the same).
 
-Not ported yet, and refused with ``NotImplementedError``: slot mode,
-chunked prefill, prefix caching, speculative decoding, stacked admission,
-defrag, observability / flight recorder, device meshes and stochastic
-sampling (ROADMAP queue 1, item 5).
+Not ported yet, and refused with ``NotImplementedError``: chunked prefill,
+prefix caching, speculative decoding, stacked admission, defrag,
+observability / flight recorder, device meshes and stochastic sampling
+(ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from repro_torch.paging import PagedCache
 from repro_torch.serving.request import Request
 from repro_torch.serving.sampling import SamplingParams, greedy_tokens
 from repro_torch.serving.scheduler import Scheduler
+from repro_torch.serving.slots import SlotCache
 
 _LATER = "not ported yet (ROADMAP queue 1, item 5)"
 
@@ -60,7 +68,8 @@ class EngineConfig:
     # prompts pad up to the smallest bucket >= len(prompt); None/() = exact
     prefill_buckets: Optional[tuple[int, ...]] = None
     eos_token: Optional[int] = None
-    cache_mode: str = "paged"
+    # "slot" (per-lane cache_len rows) | "paged" (global page pool)
+    cache_mode: str = "slot"
     page_size: int = DEFAULT_PAGE_SIZE
     # pool size in pages; None = the slot-equivalent KV budget
     n_pages: Optional[int] = None
@@ -116,9 +125,9 @@ class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig,
                  device=None, policies=None, obs=None, mesh=None):
         ecfg = engine_cfg
-        if ecfg.cache_mode != "paged":
-            raise NotImplementedError(f"cache_mode={ecfg.cache_mode!r}: only "
-                                      f"'paged' is ported; slot mode is {_LATER}")
+        if ecfg.cache_mode not in ("slot", "paged"):
+            raise ValueError(f"cache_mode must be 'slot' or 'paged', got "
+                             f"{ecfg.cache_mode!r}")
         for name, value in (("prefill_chunk", ecfg.prefill_chunk),
                             ("spec", ecfg.spec), ("policies", policies),
                             ("obs", obs), ("mesh", mesh)):
@@ -137,11 +146,15 @@ class ServingEngine:
         self.params = params
         self.engine_cfg = ecfg
         self.buckets = buckets
+        self.paged = ecfg.cache_mode == "paged"
         n = ecfg.n_slots
         self.scheduler = Scheduler(n)
         self.metrics = EngineMetrics()
-        self.store = PagedCache(cfg, n, ecfg.cache_len, ecfg.page_size,
-                                ecfg.n_pages, device=self.device)
+        if self.paged:
+            self.store = PagedCache(cfg, n, ecfg.cache_len, ecfg.page_size,
+                                    ecfg.n_pages, device=self.device)
+        else:
+            self.store = SlotCache(cfg, n, ecfg.cache_len, device=self.device)
         # each lane's next decode input (the token it sampled last)
         self._tokens = torch.zeros((n,), dtype=torch.int32, device=self.device)
         self._next_id = 0
@@ -165,12 +178,13 @@ class ServingEngine:
                 f"request needs {need} cache positions but cache_len="
                 f"{self.engine_cfg.cache_len}; size the engine with "
                 f"default_cache_len(prompt_len, gen) [headroom={KV_CACHE_HEADROOM}]")
-        pages = pages_for(self._reserve_rows(len(prompt), max_new_tokens),
-                          self.engine_cfg.page_size)
-        usable = self.store.n_pages - 1  # page 0 is the trash page
-        if pages > usable:
-            raise ValueError(f"request reserves {pages} pages but the pool only "
-                             f"has {usable} usable pages; raise n_pages")
+        if self.paged:
+            pages = pages_for(self._reserve_rows(len(prompt), max_new_tokens),
+                              self.engine_cfg.page_size)
+            usable = self.store.n_pages - 1  # page 0 is the trash page
+            if pages > usable:
+                raise ValueError(f"request reserves {pages} pages but the pool only "
+                                 f"has {usable} usable pages; raise n_pages")
         req = Request(
             req_id=self._next_id, prompt=prompt, max_new_tokens=max_new_tokens,
             sampling=sampling or SamplingParams(),
@@ -203,14 +217,18 @@ class ServingEngine:
             self._reserve_rows(req.prompt_len, req.max_new_tokens))
 
     def _admit(self, req: Request, slot: int) -> None:
-        """Reserve the worst case, take the prefill's pages, prefill batch=1
-        and scatter its cache into the pages; the logits give token 1."""
-        mgr = self.store.manager
+        """Prefill batch=1 and copy its cache into the lane; the logits give
+        token 1.  Paged mode first reserves the worst case and takes the
+        prefill's pages."""
         padded = self._bucket_len(req.prompt_len)
-        single_len = self._single_len(req.prompt_len)
-        mgr.admit(slot, self._reserve_rows(req.prompt_len, req.max_new_tokens))
-        page_ids = mgr.alloc(slot, single_len // self.engine_cfg.page_size)
-        mgr.set_length(slot, req.prompt_len)
+        if self.paged:
+            mgr = self.store.manager
+            single_len = self._single_len(req.prompt_len)
+            mgr.admit(slot, self._reserve_rows(req.prompt_len, req.max_new_tokens))
+            page_ids = mgr.alloc(slot, single_len // self.engine_cfg.page_size)
+            mgr.set_length(slot, req.prompt_len)
+        else:
+            single_len = self.engine_cfg.cache_len
         tokens = torch.zeros((1, padded), dtype=torch.int32)
         tokens[0, :req.prompt_len] = torch.tensor(req.prompt, dtype=torch.int32)
         tokens = tokens.to(self.device)
@@ -218,7 +236,10 @@ class ServingEngine:
         logits, single = model_lib.prefill(self.params, self.cfg, tokens, single_len,
                                            lengths=lengths)
         tok = greedy_tokens(logits)
-        self.store.insert(single, slot, page_ids, req.prompt_len)
+        if self.paged:
+            self.store.insert(single, slot, page_ids, req.prompt_len)
+        else:
+            self.store.insert(single, slot)
         self._tokens[slot] = tok[0]
         req.append_token(int(tok[0]))   # host pull: stamps TTFT
         self.metrics.prefills += 1
@@ -237,7 +258,7 @@ class ServingEngine:
         finished: list[Request] = []
 
         t0 = time.perf_counter()
-        got = self.scheduler.schedule_one(self._admit_ok)
+        got = self.scheduler.schedule_one(self._admit_ok if self.paged else None)
         if got is not None:
             req, slot = got
             self._admit(req, slot)
@@ -249,18 +270,20 @@ class ServingEngine:
         m.peak_running = max(m.peak_running, len(running))
         if running:
             t0 = time.perf_counter()
-            mgr = self.store.manager
-            for slot in running:
-                mgr.ensure(slot, int(mgr.lengths[slot]) + 1)
-            self.store.sync_tables()
-            m.peak_pages_used = max(m.peak_pages_used, mgr.pages_in_use)
+            if self.paged:
+                mgr = self.store.manager
+                for slot in running:
+                    mgr.ensure(slot, int(mgr.lengths[slot]) + 1)
+                self.store.sync_tables()
+                m.peak_pages_used = max(m.peak_pages_used, mgr.pages_in_use)
             active = np.zeros((self.engine_cfg.n_slots,), bool)
             active[list(running)] = True
             logits, _ = model_lib.decode_step(
                 self.params, self.cfg, self._tokens, self.store.cache,
                 active=torch.from_numpy(active).to(self.device))
             self._tokens = greedy_tokens(logits)
-            mgr.advance(running)
+            if self.paged:
+                mgr.advance(running)
             toks = self._tokens.cpu().numpy()
             for slot, req in list(running.items()):
                 req.append_token(int(toks[slot]))

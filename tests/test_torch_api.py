@@ -173,7 +173,6 @@ def test_resolution_matches_jax():
 
 
 REFUSED = [
-    dict(kv=KVConfig()),                                         # slot mode (the default)
     dict(kv=KVConfig(prefix_cache=True, **PAGED)),
     dict(scheduler=SchedulerConfig(prefill_chunk=8)),
     dict(scheduler=SchedulerConfig(batched_admission=True)),
@@ -205,7 +204,9 @@ def test_unserved_settings_raise_not_implemented(kw):
 def test_served_settings_pass():
     for sched in (SchedulerConfig(), SchedulerConfig(defrag_threshold=None),
                   SchedulerConfig(prefill_buckets="auto", n_slots=2)):
-        RuntimeConfig(kv=KVConfig(**PAGED), scheduler=sched).check_served()
+        for kv in (KVConfig(**PAGED), KVConfig(), KVConfig(dtype="int8")):
+            RuntimeConfig(kv=kv, scheduler=sched).check_served()
+    RuntimeConfig().check_served()               # the default: slot mode
 
 
 # ---------------------------------------------------------------------------
@@ -310,8 +311,8 @@ def test_llm_refusals_and_device():
         LLM(arch="llama3.2-1b", runtime=rc, checkpoint_dir="ckpt", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLM.replay("bundle")
-    with pytest.raises(NotImplementedError, match="slot"):
-        LLM(arch="llama3.2-1b", runtime=RuntimeConfig(reduced=True), device="cpu")
+    default = LLM(arch="llama3.2-1b", runtime=RuntimeConfig(reduced=True), device="cpu")
+    assert default.runtime.kv.mode == "slot"     # served since slot mode was ported
     llm = LLM(arch="llama3.2-1b", runtime=rc, device="cpu")
     assert llm.params["embed"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="engine not built"):

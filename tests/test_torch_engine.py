@@ -120,7 +120,7 @@ def test_engine_evicts_on_eos():
 def test_engine_refuses_what_is_not_ported():
     _, tcfg, tree = _setup("int8_spoga", "int8", 4)
     tparams = params_from_jax(tree, tcfg, "cpu")
-    for kw in ({"cache_mode": "slot"}, {"prefill_chunk": 8}, {"prefix_cache": True}):
+    for kw in ({"prefill_chunk": 8}, {"prefix_cache": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(tcfg, tparams, EngineConfig(**{**ENGINE, **kw}), device="cpu")
     from repro_torch.serving import SamplingParams

@@ -144,6 +144,72 @@ def test_deas_gemm_kernels_match_plain_bitwise():
         assert torch.equal(got, spoga_gemm(x, w)), (m, k, n)
 
 
+# deas_combine: decode, prefill and long-prompt widths, and count % 4 in
+# {0, 1, 2, 3} (the scalar tail)
+COMBINE_SHAPES = [(1, 8192), (4, 8192), (128, 8192), (2048, 8192), (4, 2048),
+                  (3, 7), (1, 2), (5, 11), (1, 1), (17, 103)]
+
+
+def _partials(m, n, seed, lo=-(2 ** 31), hi=2 ** 31):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.integers(lo, hi, (m, n), dtype=np.int64).astype(np.int32))
+            .cuda() for _ in range(4)]
+
+
+@pytest.mark.parametrize("m,n", COMBINE_SHAPES)
+def test_deas_combine_kernel_matches_plain_bitwise(m, n):
+    """The shift-add over the full int32 range (every sum and shift wraps)
+    and over nibble-product-sized partials, bitwise the plain version; one
+    launch a call."""
+    _card()
+    for parts in (_partials(m, n, m * n), _partials(m, n, m + n, -(2 ** 15), 2 ** 15)):
+        launches = deas_mod.COMBINE_LAUNCHES
+        got = deas_mod.deas_combine(*parts)
+        assert deas_mod.COMBINE_LAUNCHES == launches + 1
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (m, n)
+        assert torch.equal(got, deas_mod.deas_combine_plain(*parts)), (m, n)
+
+
+def test_deas_combine_wraps_like_int32():
+    """Extremes: int32 min and max in every partial, so each shift and add
+    wraps mod 2^32 as the TPU's int32 does."""
+    _card()
+    vals = torch.tensor([-(2 ** 31), 2 ** 31 - 1, -1, 0, 1, 2 ** 27, -(2 ** 27), 12345],
+                        dtype=torch.int32)
+    grid = torch.cartesian_prod(*(torch.arange(len(vals)),) * 4)     # 4,096 combinations
+    parts = [vals[grid[:, i]].reshape(64, 64).contiguous().cuda() for i in range(4)]
+    got = deas_mod.deas_combine(*parts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, deas_mod.deas_combine_plain(*parts))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+@pytest.mark.parametrize("m,n", [(4, 8192), (3, 7)])
+def test_deas_combine_misaligned_views_take_the_scalar_path(m, n, offset):
+    """Contiguous views 4, 8 or 12 bytes past a 16-byte boundary: the
+    wrapper asks for the element-wise path, which gives the same result;
+    asking the C entry point for vectors there is refused."""
+    _card()
+    count = m * n
+    parts = []
+    for t in _partials(m, n, 7 * offset):
+        buf = torch.empty(count + 4, dtype=torch.int32, device="cuda")
+        view = buf[offset:offset + count].view(m, n)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        parts.append(view)
+    got = deas_mod.deas_combine(*parts)
+    torch.cuda.synchronize()
+    assert torch.equal(got, deas_mod.deas_combine_plain(*parts))
+    from repro_torch.kernels import _build
+    out = torch.empty((m, n), dtype=torch.int32, device="cuda")
+    err = _build.library().deas_combine_launch(
+        *(t.data_ptr() for t in parts), out.data_ptr(), m, n, 1,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+
+
 def test_cuda_direct_backend_matches_direct_matmul():
     """torch._int_mm, with M, K and N padded to what it takes, is bitwise
     the plain integer product."""

@@ -25,6 +25,7 @@ import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
+from repro.models.attention import _pick_chunk as jax_pick_chunk
 from repro.models.attention import multihead_attention as jax_multihead_attention
 from repro.models import decode_step as jax_decode_step
 from repro.models import init_cache as jax_init_cache
@@ -42,6 +43,7 @@ from repro_torch.models import (
     params_from_jax,
     prefill,
 )
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import multihead_attention
 from repro_torch.models.kvcache import zeros_like_shapes
 from repro_torch.paging import PagedCache
@@ -139,24 +141,67 @@ def _bf16_torch(a):
     return torch.from_numpy(np.asarray(a).view(np.int16)).view(torch.bfloat16)
 
 
+# chunked prompts against the JAX attention: XLA's CPU dots (oneDNN's bf16
+# kernels) and PyTorch's f32 ones sum in other orders, so now and then an
+# output rounds to the neighbouring bf16 value (ROADMAP queue 3): at most
+# this share of the outputs, each within one bf16 ulp of the largest
+CHUNKED_ATTN_SHARE = 1e-3
+CHUNKED_ATTN_TOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("sq", [16, 128, 1024])
 @pytest.mark.parametrize("n_kv_heads", [4, 2, 1])
-def test_gqa_attention_matches_jax(n_kv_heads):
-    """Causal GQA on identical bf16 q/k/v: bitwise equal to the jitted JAX
-    attention for 1, 2 and 4 query heads per KV head.  Query head ``h``
-    reads KV head ``h % n_kv_heads``; the other order (``h // g``) is far
-    off."""
+def test_gqa_attention_matches_jax(n_kv_heads, sq):
+    """Causal GQA on identical bf16 q/k/v for 1, 2 and 4 query heads per
+    KV head.  At 16 query rows (one pass in both packages) bitwise equal to
+    the jitted JAX attention.  At 128 and 1,024 (64- and 512-row chunks)
+    bitwise equal to the port's own one-pass attention, and within
+    CHUNKED_ATTN_SHARE / CHUNKED_ATTN_TOL of the JAX attention.  Query head
+    ``h`` reads KV head ``h % n_kv_heads``; the other order (``h // g``)
+    is far off."""
     rng = np.random.default_rng(n_kv_heads)
-    q, k, v = (jnp.asarray(rng.normal(size=(2, 16, h, 32)).astype(np.float32) * 2)
+    q, k, v = (jnp.asarray(rng.normal(size=(2, sq, h, 32)).astype(np.float32) * 2)
                .astype(jnp.bfloat16) for h in (4, n_kv_heads, n_kv_heads))
     want = np.asarray(jax.jit(jax_multihead_attention)(q, k, v).astype(jnp.float32))
     tq, tk, tv = (_bf16_torch(a) for a in (q, k, v))
     got = multihead_attention(tq, tk, tv)
-    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, 16, 4, 32)
-    np.testing.assert_array_equal(got.float().numpy(), want)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (2, sq, 4, 32)
+    got = got.float().numpy()
+    if sq == 16:
+        np.testing.assert_array_equal(got, want)
+    else:
+        one_pass = attn_mod._attend_chunk(tq.reshape(2, sq, 4 // n_kv_heads, n_kv_heads, 32),
+                                          tk.float(), tv.float(), 0, tv.dtype)
+        np.testing.assert_array_equal(got, one_pass.reshape(2, sq, 4, 32).float().numpy())
+        assert (got != want).mean() <= CHUNKED_ATTN_SHARE
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=CHUNKED_ATTN_TOL * np.abs(want).max())
     if n_kv_heads == 2:          # the orders differ only when 1 < Hkv < Hq
         other = multihead_attention(tq, torch.repeat_interleave(tk, 2, 2),
                                     torch.repeat_interleave(tv, 2, 2)).float().numpy()
         assert np.abs(other - want).max() > 1.0
+
+
+@pytest.mark.parametrize("sq,rows", [(100, 100), (128, 64), (1024, 512), (16384, 512)])
+def test_attention_chunks_like_the_reference(monkeypatch, sq, rows):
+    """``multihead_attention`` hands ``_attend_chunk`` the reference's
+    chunks (``repro/models/attention.py:_pick_chunk``): 512, 256, 128 or 64
+    query rows when one divides the prompt into more than one chunk, else
+    one pass; each chunk at its own query offset.  One head, D=8."""
+    seen = []
+    inner = attn_mod._attend_chunk
+
+    def record(q, k, v, q_offset, prob_dtype):
+        seen.append((q_offset, q.shape[1]))
+        return inner(q, k, v, q_offset, prob_dtype)
+
+    monkeypatch.setattr(attn_mod, "_attend_chunk", record)
+    assert jax_pick_chunk(sq) == rows
+    g = torch.Generator().manual_seed(sq)
+    q, k, v = (torch.randn((1, sq, 1, 8), generator=g).bfloat16() for _ in range(3))
+    out = multihead_attention(q, k, v)
+    assert seen == [(i, rows) for i in range(0, sq, rows)]
+    assert tuple(out.shape) == (1, sq, 1, 8) and bool(torch.isfinite(out.float()).all())
 
 
 def test_params_layout_matches_jax():
