@@ -8,7 +8,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``src/repro_torch/csrc/`` (one nvcc per source, all started together);
 2. GEMM kernels: ``spoga_gemm_dequant`` and the int32 ``spoga_gemm``
    against their plain versions, bitwise, at the main path's shapes for
-   W8A8, w4a8 and w16a16; the DEAS kernels (``nibble_gemm`` x4 +
+   W8A8, w4a8 and w16a16 (``spoga_gemm_dequant`` also at M=512, a
+   chunked-prefill step's projections, timed at W8A8); the DEAS kernels (``nibble_gemm`` x4 +
    ``deas_combine``) at W8A8 against their plain versions and
    ``spoga_gemm``, 5 launches per call, and ``deas_combine`` alone over
    the int32 range, aligned and misaligned; each time the profiler's device
@@ -52,7 +53,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    one prefill: the first greedy token equal, the logits within tolerance;
    then a 1,000-token paged decode over int8 KV, 4 steps fed the CPU's
    tokens, the logits within tolerance at every step;
-7. the ``kernels`` JSON line, then the ``ok`` line last.
+7. engine features, full-width ``int8_spoga`` over int8 paged KV (runs
+   between phases 5b and 6): (a) phase 4's weights saved with
+   ``save_checkpoint`` and loaded by ``LLM(checkpoint_dir=)``, every tensor
+   equal; (b) 2 prompts of 2,048-4,096 tokens then 8 short ones, chunked
+   at 512 tokens and again unchunked (every request finished, the chunk
+   steps counted, the short requests' TTFT printed); (c) 8 same-bucket
+   prompts stacked into shared prefills, against unstacked; (d) defrag at
+   threshold 0.05 against off, greedy streams bitwise equal; each run's
+   kernel counts read around it; then chunked against one-shot prefill
+   and stacked against batch=1 on phase 6's 2-layer bf16 model (logits
+   within tolerance; greedy equal except on near-tie rows, whose top-2
+   margin is at most ``NEAR_TIE_ULPS`` bf16 ulps) and at full width
+   (printed);
+8. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -79,7 +93,12 @@ GEMM_SPECS = {"w8a8": "int8_spoga", "w4a8": "w4a8", "w16a16": "w16a16"}
 ATTN_TOL = dict(rtol=2e-5, atol=2e-5)
 # card vs CPU logits: bf16 rounding of sums taken in another order
 LOGIT_TOL = 2e-2
+# a greedy token may flip between two summation orders only on a row whose
+# top-2 margin is at most this many bf16 ulps of its top logit
+NEAR_TIE_ULPS = 2
 ENGINE_SEED = 0
+# phase 7's prefill chunk: the M of every projection of a chunk step
+CHUNK_M = 512
 
 
 def fail(msg: str) -> None:
@@ -285,7 +304,7 @@ def phase_gemm():
     gen = torch.Generator(device="cuda").manual_seed(1)
     checked, max_err = 0, 0.0
     for name, mode in GEMM_SPECS.items():
-        for m, k, n in _gemm_case_shapes():
+        for m, k, n in _gemm_case_shapes() + [(CHUNK_M, k, n) for k, n in GEMM_KN]:
             spec, x, w, xs, ws = _gemm_operands(m, k, n, mode, gen)
             got = spoga_gemm_dequant(x, w, xs, ws, n_x_slices=spec.n_a_slices,
                                      n_w_slices=spec.n_w_slices, slice_bits=spec.slice_bits)
@@ -299,7 +318,8 @@ def phase_gemm():
 
     timings = {}
     for name, mode in GEMM_SPECS.items():
-        for m in (4, 128):
+        # M=CHUNK_M: every projection of a chunked-prefill step (phase 7), at W8A8
+        for m in (4, 128) + ((CHUNK_M,) if name == "w8a8" else ()):
             for k, n in GEMM_KN:
                 spec, x, w, xs, ws = _gemm_operands(m, k, n, mode, gen)
                 nb = copies_for(w.numel() * w.element_size())
@@ -827,11 +847,12 @@ def phase_main(card, params):
     rep = metrics.report()
     require(not engine.store.manager.invariant_violations(), "page bookkeeping broken")
     require(engine.store.manager.pages_in_use == 0, "pages leaked after the run")
-    print(f"[main] {rep['finished']} finished, {rep['generated_tokens']} tokens in "
+    print(f"[main] {rep['requests']} finished, {rep['generated_tokens']} tokens in "
           f"{rep['wall_s']:.3f} s: {rep['tokens_per_s']:.1f} tok/s, TTFT mean "
           f"{1e3 * rep['ttft_mean_s']:.1f} ms, decode step mean "
           f"{1e3 * rep['decode_step_mean_s']:.2f} ms ({rep['decode_steps']} steps, "
-          f"{rep['prefills']} prefills, peak lanes {rep['peak_running']}), peak memory "
+          f"{rep['prefills']} prefills, peak lanes {rep['peak_running']}, defrag "
+          f"{rep['defrag_count']} times, {rep['defrag_pages_moved']} pages), peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
     expect_gemm = 7 * cfg.n_layers * (rep["decode_steps"] + rep["prefills"])
     expect_attn = cfg.n_layers * rep["decode_steps"]
@@ -981,7 +1002,7 @@ def phase_slot(card, params, paged_rep):
                 f"{label}: {launches['spoga_gemm_dequant']} GEMM launches, want {per_pass} per "
                 f"decode step and per prefill")
         require(engine.store.pos.tolist() == [0] * 4, f"{label}: a free lane's pos drifted")
-        print(f"[slot] {kv} KV: {rep['finished']} finished, {rep['generated_tokens']} tokens, "
+        print(f"[slot] {kv} KV: {rep['requests']} finished, {rep['generated_tokens']} tokens, "
               f"{rep['tokens_per_s']:.1f} tok/s, TTFT mean {1e3 * rep['ttft_mean_s']:.1f} ms, "
               f"decode step mean {1e3 * rep['decode_step_mean_s']:.2f} ms ({rep['decode_steps']} "
               f"steps, {launches['spoga_gemm_dequant']} spoga_gemm_dequant launches = "
@@ -1104,7 +1125,7 @@ def phase_default_llm(card):
     require(all(0 <= t < llm.config.vocab_size for o in outs for t in o.token_ids),
             "default LLM: token out of range")
     rep = llm.metrics.report()
-    print(f"[default] LLM('llama3.2-1b').generate: {rep['finished']} prompts x 12 tokens on "
+    print(f"[default] LLM('llama3.2-1b').generate: {rep['requests']} prompts x 12 tokens on "
           f"{llm.device}, slot bf16 KV, bf16 GEMMs; {rep['tokens_per_s']:.1f} tok/s, decode "
           f"step mean {1e3 * rep['decode_step_mean_s']:.2f} ms; "
           f"{time.perf_counter() - t0:.1f} s with its init [{card}]", flush=True)
@@ -1247,11 +1268,12 @@ def phase_dataflows(card, params):
             counts.setdefault(label, launches)
             reports[label].append(rep)
             print(f"[facade] round {rnd + 1} {label} ({mode}, gemm_backend={backend}): "
-                  f"{rep['finished']} finished, {rep['generated_tokens']} tokens, "
+                  f"{rep['requests']} finished, {rep['generated_tokens']} tokens, "
                   f"{rep['tokens_per_s']:.1f} tok/s, decode step mean "
                   f"{1e3 * rep['decode_step_mean_s']:.2f} ms ({rep['decode_steps']} steps), "
                   f"TTFT mean {1e3 * rep['ttft_mean_s']:.1f} ms, prefill total "
-                  f"{rep['prefill_s']:.3f} s [{card}]", flush=True)
+                  f"{rep['prefill_s']:.3f} s, defrag {rep['defrag_count']} times "
+                  f"[{card}]", flush=True)
             del llm
     base = reports[DATAFLOWS[0][0]]
     for label, reps in reports.items():
@@ -1392,6 +1414,321 @@ def phase_cpu_long_decode(card):
 
 
 # ---------------------------------------------------------------------------
+# 7. engine features: checkpoint, chunked prefill, stacked admission, defrag
+# ---------------------------------------------------------------------------
+
+def _roundup(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _leaves(tree):
+    """(path, tensor) pairs of a parameter tree, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [(f"{k}.{p}", t) for k in sorted(tree) for p, t in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [(f"{i}.{p}", t) for i, v in enumerate(tree) for p, t in _leaves(v)]
+    return [("", tree)]
+
+
+def _feature_runtime(cache_len, page_size=16, **sched):
+    """``int8_spoga`` over int8 paged KV, 4 lanes unless ``sched`` says
+    otherwise."""
+    from repro_torch.api import KVConfig, QuantRuntime, RuntimeConfig, SchedulerConfig
+    sched = {"n_slots": 4, "prefill_buckets": (32, 64, 128), **sched}
+    return RuntimeConfig(quant=QuantRuntime(mode="int8_spoga"),
+                         kv=KVConfig(mode="paged", dtype="int8", page_size=page_size,
+                                     cache_len=cache_len),
+                         scheduler=SchedulerConfig(**sched))
+
+
+def phase_checkpoint(card, params):
+    """(a) Phase 4's seed-0 full-width weights saved with the port's
+    ``save_checkpoint`` into a temporary directory (deleted at the end) and
+    loaded by ``LLM(checkpoint_dir=)``: every tensor ``torch.equal`` to the
+    one in memory.  Returns the loaded params and the numbers."""
+    import tempfile
+    from repro_torch.api import LLM
+    from repro_torch.checkpoint import save_checkpoint
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_checkpoint(d, 1, params, metadata={"arch": "llama3.2-1b",
+                                                       "seed": ENGINE_SEED})
+        save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        t0 = time.perf_counter()
+        llm = LLM(arch="llama3.2-1b", runtime=_feature_runtime(512), checkpoint_dir=d)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    got, want = _leaves(llm.params), _leaves(params)
+    require([n for n, _ in got] == [n for n, _ in want], "checkpoint: leaf names differ")
+    for (name, a), (_, b) in zip(got, want):
+        require(a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b),
+                f"checkpoint: {name} differs from the tensor in memory")
+    print(f"[features] (a) checkpoint of llama3.2-1b full width: {len(got)} tensors, "
+          f"{nbytes / 2**30:.3f} GiB written in {save_s:.2f} s, LLM(checkpoint_dir=) loaded "
+          f"it onto the card in {load_s:.2f} s; every tensor equal [{card}]", flush=True)
+    return llm.params, {"bytes": nbytes, "save_s": save_s, "load_s": load_s}
+
+
+def _features_run(params, runtime, arrivals, label):
+    """Serve ``arrivals`` through an ``LLM``'s engine with every kernel count
+    at 0 just before; every request must finish, no plain version run, the
+    pool end clean, and the kernels launch exactly as the path implies:
+    ``spoga_gemm_dequant`` 7 times a layer for every decode step and every
+    prefill dispatch (a chunk step or a stacked prefill is one dispatch),
+    ``paged_attention`` once a layer for every decode step (chunk steps
+    attend the gathered pages in plain torch).  Returns (engine, metrics,
+    streams, launches)."""
+    from repro_torch.api import LLM
+    engine = LLM(arch="llama3.2-1b", params=params, runtime=runtime).engine
+    reset_counts()
+    metrics = engine.run(arrivals)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    check_counts(launches, plain, ("spoga_gemm_dequant", "paged_attention"), label)
+    rep, n_layers = metrics.report(), engine.cfg.n_layers
+    expect_gemm = 7 * n_layers * (rep["decode_steps"] + rep["prefill_dispatches"])
+    expect_attn = n_layers * rep["decode_steps"]
+    require(launches["spoga_gemm_dequant"] == expect_gemm,
+            f"{label}: GEMM launches {launches['spoga_gemm_dequant']} != {expect_gemm}")
+    require(launches["paged_attention"] == expect_attn,
+            f"{label}: attention launches {launches['paged_attention']} != {expect_attn}")
+    streams = _check_finished(metrics, arrivals, engine.cfg.vocab_size, label)
+    mgr = engine.store.manager
+    mgr.check_invariants()
+    require(mgr.pages_in_use == 0, f"{label}: pages leaked after the run")
+    return engine, metrics, streams, launches
+
+
+def _agreement(a: dict, b: dict) -> tuple[int, int]:
+    same = sum(x == y for rid in a for x, y in zip(a[rid], b[rid]))
+    return same, sum(len(s) for s in a.values())
+
+
+def _long_traffic(vocab):
+    """Seed 0: 2 prompts of 2,048-4,096 tokens at step 0, then 8 of 17-128
+    tokens one a step from step 1; 16-32 new tokens each."""
+    rng = np.random.default_rng(ENGINE_SEED)
+    lens = [int(n) for n in rng.integers(2048, 4097, 2)] + [int(n) for n in
+                                                            rng.integers(17, 129, 8)]
+    gens = [int(g) for g in rng.integers(16, 33, 10)]
+    return [(0 if i < 2 else i - 1, rng.integers(0, vocab, n).tolist(), g)
+            for i, (n, g) in enumerate(zip(lens, gens))]
+
+
+def phase_chunked(card, params):
+    """(b) Chunked prefill: phase 7's long and short traffic on 4 lanes,
+    ``prefill_chunk=CHUNK_M``, and again unchunked.  Gated: every request
+    finishes in both, the chunk steps are sum(ceil(len / CHUNK_M)) over the
+    long prompts, the kernels launch and no plain version runs.  Printed:
+    the short requests' TTFT p50/p99, decode step mean, tok/s and the
+    greedy agreement of the two runs."""
+    arrivals = _long_traffic(128_256)
+    longest = max(len(p) for _, p, _ in arrivals)
+    # long enough for the longest prompt's budget and for its last padded chunk
+    cache_len = max(longest + 32, _roundup(longest, CHUNK_M))
+    want_chunks = sum(-(-len(p) // CHUNK_M) for _, p, _ in arrivals[:2])
+    out = {}
+    for label, chunk in (("chunked", CHUNK_M), ("unchunked", None)):
+        engine, metrics, streams, launches = _features_run(
+            params, _feature_runtime(cache_len, prefill_chunk=chunk), arrivals,
+            f"features {label}")
+        rep = metrics.report()
+        require(rep["chunk_steps"] == (want_chunks if chunk else 0),
+                f"{label}: {rep['chunk_steps']} chunk steps, want {want_chunks if chunk else 0}")
+        short = [r.ttft_s for r in metrics.finished if r.req_id >= 2]
+        p50, p99 = (float(np.percentile(short, q)) for q in (50, 99))
+        out[label] = dict(streams=streams, launches=launches, ttft_short_p50_s=p50,
+                          ttft_short_p99_s=p99, report=rep)
+        print(f"[features] (b) {label} (prefill_chunk={chunk}), 2 prompts of "
+              f"{[len(p) for _, p, _ in arrivals[:2]]} tokens + 8 short, 4 lanes, cache_len "
+              f"{cache_len}: {rep['requests']} finished, {rep['chunk_steps']} chunk steps, "
+              f"{rep['prefill_dispatches']} prefill dispatches; short requests' TTFT p50 "
+              f"{1e3 * p50:.1f} ms, p99 {1e3 * p99:.1f} ms; decode step mean "
+              f"{1e3 * rep['decode_step_mean_s']:.2f} ms ({rep['decode_steps']} steps), "
+              f"per-token latency p99 {1e3 * rep['per_token_p99_s']:.1f} ms; "
+              f"{rep['tokens_per_s']:.1f} tok/s; defrag {rep['defrag_count']} times; launches "
+              f"spoga_gemm_dequant {launches['spoga_gemm_dequant']}, paged_attention "
+              f"{launches['paged_attention']} [{card}]", flush=True)
+        del engine
+    same, total = _agreement(out["chunked"]["streams"], out["unchunked"]["streams"])
+    print(f"[features] (b) chunked against unchunked, greedy agreement {same}/{total} "
+          f"(int8_spoga; chunks attend the dequantized int8 pages, the one-shot prefill "
+          f"its bf16 K/V)", flush=True)
+    return out
+
+
+def phase_stacked(card, params):
+    """(c) Stacked admission: 8 prompts of 33-64 tokens (bucket 64) at step
+    0, 4 lanes, ``batched_admission=True``, 2 dispatches a step.  Gated:
+    fewer dispatches than prefills, at least 2 stacked prefills, every
+    request finished, the kernels launched and no plain version.  Printed:
+    the greedy agreement with the same run unstacked."""
+    rng = np.random.default_rng(ENGINE_SEED + 7)
+    arrivals = [(0, rng.integers(0, 128_256, int(n)).tolist(), int(g))
+                for n, g in zip(rng.integers(33, 65, 8), rng.integers(16, 33, 8))]
+    from repro_torch.configs import default_cache_len
+    out = {}
+    for label, stacked in (("stacked", True), ("unstacked", False)):
+        _, metrics, streams, launches = _features_run(
+            params, _feature_runtime(default_cache_len(128, 32), batched_admission=stacked,
+                                     max_prefills_per_step=2), arrivals, f"features {label}")
+        rep = metrics.report()
+        if stacked:
+            require(rep["prefill_dispatches"] < rep["prefills"] and rep["stacked_prefills"] >= 2,
+                    f"stacked: {rep['prefill_dispatches']} dispatches for {rep['prefills']} "
+                    f"prefills, {rep['stacked_prefills']} stacked")
+        out[label] = dict(streams=streams, launches=launches, report=rep)
+        print(f"[features] (c) {label}: {rep['requests']} finished, {rep['prefills']} prefills in "
+              f"{rep['prefill_dispatches']} dispatches ({rep['stacked_prefills']} stacked), TTFT "
+              f"mean {1e3 * rep['ttft_mean_s']:.1f} ms, {rep['tokens_per_s']:.1f} tok/s; launches "
+              f"spoga_gemm_dequant {launches['spoga_gemm_dequant']} [{card}]", flush=True)
+    same, total = _agreement(out["stacked"]["streams"], out["unstacked"]["streams"])
+    print(f"[features] (c) stacked against unstacked, greedy agreement {same}/{total}",
+          flush=True)
+    return out
+
+
+def phase_defrag(card, params):
+    """(d) Defrag: the traffic of ``tests/test_api.py::
+    test_defrag_policy_triggers_and_is_output_invisible`` (3 lanes, pages of
+    8 rows, cache_len 32; a short request ends early while later lanes
+    hold higher pages) at full width, threshold 0.05 against None.  Gated:
+    at least one compaction moving at least one page, the page bookkeeping
+    consistent, and the greedy streams bitwise equal on and off: defrag
+    only renames pages, and ``paged_attention`` splits a lane's pages by
+    their index in its table, so it reads the same rows in the same order."""
+    rng = np.random.default_rng(0)
+    arrivals = [(0, rng.integers(0, 128_256, 14).tolist(), 2),
+                (0, rng.integers(0, 128_256, 12).tolist(), 10),
+                (1, rng.integers(0, 128_256, 9).tolist(), 8)]
+    out = {}
+    for label, threshold in (("on", 0.05), ("off", None)):
+        _, metrics, streams, launches = _features_run(
+            params, _feature_runtime(32, page_size=8, n_slots=3, prefill_buckets=None,
+                                     defrag_threshold=threshold), arrivals, f"defrag {label}")
+        out[label] = dict(streams=streams, launches=launches, report=metrics.report())
+    on, off = out["on"]["report"], out["off"]["report"]
+    require(on["defrag_count"] >= 1 and on["defrag_pages_moved"] >= 1,
+            f"defrag: {on['defrag_count']} compactions, {on['defrag_pages_moved']} pages moved")
+    require(off["defrag_count"] == 0, "defrag off compacted")
+    require(out["on"]["streams"] == out["off"]["streams"],
+            "defrag changed a greedy stream")
+    print(f"[features] (d) defrag at threshold 0.05: {on['defrag_count']} compactions, "
+          f"{on['defrag_pages_moved']} pages moved; greedy streams bitwise equal to defrag off "
+          f"({sum(len(s) for s in out['on']['streams'].values())} tokens) [{card}]", flush=True)
+    return out
+
+
+def _bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``|x|`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def _chunked_and_one_shot(cfg, params, prompt, chunk):
+    """Last-token logits of ``prompt`` through ``make_chunk_step`` (chunks
+    of ``chunk`` into a paged cache) and through one ``model.prefill``."""
+    from repro_torch.models import prefill
+    from repro_torch.paging import PagedCache, make_chunk_step
+    n, ps = len(prompt), 16
+    store = PagedCache(cfg, 1, _roundup(n, chunk), ps, device="cuda")
+    mgr = store.manager
+    mgr.admit(0, _roundup(n, chunk))
+    step = make_chunk_step(cfg, chunk)
+    for start in range(0, n, chunk):
+        k = min(chunk, n - start)
+        mgr.ensure(0, start + chunk)
+        store.sync_tables()
+        tokens = torch.zeros((1, chunk), dtype=torch.int32)
+        tokens[0, :k] = torch.tensor(prompt[start:start + k], dtype=torch.int32)
+        chunked = step(params, store.cache, tokens.cuda(), 0, start, k)
+    tokens = torch.zeros((1, _roundup(n, ps)), dtype=torch.int32)
+    tokens[0, :n] = torch.tensor(prompt, dtype=torch.int32)
+    one_shot, _ = prefill(params, cfg, tokens.cuda(), tokens.shape[1],
+                          lengths=torch.tensor([n], dtype=torch.int32, device="cuda"))
+    return chunked.float(), one_shot.float()
+
+
+def _stacked_and_solo(cfg, params, prompts, padded):
+    """Last-token logits of ``prompts`` prefilled as one batch and each alone
+    (right-padded to ``padded``)."""
+    from repro_torch.models import prefill
+    tokens = torch.zeros((len(prompts), padded), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    stacked, _ = prefill(params, cfg, tokens.cuda(), padded, lengths=lengths.cuda())
+    solo = torch.cat([prefill(params, cfg, tokens[i:i + 1].cuda(), padded,
+                              lengths=lengths[i:i + 1].cuda())[0] for i in range(len(prompts))])
+    return stacked.float(), solo.float()
+
+
+def phase_feature_parity(card, params):
+    """Chunked against one-shot prefill and stacked against batch=1, on the
+    card, where another M or key length may sum in another order (the CPU
+    tests hold both bitwise): on phase 6's model (2 layers at full width,
+    bf16 GEMMs, bf16 pool, seed 3) the last-token logits within LOGIT_TOL
+    of their largest magnitude; at full width and ``int8_spoga`` (phase 4's
+    weights, bf16 pool) printed, not gated (per-row int8 re-quantization
+    amplifies one-ulp differences, ROADMAP queue 3).  On the 2-layer model
+    the greedy tokens are gated too: a row may flip only where its
+    reference top-2 margin is at most ``NEAR_TIE_ULPS`` bf16 ulps of its top
+    logit (a near-tie that one rounding in another order decides, ROADMAP
+    queue 3); every flip is printed with its margin."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    full = get_config("llama3.2-1b").with_(quant_mode="int8_spoga")
+    small = full.with_(quant_mode="bf16", n_layers=2)
+    small_params = init_params(small, seed=3, device="cuda")
+    rng = np.random.default_rng(8)
+    prompt = rng.integers(0, full.vocab_size, 1000).tolist()
+    prompts = [rng.integers(0, full.vocab_size, n).tolist() for n in (40, 50, 61, 64)]
+    out = {}
+    for c, p, what in ((small, small_params, "2 layers, bf16 GEMMs"),
+                       (full, params, f"{full.n_layers} layers, int8_spoga")):
+        for kind, (got, want) in (("chunked 256 vs one-shot, 1,000 tokens",
+                                   _chunked_and_one_shot(c, p, prompt, 256)),
+                                  ("4 stacked vs batch=1, 40-64 tokens",
+                                   _stacked_and_solo(c, p, prompts, 64))):
+            err = (got - want).abs().max().item() / want.abs().max().item()
+            flips = (got.argmax(-1) != want.argmax(-1)).nonzero().flatten().tolist()
+            top2 = torch.topk(want, 2, dim=-1).values
+            margins = [(top2[r, 0] - top2[r, 1]).item() for r in flips]
+            ulps = [m / _bf16_ulp(top2[r, 0].item()) for r, m in zip(flips, margins)]
+            require(bool(torch.isfinite(got).all()), f"{what}, {kind}: logits not finite")
+            print(f"[features] {what}, bf16 pool, {kind}: max |logit diff| {err:.4g} x max "
+                  f"|logit| ({want.abs().max().item():.4g}), greedy "
+                  f"{got.shape[0] - len(flips)}/{got.shape[0]}"
+                  + (f"; rows {flips} flip on top-2 margins {[f'{m:.4g}' for m in margins]} "
+                     f"({[f'{u:.3g}' for u in ulps]} bf16 ulps)" if flips else "")
+                  + f" [{card}]", flush=True)
+            if c is small:
+                require(err <= LOGIT_TOL, f"{what}, {kind}: logits differ by {err:.4g} x max "
+                                          f"(tolerance {LOGIT_TOL})")
+                wide = [(r, u) for r, u in zip(flips, ulps) if u > NEAR_TIE_ULPS]
+                require(not wide, f"{what}, {kind}: greedy token flips on rows whose top-2 "
+                                  f"margin is more than {NEAR_TIE_ULPS} bf16 ulps: {wide}")
+            out[f"{what}: {kind}"] = {"max_rel_diff": err, "flipped_rows": flips,
+                                      "flip_margins": margins, "flip_margin_ulps": ulps}
+    del small_params
+    return out
+
+
+def phase_features(card, params):
+    """Phase 7: (a) checkpoint, (b) chunked prefill, (c) stacked admission,
+    (d) defrag, each on the weights loaded in (a); then the card-side
+    parity of chunking and stacking."""
+    loaded, ckpt = phase_checkpoint(card, params)
+    out = {"checkpoint": ckpt, "chunked": phase_chunked(card, loaded),
+           "stacked": phase_stacked(card, loaded), "defrag": phase_defrag(card, loaded),
+           "parity": phase_feature_parity(card, params)}
+    del loaded
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1418,6 +1755,7 @@ def main() -> int:
     phase_slot_vs_paged(card, params)
     facade = phase_dataflows(card, params)
     long_prefill = phase_long_prefill(card, params)
+    features = phase_features(card, params)
     del params
     torch.cuda.empty_cache()
     phase_default_llm(card)
@@ -1444,11 +1782,22 @@ def main() -> int:
     def at(table, key):
         return {m: table[key(m)] for m in (4, 128)}
 
+    def feature_launches(name):
+        """A kernel's launches in each of phase 7's runs."""
+        return {f"{part} {label}": run["launches"][name]
+                for part in ("chunked", "stacked", "defrag")
+                for label, run in features[part].items()}
+
+    chunk = gemm[("w8a8", CHUNK_M, 2048, 8192)]
     kernels = [gemm_row("spoga_gemm_dequant", "src/repro_torch/csrc/spoga_gemm_dequant.cu",
                         "src/repro/kernels/spoga_gemm_dequant.py:62",
                         launches["spoga_gemm_dequant"], 1, gemm_err,
                         at(gemm, lambda m: ("w8a8", m, 2048, 8192)),
                         launches_slot={f"{kv} KV": n for kv, n in slot_launches.items()},
+                        launches_engine_features=feature_launches("spoga_gemm_dequant"),
+                        chunk_prefill={"shape": f"W8A8 M={CHUNK_M} K=2048 N=8192",
+                                       "library": _lib_label(CHUNK_M, 2048, 8192), **chunk,
+                                       "fraction_of_bound": chunk["bound_ms"] / chunk["ms"]},
                         slot_decode_profile=slot_profile, long_prefill=long_prefill)]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
@@ -1462,6 +1811,8 @@ def main() -> int:
                         **a, "long_context": long, "long_table_short_lanes": short,
                         "decode_profile_ms_per_step": {
                             k: v and v["attn_ms"] for k, v in attn_profile.items()},
+                        **({"launches_engine_features": feature_launches("paged_attention")}
+                           if kind == "int8" else {}),
                         "card": card})
     unfused, deas_run = facade["spoga unfused"], facade["deas"]
     kernels.append(gemm_row("spoga_gemm", "src/repro_torch/csrc/spoga_gemm.cu",

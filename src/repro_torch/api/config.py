@@ -13,16 +13,17 @@ fields, defaults and validation messages.
 ``resolve()`` derives the ``ModelConfig`` overrides (``ModelConfig.with_``)
 and the ``EngineConfig`` the port's engine consumes.
 
+``build_policies()`` maps the scheduler settings to the engine's
+``EnginePolicies`` (admission order, eviction, defrag threshold).
+
 A setting that validates but that the port's engine does not serve yet
 raises ``NotImplementedError`` naming its ROADMAP item, from
 :meth:`RuntimeConfig.check_served` (called by ``resolve_engine`` and by
-``LLM``): chunked prefill, the prefix cache, stacked or several admissions per step, non-FIFO
-admission, deadline eviction, a defrag threshold other than the default,
-stochastic sampling, and the ``mesh``, ``spec`` and ``obs`` sub-configs
-(their classes are not ported yet; ``None`` stands for the reference's
-disabled defaults).  The port's page pool never compacts: compaction moves
-pages and never tokens, so the default threshold serves the same streams.
-``to_dict``/``from_dict``, presets and ``load_runtime`` are not ported yet.
+``LLM``): the prefix cache and prefix-aware admission, stochastic
+sampling, and the ``mesh``, ``spec`` and ``obs`` sub-configs (their
+classes are not ported yet; ``None`` stands for the reference's disabled
+defaults).  ``to_dict``/``from_dict``, presets and ``load_runtime`` are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -33,11 +34,21 @@ from typing import Optional, Tuple, Union
 from repro_torch.backends.spec import QUANT_MODES, parse_quant_mode
 from repro_torch.configs.base import DEFAULT_PAGE_SIZE, ModelConfig, default_cache_len
 from repro_torch.serving.engine import EngineConfig
+from repro_torch.serving.policies import (
+    BucketBatchedAdmission,
+    BudgetOrEOSEviction,
+    DeadlineAdmission,
+    DeadlinePreemption,
+    EnginePolicies,
+    FIFOAdmission,
+    NeverDefrag,
+    PriorityAdmission,
+    ThresholdDefrag,
+)
 from repro_torch.serving.sampling import SamplingParams
 
 # None = auto (the kernel on CUDA tensors, the gather twin on CPU tensors)
 _PAGED_ATTN_IMPLS = (None, "gather")
-_DEFAULT_DEFRAG = 0.5
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -139,7 +150,7 @@ class SchedulerConfig:
     eviction: str = "budget"
     # paged mode: compact the pool when fragmentation crosses this
     # threshold; None disables auto-defrag
-    defrag_threshold: Optional[float] = _DEFAULT_DEFRAG
+    defrag_threshold: Optional[float] = 0.5
 
     def __post_init__(self):
         if self.n_slots < 1:
@@ -240,13 +251,7 @@ class RuntimeConfig:
         s, kv = self.scheduler, self.kv
         refused = [
             (kv.prefix_cache, "KVConfig.prefix_cache", "6"),
-            (s.prefill_chunk is not None, "SchedulerConfig.prefill_chunk", "5"),
-            (s.batched_admission, "SchedulerConfig.batched_admission", "5"),
-            (s.max_prefills_per_step != 1, "SchedulerConfig.max_prefills_per_step > 1", "5"),
-            (s.admission != "fifo", f"SchedulerConfig.admission={s.admission!r}", "5"),
-            (s.eviction != "budget", f"SchedulerConfig.eviction={s.eviction!r}", "5"),
-            (s.defrag_threshold not in (None, _DEFAULT_DEFRAG),
-             "defrag (SchedulerConfig.defrag_threshold other than the default)", "5"),
+            (s.admission == "prefix-aware", "SchedulerConfig.admission='prefix-aware'", "6"),
             (not self.sampling.greedy, "stochastic sampling (SamplingDefaults.greedy=False)",
              "5"),
             (self.mesh is not None, "RuntimeConfig.mesh (sharded serving)", "10"),
@@ -290,11 +295,13 @@ class RuntimeConfig:
         return EngineConfig(
             n_slots=self.scheduler.n_slots,
             cache_len=cache_len,
+            max_prefills_per_step=self.scheduler.max_prefills_per_step,
             prefill_buckets=buckets,
             eos_token=self.eos_token,
             cache_mode=self.kv.mode,
             page_size=self.kv.page_size,
             n_pages=self.kv.n_pages,
+            prefill_chunk=self.scheduler.prefill_chunk,
         )
 
     def resolve(self, cfg: ModelConfig, prompt_len: Optional[int] = None,
@@ -304,6 +311,26 @@ class RuntimeConfig:
         EngineConfig)."""
         model_cfg = self.resolve_model(cfg)
         return model_cfg, self.resolve_engine(model_cfg, prompt_len, gen_tokens)
+
+    def build_policies(self) -> EnginePolicies:
+        """The engine policies the scheduler settings imply: FIFO, priority,
+        deadline or stacked-prefill admission, budget-or-EOS or
+        deadline-preempting eviction, threshold or no defrag."""
+        self.check_served()
+        s = self.scheduler
+        if s.admission == "priority":
+            admission = PriorityAdmission()
+        elif s.admission == "deadline":
+            admission = DeadlineAdmission()
+        elif s.batched_admission:
+            admission = BucketBatchedAdmission()
+        else:
+            admission = FIFOAdmission()
+        eviction = (DeadlinePreemption() if s.eviction == "deadline-preempt"
+                    else BudgetOrEOSEviction())
+        defrag = (ThresholdDefrag(s.defrag_threshold) if s.defrag_threshold is not None
+                  else NeverDefrag())
+        return EnginePolicies(admission=admission, eviction=eviction, defrag=defrag)
 
 
 def auto_buckets(prompt_len: int) -> tuple[int, ...]:

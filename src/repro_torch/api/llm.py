@@ -17,11 +17,17 @@ is unset, the first ``generate``/``stream`` call sizes the cache from its
 own workload (the shared ``default_cache_len`` policy) and later, larger
 workloads rebuild it between calls, growing monotonically.
 
-Not ported yet, and refused with ``NotImplementedError``: ``checkpoint_dir``
-(the checkpoint-format loader), ``replay`` and the metrics server (the
-observability stack), plus every runtime setting that
-``RuntimeConfig.check_served`` names.  ``params=`` takes the port's tree,
-for example ``models.params_from_jax`` of the reference's weights.
+Weights come from ``params=`` (the port's tree, for example
+``models.params_from_jax`` of the reference's weights), from
+``checkpoint_dir=`` (the latest step of a directory in the reference's
+checkpoint format, ``checkpoint.restore_checkpoint``), or else from
+``init_params(seed)``.  ``policies=`` overrides the engine policies that
+``RuntimeConfig.build_policies`` derives; one policy object serves every
+engine the ``LLM`` builds.
+
+Not ported yet, and refused with ``NotImplementedError``: ``replay`` and
+the metrics server (the observability stack), plus every runtime setting
+that ``RuntimeConfig.check_served`` names.
 """
 
 from __future__ import annotations
@@ -33,10 +39,12 @@ import numpy as np
 
 from repro_torch.api.config import RuntimeConfig
 from repro_torch.api.outputs import RequestOutput
+from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.configs import get_config, reduced as reduce_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.policies import EnginePolicies
 from repro_torch.serving.request import RequestState, default_detokenizer
 from repro_torch.serving.sampling import SamplingParams
 
@@ -53,14 +61,13 @@ class LLM:
                  config=None, params=None,
                  tokenizer: Optional[Callable[[Sequence[int]], str]] = None,
                  checkpoint_dir: Optional[str] = None,
+                 policies: Optional[EnginePolicies] = None,
                  seed: int = 0, device=None):
         if (arch is None) == (config is None):
             raise ValueError("pass exactly one of arch= (registry name) or "
                              "config= (a ModelConfig)")
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir: the checkpoint-format loader is not ported yet "
-                "(ROADMAP queue 1, item 3); pass params=params_from_jax(...)")
+        if params is not None and checkpoint_dir is not None:
+            raise ValueError("pass at most one of params= and checkpoint_dir=")
         self.runtime = runtime if runtime is not None else RuntimeConfig()
         self.runtime.check_served()
         base = get_config(arch) if config is None else config
@@ -68,9 +75,13 @@ class LLM:
             base = reduce_config(base)
         self.config = self.runtime.resolve_model(base)
         self.device = resolve_device(device)
+        if checkpoint_dir is not None:
+            _, params, _ = restore_checkpoint(checkpoint_dir, None, self.config,
+                                              device=self.device)
         self.params = (params if params is not None
                        else init_params(self.config, seed=seed, device=self.device))
         self.tokenizer = tokenizer or default_detokenizer
+        self._policies = policies if policies is not None else self.runtime.build_policies()
         self._engine: Optional[ServingEngine] = None
 
     @staticmethod
@@ -97,10 +108,14 @@ class LLM:
             # grow monotonically so earlier workloads keep fitting
             ecfg = dataclasses.replace(
                 ecfg, cache_len=max(ecfg.cache_len, old.engine_cfg.cache_len))
-        self._engine = ServingEngine(self.config, self.params, ecfg, device=self.device)
+        self._engine = ServingEngine(self.config, self.params, ecfg, device=self.device,
+                                     policies=self._policies)
         if old is not None:
-            # metrics accumulate across rebuilds
-            self._engine.metrics = old.metrics
+            # metrics accumulate across rebuilds, with the new pool geometry
+            carried = old.metrics
+            carried.set_gauge("pages_total", self._engine.metrics.pages_total)
+            carried.set_gauge("page_size", self._engine.metrics.page_size)
+            self._engine.metrics = carried
         return self._engine
 
     def build_engine(self, prompt_len: int, gen_tokens: int) -> ServingEngine:

@@ -1,7 +1,7 @@
 """Result objects returned by the ``repro_torch.api`` facade (port of
-``repro/api/outputs.py``).  The scheduler timeline, the SLO outcome and
-the per-request cost stay ``None``: observability, deadlines and cost
-attribution are later slices (ROADMAP queue 1, items 5 and 8)."""
+``repro/api/outputs.py``).  The scheduler timeline stays ``None``: it is
+the observability stack's event log (ROADMAP queue 1, item 8), so the
+queue wait comes from the request itself."""
 
 from __future__ import annotations
 
@@ -24,16 +24,13 @@ class RequestOutput:
     ttft_s: Optional[float]     # submit -> first token
     latency_s: Optional[float]  # submit -> finished
     timeline: Optional[list[dict]] = None
+    # SLO outcome: finished within the deadline?  None = no deadline
     deadline_hit: Optional[bool] = None
+    # per-request resource attribution (``RequestCost.as_dict()``); None
+    # when the engine recorded no dispatch for the request
     cost: Optional[dict] = None
-
-    @property
-    def queue_wait_s(self) -> Optional[float]:
-        """Submit -> admitted, read off the timeline (None without one)."""
-        for ev in self.timeline or ():
-            if ev["kind"] == "admitted":
-                return ev.get("queue_wait_s")
-        return None
+    # submit -> admitted into a lane (None: never admitted)
+    queue_wait_s: Optional[float] = None
 
     @classmethod
     def from_request(cls, req: Request,
@@ -49,4 +46,7 @@ class RequestOutput:
             finish_reason="stop" if stopped else "length",
             ttft_s=req.ttft_s,
             latency_s=req.latency_s,
+            deadline_hit=req.deadline_hit,
+            cost=req.cost.as_dict() if req.cost.dispatches else None,
+            queue_wait_s=req.queue_wait_s,
         )

@@ -18,6 +18,11 @@ into its page in place, then attends through the CUDA kernel
 (``_gather_pages`` + ``_decode_attend``) on CPU tensors.  Both decode paths
 use the reference's ``"jnp"`` numerics: bf16 operands and probabilities
 cast to bf16 before PV.
+
+A chunked-prefill step (:func:`attention_chunk`) writes a prompt chunk's
+K/V into its lane's pages in place, then attends the gathered table row
+under the causal mask in plain torch, as the reference computes it in jnp
+(int8 pools attend their dequantized pages).
 """
 
 from __future__ import annotations
@@ -270,3 +275,59 @@ def paged_attention_decode(x_t, p, cfg: ModelConfig, cache, pos, tables, *,
         out = out.permute(0, 2, 1, 3)[:, None]          # (B, 1, G, Hkv, D)
     out = out.to(x_t.dtype).reshape(b, 1, hq * hd)
     return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
+
+
+def _chunk_pages(tables_row, start: int, chunk: int, page_size: int):
+    """(page, in-page offset) of chunk positions ``start + [0, chunk)`` of
+    one lane; tables_row: (1, P).  Positions past the table clamp to its
+    last entry, as the reference's ``take_along_axis(mode="clip")``."""
+    idx = start + torch.arange(chunk, device=tables_row.device)
+    pg = tables_row[0, torch.clamp(idx // page_size, 0, tables_row.shape[1] - 1)]
+    return pg.long(), idx % page_size
+
+
+def attention_chunk(x, p, cfg: ModelConfig, cache, tables_row, start: int, *, positions):
+    """Chunked-prefill extend of one lane's paged KV (B == 1).
+
+    x: (1, C, d) chunk hidden states; cache: this layer's page pools;
+    tables_row: (1, P) block-table row; start: absolute position of the
+    chunk's first token; positions: (1, C) for RoPE.  Writes the chunk's
+    K/V (quantized for int8 pools) into the lane's pages IN PLACE, then
+    attends the gathered row (earlier chunks + this one) under the causal
+    mask; int8 pools attend their dequantized pages.  Earlier chunks' rows
+    read back exactly what a one-shot prefill computes on bf16 pools, and
+    a padded tail is overwritten before any query can attend it.  Returns
+    (out (1, C, d_model), cache)."""
+    b, cs, _ = x.shape
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    qm, be = cfg.quant_mode, cfg.gemm_backend
+    int8_cache = "kp_scale" in cache
+    q = linear(x, p["wq"], qm, be).reshape(b, cs, hq, hd)
+    k = linear(x, p["wk"], qm, be).reshape(b, cs, hkv, hd)
+    v = linear(x, p["wv"], qm, be).reshape(b, cs, hkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    kp, vp = cache["kp"], cache["vp"]
+    pg, off = _chunk_pages(tables_row, start, cs, kp.shape[1])
+    if int8_cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        kp[pg, off] = kq[0]
+        vp[pg, off] = vq[0]
+        cache["kp_scale"][pg, off] = ks[0]
+        cache["vp_scale"][pg, off] = vs[0]
+    else:
+        kp[pg, off] = k[0].to(kp.dtype)
+        vp[pg, off] = v[0].to(vp.dtype)
+
+    k_all, v_all = _gather_pages(kp, tables_row), _gather_pages(vp, tables_row)
+    if int8_cache:
+        ks_all = _gather_pages(cache["kp_scale"], tables_row)
+        vs_all = _gather_pages(cache["vp_scale"], tables_row)
+        k_all = (k_all.float() * ks_all[..., None]).to(x.dtype)
+        v_all = (v_all.float() * vs_all[..., None]).to(x.dtype)
+    qg = q.reshape(b, cs, hq // hkv, hkv, hd)
+    out = _attend_chunk(qg, k_all.float(), v_all.float(), start, v_all.dtype)
+    out = out.reshape(b, cs, hq * hd)
+    return linear(out, p["wo"], qm, be), cache

@@ -42,9 +42,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random weights from a ``torch.Generator`` seeded with ``seed``, made
     on ``device`` (default CUDA).  Same distributions as the reference's
     ``init_params``; not the same numbers (use ``weights.params_from_jax``
-    to carry the reference's weights across)."""
+    to carry the reference's weights across).  ``device="meta"`` gives the
+    layout (names, shapes, dtypes) without memory."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     n_periods, tail = layer_layout(cfg)
     emb_scale = 1.0 / (cfg.d_model ** 0.5)
     params = {

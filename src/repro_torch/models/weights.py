@@ -6,6 +6,8 @@ key))`` gives — numpy arrays, bf16 ones with the ``ml_dtypes`` bfloat16
 dtype — and returns the port's parameter tree, same layout: ``"blocks"``
 is a tuple with one slot tree per ``block_pattern`` entry, each leaf
 stacked over periods; weights bf16 ``(d_in, d_out)``, norm scales f32.
+Leaves that are already tensors (``checkpoint.restore_checkpoint``) are
+moved as they are.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.model import layer_layout
 
 
-def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+def _to_torch(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.array(a)  # a writable copy: the tree's arrays may be read-only
     if a.dtype.name == "bfloat16":
         # torch.from_numpy refuses ml_dtypes' bfloat16: move the bits

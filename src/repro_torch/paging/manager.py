@@ -18,8 +18,10 @@ requests still reserve few pages.
 
 Pages are refcounted (a lane's allocation holds one reference; a page
 returns to the free list when its count reaches zero), the hook the shared
-prefix cache of a later slice aliases pages through.  Prefix adoption,
-copy-on-write forks and defrag are later slices (ROADMAP queue 1).
+prefix cache of a later slice aliases pages through.  ``defrag`` compacts
+the referenced pages onto the lowest physical indices and remaps the
+block tables.  Prefix adoption and copy-on-write forks are ROADMAP queue
+1, item 6.
 """
 
 from __future__ import annotations
@@ -62,6 +64,12 @@ class PageManager:
     def pages_in_use(self) -> int:
         """Physical pages somebody references."""
         return (self.n_pages - 1) - len(self._free)
+
+    @property
+    def span(self) -> int:
+        """Highest referenced physical page index (0 when the pool is empty)."""
+        used = np.nonzero(self.refcount)[0]
+        return int(used.max()) if used.size else 0
 
     @property
     def outstanding(self) -> int:
@@ -145,6 +153,40 @@ class PageManager:
         self.dirty = True
         return n
 
+    # -- defrag ------------------------------------------------------------
+    def defrag(self) -> list[tuple[int, int]]:
+        """Compact referenced pages onto the lowest physical indices.
+
+        Returns the ``(src, dst)`` moves the device copy applies
+        (``PagedCache.defrag``); the block tables and page lists are
+        remapped here.  Afterwards the used set is exactly ``[1,
+        pages_in_use]`` and the free list is contiguous above it."""
+        used = sorted(int(p) for p in np.nonzero(self.refcount)[0])
+        targets = set(range(1, len(used) + 1))
+        vacant = sorted(targets - set(used))
+        moves: list[tuple[int, int]] = []
+        remap = {}
+        for p in sorted(used, reverse=True):
+            if p in targets:
+                continue
+            dst = vacant.pop(0)
+            remap[p] = dst
+            moves.append((p, dst))
+        if not moves:
+            return []
+        for lane, pages in enumerate(self.lane_pages):
+            for j, p in enumerate(pages):
+                if p in remap:
+                    pages[j] = remap[p]
+                    self.block_tables[lane, j] = remap[p]
+        for src, dst in moves:
+            self.refcount[dst] = self.refcount[src]
+            self.refcount[src] = 0
+        self._free = list(range(len(used) + 1, self.n_pages))
+        heapq.heapify(self._free)
+        self.dirty = True
+        return moves
+
     # -- invariants ----------------------------------------------------------
     def invariant_violations(self) -> list[str]:
         """Every bookkeeping inconsistency as a string (empty = consistent):
@@ -176,3 +218,8 @@ class PageManager:
                 out.append(f"lane {lane} table/page-list mismatch")
         return out
 
+    def check_invariants(self) -> None:
+        """Raise on the first inconsistency ``invariant_violations`` finds."""
+        bad = self.invariant_violations()
+        if bad:
+            raise AssertionError(bad[0])

@@ -6,27 +6,40 @@ iteration-level loop.  The cache is one of two stores:
 * ``"slot"`` (the default) -- ``slots.SlotCache``: every lane holds
   ``cache_len`` contiguous rows;
 * ``"paged"`` -- ``paging.PagedCache``: KV lives in a global page pool,
-  each lane's rows found through its block-table row.
+  each lane's rows found through its block-table row; admission reserves
+  a request's worst case, pages materialize as the sequence grows and
+  return to the pool the step the request leaves.
 
 Every ``step()``
 
-1. **admits** the FIFO head (in paged mode only if the pool can reserve
-   its worst case): a batch=1 prefill, padded to the smallest prefill
-   bucket, whose cache is copied into the lane (slot mode: ``cache_len``
-   rows; paged mode: the bucket rounded up to whole pages, into the lane's
-   fresh pages) and whose last-position logits give the first token;
-2. **decodes** one token for every occupied lane in one ``decode_step``
-   over the whole store, with the ``active`` mask pinning idle lanes;
-3. **evicts** lanes that reached their budget or EOS, freeing the lane
-   (and returning its pages to the pool) the same step.
+1. **sheds** waiting requests whose deadline already passed, when the
+   admission policy sheds (``DeadlineAdmission``);
+2. **admits**, up to ``max_prefills_per_step`` dispatches: in-flight
+   chunked admissions continue first, then the admission policy forms one
+   dispatch at a time through the capacity gate.  A dispatch is a batch=1
+   prefill padded to the smallest prefill bucket, a stacked prefill of
+   several same-bucket prompts (``BucketBatchedAdmission``), or, in paged
+   mode for prompts longer than ``prefill_chunk``, the first
+   page-aligned chunk of a **chunked prefill** whose later chunks ride the
+   following steps, so a long prompt no longer stalls the running
+   decodes.  The last prefill row's logits give the first token;
+3. **decodes** one token for every running lane in one ``decode_step``
+   over the whole store, with the ``active`` mask pinning the others;
+4. **evicts** lanes the eviction policy releases (budget or EOS; or a
+   missed deadline under ``DeadlinePreemption``), the same step;
+5. **defrags** the paged pool when the defrag policy says so: pages move
+   to the lowest physical indices and the block tables follow, so no
+   token changes.
 
-Tokens reach the host every step (the reference defers the pull while no
-scheduling decision needs it; the streams are the same).
+WHICH requests admit, WHEN a lane leaves and WHEN the pool compacts are
+``policies.EnginePolicies``.  Tokens reach the host every step (the
+reference defers the pull while no scheduling decision needs it; the
+streams are the same).  Scheduling is output-invisible: each request's
+greedy stream is its solo ``serve_batch`` stream.
 
-Not ported yet, and refused with ``NotImplementedError``: chunked prefill,
-prefix caching, speculative decoding, stacked admission, defrag,
-observability / flight recorder, device meshes and stochastic sampling
-(ROADMAP queue 1, item 5).
+Not ported yet, and refused with ``NotImplementedError``: the prefix cache
+and speculative decoding (ROADMAP queue 1, item 6), observability and the
+flight recorder (item 8) and device meshes (item 10).
 """
 
 from __future__ import annotations
@@ -46,17 +59,22 @@ from repro_torch.configs.base import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
-from repro_torch.paging import PagedCache
+from repro_torch.paging import PagedCache, chunkable_with_state, make_chunk_step, paged_insert_many
+from repro_torch.serving.metrics import EngineMetrics
+from repro_torch.serving.policies import EnginePolicies
 from repro_torch.serving.request import Request
 from repro_torch.serving.sampling import SamplingParams, greedy_tokens
 from repro_torch.serving.scheduler import Scheduler
-from repro_torch.serving.slots import SlotCache
-
-_LATER = "not ported yet (ROADMAP queue 1, item 5)"
+from repro_torch.serving.slots import SlotCache, scatter_lanes
 
 
 def _roundup(n: int, m: int) -> int:
     return pages_for(n, m) * m
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +83,7 @@ class EngineConfig:
 
     n_slots: int = 4
     cache_len: int = 256
+    max_prefills_per_step: int = 1
     # prompts pad up to the smallest bucket >= len(prompt); None/() = exact
     prefill_buckets: Optional[tuple[int, ...]] = None
     eos_token: Optional[int] = None
@@ -73,68 +92,30 @@ class EngineConfig:
     page_size: int = DEFAULT_PAGE_SIZE
     # pool size in pages; None = the slot-equivalent KV budget
     n_pages: Optional[int] = None
-    # options of the reference engine that later slices port
+    # paged mode: prompts longer than this admit in page-aligned chunks of
+    # this many tokens, interleaved with decode steps; None = one shot.
+    # Must be a multiple of page_size.
     prefill_chunk: Optional[int] = None
+    # options of the reference engine that later slices port
     prefix_cache: bool = False
     spec: Optional[object] = None
 
 
-class EngineMetrics:
-    """Counters and timers of an engine run; ``report()`` summarizes them.
-    Times are host clocks around work that ends in a device sync (every
-    step pulls its tokens to the host)."""
-
-    def __init__(self):
-        self.finished: list[Request] = []
-        self.steps = 0
-        self.prefills = 0
-        self.decode_steps = 0
-        self.prefill_s = 0.0
-        self.decode_s = 0.0
-        self.peak_running = 0
-        self.peak_pages_used = 0
-        self.wall_start: Optional[float] = None
-        self.wall_end: Optional[float] = None
-
-    def report(self) -> dict:
-        gen = sum(len(r.output_tokens) for r in self.finished)
-        wall = ((self.wall_end - self.wall_start)
-                if self.wall_start is not None and self.wall_end is not None else 0.0)
-        ttfts = [r.ttft_s for r in self.finished if r.ttft_s is not None]
-        lats = [r.latency_s for r in self.finished if r.latency_s is not None]
-        return {
-            "finished": len(self.finished),
-            "generated_tokens": gen,
-            "steps": self.steps,
-            "prefills": self.prefills,
-            "decode_steps": self.decode_steps,
-            "prefill_s": self.prefill_s,
-            "decode_s": self.decode_s,
-            "wall_s": wall,
-            "tokens_per_s": gen / wall if wall > 0 else 0.0,
-            "decode_step_mean_s": (self.decode_s / self.decode_steps
-                                   if self.decode_steps else 0.0),
-            "ttft_mean_s": float(np.mean(ttfts)) if ttfts else 0.0,
-            "latency_mean_s": float(np.mean(lats)) if lats else 0.0,
-            "peak_running": self.peak_running,
-            "peak_pages_used": self.peak_pages_used,
-        }
-
-
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig,
-                 device=None, policies=None, obs=None, mesh=None):
+                 device=None, policies: Optional[EnginePolicies] = None, obs=None,
+                 mesh=None):
         ecfg = engine_cfg
         if ecfg.cache_mode not in ("slot", "paged"):
             raise ValueError(f"cache_mode must be 'slot' or 'paged', got "
                              f"{ecfg.cache_mode!r}")
-        for name, value in (("prefill_chunk", ecfg.prefill_chunk),
-                            ("spec", ecfg.spec), ("policies", policies),
-                            ("obs", obs), ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(f"{name} is {_LATER}")
-        if ecfg.prefix_cache:
-            raise NotImplementedError(f"prefix_cache is {_LATER}")
+        for hit, what, item in ((ecfg.prefix_cache, "prefix_cache", "6"),
+                                (ecfg.spec is not None, "spec (speculative decoding)", "6"),
+                                (obs is not None, "obs (observability)", "8"),
+                                (mesh is not None, "mesh (sharded serving)", "10")):
+            if hit:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP queue 1, item {item})")
         buckets = tuple(sorted(ecfg.prefill_buckets or ()))
         if buckets and buckets[-1] > ecfg.cache_len:
             raise ValueError("largest prefill bucket exceeds cache_len")
@@ -147,13 +128,31 @@ class ServingEngine:
         self.engine_cfg = ecfg
         self.buckets = buckets
         self.paged = ecfg.cache_mode == "paged"
+        self.policies = policies if policies is not None else EnginePolicies()
         n = ecfg.n_slots
-        self.scheduler = Scheduler(n)
+        self.scheduler = Scheduler(n, ecfg.max_prefills_per_step,
+                                   admission=self.policies.admission)
         self.metrics = EngineMetrics()
+        self.set_clock(time.perf_counter)
+        self._chunk_len = ecfg.prefill_chunk
+        self._chunk_fn = None
         if self.paged:
-            self.store = PagedCache(cfg, n, ecfg.cache_len, ecfg.page_size,
-                                    ecfg.n_pages, device=self.device)
+            ps = ecfg.page_size
+            if self._chunk_len is not None:
+                if self._chunk_len % ps:
+                    raise ValueError("prefill_chunk must be a multiple of page_size "
+                                     "(chunks are page-aligned)")
+                if not chunkable_with_state(cfg):
+                    raise ValueError(f"{cfg.name}: chunked prefill needs row-independent "
+                                     "kinds; use prefill_chunk=None")
+                self._chunk_fn = make_chunk_step(cfg, self._chunk_len)
+            self.store = PagedCache(cfg, n, ecfg.cache_len, ps, ecfg.n_pages,
+                                    device=self.device)
+            self.metrics.set_gauge("pages_total", self.store.n_pages)
+            self.metrics.set_gauge("page_size", ps)
         else:
+            if self._chunk_len is not None:
+                raise ValueError("chunked prefill requires cache_mode='paged'")
             self.store = SlotCache(cfg, n, ecfg.cache_len, device=self.device)
         # each lane's next decode input (the token it sampled last)
         self._tokens = torch.zeros((n,), dtype=torch.int32, device=self.device)
@@ -161,12 +160,27 @@ class ServingEngine:
         self._step_idx = 0
 
     # ------------------------------------------------------------------
+    # Decision clock
+    # ------------------------------------------------------------------
+    def set_clock(self, clock) -> None:
+        """Install the decision clock: every time reading that can change
+        a scheduling decision (submit stamps, admission lateness, deadline
+        shedding and preemption) goes through it, so a test can script
+        it.  Metric timestamps (TTFT, latency, dispatch timers) stay on
+        ``time.perf_counter``."""
+        self._clock = clock
+        self.scheduler.clock = clock
+        if hasattr(self.policies.eviction, "bind"):
+            self.policies.eviction.bind(clock, lambda: self.scheduler.waiting)
+
+    # ------------------------------------------------------------------
     # Admission
     # ------------------------------------------------------------------
     def add_request(self, prompt: Sequence[int], max_new_tokens: int,
                     sampling: Optional[SamplingParams] = None,
                     eos_token: Optional[int] = None, on_token=None, on_text=None,
-                    detokenizer=None) -> Request:
+                    detokenizer=None, priority: int = 0,
+                    deadline_s: Optional[float] = None) -> Request:
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt")
@@ -179,18 +193,22 @@ class ServingEngine:
                 f"{self.engine_cfg.cache_len}; size the engine with "
                 f"default_cache_len(prompt_len, gen) [headroom={KV_CACHE_HEADROOM}]")
         if self.paged:
-            pages = pages_for(self._reserve_rows(len(prompt), max_new_tokens),
+            # a request the pool can never reserve would block the queue
+            pages = pages_for(self._worst_case_rows(len(prompt), max_new_tokens),
                               self.engine_cfg.page_size)
             usable = self.store.n_pages - 1  # page 0 is the trash page
             if pages > usable:
                 raise ValueError(f"request reserves {pages} pages but the pool only "
                                  f"has {usable} usable pages; raise n_pages")
+        sampling = sampling or SamplingParams()
         req = Request(
             req_id=self._next_id, prompt=prompt, max_new_tokens=max_new_tokens,
-            sampling=sampling or SamplingParams(),
+            sampling=sampling,
             eos_token=self.engine_cfg.eos_token if eos_token is None else eos_token,
             on_token=on_token, on_text=on_text, detokenizer=detokenizer,
-            submit_time=time.perf_counter())
+            priority=priority,
+            deadline_s=sampling.deadline_s if deadline_s is None else deadline_s,
+            submit_time=self._clock())
         self._next_id += 1
         self.scheduler.submit(req)
         return req
@@ -201,81 +219,210 @@ class ServingEngine:
                 return b
         return prompt_len
 
-    def _single_len(self, prompt_len: int) -> int:
-        """Rows the batch=1 admission prefill allocates: the bucket rounded
-        up to whole pages."""
-        return _roundup(self._bucket_len(prompt_len), self.engine_cfg.page_size)
+    def _single_len(self, padded_len: int) -> int:
+        """Rows a paged admission prefill allocates: the bucket rounded up
+        to whole pages."""
+        return _roundup(padded_len, self.engine_cfg.page_size)
 
-    def _reserve_rows(self, prompt_len: int, max_new_tokens: int) -> int:
+    def _should_chunk_len(self, prompt_len: int) -> bool:
+        c = self._chunk_len
+        if not self.paged or c is None or prompt_len <= c:
+            return False
+        # the padded final chunk must stay inside the lane's block table
+        return _roundup(prompt_len, c) <= self.store.max_pages * self.engine_cfg.page_size
+
+    def _admit_rows(self, prompt_len: int) -> int:
+        """Cache rows the admission itself touches (chunk padding or the
+        page-rounded prefill bucket)."""
+        if self._should_chunk_len(prompt_len):
+            return _roundup(prompt_len, self._chunk_len)
+        return self._single_len(self._bucket_len(prompt_len))
+
+    def _worst_case_rows(self, prompt_len: int, max_new_tokens: int) -> int:
         """Rows a request reserves: its admission footprint or prompt +
         budget, whichever is larger, capped at the block-table width."""
-        worst = max(self._single_len(prompt_len), prompt_len + max_new_tokens)
+        worst = max(self._admit_rows(prompt_len), prompt_len + max_new_tokens)
         return min(worst, self.store.max_pages * self.engine_cfg.page_size)
 
-    def _admit_ok(self, req: Request) -> bool:
-        return self.store.manager.can_admit(
-            self._reserve_rows(req.prompt_len, req.max_new_tokens))
+    def _reserve_tokens(self, req: Request) -> int:
+        return self._worst_case_rows(req.prompt_len, req.max_new_tokens)
 
-    def _admit(self, req: Request, slot: int) -> None:
-        """Prefill batch=1 and copy its cache into the lane; the logits give
-        token 1.  Paged mode first reserves the worst case and takes the
-        prefill's pages."""
-        padded = self._bucket_len(req.prompt_len)
-        if self.paged:
+    def _admit_gate(self):
+        """Capacity gate for one admission dispatch.  It tallies every
+        member's reservation against one pool snapshot, so two requests
+        that do not fit together never both pass."""
+        if not self.paged:
+            return lambda req: True
+        tally = [0]
+
+        def gate(req: Request) -> bool:
             mgr = self.store.manager
-            single_len = self._single_len(req.prompt_len)
-            mgr.admit(slot, self._reserve_rows(req.prompt_len, req.max_new_tokens))
-            page_ids = mgr.alloc(slot, single_len // self.engine_cfg.page_size)
-            mgr.set_length(slot, req.prompt_len)
-        else:
-            single_len = self.engine_cfg.cache_len
-        tokens = torch.zeros((1, padded), dtype=torch.int32)
-        tokens[0, :req.prompt_len] = torch.tensor(req.prompt, dtype=torch.int32)
-        tokens = tokens.to(self.device)
-        lengths = torch.tensor([req.prompt_len], dtype=torch.int32, device=self.device)
-        logits, single = model_lib.prefill(self.params, self.cfg, tokens, single_len,
-                                           lengths=lengths)
-        tok = greedy_tokens(logits)
+            need = mgr.pages_for(self._reserve_tokens(req))
+            if need <= mgr.available - tally[0]:
+                tally[0] += need
+                return True
+            return False
+
+        return gate
+
+    def _admit_bucket(self, req: Request) -> int:
+        """Bucket key for stacked admission.  Chunked admissions are
+        single-file (one chunk stream per lane): each gets a sentinel no
+        other request matches."""
+        if self._should_chunk_len(req.prompt_len):
+            return -(req.req_id + 1)
+        return self._bucket_len(req.prompt_len)
+
+    def _arm_lane(self, req: Request, slot: int, tok: int) -> None:
+        """First token sampled: it is the lane's next decode input."""
+        req.append_token(tok)   # stamps TTFT
+        self.metrics.inc("prefills")
+        self._tokens[slot] = tok
+
+    def _paged_reserve(self, req: Request, slot: int, single_len: int) -> list[int]:
+        """Reserve a paged admission's worst case and take its prefill's
+        pages; returns the page ids."""
+        mgr = self.store.manager
+        mgr.admit(slot, self._reserve_tokens(req))
+        page_ids = mgr.alloc(slot, single_len // self.engine_cfg.page_size)
+        mgr.set_length(slot, req.prompt_len)
+        return page_ids
+
+    def _prefill_rows(self, reqs: list[Request], padded: int, cache_len: int):
+        """Batched prefill of right-padded prompts: (greedy first tokens on
+        the host, contiguous cache of ``cache_len`` rows)."""
+        tokens = torch.zeros((len(reqs), padded), dtype=torch.int32)
+        for i, req in enumerate(reqs):
+            tokens[i, :req.prompt_len] = torch.tensor(req.prompt, dtype=torch.int32)
+        lengths = torch.tensor([r.prompt_len for r in reqs], dtype=torch.int32,
+                               device=self.device)
+        logits, cache = model_lib.prefill(self.params, self.cfg, tokens.to(self.device),
+                                          cache_len, lengths=lengths)
+        return greedy_tokens(logits), cache
+
+    def _admit_group(self, group: list[tuple[Request, int]]) -> None:
+        """One admission dispatch: the group's same-bucket prompts (one, or
+        several when stacked) prefill as one batch whose rows go to their
+        lanes (pages in paged mode, after reserving each member's worst
+        case); the logits give each request its first token.  Every member
+        passed the tallied gate against one pool snapshot, so the
+        reservations cannot overcommit.  Prefill is batch-parallel, so a
+        stacked row is the solo prefill's row."""
+        reqs = [req for req, _ in group]
+        slots = [slot for _, slot in group]
+        padded = self._bucket_len(reqs[0].prompt_len)
+        t0 = time.perf_counter()
         if self.paged:
-            self.store.insert(single, slot, page_ids, req.prompt_len)
+            single_len = self._single_len(padded)
+            page_ids = [self._paged_reserve(req, slot, single_len) for req, slot in group]
+            table_rows = [self.store.manager.block_tables[slot] for slot in slots]
+            toks, multi = self._prefill_rows(reqs, padded, single_len)
+            paged_insert_many(self.store.cache, multi, slots, page_ids, table_rows,
+                              [r.prompt_len for r in reqs])
         else:
-            self.store.insert(single, slot)
-        self._tokens[slot] = tok[0]
-        req.append_token(int(tok[0]))   # host pull: stamps TTFT
-        self.metrics.prefills += 1
+            toks, multi = self._prefill_rows(reqs, padded, self.engine_cfg.cache_len)
+            scatter_lanes(self.store.cache, multi, slots, self.store._axes)
+        toks = toks.cpu().tolist()
+        share = (time.perf_counter() - t0) / len(group)
+        self.metrics.inc("prefill_dispatches")
+        if len(group) > 1:
+            self.metrics.inc("stacked_prefills", len(group))
+        for req, slot, tok in zip(reqs, slots, toks):
+            req.cost.prefill_s += share
+            req.cost.dispatches += 1
+            self._arm_lane(req, slot, tok)
+
+    # -- chunked prefill -------------------------------------------------
+    def _begin_chunked(self, req: Request, slot: int, finished: list[Request]) -> None:
+        self.store.manager.admit(slot, self._reserve_tokens(req))
+        self.scheduler.begin_chunked(slot)
+        req.prefill_done = 0
+        self._process_chunk(req, slot, finished)
+
+    def _process_chunk(self, req: Request, slot: int, finished: list[Request]) -> None:
+        """Feed one page-aligned prompt chunk; the final chunk gives the
+        first token and moves the lane into the decode batch."""
+        mgr = self.store.manager
+        c = self._chunk_len
+        start = req.prefill_done
+        n = min(c, req.prompt_len - start)
+        mgr.ensure(slot, start + c)   # the padded tail lands in pages too
+        self.store.sync_tables()
+        tokens = torch.zeros((1, c), dtype=torch.int32)
+        tokens[0, :n] = torch.tensor(req.prompt[start:start + n], dtype=torch.int32)
+        t0 = time.perf_counter()
+        logits = self._chunk_fn(self.params, self.store.cache, tokens.to(self.device), slot,
+                                start, n)
+        req.prefill_done = start + n
+        last = req.prefill_done >= req.prompt_len
+        first = int(greedy_tokens(logits)[0]) if last else None   # host pull
+        req.cost.prefill_s += time.perf_counter() - t0
+        req.cost.dispatches += 1
+        self.metrics.inc("chunk_steps")
+        self.metrics.inc("prefill_dispatches")
+        if not last:
+            return
+        mgr.set_length(slot, req.prompt_len)
+        self.scheduler.promote(slot)
+        self._arm_lane(req, slot, first)
+        if self._should_evict(req):  # max_new_tokens == 1 (or instant EOS)
+            self._evict(slot, finished)
 
     # ------------------------------------------------------------------
     # The engine loop
     # ------------------------------------------------------------------
     def step(self) -> list[Request]:
-        """One scheduler iteration: admissions, then one batched decode over
-        all occupied lanes. Returns requests finished this step."""
+        """One scheduler iteration: admissions (or prompt chunks), then one
+        batched decode over the running lanes, then defrag.  Returns the
+        requests finished this step."""
         m = self.metrics
-        if m.wall_start is None:
-            m.wall_start = time.perf_counter()
+        m.begin()
         self._step_idx += 1
-        m.steps += 1
+        m.inc("steps")
         finished: list[Request] = []
+        self._shed_late(finished)
+        budget = self.scheduler.max_prefills_per_step
 
         t0 = time.perf_counter()
-        got = self.scheduler.schedule_one(self._admit_ok if self.paged else None)
-        if got is not None:
-            req, slot = got
-            self._admit(req, slot)
-            if req.done:  # max_new_tokens == 1 (or instant EOS)
-                self._evict(slot, finished)
-            m.prefill_s += time.perf_counter() - t0
+        did_prefill = False
+        # in-flight chunked admissions continue first
+        for slot, req in sorted(self.scheduler.chunking.items()):
+            if budget <= 0:
+                break
+            self._process_chunk(req, slot, finished)
+            budget -= 1
+            did_prefill = True
+        # then one admission dispatch at a time through the capacity gate
+        while budget > 0:
+            group = self.scheduler.schedule_group(
+                admit_ok=self._admit_gate(), bucket_of=self._admit_bucket,
+                max_group=self.scheduler.free_slots)
+            if not group:
+                break
+            budget -= 1
+            did_prefill = True
+            if self._should_chunk_len(group[0][0].prompt_len):   # chunked ones come alone
+                self._begin_chunked(*group[0], finished)
+                continue
+            self._admit_group(group)
+            for req, slot in group:
+                if self._should_evict(req):  # max_new_tokens == 1 (or instant EOS)
+                    self._evict(slot, finished)
+        if did_prefill:
+            _sync(self.device)
+            m.inc("prefill_s", time.perf_counter() - t0)
 
         running = self.scheduler.running
-        m.peak_running = max(m.peak_running, len(running))
+        m.max_gauge("peak_running", len(running) + len(self.scheduler.chunking))
         if running:
             t0 = time.perf_counter()
             if self.paged:
                 mgr = self.store.manager
-                for slot in running:
+                for slot, req in running.items():
                     mgr.ensure(slot, int(mgr.lengths[slot]) + 1)
+                    req.cost.page_steps += len(mgr.lane_pages[slot])
                 self.store.sync_tables()
-                m.peak_pages_used = max(m.peak_pages_used, mgr.pages_in_use)
+                m.max_gauge("peak_pages_used", mgr.pages_in_use)
             active = np.zeros((self.engine_cfg.n_slots,), bool)
             active[list(running)] = True
             logits, _ = model_lib.decode_step(
@@ -285,20 +432,59 @@ class ServingEngine:
             if self.paged:
                 mgr.advance(running)
             toks = self._tokens.cpu().numpy()
-            for slot, req in list(running.items()):
+            decoded = list(running.items())
+            for slot, req in decoded:
                 req.append_token(int(toks[slot]))
-                if req.done:
+            for slot, req in decoded:
+                if self._should_evict(req):
                     self._evict(slot, finished)
-            m.decode_steps += 1
-            m.decode_s += time.perf_counter() - t0
-        m.wall_end = time.perf_counter()
+            m.inc("decode_steps")
+            dt = time.perf_counter() - t0
+            m.inc("decode_s", dt)
+            for _, req in decoded:
+                req.cost.decode_s += dt / len(decoded)
+                req.cost.dispatches += 1
+
+        # evictions may have left holes in the pool: compact before the
+        # next admissions when the defrag policy says so
+        if self.paged and self.policies.defrag.should_defrag(self.store.manager):
+            moves = self.store.defrag()
+            if moves:
+                m.inc("defrag_count")
+                m.inc("defrag_pages_moved", len(moves))
+        m.touch()
         return finished
+
+    def _shed_late(self, finished: list[Request]) -> None:
+        """Deadline pre-pass: a waiting request already past its deadline
+        can only produce dead tokens, so it is shed before it costs a
+        prefill and a lane.  Only admission policies with ``shed``
+        (``DeadlineAdmission``) trigger this."""
+        shed = getattr(self.policies.admission, "shed", None)
+        if shed is None or not self.scheduler.waiting:
+            return
+        idxs = shed(self.scheduler.waiting, self._clock())
+        if not idxs:
+            return
+        for req in self.scheduler.drop(idxs):
+            req.finish_reason_override = "deadline"
+            self.metrics.inc("deadline_shed")
+            self.metrics.record_finished(req)
+            finished.append(req)
+
+    def _should_evict(self, req: Request) -> bool:
+        return self.policies.eviction.should_evict(req)
 
     def _evict(self, slot: int, finished: list[Request]) -> None:
         req = self.scheduler.release(slot)
         self.store.free(slot)
-        req.finish_time = time.perf_counter()
-        self.metrics.finished.append(req)
+        reason_of = getattr(self.policies.eviction, "evict_reason", None)
+        if reason_of is not None and reason_of(req) == "deadline" and not req.done:
+            # DeadlinePreemption took the lane back from a request that
+            # already missed its deadline, for queued work that still can
+            req.finish_reason_override = "deadline"
+            self.metrics.inc("deadline_preempt")
+        self.metrics.record_finished(req)
         finished.append(req)
 
     @property

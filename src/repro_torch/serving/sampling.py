@@ -9,6 +9,7 @@ raises (ROADMAP queue 1, item 5).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -19,12 +20,19 @@ class SamplingParams:
     of this slice."""
 
     greedy: bool = True
+    # SLO deadline: seconds from submit to finish.  An accounting
+    # annotation (the engine stamps hit/miss at finish and only
+    # deadline-respecting requests count toward goodput) that deadline
+    # admission and eviction policies also read.  None = no deadline.
+    deadline_s: Optional[float] = None
 
     def __post_init__(self):
         if not self.greedy:
             raise NotImplementedError(
                 "stochastic sampling is not ported yet (ROADMAP queue 1, "
                 "item 5); use greedy=True")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError("deadline_s must be positive (None = no SLO)")
 
 
 def greedy_tokens(logits: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ returns, bf16 or int8 with scales).  Requests come and go by writing into
 a lane of that tree, so the decode step always sees the same shapes:
 
 * ``insert(single_cache, slot)`` copies a batch=1 prefill cache into lane
-  ``slot``, in place;
+  ``slot``, in place (:func:`scatter_lane`; a stacked admission's batch=k
+  cache goes to k lanes through :func:`scatter_lanes`);
 * ``free(slot)`` releases the lane and resets its ``pos`` to 0.
 
 The lane axis depends on the leaf: ``blocks`` leaves are stacked
@@ -44,18 +45,28 @@ def batch_axes(cache) -> dict:
             for key, sub in cache.items()}
 
 
-def _write_lane(full, part, slot: int, ax: int) -> None:
+def _write_lane(full, part, slot: int, ax: int, row: int) -> None:
+    """Write batch row ``row`` of ``part`` into lane ``slot`` of ``full``."""
+    src = part.narrow(ax, row, 1)
     idx = tuple(slice(slot, slot + 1) if i == ax else slice(0, n)
-                for i, n in enumerate(part.shape))
-    full[idx] = part.to(full.dtype)
+                for i, n in enumerate(src.shape))
+    full[idx] = src.to(full.dtype)
+
+
+def scatter_lanes(cache, multi, slots, axes):
+    """Write batch row ``i`` of the batch=k ``multi`` tree into lane
+    ``slots[i]`` of ``cache``, in place (a leaf shorter than the lane fills
+    its leading rows, as the reference's ``dynamic_update_slice`` does).
+    Returns ``cache``."""
+    for i, slot in enumerate(slots):
+        _tree_map(lambda full, part, ax: _write_lane(full, part, slot, ax, i),
+                  cache, multi, axes)
+    return cache
 
 
 def scatter_lane(cache, single, slot: int, axes):
-    """Write the batch=1 ``single`` tree into lane ``slot`` of ``cache``, in
-    place (a leaf shorter than the lane fills its leading rows, as the
-    reference's ``dynamic_update_slice`` does).  Returns ``cache``."""
-    _tree_map(lambda full, part, ax: _write_lane(full, part, slot, ax), cache, single, axes)
-    return cache
+    """The batch=1 form of :func:`scatter_lanes`."""
+    return scatter_lanes(cache, single, [slot], axes)
 
 
 class SlotCache:

@@ -174,14 +174,7 @@ def test_resolution_matches_jax():
 
 REFUSED = [
     dict(kv=KVConfig(prefix_cache=True, **PAGED)),
-    dict(scheduler=SchedulerConfig(prefill_chunk=8)),
-    dict(scheduler=SchedulerConfig(batched_admission=True)),
-    dict(scheduler=SchedulerConfig(max_prefills_per_step=2)),
-    dict(scheduler=SchedulerConfig(admission="priority")),
     dict(scheduler=SchedulerConfig(admission="prefix-aware")),
-    dict(scheduler=SchedulerConfig(admission="deadline")),
-    dict(scheduler=SchedulerConfig(eviction="deadline-preempt")),
-    dict(scheduler=SchedulerConfig(defrag_threshold=0.25)),
     dict(sampling=SamplingDefaults(greedy=False, temperature=0.7)),
     dict(mesh=object()),
     dict(spec=object()),
@@ -199,6 +192,38 @@ def test_unserved_settings_raise_not_implemented(kw):
         rc.resolve_engine(tbase, prompt_len=8, gen_tokens=4)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
         LLM(arch="llama3.2-1b", runtime=dataclasses.replace(rc, reduced=True), device="cpu")
+
+
+# settings refused until the scheduler policies, chunked prefill and defrag
+# were ported
+SERVED = [
+    dict(scheduler=SchedulerConfig(prefill_chunk=8)),
+    dict(scheduler=SchedulerConfig(batched_admission=True)),
+    dict(scheduler=SchedulerConfig(max_prefills_per_step=2)),
+    dict(scheduler=SchedulerConfig(admission="priority")),
+    dict(scheduler=SchedulerConfig(admission="deadline")),
+    dict(scheduler=SchedulerConfig(eviction="deadline-preempt")),
+    dict(scheduler=SchedulerConfig(defrag_threshold=0.25)),
+]
+
+
+@pytest.mark.parametrize("kw", SERVED, ids=[str(k["scheduler"]) for k in SERVED])
+def test_policy_settings_are_served(kw):
+    """Each setting resolves to the reference's ``EngineConfig`` fields and
+    an ``LLM`` serves it (paged KV, reduced model, CPU)."""
+    rc = RuntimeConfig(kv=KVConfig(**PAGED), **kw)
+    jrc = JaxRuntimeConfig(kv=JaxKVConfig(**PAGED), scheduler=JaxSchedulerConfig(
+        **dataclasses.asdict(kw["scheduler"])))
+    tbase = tconfigs.reduced(tconfigs.get_config("llama3.2-1b"))
+    jbase = jax_reduced(jax_get_config("llama3.2-1b")).with_(remat=False)
+    got = rc.resolve_engine(tbase, prompt_len=8, gen_tokens=4)
+    want = jrc.resolve_engine(jbase, prompt_len=8, gen_tokens=4)
+    for f in ("n_slots", "cache_len", "max_prefills_per_step", "prefill_buckets",
+              "cache_mode", "page_size", "n_pages", "prefill_chunk"):
+        assert getattr(got, f) == getattr(want, f), f
+    llm = LLM(arch="llama3.2-1b", runtime=dataclasses.replace(rc, reduced=True), device="cpu")
+    out, = llm.generate([1, 2, 3, 4, 5, 6, 7, 8, 9, 10], max_new_tokens=3)
+    assert len(out.token_ids) == 3
 
 
 def test_served_settings_pass():
@@ -255,13 +280,17 @@ def test_llm_generate_matches_jax_llm(mode, kv_dtype):
     assert (dequant_mod.PLAIN_CALLS, deas_mod.PLAIN_CALLS) == plain
     assert [o.token_ids for o in got] == [o.token_ids for o in want]
     assert len({t for o in got for t in o.token_ids}) > 2, "streams collapsed"
-    for out, prompt in zip(got, prompts):
+    for out, ref, prompt in zip(got, want, prompts):
         assert isinstance(out, RequestOutput)
         assert out.finish_reason == "length" and out.prompt_token_ids == prompt
         assert out.ttft_s > 0 and out.latency_s > 0
-        assert out.timeline is None and out.cost is None and out.queue_wait_s is None
+        # no timeline before the observability stack; the queue wait comes
+        # from the request, the cost counts as the reference's does
+        assert out.timeline is None and out.deadline_hit is None and out.queue_wait_s >= 0
+        for key in ("dispatches", "page_steps"):
+            assert out.cost[key] == ref.cost[key], key
     assert [o.request_id for o in got] == [0, 1, 2]
-    assert tllm.metrics.report()["finished"] == 3
+    assert tllm.metrics.report()["requests"] == 3
     assert tllm.engine.engine_cfg.cache_len == jllm.engine.engine_cfg.cache_len
 
 
@@ -298,7 +327,7 @@ def test_llm_engine_grows_between_calls():
     small = tllm.engine.engine_cfg.cache_len
     out, = tllm.generate(long, max_new_tokens=6)
     assert tllm.engine.engine_cfg.cache_len > small
-    assert tllm.metrics.report()["finished"] == 2
+    assert tllm.metrics.report()["requests"] == 2
     _, fresh = _pair("int8_deas", "int8", tree)
     assert fresh.generate(long, max_new_tokens=6)[0].token_ids == out.token_ids
 
@@ -307,8 +336,8 @@ def test_llm_refusals_and_device():
     rc = RuntimeConfig(reduced=True, kv=KVConfig(**PAGED))
     with pytest.raises(ValueError, match="exactly one"):
         LLM(runtime=rc, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLM(arch="llama3.2-1b", runtime=rc, checkpoint_dir="ckpt", device="cpu")
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        LLM(arch="llama3.2-1b", runtime=rc, checkpoint_dir="no-such-dir", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LLM.replay("bundle")
     default = LLM(arch="llama3.2-1b", runtime=RuntimeConfig(reduced=True), device="cpu")

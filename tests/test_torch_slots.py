@@ -236,7 +236,7 @@ def test_slot_engine_matches_jax_engine(quant_mode, kv_dtype):
     assert got == want
     assert len({t for s in got.values() for t in s}) > 2, "streams collapsed"
     rep = teng.metrics.report()
-    assert rep["finished"] == 4 and rep["peak_running"] == 2
+    assert rep["requests"] == 4 and rep["peak_running"] == 2
     assert teng.store.pos.tolist() == [0, 0]
 
 
