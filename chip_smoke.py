@@ -66,7 +66,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    within tolerance; greedy equal except on near-tie rows, whose top-2
    margin is at most ``NEAR_TIE_ULPS`` bf16 ulps) and at full width
    (printed);
-8. the ``kernels`` JSON line, then the ``ok`` line last.
+8. presets, the prefix cache, speculative decoding and stochastic sampling,
+   full-width ``int8_spoga`` over int8 paged KV, phase 4's weights, 4
+   lanes, pages of 16 (runs after phase 7): (a) ``int8-byte-serving``
+   written with ``to_dict`` to JSON and loaded back with ``load_runtime``,
+   then ``LLM(runtime=load_runtime(...), checkpoint_dir=)`` on phase 7
+   (a)'s checkpoint serves phase 4's prompts; (b) 9 requests over a
+   1,024-token shared prefix (the last a full-prompt hit) with the prefix
+   cache on and off at 128-token chunks, greedy streams bitwise equal, at
+   least 7 hits and a CoW fork; (c) phase 4's traffic with ``k=4``
+   speculation, n-gram, draft-model, oracle and adversarial drafters,
+   against speculation off (streams equal, the oracle accepts every draft,
+   the adversary none), then (b)'s traffic with the prefix cache and the
+   n-gram drafter, and slot-mode speculation (printed); (d) a stochastic
+   request alone and beside neighbours (the same stream), ``top_k=1`` the
+   greedy stream, a mixed batch never speculating; (e) a verify step's
+   device time by kernel group beside a decode step's, ``spoga_gemm_dequant``
+   at the window's M=20 and ``paged_attention`` at 20 lanes of 4 repeated
+   tables (rows bitwise equal to the decode calls); (b') chunked prefill
+   while 4 short requests decode, at 512-token chunks and unchunked (the
+   longest gap between two tokens of a short request printed); every run's
+   kernel launches counted exactly, a verify dispatch as one decode step;
+9. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -653,15 +674,22 @@ def _attn_case(kind, gen, shape, lengths):
     return q, kp, vp, tables, lengths, scales, clean
 
 
-def _attn_bound(q, kp, tables, lengths, scales):
+def _attn_bound(q, kp, tables, lengths, scales, group=1):
     """Bytes the function needs: q, the K and V rows below each length (and
     their scales), the table entries naming them, lengths and the output;
-    operations: QK and PV, 4 per row, head and element, at the bf16 rate."""
+    operations: QK and PV, 4 per row, head and element, at the bf16 rate.
+    ``group`` > 1 is the verify layout, where each run of ``group`` lanes
+    repeats one table row: its K/V rows, scales and table entries are read
+    once, at the group's longest length; operations still count every
+    lane's own length."""
     b, hkv, g, d = q.shape
     ps = kp.shape[1]
     rows = int(lengths.sum())
-    pages = int(((lengths + ps - 1) // ps).sum())
-    kv_bytes = 2 * rows * hkv * d * kp.element_size() + (2 * rows * hkv * 4 if scales else 0)
+    read = lengths.view(-1, group).amax(dim=1)
+    kv_rows = int(read.sum())
+    pages = int(((read + ps - 1) // ps).sum())
+    kv_bytes = (2 * kv_rows * hkv * d * kp.element_size()
+                + (2 * kv_rows * hkv * 4 if scales else 0))
     nbytes = q.numel() * q.element_size() + kv_bytes + 4 * pages + 4 * b + 4 * b * hkv * g * d
     return bound(nbytes, 4.0 * rows * hkv * g * d, BF16_OPS_PER_S)
 
@@ -1430,36 +1458,35 @@ def _leaves(tree):
     return [("", tree)]
 
 
-def _feature_runtime(cache_len, page_size=16, **sched):
+def _feature_runtime(cache_len, page_size=16, prefix_cache=False, spec=None, **sched):
     """``int8_spoga`` over int8 paged KV, 4 lanes unless ``sched`` says
-    otherwise."""
-    from repro_torch.api import KVConfig, QuantRuntime, RuntimeConfig, SchedulerConfig
+    otherwise; the prefix cache and a ``SpecConfig`` on request."""
+    from repro_torch.api import KVConfig, QuantRuntime, RuntimeConfig, SchedulerConfig, SpecConfig
     sched = {"n_slots": 4, "prefill_buckets": (32, 64, 128), **sched}
     return RuntimeConfig(quant=QuantRuntime(mode="int8_spoga"),
                          kv=KVConfig(mode="paged", dtype="int8", page_size=page_size,
-                                     cache_len=cache_len),
-                         scheduler=SchedulerConfig(**sched))
+                                     cache_len=cache_len, prefix_cache=prefix_cache),
+                         scheduler=SchedulerConfig(**sched),
+                         spec=spec if spec is not None else SpecConfig())
 
 
-def phase_checkpoint(card, params):
+def phase_checkpoint(card, params, d):
     """(a) Phase 4's seed-0 full-width weights saved with the port's
-    ``save_checkpoint`` into a temporary directory (deleted at the end) and
-    loaded by ``LLM(checkpoint_dir=)``: every tensor ``torch.equal`` to the
-    one in memory.  Returns the loaded params and the numbers."""
-    import tempfile
+    ``save_checkpoint`` into the temporary directory ``d`` (phase 8 (a)
+    loads it again) and loaded by ``LLM(checkpoint_dir=)``: every tensor
+    ``torch.equal`` to the one in memory.  Returns the loaded params and
+    the numbers."""
     from repro_torch.api import LLM
     from repro_torch.checkpoint import save_checkpoint
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        path = save_checkpoint(d, 1, params, metadata={"arch": "llama3.2-1b",
-                                                       "seed": ENGINE_SEED})
-        save_s = time.perf_counter() - t0
-        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
-        t0 = time.perf_counter()
-        llm = LLM(arch="llama3.2-1b", runtime=_feature_runtime(512), checkpoint_dir=d)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = save_checkpoint(d, 1, params, metadata={"arch": "llama3.2-1b", "seed": ENGINE_SEED})
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    t0 = time.perf_counter()
+    llm = LLM(arch="llama3.2-1b", runtime=_feature_runtime(512), checkpoint_dir=d)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     got, want = _leaves(llm.params), _leaves(params)
     require([n for n, _ in got] == [n for n, _ in want], "checkpoint: leaf names differ")
     for (name, a), (_, b) in zip(got, want):
@@ -1715,15 +1742,679 @@ def phase_feature_parity(card, params):
     return out
 
 
-def phase_features(card, params):
-    """Phase 7: (a) checkpoint, (b) chunked prefill, (c) stacked admission,
-    (d) defrag, each on the weights loaded in (a); then the card-side
-    parity of chunking and stacking."""
-    loaded, ckpt = phase_checkpoint(card, params)
+def phase_features(card, params, ckpt_dir):
+    """Phase 7: (a) checkpoint (into ``ckpt_dir``), (b) chunked prefill, (c)
+    stacked admission, (d) defrag, each on the weights loaded in (a); then
+    the card-side parity of chunking and stacking."""
+    loaded, ckpt = phase_checkpoint(card, params, ckpt_dir)
     out = {"checkpoint": ckpt, "chunked": phase_chunked(card, loaded),
            "stacked": phase_stacked(card, loaded), "defrag": phase_defrag(card, loaded),
            "parity": phase_feature_parity(card, params)}
     del loaded
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 8. presets, the prefix cache, speculative decoding, stochastic sampling
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+PREFIX_LEN = 1024
+PREFIX_CHUNK = 128
+STOCHASTIC = dict(greedy=False, temperature=0.8, top_k=20, seed=5)
+
+
+class ScriptedDrafter:
+    """A drafter whose proposals are a function of the lane's history (the
+    oracle and the adversary of phase 8 (c))."""
+
+    def __init__(self, fn, k):
+        self.fn, self.k = fn, k
+
+    def admit(self, slot, history):
+        pass
+
+    def release(self, slot):
+        pass
+
+    def propose(self, slots, histories):
+        return [list(self.fn(h))[:self.k] for h in histories]
+
+
+def _oracle(arrivals, streams):
+    """Proposes each request's spec-off stream from where its history is."""
+    refs = {tuple(p): streams[rid] for rid, (_, p, _) in enumerate(arrivals)}
+
+    def fn(hist):
+        for p, ref in refs.items():
+            if tuple(hist[:len(p)]) == p:
+                return ref[len(hist) - len(p):]
+        raise AssertionError("history matches no request")
+    return fn
+
+
+def _counted(engine, label, drive):
+    """Run ``drive(engine)`` (it returns the metrics) with every kernel
+    count at 0 just before and read just after.  Gated exactly over the
+    steps the drive takes: a verify dispatch is one decode step, and
+    ``spoga_gemm_dequant`` launches 7 times a layer for every decode step
+    and every prefill dispatch of the target, plus 7 times a layer of the
+    draft model for every dispatch the draft model makes;
+    ``paged_attention`` once a layer for every decode step of a paged
+    engine, never in slot mode (chunk steps, slot caches and the draft
+    model's slot cache attend in plain torch); no plain version runs.  An
+    engine left without work holds no page but the prefix tree's.
+    Returns (metrics, launches)."""
+    drafter = engine._drafter
+    d0 = getattr(drafter, "dispatches", 0)
+    m0 = engine.metrics
+    steps0, prefills0 = m0.decode_steps, m0.prefill_dispatches
+    reset_counts()
+    metrics = drive(engine)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    expect = ("spoga_gemm_dequant", "paged_attention") if engine.paged else ("spoga_gemm_dequant",)
+    check_counts(launches, plain, expect, label)
+    n_layers = engine.cfg.n_layers
+    steps = metrics.decode_steps - steps0
+    draft = getattr(drafter, "dispatches", 0) - d0
+    draft_layers = drafter.cfg.n_layers if draft else 0
+    expect_gemm = (7 * n_layers * (steps + metrics.prefill_dispatches - prefills0)
+                   + 7 * draft_layers * draft)
+    expect_attn = n_layers * steps if engine.paged else 0
+    require(launches["spoga_gemm_dequant"] == expect_gemm,
+            f"{label}: GEMM launches {launches['spoga_gemm_dequant']} != {expect_gemm}")
+    require(launches["paged_attention"] == expect_attn,
+            f"{label}: attention launches {launches['paged_attention']} != {expect_attn}")
+    if engine.paged:
+        mgr = engine.store.manager
+        mgr.check_invariants()
+        tree = engine.prefix.cached_pages if engine.prefix is not None else 0
+        require(engine.has_work or mgr.pages_in_use == tree,
+                f"{label}: {mgr.pages_in_use} pages held after the run, the prefix tree "
+                f"holds {tree}")
+    return metrics, launches
+
+
+def _spec_engine(params, cache_len, spec=None, **kw):
+    from repro_torch.api import LLM
+    return LLM(arch="llama3.2-1b", params=params,
+               runtime=_feature_runtime(cache_len, spec=spec, **kw)).engine
+
+
+def _top2(logits) -> tuple[int, float]:
+    """(argmax, top-2 margin in bf16 ulps of the top logit) of a logits row."""
+    top2 = torch.topk(logits.float(), 2)
+    v = top2.values
+    return int(top2.indices[0]), (v[0] - v[1]).item() / _bf16_ulp(v[0].item())
+
+
+def _margins(engine, params, prompt, stream, idx, bucket=None, chunk=None):
+    """Token ``idx`` of ``stream`` recomputed teacher-forced on both paths,
+    on the engine's geometry (its lane count, table width and page size,
+    so ``paged_attention`` splits as in the run) with lane 0 active and the
+    others idle.  The prompt prefills in one shot to ``bucket`` rows, or in
+    chunks of ``chunk`` tokens.  "decode": the stream fed one token a step
+    (for idx 0, the prefill's logits); "verify" (idx > 0): a window
+    ``[stream[idx-1], stream[idx:idx+k]]`` at the token's position.
+    Returns {path: (argmax, top-2 margin in bf16 ulps)}."""
+    from repro_torch.models import decode_step, prefill, verify_step
+    from repro_torch.paging import make_chunk_step
+    from repro_torch.paging.cache import PagedCache
+    cfg, ecfg = engine.cfg, engine.engine_cfg
+    ps, n = ecfg.page_size, ecfg.n_slots
+    width = engine._spec.width if engine._spec is not None else SPEC_K + 1
+    store = PagedCache(cfg, n, ecfg.cache_len, ps, device="cuda")
+    mgr = store.manager
+    mgr.admit(0, ecfg.cache_len)
+    if chunk is None:
+        single = _roundup(bucket, ps)
+        tokens = torch.zeros((1, single), dtype=torch.int32)
+        tokens[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
+        logits, cache = prefill(params, cfg, tokens.cuda(), single,
+                                lengths=torch.tensor([len(prompt)], dtype=torch.int32,
+                                                     device="cuda"))
+        ids = mgr.alloc(0, single // ps)
+        store.insert(cache, 0, ids, len(prompt))
+    else:
+        step = make_chunk_step(cfg, chunk)
+        for start in range(0, len(prompt), chunk):
+            k = min(chunk, len(prompt) - start)
+            mgr.ensure(0, start + chunk)
+            store.sync_tables()
+            tokens = torch.zeros((1, chunk), dtype=torch.int32)
+            tokens[0, :k] = torch.tensor(prompt[start:start + k], dtype=torch.int32)
+            logits = step(params, store.cache, tokens.cuda(), 0, start, k)
+    mgr.set_length(0, len(prompt))
+    logits = logits[0]
+    active = torch.zeros(n, dtype=torch.bool, device="cuda")
+    active[0] = True
+
+    def feed(t):
+        mgr.ensure(0, int(mgr.lengths[0]) + 1)
+        store.sync_tables()
+        tok = torch.zeros(n, dtype=torch.int32, device="cuda")
+        tok[0] = t
+        out, _ = decode_step(params, cfg, tok, store.cache, active=active)
+        mgr.advance([0])
+        return out[0]
+
+    rows = {}
+    for t in stream[:max(idx - 1, 0)]:
+        logits = feed(t)
+    if idx > 0:
+        mgr.ensure(0, int(mgr.lengths[0]) + width)
+        store.sync_tables()
+        window = torch.zeros((n, width), dtype=torch.int32)
+        tail = stream[idx - 1:idx - 1 + width]
+        window[0, :len(tail)] = torch.tensor(tail, dtype=torch.int32)
+        out, _ = verify_step(params, cfg, window.cuda(), store.cache, active=active)
+        rows["verify"] = out[0, 0]
+        logits = feed(stream[idx - 1])
+    rows["decode"] = logits
+    return {path: _top2(row) for path, row in rows.items()}
+
+
+def _bucket(prompt):
+    return next(bk for bk in (32, 64, 128, len(prompt)) if bk >= len(prompt))
+
+
+def _margin_text(margins):
+    return ", ".join(f"{path} path argmax {tok}, margin {ulps:.3g} bf16 ulps"
+                     for path, (tok, ulps) in margins.items())
+
+
+def _hold_streams(got, want, label, arrivals, engine, params, chunk=None):
+    """Greedy streams must be equal.  Where a request's stream diverges on
+    the card, the divergence is accepted only on a near-tie row: the top-2
+    margin there at most NEAR_TIE_ULPS bf16 ulps on both the decode and the
+    verify path (``_margins``; phase 7's rule: the logits head is a library
+    bf16 product whose summation order may change with M).  Prompts
+    prefill in one shot to the phase's buckets, or in chunks of ``chunk``.
+    Returns the accepted divergences."""
+    near = []
+    for rid in want:
+        a, b = got[rid], want[rid]
+        if a == b:
+            continue
+        idx = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        require(idx < min(len(a), len(b)),
+                f"{label}: request {rid} differs at token {idx} ({len(a)} vs {len(b)} tokens)")
+        prompt = arrivals[rid][1]
+        margins = _margins(engine, params, prompt, b, idx, bucket=_bucket(prompt), chunk=chunk)
+        ulps = max(u for _, u in margins.values())
+        print(f"[spec] {label}: request {rid} diverges at token {idx} ({a[idx]} vs {b[idx]}); "
+              f"recomputed: {_margin_text(margins)}", flush=True)
+        require(ulps <= NEAR_TIE_ULPS, f"{label}: request {rid} diverges at token {idx} on a "
+                                       f"row whose top-2 margin is {ulps:.3g} bf16 ulps")
+        near.append((rid, idx, ulps))
+    return near
+
+
+def phase_presets(card, ckpt_dir):
+    """(a) ``int8-byte-serving`` written with ``to_dict`` to a JSON file and
+    loaded back with ``load_runtime``; ``LLM(runtime=load_runtime(name),
+    checkpoint_dir=)`` on phase 7 (a)'s checkpoint serves phase 4's 8
+    prompts (the preset's own 16-token chunks and prefix cache)."""
+    import tempfile
+    from repro_torch.api import LLM, get_preset, load_runtime
+    preset = get_preset("int8-byte-serving")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rt_") as d:
+        path = Path(d) / "int8-byte-serving.json"
+        path.write_text(json.dumps(preset.to_dict()))
+        require(load_runtime(str(path)) == preset, "preset: the JSON round trip differs")
+    llm = LLM(arch="llama3.2-1b", runtime=load_runtime("int8-byte-serving"),
+              checkpoint_dir=ckpt_dir)
+    engine = llm.build_engine(128, 32)
+    arrivals = _traffic(8, engine.cfg.vocab_size, ENGINE_SEED)
+    metrics, launches = _counted(engine, "preset int8-byte-serving",
+                                 lambda e: e.run(arrivals))
+    _check_finished(metrics, arrivals, engine.cfg.vocab_size, "preset")
+    rep = metrics.report()
+    print(f"[spec] (a) preset int8-byte-serving: JSON round trip equal; LLM(runtime="
+          f"load_runtime(...), checkpoint_dir=) served {rep['requests']} requests "
+          f"({rep['generated_tokens']} tokens, cache_len {engine.engine_cfg.cache_len}, chunk "
+          f"{engine._chunk_len}): {rep['chunk_steps']} chunk steps, {rep['decode_steps']} decode "
+          f"steps, prefix hits {rep['prefix_hits']}, {rep['tokens_per_s']:.1f} tok/s; launches "
+          f"spoga_gemm_dequant {launches['spoga_gemm_dequant']}, paged_attention "
+          f"{launches['paged_attention']} [{card}]", flush=True)
+    del llm
+    return {"launches": launches, "report": rep}
+
+
+def _prefix_traffic(vocab):
+    """8 prompts of a shared PREFIX_LEN-token prefix (seed 1) + a distinct
+    16-64-token suffix (request 3's: 48 tokens, a whole number of pages),
+    one a step; then request 3's prompt again (a full-prompt hit).  16 new
+    tokens each."""
+    rng = np.random.default_rng(ENGINE_SEED + 1)
+    shared = rng.integers(0, vocab, PREFIX_LEN).tolist()
+    tails = [int(n) for n in rng.integers(16, 65, 8)]
+    tails[3] = 48
+    prompts = [shared + rng.integers(0, vocab, n).tolist() for n in tails]
+    return [(i, p, 16) for i, p in enumerate(prompts)] + [(8, prompts[3], 16)]
+
+
+def phase_prefix(card, params):
+    """(b) The shared-prefix traffic with the prefix cache on and off, both
+    at ``prefill_chunk=PREFIX_CHUNK`` (every prompt is longer than a chunk,
+    so every cold admission is chunked either way).  Gated: the greedy
+    streams equal, at least 7 hits and a CoW fork with the cache on."""
+    arrivals = _prefix_traffic(128_256)
+    # a full-prompt hit resumes at the last prompt token and runs a whole
+    # chunk from there: the table must reach one chunk past the longest prompt
+    cache_len = PREFIX_LEN + 64 + PREFIX_CHUNK
+    out = {}
+    for label, on in (("on", True), ("off", False)):
+        engine = _spec_engine(params, cache_len, prefill_chunk=PREFIX_CHUNK,
+                              prefill_buckets=None, prefix_cache=on)
+        metrics, launches = _counted(engine, f"prefix cache {label}", lambda e: e.run(arrivals))
+        streams = _check_finished(metrics, arrivals, 128_256, f"prefix {label}")
+        rep = metrics.report()
+        out[label] = dict(streams=streams, launches=launches, report=rep)
+        print(f"[spec] (b) prefix cache {label}: 9 requests over a {PREFIX_LEN}-token shared "
+              f"prefix, chunk {PREFIX_CHUNK}: hits {rep['prefix_hits']}, hit tokens "
+              f"{rep['prefix_hit_tokens']}, CoW forks {rep['prefix_cow_forks']}, tree pages "
+              f"{rep['prefix_tree_pages']}, {rep['chunk_steps']} chunk steps, TTFT p50 "
+              f"{1e3 * rep['ttft_p50_s']:.1f} ms, p99 {1e3 * rep['ttft_p99_s']:.1f} ms, "
+              f"{rep['tokens_per_s']:.1f} tok/s; spoga_gemm_dequant launches "
+              f"{launches['spoga_gemm_dequant']} [{card}]", flush=True)
+        del engine
+    on = out["on"]["report"]
+    require(on["prefix_hits"] >= 7 and on["prefix_cow_forks"] >= 1,
+            f"prefix cache: {on['prefix_hits']} hits, {on['prefix_cow_forks']} CoW forks")
+    require(out["on"]["streams"] == out["off"]["streams"],
+            "prefix cache: greedy streams differ with the cache on and off")
+    print(f"[spec] (b) prefix cache on against off: greedy streams bitwise equal "
+          f"({sum(len(s) for s in out['on']['streams'].values())} tokens)", flush=True)
+    out["arrivals"] = arrivals
+    out["cache_len"] = cache_len
+    return out
+
+
+def phase_spec(card, params, prefix):
+    """(c) Phase 4's traffic with ``SpecConfig(enabled=True, k=SPEC_K)``: the
+    n-gram drafter, the draft-model drafter (2 layers), an oracle that
+    proposes the spec-off stream and an adversary that proposes (true +
+    1) mod vocab, against the same traffic with speculation off.  Gated:
+    the greedy streams equal the spec-off ones (near-tie rows excepted, see
+    ``_hold_streams``), the oracle accepts every draft it proposes and the
+    adversary none, the launch counts (``_counted``).  Then (b)'s traffic
+    with the prefix cache and the n-gram drafter against (b)'s cache-off
+    spec-off streams, and slot-mode speculation (printed, not gated)."""
+    from repro_torch.configs import default_cache_len, get_config
+    from repro_torch.spec import SpecConfig
+    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
+    cache_len = default_cache_len(128, 32)
+    off_engine = _spec_engine(params, cache_len)
+    off, off_launches = _counted(off_engine, "spec off", lambda e: e.run(arrivals))
+    base = _check_finished(off, arrivals, cfg.vocab_size, "spec off")
+    # the near-tie recomputation on a row that did not diverge: both paths
+    # give the run's token unless the row is a near tie
+    prompt0 = arrivals[0][1]
+    probe = _margins(off_engine, params, prompt0, base[0], 5, bucket=_bucket(prompt0))
+    for path, (tok, ulps) in probe.items():
+        require(tok == base[0][5] or ulps <= NEAR_TIE_ULPS,
+                f"near-tie recomputation, {path} path: token {tok}, the run's {base[0][5]}")
+    print(f"[spec] (c) near-tie recomputation of request 0, token 5 ({base[0][5]}), teacher-forced "
+          f"on spec off's geometry: {_margin_text(probe)}", flush=True)
+    del off_engine
+    spec = SpecConfig(enabled=True, k=SPEC_K)
+    runs = {"off": dict(report=off.report(), launches=off_launches)}
+    oracle = _oracle(arrivals, base)
+    for label, sc, drafter in (
+            ("ngram", spec, None),
+            ("draft model", SpecConfig(enabled=True, k=SPEC_K, drafter="model",
+                                       draft_layers=2), None),
+            ("oracle", spec, ScriptedDrafter(oracle, SPEC_K)),
+            ("adversarial", spec, ScriptedDrafter(
+                lambda h: [(t + 1) % cfg.vocab_size for t in oracle(h)], SPEC_K))):
+        engine = _spec_engine(params, cache_len, spec=sc)
+        if drafter is not None:
+            engine._drafter = drafter
+        metrics, launches = _counted(engine, f"spec {label}", lambda e: e.run(arrivals))
+        streams = _check_finished(metrics, arrivals, cfg.vocab_size, f"spec {label}")
+        near = _hold_streams(streams, base, f"spec {label}", arrivals, engine, params)
+        rep = metrics.report()
+        require(rep["verify_dispatches"] > 0, f"spec {label}: never verified")
+        if label == "oracle":
+            require(rep["spec_accepted"] == rep["spec_proposed"] > 0,
+                    f"oracle: {rep['spec_accepted']} of {rep['spec_proposed']} drafts accepted")
+        if label == "adversarial":
+            require(rep["spec_accepted"] == 0 < rep["spec_proposed"],
+                    f"adversary: {rep['spec_accepted']} drafts accepted")
+        accept_mean = metrics.registry.histogram("accept_len").mean
+        runs[label] = dict(report=rep, launches=launches, near_ties=near,
+                           accept_len_mean=accept_mean,
+                           draft_dispatches=getattr(engine._drafter, "dispatches", 0))
+        print(f"[spec] (c) {label}, k={SPEC_K}: {rep['tokens_per_s']:.1f} tok/s (spec off "
+              f"{runs['off']['report']['tokens_per_s']:.1f}), decode step mean "
+              f"{1e3 * rep['decode_step_mean_s']:.2f} ms (off "
+              f"{1e3 * runs['off']['report']['decode_step_mean_s']:.2f}), {rep['decode_steps']} "
+              f"steps (off {runs['off']['report']['decode_steps']}), verify dispatches "
+              f"{rep['verify_dispatches']}, proposed {rep['spec_proposed']}, accepted "
+              f"{rep['spec_accepted']}, mean accept length {accept_mean:.3f}; launches "
+              f"spoga_gemm_dequant {launches['spoga_gemm_dequant']}, paged_attention "
+              f"{launches['paged_attention']}; streams equal to spec off"
+              + (f" except {len(near)} near-tie divergences" if near else "")
+              + f" [{card}]", flush=True)
+        del engine
+
+    pre = prefix["arrivals"]
+    engine = _spec_engine(params, prefix["cache_len"], spec=spec,
+                          prefill_chunk=PREFIX_CHUNK, prefill_buckets=None, prefix_cache=True)
+    metrics, launches = _counted(engine, "prefix cache + ngram spec", lambda e: e.run(pre))
+    streams = _check_finished(metrics, pre, cfg.vocab_size, "prefix + spec")
+    near = _hold_streams(streams, prefix["off"]["streams"], "prefix cache + speculation", pre,
+                         engine, params, chunk=PREFIX_CHUNK)
+    rep = metrics.report()
+    runs["prefix + ngram"] = dict(report=rep, launches=launches, near_ties=near)
+    print(f"[spec] (c) (b)'s traffic, prefix cache + n-gram speculation: streams equal to (b)'s "
+          f"cache-off spec-off run" + (f" except {len(near)} near-tie divergences" if near else "")
+          + f"; hits {rep['prefix_hits']}, CoW forks "
+          f"{rep['prefix_cow_forks']}, verify dispatches {rep['verify_dispatches']}, proposed "
+          f"{rep['spec_proposed']}, accepted {rep['spec_accepted']}, {rep['tokens_per_s']:.1f} "
+          f"tok/s [{card}]", flush=True)
+    del engine
+
+    from repro_torch.serving import EngineConfig, ServingEngine
+    streams = {}
+    for label, sc in (("off", None), ("oracle", spec)):
+        engine = ServingEngine(cfg, params, EngineConfig(
+            n_slots=4, page_size=16, prefill_buckets=(32, 64, 128), cache_len=cache_len,
+            cache_mode="slot", spec=sc), device="cuda")
+        if sc is not None:
+            engine._drafter = ScriptedDrafter(oracle, SPEC_K)
+        metrics, _ = _counted(engine, f"slot spec {label}", lambda e: e.run(arrivals))
+        streams[label] = _check_finished(metrics, arrivals, cfg.vocab_size, f"slot spec {label}")
+        del engine
+    same, total = _agreement(streams["oracle"], streams["off"])
+    print(f"[spec] (c) slot-mode speculation (torch attention both ways), oracle drafter: "
+          f"greedy agreement with slot spec off {same}/{total} (printed, not gated) [{card}]",
+          flush=True)
+    runs["slot agreement"] = (same, total)
+    return runs
+
+
+def phase_sampling(card, params):
+    """(d) A stochastic request (temperature 0.8, top_k 20, seed 5) served
+    alone and again, submitted first, beside three neighbours (two greedy,
+    one stochastic with seed 9) that share its prefills and decode steps.
+    Gated: the two streams identical, the same seed twice the same stream,
+    ``top_k=1`` the greedy stream; under speculation the mixed batch
+    decodes plainly (no verify dispatch) and its streams equal spec off."""
+    import dataclasses
+    from repro_torch.configs import default_cache_len
+    from repro_torch.serving import SamplingParams
+    from repro_torch.spec import SpecConfig
+    sto = SamplingParams(**STOCHASTIC)
+    rng = np.random.default_rng(ENGINE_SEED + 5)
+    prompts = [rng.integers(0, 128_256, int(n)).tolist() for n in (70, 33, 101, 48)]
+    cache_len = default_cache_len(128, 32)
+
+    def serve(reqs, spec=None):
+        engine = _spec_engine(params, cache_len, spec=spec)
+        out = []
+
+        def drive(e):
+            out.extend(e.add_request(p, g, sampling=sp) for p, g, sp in reqs)
+            while e.has_work:
+                e.step()
+            return e.metrics
+
+        metrics, _ = _counted(engine, f"sampling, {len(reqs)} requests"
+                              + (", spec on" if spec is not None else ""), drive)
+        return [r.output_tokens for r in out], metrics
+
+    def solo(sampling):
+        return serve([(prompts[0], 24, sampling)])[0][0]
+
+    alone = solo(sto)
+    mixed_reqs = [(prompts[0], 24, sto), (prompts[1], 12, None),
+                  (prompts[2], 12, dataclasses.replace(sto, seed=9)), (prompts[3], 12, None)]
+    mixed, _ = serve(mixed_reqs)
+    greedy = solo(None)
+    require(mixed[0] == alone, "sampling: the stream changed beside neighbours")
+    require(solo(sto) == alone, "sampling: the same seed gave another stream")
+    require(solo(dataclasses.replace(sto, top_k=1)) == greedy,
+            "sampling: top_k=1 is not the greedy stream")
+    require(alone != greedy, "sampling: the stochastic stream is the greedy one")
+    spec_mixed, m = serve(mixed_reqs, spec=SpecConfig(enabled=True, k=SPEC_K))
+    require(m.verify_dispatches == 0, f"sampling: {m.verify_dispatches} verify dispatches "
+                                      f"in a batch with stochastic lanes")
+    require(spec_mixed == mixed, "sampling: spec on changed a mixed batch's streams")
+    print(f"[spec] (d) stochastic sampling (T 0.8, top_k 20, seed 5, 24 tokens): alone == beside "
+          f"3 neighbours == again; top_k=1 == greedy; {len(set(alone))} distinct tokens; under "
+          f"spec the mixed batch ran {m.decode_steps} plain decode steps, 0 verify dispatches, "
+          f"streams equal [{card}]", flush=True)
+    return {"distinct_tokens": len(set(alone))}
+
+
+def _verify_busy_engine(cfg, params):
+    """4 lanes of 64-token prompts decoding, speculation on with an oracle
+    that always proposes SPEC_K tokens (any tokens: the timing is the
+    window's, whatever is accepted)."""
+    from repro_torch.configs import default_cache_len
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.spec import SpecConfig
+    engine = ServingEngine(cfg, params, EngineConfig(
+        n_slots=4, page_size=16, prefill_buckets=(64,), cache_len=default_cache_len(128, 96),
+        spec=SpecConfig(enabled=True, k=SPEC_K), cache_mode="paged"), device="cuda")
+    engine._drafter = ScriptedDrafter(lambda h: [int(t) for t in h[-SPEC_K:]], SPEC_K)
+    rng = np.random.default_rng(ENGINE_SEED + 2)
+
+    def drive(e):
+        for _ in range(4):
+            e.add_request(rng.integers(0, cfg.vocab_size, 64).tolist(), 90)
+        for _ in range(6):
+            e.step()
+        return e.metrics
+
+    _counted(engine, "verify profile set-up", drive)
+    return engine
+
+
+def _counted_steps(engine, steps, label):
+    """``_timed_steps`` under ``_counted``; returns the wall time."""
+    wall = []
+
+    def drive(e):
+        wall.append(_timed_steps(e, steps))
+        return e.metrics
+
+    _counted(engine, label, drive)
+    return wall[0]
+
+
+def phase_verify_profile(card, params):
+    """(e) Device time by kernel group and wall time of verify steps (4
+    lanes, k=SPEC_K) beside the decode profile of the same lanes; then
+    ``spoga_gemm_dequant`` at the window's M = 4 * (SPEC_K + 1) = 20 (K=2048,
+    N=8192) and ``paged_attention`` at 20 lanes whose tables repeat in
+    groups of 5 (split count chosen for 4 lanes), each against the plain
+    version, its bound and the library call."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
+    from repro_torch.kernels.spoga_gemm_dequant import (
+        spoga_gemm_dequant,
+        spoga_gemm_dequant_plain,
+    )
+    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    steps = 4
+    wall_plain = _counted_steps(_verify_busy_engine(cfg, params), steps, "verify steps")
+    engine = _verify_busy_engine(cfg, params)
+    v0 = engine.metrics.verify_dispatches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = _counted_steps(engine, steps, "verify steps, profiled")
+    require(engine.metrics.verify_dispatches - v0 == steps, "verify profile: not all verify steps")
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    out = {"verify_wall_ms": 1e3 * wall_plain / steps, "verify_wall_profiled_ms": 1e3 * wall / steps}
+    if kernels and total > 0:
+        groups: dict[str, float] = {}
+        for e in kernels:
+            g = _kernel_group(e.key)
+            groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / steps
+        n_attn = sum(e.count for e in kernels if "paged_attention_kernel" in e.key)
+        require(n_attn == cfg.n_layers * steps, f"verify profile: {n_attn} paged_attention "
+                                                f"kernels in {steps} verify steps")
+        out.update(verify_device_ms=total, groups=groups)
+        print(f"[spec] (e) verify step, 4 lanes, k={SPEC_K}: {total:.3f} ms/step device time, "
+              f"wall {out['verify_wall_ms']:.3f} ms/step (device busy "
+              f"{100 * total / out['verify_wall_ms']:.1f}%) [{card}]", flush=True)
+        for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+            print(f"[spec]   {ms:.3f} ms/step ({100 * ms / total:.1f}%) {g}", flush=True)
+    else:
+        print("[spec] (e) verify profile: the profiler recorded no device time: not measured",
+              flush=True)
+    del engine
+    out["decode_profile"] = phase_profile(cfg, params, card, "int8_spoga (beside the verify)",
+                                          steps=steps)
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    m, k, n = 4 * (SPEC_K + 1), 2048, 8192
+    spec, x, w, xs, ws = _gemm_operands(m, k, n, "int8_spoga", gen)
+    kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices, slice_bits=spec.slice_bits)
+    got = spoga_gemm_dequant(x, w, xs, ws, **kw)
+    require(torch.equal(got, spoga_gemm_dequant_plain(x, w, xs, ws)), "GEMM at M=20 differs")
+    nb = copies_for(w.numel())
+    w_copies = [w.clone() for _ in range(nb)]
+    t_kernel, t_event = kernel_times(lambda i: spoga_gemm_dequant(x, w_copies[i], xs, ws, **kw),
+                                     nb, iters=40)
+    t_plain = time_ms(lambda i: spoga_gemm_dequant_plain(x, w_copies[i], xs, ws), nb, iters=5,
+                      warmup=1)
+    t_lib = _lib_int_mm(x, w_copies, m, k, n)
+    b_ms, b_by = bound(x.numel() + w.numel() + 4 * (m + n) + 4 * m * n,
+                       _int_product_ops(m, k, n), INT8_OPS_PER_S)
+    out["gemm"] = dict(shape=f"W8A8 M={m} K={k} N={n}", ms=t_kernel, event_ms=t_event,
+                       plain_ms=t_plain, library_ms=t_lib, library=_lib_label(m, k, n),
+                       bound_ms=b_ms, bound_by=b_by, fraction_of_bound=b_ms / t_kernel)
+    print(f"[spec] (e) spoga_gemm_dequant at the verify window's M={m} K={k} N={n}: bitwise equal "
+          f"to the plain version; kernel {t_kernel:.4f} ms device ({t_event:.4f} ms by events), "
+          f"plain {t_plain:.4f} ms, _int_mm {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}, "
+          f"{b_ms / t_kernel:.1%} of it) [{card}]", flush=True)
+    del w_copies
+
+    shape = ATTN_SHAPES["main"]
+    b, w_ = shape["b"], SPEC_K + 1
+    pos = [p - 1 for p in ATTN_MAIN_LENGTHS]
+    verify_lengths = [p + 1 + c for p in pos for c in range(w_)]
+    attn = {}
+    for kind in ("bf16", "int8"):
+        q, kp, vp, tables, _, scales, _ = _attn_case(
+            kind, gen, shape, [p + w_ for p in pos])
+        qv = torch.randn((b * w_,) + tuple(q.shape[1:]), generator=gen, device="cuda").bfloat16()
+        vt = tables.repeat_interleave(w_, dim=0).contiguous()
+        vl = torch.tensor(verify_lengths, dtype=torch.int32, device="cuda")
+        got = paged_attention(qv, kp, vp, vt, vl, split_lanes=b, **scales)
+        want = paged_attention_plain(qv, kp, vp, vt, vl, **scales)
+        qb = qv.reshape(b, w_, *qv.shape[1:])
+        for c_ in range(w_):
+            step = paged_attention(qb[:, c_].contiguous(), kp, vp, tables,
+                                   torch.tensor([p + 1 + c_ for p in pos], dtype=torch.int32,
+                                                device="cuda"), **scales)
+            require(torch.equal(got.reshape(b, w_, *got.shape[1:])[:, c_], step),
+                    f"verify attention {kind}: row {c_} differs from the decode call")
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        require(torch.allclose(got, want, **ATTN_TOL), f"verify attention {kind}: |diff| {err}")
+        t_kernel, t_event = kernel_times(
+            lambda i: paged_attention(qv, kp, vp, vt, vl, split_lanes=b, **scales), 1, iters=200)
+        t_plain = time_ms(lambda i: paged_attention_plain(qv, kp, vp, vt, vl, **scales), 1,
+                          iters=20, warmup=1)
+        t_lib = _sdpa_ms(qv, kp, vp, vt, vl) if kind == "bf16" else None
+        b_ms, b_by = _attn_bound(qv, kp, vt, vl, scales, group=w_)
+        attn[kind] = dict(shape=f"{kind} pool, {b * w_} lanes (4 tables x {w_}), "
+                                f"lengths {verify_lengths}", ms=t_kernel, event_ms=t_event,
+                          plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                          fraction_of_bound=b_ms / t_kernel, max_abs_err=err)
+        lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
+        print(f"[spec] (e) paged_attention {kind} verify layout ({b * w_} lanes, split count of "
+              f"{b}): rows bitwise equal to the {w_} decode calls, max |diff| to plain {err:.3g}; "
+              f"kernel {t_kernel:.4f} ms device ({t_event:.4f} ms by events), plain "
+              f"{t_plain:.4f} ms, sdpa {lib}, bound {b_ms:.5f} ms ({b_by}, each table read "
+              f"once; {b_ms / t_kernel:.1%} of it) [{card}]", flush=True)
+    out["attn"] = attn
+
+    # what the window's column-by-column norms cost a verify step: the
+    # host's launch rate of back-to-back calls at the window's shape
+    from repro_torch.models.layers import rmsnorm, rmsnorm_columns
+    xw = torch.randn((b, w_, cfg.d_model), generator=gen, device="cuda").bfloat16()
+    gamma = torch.rand(cfg.d_model, generator=gen, device="cuda") + 0.5
+    t_cols = time_ms(lambda i: rmsnorm_columns(xw, gamma, cfg.norm_eps), 1, iters=200)
+    t_rows = time_ms(lambda i: rmsnorm(xw, gamma, cfg.norm_eps), 1, iters=200)
+    n_norms = 2 * cfg.n_layers + 1
+    extra = n_norms * (t_cols - t_rows)
+    out["norms"] = dict(columns_ms=t_cols, rmsnorm_ms=t_rows, norms_per_step=n_norms,
+                        extra_ms_per_step=extra)
+    print(f"[spec] (e) verify-window norm ({b}x{w_}x{cfg.d_model}): rmsnorm_columns "
+          f"{t_cols:.4f} ms a call, rmsnorm {t_rows:.4f} ms (events, back-to-back); "
+          f"{n_norms} norms a verify step: {extra:.3f} ms more a step, "
+          f"{extra / out['verify_wall_ms']:.1%} of the verify step's wall "
+          f"{out['verify_wall_ms']:.3f} ms [{card}]", flush=True)
+    return out
+
+
+def phase_busy_chunking(card, params):
+    """(b') 4 short requests (17-128 tokens, 128 new tokens each) decode
+    when a 3,790-token prompt arrives at step 8; 5 lanes, chunked at
+    CHUNK_M and again unchunked.  Gated: every request finishes and the
+    launch counts hold (``_counted``).  Printed: decode step mean,
+    per-token p99, and the longest gap between two tokens of a short
+    request."""
+    rng = np.random.default_rng(ENGINE_SEED + 11)
+    shorts = [rng.integers(0, 128_256, int(n)).tolist() for n in rng.integers(17, 129, 4)]
+    long_prompt = rng.integers(0, 128_256, 3790).tolist()
+    cache_len = max(3790 + 16, _roundup(3790, CHUNK_M))
+    out = {}
+    for label, chunk in (("chunked", CHUNK_M), ("unchunked", None)):
+        engine = _spec_engine(params, cache_len, n_slots=5, prefill_chunk=chunk,
+                              prefill_buckets=None)
+
+        stamps = {i: [] for i in range(4)}
+
+        def drive(e):
+            for i, p in enumerate(shorts):
+                e.add_request(p, 128, on_token=lambda t, i=i: stamps[i].append(
+                    time.perf_counter()))
+            for _ in range(8):
+                e.step()
+            e.add_request(long_prompt, 16)
+            while e.has_work:
+                e.step()
+            return e.metrics
+
+        metrics, launches = _counted(engine, f"busy {label}", drive)
+        require(len(metrics.finished) == 5
+                and all(len(r.output_tokens) == r.max_new_tokens for r in metrics.finished),
+                f"busy {label}: not every request finished")
+        rep = metrics.report()
+        gap = max(max(b - a for a, b in zip(st, st[1:])) for st in stamps.values())
+        out[label] = dict(report=rep, launches=launches, max_gap_s=gap)
+        print(f"[spec] (b') {label} (prefill_chunk={chunk}): 4 short requests decoding, a "
+              f"3,790-token prompt at step 8: decode step mean "
+              f"{1e3 * rep['decode_step_mean_s']:.2f} ms ({rep['decode_steps']} steps), "
+              f"per-token p99 {1e3 * rep['per_token_p99_s']:.1f} ms, longest gap between two "
+              f"tokens of a short request {1e3 * gap:.1f} ms, {rep['chunk_steps']} chunk steps; "
+              f"launches spoga_gemm_dequant {launches['spoga_gemm_dequant']}, paged_attention "
+              f"{launches['paged_attention']} [{card}]", flush=True)
+        del engine
+    return out
+
+
+def phase_spec_serving(card, params, ckpt_dir):
+    """Phase 8: (a) presets, (b) the prefix cache, (c) speculation, (d)
+    stochastic sampling, (e) the verify step's time profile; then (b')
+    chunked prefill under busy decode."""
+    out = {"presets": phase_presets(card, ckpt_dir),
+           "prefix": phase_prefix(card, params)}
+    out["spec"] = phase_spec(card, params, out["prefix"])
+    out["sampling"] = phase_sampling(card, params)
+    out["profile"] = phase_verify_profile(card, params)
+    out["busy_chunking"] = phase_busy_chunking(card, params)
     torch.cuda.empty_cache()
     return out
 
@@ -1755,7 +2446,10 @@ def main() -> int:
     phase_slot_vs_paged(card, params)
     facade = phase_dataflows(card, params)
     long_prefill = phase_long_prefill(card, params)
-    features = phase_features(card, params)
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
+        features = phase_features(card, params, ckpt_dir)
+        serving = phase_spec_serving(card, params, ckpt_dir)
     del params
     torch.cuda.empty_cache()
     phase_default_llm(card)
@@ -1788,6 +2482,14 @@ def main() -> int:
                 for part in ("chunked", "stacked", "defrag")
                 for label, run in features[part].items()}
 
+    def serving_launches(name):
+        """A kernel's launches in each of phase 8's counted runs."""
+        runs = {"presets": serving["presets"],
+                **{f"prefix {k}": serving["prefix"][k] for k in ("on", "off")},
+                **{f"spec {k}": v for k, v in serving["spec"].items() if isinstance(v, dict)},
+                **{f"busy {k}": v for k, v in serving["busy_chunking"].items()}}
+        return {label: run["launches"][name] for label, run in runs.items()}
+
     chunk = gemm[("w8a8", CHUNK_M, 2048, 8192)]
     kernels = [gemm_row("spoga_gemm_dequant", "src/repro_torch/csrc/spoga_gemm_dequant.cu",
                         "src/repro/kernels/spoga_gemm_dequant.py:62",
@@ -1798,7 +2500,9 @@ def main() -> int:
                         chunk_prefill={"shape": f"W8A8 M={CHUNK_M} K=2048 N=8192",
                                        "library": _lib_label(CHUNK_M, 2048, 8192), **chunk,
                                        "fraction_of_bound": chunk["bound_ms"] / chunk["ms"]},
-                        slot_decode_profile=slot_profile, long_prefill=long_prefill)]
+                        slot_decode_profile=slot_profile, long_prefill=long_prefill,
+                        verify=serving["profile"]["gemm"],
+                        launches_spec_serving=serving_launches("spoga_gemm_dequant"))]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
         a, long, short = (dict(attn[(kind, name)]) for name in ("main", "long", "short"))
@@ -1811,8 +2515,10 @@ def main() -> int:
                         **a, "long_context": long, "long_table_short_lanes": short,
                         "decode_profile_ms_per_step": {
                             k: v and v["attn_ms"] for k, v in attn_profile.items()},
-                        **({"launches_engine_features": feature_launches("paged_attention")}
+                        **({"launches_engine_features": feature_launches("paged_attention"),
+                            "launches_spec_serving": serving_launches("paged_attention")}
                            if kind == "int8" else {}),
+                        "verify": serving["profile"]["attn"][kind],
                         "card": card})
     unfused, deas_run = facade["spoga unfused"], facade["deas"]
     kernels.append(gemm_row("spoga_gemm", "src/repro_torch/csrc/spoga_gemm.cu",

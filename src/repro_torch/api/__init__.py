@@ -13,7 +13,9 @@ fused kernel with its dequant epilogue; ``gemm_backend="cuda_spoga"`` for
 the int32 kernel plus the epilogue after it), ``int8_deas`` (the
 prior-work baseline kernels) or ``int8_direct`` (the plain int8 product).
 The KV cache is a slot cache by default (``KVConfig()``), or a page pool
-with ``KVConfig(mode="paged")``.  Entry points run on the card; pass
+with ``KVConfig(mode="paged")``.  Named deployment profiles load by name
+or from JSON: ``LLM("llama3.2-1b", runtime=load_runtime("int8-byte-serving"))``
+(``list_presets()`` names them).  Entry points run on the card; pass
 ``device="cpu"`` to run the plain versions on the CPU.  ``serve_batch`` is
 the static-batch lockstep baseline the engine is held against.
 """
@@ -26,10 +28,15 @@ from repro_torch.api.config import (
     SamplingDefaults,
     SchedulerConfig,
     auto_buckets,
+    get_preset,
+    list_presets,
+    load_runtime,
+    register_preset,
 )
 from repro_torch.api.llm import LLM
 from repro_torch.api.outputs import RequestOutput
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.spec.config import SpecConfig
 
 __all__ = [
     "KVConfig",
@@ -40,6 +47,11 @@ __all__ = [
     "SamplingDefaults",
     "SamplingParams",
     "SchedulerConfig",
+    "SpecConfig",
     "auto_buckets",
+    "get_preset",
+    "list_presets",
+    "load_runtime",
+    "register_preset",
     "serve_batch",
 ]

@@ -14,21 +14,26 @@ fields, defaults and validation messages.
 and the ``EngineConfig`` the port's engine consumes.
 
 ``build_policies()`` maps the scheduler settings to the engine's
-``EnginePolicies`` (admission order, eviction, defrag threshold).
+``EnginePolicies`` (admission order, eviction, defrag threshold, prefix
+reuse).  ``to_dict``/``from_dict`` round-trip through plain JSON dicts
+(partial dicts take their defaults); named presets (``register_preset``,
+``get_preset``, ``list_presets``, the five built-in ones) and
+``load_runtime`` (a JSON file or a preset name) are the reference's.
 
-A setting that validates but that the port's engine does not serve yet
-raises ``NotImplementedError`` naming its ROADMAP item, from
+The ``mesh`` and ``obs`` sub-configs are not ported: ``None`` stands for
+the reference's disabled defaults, ``to_dict`` writes those defaults, and
+``from_dict`` accepts them (or any part of them).  Any other value raises
+``NotImplementedError`` naming its ROADMAP item (items 10 and 8), from
 :meth:`RuntimeConfig.check_served` (called by ``resolve_engine`` and by
-``LLM``): the prefix cache and prefix-aware admission, stochastic
-sampling, and the ``mesh``, ``spec`` and ``obs`` sub-configs (their
-classes are not ported yet; ``None`` stands for the reference's disabled
-defaults).  ``to_dict``/``from_dict``, presets and ``load_runtime`` are
-not ported yet.
+``LLM``) or from ``from_dict``.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import json
+import os
 from typing import Optional, Tuple, Union
 
 from repro_torch.backends.spec import QUANT_MODES, parse_quant_mode
@@ -42,17 +47,44 @@ from repro_torch.serving.policies import (
     EnginePolicies,
     FIFOAdmission,
     NeverDefrag,
+    PrefixAwareAdmission,
     PriorityAdmission,
+    SharedPrefix,
     ThresholdDefrag,
 )
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.spec.config import SpecConfig
 
 # None = auto (the kernel on CUDA tensors, the gather twin on CPU tensors)
 _PAGED_ATTN_IMPLS = (None, "gather")
 
 
+# what the reference's ``to_dict`` writes for its disabled MeshConfig and
+# ObsConfig; the port writes the same, so its JSON loads in the reference
+_MESH_OFF = {"tp": 1, "dp": 1, "enable": None, "axes": ["data", "model"]}
+_OBS_OFF = {"enabled": None, "trace": None, "events": None, "fence_spans": False,
+            "profile_dir": None, "profile_steps": 20, "debug_invariants": False,
+            "metrics_port": None, "events_max_mb": 64.0, "watchdog": False,
+            "record_path": None}
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+
+
+def _check_off(name: str, sub: Optional[dict]) -> None:
+    """Accept the ``mesh`` / ``obs`` sub-dict that ``to_dict`` writes, or any
+    part of it; any other value turns on a subsystem that is not ported and
+    raises ``NotImplementedError``."""
+    if sub is None:
+        return
+    off = _MESH_OFF if name == "mesh" else _OBS_OFF
+    unknown = sorted(set(sub) - set(off))
+    if unknown:
+        raise TypeError(f"RuntimeConfig.{name}: unexpected keys {unknown}")
+    if {**off, **sub} != off:
+        raise (_not_ported("RuntimeConfig.mesh (sharded serving)", "10") if name == "mesh"
+               else _not_ported("RuntimeConfig.obs (observability)", "8"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,13 +227,12 @@ class SamplingDefaults:
     seed: int = 0
 
     def __post_init__(self):
-        # the reference's SamplingParams validation
-        if not self.greedy and self.temperature <= 0:
-            raise ValueError("temperature must be > 0 for stochastic sampling "
-                             "(use greedy=True for argmax decoding)")
+        # mirror SamplingParams' own validation at config-build time
+        SamplingParams(**dataclasses.asdict(self))
 
     def to_params(self) -> SamplingParams:
-        return SamplingParams(greedy=self.greedy)
+        return SamplingParams(greedy=self.greedy, temperature=self.temperature,
+                              top_k=self.top_k, seed=self.seed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,11 +248,14 @@ class RuntimeConfig:
     kv: KVConfig = dataclasses.field(default_factory=KVConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     sampling: SamplingDefaults = dataclasses.field(default_factory=SamplingDefaults)
-    # sharded serving, speculative decoding and observability: the
-    # reference's MeshConfig / SpecConfig / ObsConfig are not ported yet;
-    # None is their disabled default
+    # sharded serving: the reference's MeshConfig is not ported yet (ROADMAP
+    # queue 1, item 10); None is its disabled default
     mesh: Optional[object] = None
-    spec: Optional[object] = None
+    # speculative decoding (repro_torch/spec/): draft-verify greedy decode,
+    # off by default (SpecConfig.enabled=False)
+    spec: SpecConfig = dataclasses.field(default_factory=SpecConfig)
+    # observability: the reference's ObsConfig is not ported yet (item 8);
+    # None is its disabled default
     obs: Optional[object] = None
     # default generation budget for requests that don't specify one
     max_new_tokens: int = 16
@@ -247,20 +281,49 @@ class RuntimeConfig:
 
     def check_served(self) -> None:
         """Raise ``NotImplementedError`` for a setting the port's engine
-        does not serve yet, naming its ROADMAP item."""
-        s, kv = self.scheduler, self.kv
-        refused = [
-            (kv.prefix_cache, "KVConfig.prefix_cache", "6"),
-            (s.admission == "prefix-aware", "SchedulerConfig.admission='prefix-aware'", "6"),
-            (not self.sampling.greedy, "stochastic sampling (SamplingDefaults.greedy=False)",
-             "5"),
-            (self.mesh is not None, "RuntimeConfig.mesh (sharded serving)", "10"),
-            (self.spec is not None, "RuntimeConfig.spec (speculative decoding)", "6"),
-            (self.obs is not None, "RuntimeConfig.obs (observability)", "8"),
-        ]
-        for hit, what, item in refused:
-            if hit:
-                raise _not_ported(what, item)
+        does not serve yet, naming its ROADMAP item: a ``mesh`` (item 10)
+        or an ``obs`` (item 8) sub-config."""
+        if self.mesh is not None:
+            raise _not_ported("RuntimeConfig.mesh (sharded serving)", "10")
+        if self.obs is not None:
+            raise _not_ported("RuntimeConfig.obs (observability)", "8")
+
+    # -- serialization -----------------------------------------------------
+    def to_dict(self) -> dict:
+        """Plain JSON-serializable nested dict (tuples become lists); the
+        unported ``mesh`` and ``obs`` appear as the reference's disabled
+        defaults."""
+        self.check_served()
+        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+        for name in ("quant", "kv", "scheduler", "sampling", "spec"):
+            d[name] = dataclasses.asdict(d[name])
+        b = d["scheduler"]["prefill_buckets"]
+        if isinstance(b, tuple):
+            d["scheduler"]["prefill_buckets"] = list(b)
+        d["mesh"], d["obs"] = copy.deepcopy(_MESH_OFF), dict(_OBS_OFF)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RuntimeConfig":
+        """Inverse of ``to_dict``; also accepts partial dicts (missing keys
+        take their defaults) and the reference's ``to_dict`` output.  A
+        ``mesh`` or ``obs`` sub-dict other than (part of) the disabled
+        defaults raises ``NotImplementedError``."""
+        d = copy.deepcopy(dict(d))
+        sched = dict(d.pop("scheduler", {}))
+        b = sched.get("prefill_buckets")
+        if b is not None and not isinstance(b, str):
+            sched["prefill_buckets"] = tuple(b)
+        _check_off("mesh", d.pop("mesh", None))
+        _check_off("obs", d.pop("obs", None))
+        return cls(
+            quant=QuantRuntime(**d.pop("quant", {})),
+            kv=KVConfig(**d.pop("kv", {})),
+            scheduler=SchedulerConfig(**sched),
+            sampling=SamplingDefaults(**d.pop("sampling", {})),
+            spec=SpecConfig(**d.pop("spec", {})),
+            **d,
+        )
 
     # -- resolution --------------------------------------------------------
     def resolve_model(self, cfg: ModelConfig) -> ModelConfig:
@@ -302,6 +365,8 @@ class RuntimeConfig:
             page_size=self.kv.page_size,
             n_pages=self.kv.n_pages,
             prefill_chunk=self.scheduler.prefill_chunk,
+            prefix_cache=self.kv.prefix_cache,
+            spec=self.spec if self.spec.enabled else None,
         )
 
     def resolve(self, cfg: ModelConfig, prompt_len: Optional[int] = None,
@@ -314,12 +379,15 @@ class RuntimeConfig:
 
     def build_policies(self) -> EnginePolicies:
         """The engine policies the scheduler settings imply: FIFO, priority,
-        deadline or stacked-prefill admission, budget-or-EOS or
-        deadline-preempting eviction, threshold or no defrag."""
+        prefix-aware, deadline or stacked-prefill admission, budget-or-EOS
+        or deadline-preempting eviction, threshold or no defrag, and the
+        shared-prefix matching policy."""
         self.check_served()
         s = self.scheduler
         if s.admission == "priority":
             admission = PriorityAdmission()
+        elif s.admission == "prefix-aware":
+            admission = PrefixAwareAdmission()
         elif s.admission == "deadline":
             admission = DeadlineAdmission()
         elif s.batched_admission:
@@ -330,7 +398,8 @@ class RuntimeConfig:
                     else BudgetOrEOSEviction())
         defrag = (ThresholdDefrag(s.defrag_threshold) if s.defrag_threshold is not None
                   else NeverDefrag())
-        return EnginePolicies(admission=admission, eviction=eviction, defrag=defrag)
+        return EnginePolicies(admission=admission, eviction=eviction, defrag=defrag,
+                              prefix=SharedPrefix(self.kv.prefix_min_pages))
 
 
 def auto_buckets(prompt_len: int) -> tuple[int, ...]:
@@ -342,3 +411,71 @@ def auto_buckets(prompt_len: int) -> tuple[int, ...]:
         b *= 2
     buckets.append(prompt_len)
     return tuple(buckets)
+
+
+# ---------------------------------------------------------------------------
+# Preset registry: named deployment profiles
+# ---------------------------------------------------------------------------
+
+_PRESETS: dict[str, RuntimeConfig] = {}
+
+
+def register_preset(name: str, runtime: RuntimeConfig, overwrite: bool = False) -> None:
+    """Register a named deployment profile.  Presets are ordinary
+    ``RuntimeConfig``s: validated at registration, JSON round-trippable,
+    resolvable like any hand-built config."""
+    if not isinstance(runtime, RuntimeConfig):
+        raise TypeError(f"preset {name!r} must be a RuntimeConfig")
+    if name in _PRESETS and not overwrite:
+        raise ValueError(f"preset {name!r} already registered "
+                         "(pass overwrite=True to replace)")
+    _PRESETS[name] = runtime
+
+
+def get_preset(name: str) -> RuntimeConfig:
+    try:
+        return _PRESETS[name]
+    except KeyError:
+        raise KeyError(f"unknown runtime preset {name!r}; known: "
+                       f"{list_presets()}") from None
+
+
+def list_presets() -> list[str]:
+    return sorted(_PRESETS)
+
+
+def load_runtime(spec: str) -> RuntimeConfig:
+    """Resolve a ``--runtime`` spec: a JSON file path (loaded through
+    ``RuntimeConfig.from_dict``) or a registered preset name."""
+    if os.path.isfile(spec):
+        with open(spec) as f:
+            return RuntimeConfig.from_dict(json.load(f))
+    if spec in _PRESETS:
+        return _PRESETS[spec]
+    raise ValueError(f"--runtime {spec!r} is neither a JSON file nor a "
+                     f"registered preset (known: {list_presets()})")
+
+
+# Built-in profiles (the reference's).  None pins cache_len: presets stay
+# workload-sized, so one profile serves smoke tests and real prompt lengths.
+register_preset("slot-throughput", RuntimeConfig(
+    kv=KVConfig(mode="slot"),
+    scheduler=SchedulerConfig(prefill_buckets="auto", batched_admission=True),
+))
+register_preset("paged-server", RuntimeConfig(
+    kv=KVConfig(mode="paged", page_size=DEFAULT_PAGE_SIZE),
+    scheduler=SchedulerConfig(prefill_chunk=2 * DEFAULT_PAGE_SIZE, defrag_threshold=0.5),
+))
+register_preset("prefix-interactive", RuntimeConfig(
+    kv=KVConfig(mode="paged", page_size=DEFAULT_PAGE_SIZE, prefix_cache=True),
+    scheduler=SchedulerConfig(prefill_chunk=DEFAULT_PAGE_SIZE, defrag_threshold=0.5),
+))
+register_preset("int8-byte-serving", RuntimeConfig(
+    quant=QuantRuntime(mode="int8_spoga"),
+    kv=KVConfig(mode="paged", dtype="int8", page_size=DEFAULT_PAGE_SIZE, prefix_cache=True),
+    scheduler=SchedulerConfig(prefill_chunk=DEFAULT_PAGE_SIZE, defrag_threshold=0.5),
+))
+register_preset("priority-slot", RuntimeConfig(
+    kv=KVConfig(mode="slot"),
+    scheduler=SchedulerConfig(prefill_buckets="auto", admission="priority"),
+))

@@ -8,6 +8,7 @@ continuous-batching engine (port of ``repro/api/llm.py``).
               runtime=RuntimeConfig(quant=QuantRuntime(mode="int8_deas"),
                                     kv=KVConfig(mode="paged", dtype="int8")))
     outs = llm.generate([[1, 2, 3], [4, 5]], max_new_tokens=8)
+    llm = LLM("llama3.2-1b", runtime=load_runtime("int8-byte-serving"))
 
 ``LLM`` owns parameter init, resolves the layered ``RuntimeConfig`` into
 the ``ModelConfig`` overrides + engine config, and drives the engine.  It
@@ -25,9 +26,13 @@ checkpoint format, ``checkpoint.restore_checkpoint``), or else from
 ``RuntimeConfig.build_policies`` derives; one policy object serves every
 engine the ``LLM`` builds.
 
-Not ported yet, and refused with ``NotImplementedError``: ``replay`` and
-the metrics server (the observability stack), plus every runtime setting
-that ``RuntimeConfig.check_served`` names.
+Every runtime the reference can build for llama3.2-1b serves, the five
+presets included (``load_runtime("int8-byte-serving")``): the prefix cache
+with prefix-aware admission, speculative decoding (``RuntimeConfig(spec=
+SpecConfig(enabled=True))``) and stochastic ``SamplingParams``.  Not ported
+yet, and refused with ``NotImplementedError``: ``replay`` and the metrics
+server (the observability stack, ROADMAP queue 1, item 8), and the
+``mesh`` and ``obs`` settings that ``RuntimeConfig.check_served`` names.
 """
 
 from __future__ import annotations

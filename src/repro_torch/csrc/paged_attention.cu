@@ -871,16 +871,20 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int splits, size_t smem, cudaStream
 }
 
 // Split the table into S = ceil(P / per) runs of `per` pages: as many as
-// it takes for about WAVES blocks per SM, at most MAX_CLUSTER and at most
-// one page each, and no more than a cluster the occupancy query says can
-// be resident.  Clusters beyond one wave run in later waves.  `smem_of`
-// gives a block's shared memory for (per, S).
+// it takes for about WAVES blocks per SM over `split_lanes` lanes, at most
+// MAX_CLUSTER and at most one page each, and no more than a cluster the
+// occupancy query says can be resident.  Clusters beyond one wave run in
+// later waves.  `split_lanes` is B for a decode step; a speculative verify
+// launches B*W lanes with split_lanes = B, so every row splits (and its
+// partial results combine) exactly as the decode step's lane does.
+// `smem_of` gives a block's shared memory for (per, S).
 template <auto Kernel, class SmemOf>
-cudaError_t launch(Params p, int B, int HG, SmemOf smem_of, cudaStream_t stream) {
+cudaError_t launch(Params p, int B, int split_lanes, int HG, SmemOf smem_of,
+                   cudaStream_t stream) {
     int sms = 0;
     cudaError_t err = sm_count(&sms);
     if (err != cudaSuccess) return err;
-    const long long blocks = static_cast<long long>(B) * p.Hkv * HG;
+    const long long blocks = static_cast<long long>(split_lanes) * p.Hkv * HG;
     long long want = (static_cast<long long>(WAVES) * sms + blocks - 1) / blocks;
     int splits = static_cast<int>(want < MAX_CLUSTER ? want : MAX_CLUSTER);
     splits = splits < p.P ? splits : p.P;
@@ -922,28 +926,30 @@ cudaError_t launch(Params p, int B, int HG, SmemOf smem_of, cudaStream_t stream)
 // The CUDA-core kernel, for every shape the kernel accepts: CGT heads a
 // block (heads at or past G are masked).
 template <bool INT8>
-cudaError_t launch_cores(Params p, int B, bool vec, cudaStream_t stream) {
+cudaError_t launch_cores(Params p, int B, int split_lanes, bool vec, cudaStream_t stream) {
     const int HG = (p.G + CGT - 1) / CGT;
     auto smem_of = [&](int per, int splits) { return smem_bytes(INT8, per, splits, p.D); };
-    return vec ? launch<paged_attention_kernel<INT8, true>>(p, B, HG, smem_of, stream)
-               : launch<paged_attention_kernel<INT8, false>>(p, B, HG, smem_of, stream);
+    return vec ? launch<paged_attention_kernel<INT8, true>>(p, B, split_lanes, HG, smem_of,
+                                                            stream)
+               : launch<paged_attention_kernel<INT8, false>>(p, B, split_lanes, HG, smem_of,
+                                                             stream);
 }
 
 template <bool INT8, int DK>
-cudaError_t launch_mma(Params p, int B, cudaStream_t stream) {
+cudaError_t launch_mma(Params p, int B, int split_lanes, cudaStream_t stream) {
     auto smem_of = [](int per, int splits) { return smem_bytes_mma<INT8, DK>(per, splits); };
-    return launch<paged_attention_kernel_mma<INT8, DK>>(p, B, 1, smem_of, stream);
+    return launch<paged_attention_kernel_mma<INT8, DK>>(p, B, split_lanes, 1, smem_of, stream);
 }
 
 // Tensor cores where the shape allows (D of 64 or 128, at most 8 query
 // heads, 16-byte aligned rows, tables short enough for the f32 row
 // arithmetic), the CUDA-core kernel otherwise.
 template <bool INT8>
-cudaError_t dispatch(Params p, int B, bool vec, cudaStream_t stream) {
+cudaError_t dispatch(Params p, int B, int split_lanes, bool vec, cudaStream_t stream) {
     const bool mma = vec && p.G <= MGT && static_cast<long long>(p.P) * p.ps < (1LL << 22);
-    if (mma && p.D == 64) return launch_mma<INT8, 64>(p, B, stream);
-    if (mma && p.D == 128) return launch_mma<INT8, 128>(p, B, stream);
-    return launch_cores<INT8>(p, B, vec, stream);
+    if (mma && p.D == 64) return launch_mma<INT8, 64>(p, B, split_lanes, stream);
+    if (mma && p.D == 128) return launch_mma<INT8, 128>(p, B, split_lanes, stream);
+    return launch_cores<INT8>(p, B, split_lanes, vec, stream);
 }
 
 Params make_params(const void* q, int q_is_bf16, const void* kp, const void* vp,
@@ -966,14 +972,17 @@ bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15u
 }  // namespace
 
 // C entry point.  q_is_bf16: q dtype bf16 (else f32); kv_int8: int8 pools
-// with k_scale / v_scale (else bf16 pools, scales NULL).  All tensors
-// contiguous.  Returns the launch's error, then cudaGetLastError().
+// with k_scale / v_scale (else bf16 pools, scales NULL).  split_lanes: the
+// lane count that chooses the split count (B, or the decode batch a
+// verify's B*W rows stand for).  All tensors contiguous.  Returns the
+// launch's error, then cudaGetLastError().
 extern "C" int paged_attention_launch(
     const void* q, int q_is_bf16, const void* kp, const void* vp, int kv_int8,
     const void* k_scale, const void* v_scale, const void* tables,
     const void* lengths, void* out, int B, int Hkv, int G, int D,
-    int page_size, int P, void* stream) {
-    if (B <= 0 || Hkv <= 0 || G <= 0 || G > MAX_G || D <= 0 || D > MAX_D || page_size <= 0
+    int page_size, int P, int split_lanes, void* stream) {
+    if (B <= 0 || split_lanes <= 0 || Hkv <= 0 || G <= 0 || G > MAX_G || D <= 0 || D > MAX_D
+        || page_size <= 0
         || P <= 0 || (kv_int8 && (k_scale == nullptr || v_scale == nullptr))) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -982,6 +991,7 @@ extern "C" int paged_attention_launch(
     const Params p = make_params(q, q_is_bf16, kp, vp, k_scale, v_scale, tables, lengths, out,
                                  kv_int8, Hkv, G, D, page_size, P);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const cudaError_t err = kv_int8 ? dispatch<true>(p, B, vec, s) : dispatch<false>(p, B, vec, s);
+    const cudaError_t err = kv_int8 ? dispatch<true>(p, B, split_lanes, vec, s)
+                                    : dispatch<false>(p, B, split_lanes, vec, s);
     return static_cast<int>(err);
 }

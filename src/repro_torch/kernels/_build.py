@@ -61,6 +61,7 @@ SIGNATURES = {
         _P, _P, _P,                  # tables, lengths, out
         _I, _I, _I, _I,              # B, Hkv, G, D
         _I, _I,                      # page_size, pages per table row
+        _I,                          # split_lanes: the lane count choosing the split count
         _P,                          # stream
     ],
 }

@@ -89,11 +89,21 @@ def _check(q, kp, vp, tables, lengths, k_scale, v_scale):
     return tensors
 
 
-def paged_attention(q, kp, vp, tables, lengths, *, k_scale=None, v_scale=None):
+def paged_attention(q, kp, vp, tables, lengths, *, k_scale=None, v_scale=None,
+                    split_lanes=None):
     """Flash decode attention over paged KV; see the module docstring for
-    layouts.  ``k_scale``/``v_scale`` select the int8 variant."""
+    layouts.  ``k_scale``/``v_scale`` select the int8 variant.
+
+    ``split_lanes`` (default B) is the lane count from which the kernel
+    chooses how many ways it splits each lane's table: a speculative
+    verify passes its B*W rows as lanes with ``split_lanes`` = the decode
+    batch, so each row is split, and its f32 partials combined, exactly as
+    the decode step splits that lane.  A lane's result depends only on its
+    own table row, its length and the split count."""
     global LAUNCHES
     tensors = _check(q, kp, vp, tables, lengths, k_scale, v_scale)
+    if split_lanes is not None and split_lanes < 1:
+        raise ValueError(f"split_lanes must be >= 1, got {split_lanes}")
     if q.device.type == "cpu":
         return paged_attention_plain(q, kp, vp, tables, lengths,
                                      k_scale=k_scale, v_scale=v_scale)
@@ -121,6 +131,7 @@ def paged_attention(q, kp, vp, tables, lengths, *, k_scale=None, v_scale=None):
         v_scale.data_ptr() if int8 else None,
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         b, hkv, g, d, kp.shape[1], tables.shape[1],
+        b if split_lanes is None else int(split_lanes),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_attention")
     LAUNCHES += 1

@@ -6,8 +6,9 @@ from repro_torch.models.model import (
     init_params,
     paged_cache_shapes,
     prefill,
+    verify_step,
 )
 from repro_torch.models.weights import params_from_jax
 
 __all__ = ["decode_step", "init_cache", "init_params", "paged_cache_shapes",
-           "params_from_jax", "prefill"]
+           "params_from_jax", "prefill", "verify_step"]

@@ -23,6 +23,13 @@ A chunked-prefill step (:func:`attention_chunk`) writes a prompt chunk's
 K/V into its lane's pages in place, then attends the gathered table row
 under the causal mask in plain torch, as the reference computes it in jnp
 (int8 pools attend their dequantized pages).
+
+A speculative verify window of W rows a lane writes its K/V in place and
+attends under a per-row causal mask: over a slot cache in plain torch
+(:func:`attention_verify`); over pages (:func:`paged_attention_verify`)
+through the gather twin on CPU tensors, and on CUDA tensors through the
+``paged_attention`` kernel, the W rows as single-query lanes split as the
+decode step splits them.
 """
 
 from __future__ import annotations
@@ -133,19 +140,44 @@ def _decode_qkv(x_t, p, cfg: ModelConfig, pos):
     return apply_rope(q, posb, cfg.rope_theta), apply_rope(k, posb, cfg.rope_theta), v
 
 
+def _verify_qkv(x, p, cfg: ModelConfig, pos):
+    """W-row verify-window projections + RoPE. x: (B, W, d); pos: (B,) is
+    the window's first absolute position. Returns q, k, v (B, W, H, D)."""
+    b, w, _ = x.shape
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    qm, be = cfg.quant_mode, cfg.gemm_backend
+    q = linear(x, p["wq"], qm, be).reshape(b, w, hq, hd)
+    k = linear(x, p["wk"], qm, be).reshape(b, w, hkv, hd)
+    v = linear(x, p["wv"], qm, be).reshape(b, w, hkv, hd)
+    positions = pos[:, None] + torch.arange(w, dtype=pos.dtype, device=pos.device)[None, :]
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _verify_valid(pos, w: int, smax: int):
+    """(B, W, S) causal mask for the verify window: query row c of lane b
+    sits at absolute position pos[b] + c and may attend kpos <= pos[b] + c
+    -- causal within the window, full paged/slot history before it."""
+    row_pos = pos[:, None] + torch.arange(w, device=pos.device)[None, :]
+    return torch.arange(smax, device=pos.device)[None, None, :] <= row_pos[:, :, None]
+
+
 def _decode_attend(qg, k_cache, v_cache, k_scale, v_scale, valid):
     """Single-token attention over a logically contiguous KV view.
 
     qg: (B, C, G, Hkv, D) bf16; k_cache/v_cache: (B, S, Hkv, D) payloads
-    (int8 when scales are given); valid: (B, S) bool.  Returns f32
-    (B, C, G, Hkv, D)."""
+    (int8 when scales are given); valid: (B, S) bool, or (B, C, S) for a
+    per-query-row mask (the speculative verify window, where row c may
+    attend one position more than row c-1).  Returns f32 (B, C, G, Hkv,
+    D)."""
     hd = qg.shape[-1]
     int8_cache = k_scale is not None
     k_op = k_cache.to(qg.dtype) if int8_cache else k_cache
     scores = torch.einsum("bcghd,bshd->bcghs", qg.float(), k_op.float()) * (hd ** -0.5)
     if int8_cache:
         scores = scores * k_scale.permute(0, 2, 1)[:, None, None, :, :]
-    scores = torch.where(valid[:, None, None, None, :], scores, _neg_inf_like(scores))
+    mask = valid[:, None, None, None, :] if valid.ndim == 2 else valid[:, :, None, None, :]
+    scores = torch.where(mask, scores, _neg_inf_like(scores))
     probs = torch.softmax(scores, dim=-1)
     if int8_cache:
         probs = probs * v_scale.permute(0, 2, 1)[:, None, None, :, :]
@@ -192,6 +224,46 @@ def attention_decode(x_t, p, cfg: ModelConfig, cache, pos, *, window=None):
     valid = torch.arange(smax, device=pos.device)[None, :] <= pos[:, None]
     out = _decode_attend(qg, k_cache, v_cache, k_scale, v_scale, valid)
     out = out.to(x_t.dtype).reshape(b, 1, hq * hd)
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
+
+
+def attention_verify(x, p, cfg: ModelConfig, cache, pos):
+    """W-token speculative verify over a slot cache.
+
+    x: (B, W, d) -- the last accepted token plus the drafted window; pos:
+    (B,) absolute position of the window's first row.  Writes all W K/V
+    rows at pos..pos+W-1 of each lane IN PLACE (clamped to the lane's last
+    row, as the reference's ``dynamic_update_slice`` clamps the window's
+    start), then attends the lane under the per-row causal mask.  Rows past
+    the eventually-accepted prefix hold garbage, overwritten by the next
+    verify/decode step before any query attends them.  Plain torch on both
+    devices, as slot decode is.  Returns (out (B, W, d_model), cache)."""
+    b, w, _ = x.shape
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    int8_cache = cfg.kv_cache_dtype == "int8"
+    q, k, v = _verify_qkv(x, p, cfg, pos)
+
+    k_cache, v_cache = cache["k"], cache["v"]
+    smax = k_cache.shape[1]
+    lanes = torch.arange(b, device=pos.device)[:, None]
+    start = torch.clamp(pos.long(), 0, smax - w)
+    rows = start[:, None] + torch.arange(w, device=pos.device)[None, :]
+    k_scale = v_scale = None
+    if int8_cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        k_cache[lanes, rows] = kq
+        v_cache[lanes, rows] = vq
+        k_scale, v_scale = cache["k_scale"], cache["v_scale"]
+        k_scale[lanes, rows] = ks
+        v_scale[lanes, rows] = vs
+    else:
+        k_cache[lanes, rows] = k.to(k_cache.dtype)
+        v_cache[lanes, rows] = v.to(v_cache.dtype)
+
+    qg = q.reshape(b, w, hq // hkv, hkv, hd)
+    out = _decode_attend(qg, k_cache, v_cache, k_scale, v_scale, _verify_valid(pos, w, smax))
+    out = out.to(x.dtype).reshape(b, w, hq * hd)
     return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
 
 
@@ -274,6 +346,75 @@ def paged_attention_decode(x_t, p, cfg: ModelConfig, cache, pos, tables, *,
             k_scale=cache.get("kp_scale"), v_scale=cache.get("vp_scale"))
         out = out.permute(0, 2, 1, 3)[:, None]          # (B, 1, G, Hkv, D)
     out = out.to(x_t.dtype).reshape(b, 1, hq * hd)
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
+
+
+def _write_pages(tables, pos, w: int, page_size: int, active):
+    """Multi-row variant of :func:`_write_page`: (B, W) page/offset pairs
+    for the verify-window rows ``pos + [0, w)``.  Inactive lanes redirect
+    to the reserved trash page 0 for the same pool-safety reason."""
+    idx = pos.long()[:, None] + torch.arange(w, device=pos.device)[None, :]   # (B, W)
+    pg = torch.gather(tables, 1, torch.clamp(idx // page_size, 0, tables.shape[1] - 1)).long()
+    off = idx % page_size
+    if active is not None:
+        pg = torch.where(active[:, None], pg, 0)
+        off = torch.where(active[:, None], off, 0)
+    return pg, off
+
+
+def paged_attention_verify(x, p, cfg: ModelConfig, cache, pos, tables, *, active=None):
+    """W-token speculative verify over this layer's page pools.
+
+    The paged twin of :func:`attention_verify`: scatters the window's W
+    K/V rows through the block table IN PLACE (the engine reserves the
+    overshoot pages up front), then attends.  CPU tensors attend the
+    gathered view under the per-row causal mask (the reference's gather
+    twin, bitwise).  CUDA tensors launch the ``paged_attention`` kernel,
+    which computes exactly this function: the window's W rows go to the
+    kernel as B*W single-query lanes, lane b's table row repeated W times
+    and row c given length ``pos + c + 1``.  The kernel chooses its split
+    count from ``split_lanes`` = B, the decode step's lane count (the
+    engine runs every lane in both), so each verify row is split, and its
+    partials combined, exactly as the decode step at that position does
+    it.  Returns (out (B, W, d_model), cache)."""
+    b, w, _ = x.shape
+    hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    int8_cache = "kp_scale" in cache
+    q, k, v = _verify_qkv(x, p, cfg, pos)
+
+    kp, vp = cache["kp"], cache["vp"]
+    page_size = kp.shape[1]
+    pg, off = _write_pages(tables, pos, w, page_size, active)
+    if int8_cache:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        kp[pg, off] = kq
+        vp[pg, off] = vq
+        cache["kp_scale"][pg, off] = ks
+        cache["vp_scale"][pg, off] = vs
+    else:
+        kp[pg, off] = k.to(kp.dtype)
+        vp[pg, off] = v.to(vp.dtype)
+
+    g = hq // hkv
+    if _resolve_paged_impl(cfg, x.device) == "gather":
+        qg = q.reshape(b, w, g, hkv, hd)
+        smax = tables.shape[1] * page_size
+        k_all, v_all = _gather_pages(kp, tables), _gather_pages(vp, tables)
+        ks_all = _gather_pages(cache["kp_scale"], tables) if int8_cache else None
+        vs_all = _gather_pages(cache["vp_scale"], tables) if int8_cache else None
+        out = _decode_attend(qg, k_all, v_all, ks_all, vs_all, _verify_valid(pos, w, smax))
+    else:
+        qk = q.reshape(b * w, g, hkv, hd).permute(0, 2, 1, 3).contiguous()
+        lengths = (pos[:, None] + 1
+                   + torch.arange(w, dtype=pos.dtype, device=pos.device)[None, :])
+        out = paged_attention(
+            qk, kp, vp, tables.repeat_interleave(w, dim=0).contiguous(),
+            lengths.reshape(b * w).to(torch.int32),
+            k_scale=cache.get("kp_scale"), v_scale=cache.get("vp_scale"),
+            split_lanes=b)
+        out = out.permute(0, 2, 1, 3).reshape(b, w, g, hkv, hd)
+    out = out.to(x.dtype).reshape(b, w, hq * hd)
     return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
 
 

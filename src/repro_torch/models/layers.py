@@ -49,6 +49,23 @@ def rmsnorm(x, gamma, eps=1e-6, dtype=None):
     return ((xf * torch.rsqrt(var + eps)) * gamma).to(dtype or x.dtype)
 
 
+def rmsnorm_columns(x, gamma, eps=1e-6, dtype=None):
+    """:func:`rmsnorm` of a (B, W, d) speculative verify window whose mean
+    reduces one column (B rows) at a time.  On the card a reduction's
+    summation order depends on how many rows it reduces (PyTorch splits a
+    row across more threads when there are few rows), and the decode step
+    reduces B rows; reducing the window column by column gives every row
+    the decode step's bits, which ``int8`` re-quantization would otherwise
+    turn from one ulp into whole quantization steps.  The split is
+    PyTorch's own heuristic, observed with PyTorch 2.11.0+cu128 on an H100;
+    ``tests/test_torch_kernels_gpu.py::test_verify_step_rows_are_the_decode_steps``
+    fails on the card if another version reduces otherwise."""
+    xf = x.float()
+    var = torch.cat([torch.mean(col * col, dim=-1, keepdim=True)
+                     for col in (xf[:, c:c + 1] for c in range(x.shape[1]))], dim=1)
+    return ((xf * torch.rsqrt(var + eps)) * gamma).to(dtype or x.dtype)
+
+
 def _silu(x):
     """x * sigmoid(x) with sigmoid written out as 1 / (1 + exp(-x)), each op
     rounding to x's dtype — the reference's logistic expansion, so bf16

@@ -26,7 +26,13 @@ from repro_torch.models.kvcache import (
     paged_block_cache_shape,
     zeros_like_shapes,
 )
-from repro_torch.models.layers import embed, rmsnorm, truncated_normal, unembed
+from repro_torch.models.layers import (
+    embed,
+    rmsnorm,
+    rmsnorm_columns,
+    truncated_normal,
+    unembed,
+)
 
 
 def layer_layout(cfg: ModelConfig):
@@ -176,3 +182,33 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
                     else torch.where(active, pos + 1, torch.zeros_like(pos)))
     h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return unembed(h, _head_table(params, cfg))[:, 0, :], cache
+
+
+def verify_step(params, cfg: ModelConfig, tokens, cache, active=None):
+    """W tokens for every lane in one dispatch (speculative verify).
+
+    tokens: (B, W) int -- the last accepted token followed by W-1 drafted
+    tokens; row c runs at absolute position ``pos + c`` (causal within the
+    window, attending the lane's full slot/paged history before it).  All
+    W K/V rows are written in place; rows past the accepted prefix are
+    garbage that the next verify/decode step overwrites before any query
+    attends them.  Every row computes what the decode step computes at its
+    position (norms reduce the window column by column; the paged attention
+    kernel splits each row as the decode step does).  Unlike
+    :func:`decode_step`, ``cache["pos"]`` is left UNCHANGED: the accept
+    length is only known after the logits, so ``spec.verify`` advances it.
+    Returns (logits (B, W, V), cache)."""
+    pos = cache["pos"]
+    tables = cache.get("block_tables")
+    x = embed(tokens, params["embed"])
+    n_periods, tail = layer_layout(cfg)
+    kw = dict(tables=tables, active=active)
+    for i in range(n_periods):
+        for slot, kind in enumerate(cfg.block_pattern):
+            x, _ = tfm.apply_block_verify(
+                x, tfm.period_params(params["blocks"][slot], i), kind, cfg,
+                tfm.period_params(cache["blocks"][slot], i), pos, **kw)
+    for p, kind, c in zip(params["tail_blocks"], tail, cache["tail_blocks"]):
+        x, _ = tfm.apply_block_verify(x, p, kind, cfg, c, pos, **kw)
+    h = rmsnorm_columns(x, params["final_norm"], cfg.norm_eps)
+    return unembed(h, _head_table(params, cfg)), cache

@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import glu_mlp, init_linear, rmsnorm
+from repro_torch.models.layers import glu_mlp, init_linear, rmsnorm, rmsnorm_columns
 
 
 def init_block(cfg: ModelConfig, gen: torch.Generator, device, kind: str = "attn",
@@ -39,12 +39,12 @@ def period_params(tree, i: int):
     return tree[i]
 
 
-def _residual_mlp(x, a, p, cfg: ModelConfig):
+def _residual_mlp(x, a, p, cfg: ModelConfig, norm=rmsnorm):
     """``x + a`` then ``+ mlp(norm2(x + a))``.  The mid-block residual stays
     f32 into the norm and is rounded to ``x``'s dtype only for the second
     add, where the reference's compiled graph rounds it."""
     mid = x.float() + a.float()
-    h = rmsnorm(mid, p["norm2"], cfg.norm_eps, dtype=x.dtype)
+    h = norm(mid, p["norm2"], cfg.norm_eps, dtype=x.dtype)
     m = glu_mlp(h, p["mlp"], cfg.act, cfg.quant_mode, cfg.gemm_backend)
     return mid.to(x.dtype) + m
 
@@ -97,3 +97,21 @@ def apply_block_decode(x_t, p, kind: str, cfg: ModelConfig, cache, pos,
     else:
         a, cache = attn.attention_decode(h, p["attn"], cfg, cache, pos)
     return _residual_mlp(x_t, a, p, cfg), cache
+
+
+def apply_block_verify(x, p, kind: str, cfg: ModelConfig, cache, pos, tables=None,
+                       active=None):
+    """W-token speculative verify through one block (the verify twin of
+    :func:`apply_block_decode`).  Only the row-independent ``"attn"`` kind
+    is ported; other kinds raise the reference's ``ValueError``.  The norms
+    reduce the window column by column (``layers.rmsnorm_columns``), as the
+    decode step reduces its rows.  Returns (x, cache)."""
+    if kind != "attn":
+        raise ValueError(f"speculative verify unsupported for block kind {kind!r}")
+    h = rmsnorm_columns(x, p["norm1"], cfg.norm_eps)
+    if "kp" in cache:
+        a, cache = attn.paged_attention_verify(h, p["attn"], cfg, cache, pos, tables,
+                                               active=active)
+    else:
+        a, cache = attn.attention_verify(h, p["attn"], cfg, cache, pos)
+    return _residual_mlp(x, a, p, cfg, norm=rmsnorm_columns), cache

@@ -7,7 +7,7 @@ the ``(n_lanes, max_pages_per_lane)`` int32 block table and the pools
 
 Physical page 0 is **reserved as the trash page**: idle lanes still ride
 the fixed-shape decode step, and their garbage K/V write is redirected
-there (``models/attention._write_page``) — paged lanes write through a
+there (``models/attention._write_page``) -- paged lanes write through a
 table into pages that may already belong to someone else, so the redirect
 is a correctness requirement.
 
@@ -16,17 +16,22 @@ Admission uses *reservations*: a lane reserves its worst-case page count
 sequence grows, so mid-decode pool exhaustion is impossible while short
 requests still reserve few pages.
 
-Pages are refcounted (a lane's allocation holds one reference; a page
-returns to the free list when its count reaches zero), the hook the shared
-prefix cache of a later slice aliases pages through.  ``defrag`` compacts
-the referenced pages onto the lowest physical indices and remaps the
-block tables.  Prefix adoption and copy-on-write forks are ROADMAP queue
-1, item 6.
+Pages are **refcounted** so the shared-prefix cache (``repro_torch/prefix/``)
+can alias one physical page into many lanes' block tables: a lane's own
+allocation holds one reference, each adopting lane adds one, and the
+prefix tree (when it publishes the page) adds one more.  A page returns
+to the free list only when its count reaches zero -- so freeing a lane
+whose prompt pages live in the tree releases just its private tail.  A
+lane must never *write* a page it shares: ``ensure_writable`` (and the
+planned forks the engine takes at admission) copy-on-write forks the page
+into a private copy first, leaving every other holder aliasing the
+original bytes.
 """
 
 from __future__ import annotations
 
 import heapq
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -46,28 +51,37 @@ class PageManager:
         self.page_size = page_size
         self.n_lanes = n_lanes
         self.max_pages_per_lane = max_pages_per_lane
-        # lowest-index-first: deterministic layouts
+        # lowest-index-first like the slot scheduler: deterministic layouts
         self._free: list[int] = list(range(1, n_pages))
         heapq.heapify(self._free)
         self.block_tables = np.zeros((n_lanes, max_pages_per_lane), np.int32)
         self.lane_pages: list[list[int]] = [[] for _ in range(n_lanes)]
         self.lengths = np.zeros((n_lanes,), np.int64)   # valid rows per lane
         self.reserved = np.zeros((n_lanes,), np.int64)  # promised page counts
-        # holders per physical page (page 0 is never allocated or counted)
+        # holders per physical page: lane references + the prefix tree's
+        # (page 0, the trash page, is never allocated and never counted)
         self.refcount = np.zeros((n_pages,), np.int64)
-        # device table out of date? (set by free/growth; admission writes
-        # its row together with its pages instead)
+        # tree-held references (subset of refcount), for invariant checks
+        self.tree_held = np.zeros((n_pages,), bool)
+        # device table out of date? (set by free/growth/adopt/fork/defrag;
+        # admission writes its row together with its pages instead)
         self.dirty = False
+        # prefix-tree page remap hooks, called with {src: dst} after defrag
+        self.remap_listeners: list[Callable[[dict[int, int]], None]] = []
 
     # -- capacity ----------------------------------------------------------
     @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    @property
     def pages_in_use(self) -> int:
-        """Physical pages somebody references."""
+        """Physical pages somebody references (lanes and/or the tree)."""
         return (self.n_pages - 1) - len(self._free)
 
     @property
     def span(self) -> int:
-        """Highest referenced physical page index (0 when the pool is empty)."""
+        """Highest referenced physical page index (0 when pool is empty)."""
         used = np.nonzero(self.refcount)[0]
         return int(used.max()) if used.size else 0
 
@@ -90,8 +104,16 @@ class PageManager:
         return self.pages_for(reserve_tokens) <= self.available
 
     # -- lane lifecycle ----------------------------------------------------
-    def admit(self, lane: int, reserve_tokens: int) -> None:
-        """Reserve worst-case capacity for a lane about to prefill."""
+    def admit(self, lane: int, reserve_tokens: int,
+              adopt_pages: Sequence[int] = (), forks: int = 0) -> None:
+        """Reserve worst-case capacity for a lane about to prefill.
+
+        ``adopt_pages`` are shared-prefix pages the lane aliases instead of
+        drawing from the pool; ``forks`` is how many of those the admission
+        will copy-on-write fork (each fork draws one fresh page).  The
+        capacity gate therefore checks the *pool draw*:
+        ``pages_for(reserve) - len(adopt_pages) + forks``.
+        """
         if self.lane_pages[lane]:
             raise RuntimeError(f"lane {lane} already holds pages")
         need = self.pages_for(reserve_tokens)
@@ -99,12 +121,15 @@ class PageManager:
             raise ValueError(
                 f"request needs {need} pages but lanes hold at most "
                 f"{self.max_pages_per_lane} (cache_len / page_size)")
-        if need > self.available:
+        draw = need - len(adopt_pages) + forks
+        if draw > self.available:
             raise RuntimeError(
-                f"admitting {need} pages would overcommit the pool "
+                f"admitting {draw} pages would overcommit the pool "
                 f"({self.available} available of {self.n_pages - 1})")
         self.reserved[lane] = need
         self.lengths[lane] = 0
+        if adopt_pages:
+            self.adopt(lane, adopt_pages)
 
     def alloc(self, lane: int, n: int = 1) -> list[int]:
         """Materialize ``n`` pages for a lane (within its reservation)."""
@@ -120,6 +145,20 @@ class PageManager:
             held.append(p)
         return got
 
+    def adopt(self, lane: int, pages: Sequence[int]) -> None:
+        """Alias already-referenced ``pages`` into the lane's block table
+        (shared-prefix seeding): ref +1 each, no pool draw."""
+        held = self.lane_pages[lane]
+        if len(held) + len(pages) > self.max_pages_per_lane:
+            raise RuntimeError(f"lane {lane} exceeds its block table width")
+        for p in pages:
+            if self.refcount[p] < 1:
+                raise RuntimeError(f"adopting unreferenced page {p}")
+            self.refcount[p] += 1
+            self.block_tables[lane, len(held)] = p
+            held.append(p)
+        self.dirty = True
+
     def ensure(self, lane: int, tokens: int) -> list[int]:
         """Allocate pages until the lane covers ``tokens`` rows."""
         need = self.pages_for(tokens) - len(self.lane_pages[lane])
@@ -127,6 +166,52 @@ class PageManager:
             return []
         self.dirty = True
         return self.alloc(lane, need)
+
+    def cow_fork(self, lane: int, page_idx: int) -> tuple[int, int]:
+        """Copy-on-write fork: replace the lane's shared page at
+        ``page_idx`` with a fresh private page.  Returns ``(src, dst)`` —
+        the caller copies the device rows (``PagedCache.copy_pages``).
+        The source keeps its other holders' references untouched."""
+        src = self.lane_pages[lane][page_idx]
+        if self.refcount[src] <= 1:
+            raise RuntimeError(f"page {src} is not shared; nothing to fork")
+        if not self._free:
+            raise RuntimeError("page pool exhausted (fork unaccounted?)")
+        dst = heapq.heappop(self._free)
+        self.refcount[dst] = 1
+        self.refcount[src] -= 1
+        self.lane_pages[lane][page_idx] = dst
+        self.block_tables[lane, page_idx] = dst
+        self.dirty = True
+        return src, dst
+
+    def ensure_writable(self, lane: int, row: int) -> "tuple[int, int] | None":
+        """CoW guard before a lane writes ``row``: if the covering page is
+        shared, fork it.  Returns the ``(src, dst)`` copy the caller must
+        apply on device, or None (the common case: page private or not yet
+        materialized)."""
+        idx = row // self.page_size
+        held = self.lane_pages[lane]
+        if idx >= len(held) or self.refcount[held[idx]] <= 1:
+            return None
+        return self.cow_fork(lane, idx)
+
+    def ensure_writable_range(self, lane: int, start: int, n: int
+                              ) -> "list[tuple[int, int]]":
+        """CoW guard before a lane writes rows ``start .. start + n - 1``
+        (the speculative verify window): fork every shared page the range
+        covers.  Returns the ``(src, dst)`` copies the caller must apply
+        on device (empty in the common all-private case)."""
+        if n <= 0:
+            return []
+        held = self.lane_pages[lane]
+        moves = []
+        first = start // self.page_size
+        last = (start + n - 1) // self.page_size
+        for idx in range(first, min(last + 1, len(held))):
+            if self.refcount[held[idx]] > 1:
+                moves.append(self.cow_fork(lane, idx))
+        return moves
 
     def set_length(self, lane: int, tokens: int) -> None:
         self.lengths[lane] = tokens
@@ -138,7 +223,8 @@ class PageManager:
 
     def free_lane(self, lane: int) -> int:
         """Release a lane: ref -1 on every held page; pages nobody else
-        holds return to the pool the same step.  Returns pages freed."""
+        holds (no other lane, not the prefix tree) return to the pool the
+        same step.  Returns the number of pages actually freed."""
         pages = self.lane_pages[lane]
         n = 0
         for p in pages:
@@ -153,14 +239,44 @@ class PageManager:
         self.dirty = True
         return n
 
+    # -- prefix-tree references -------------------------------------------
+    def tree_ref(self, pages: Sequence[int]) -> None:
+        """The prefix tree now references ``pages`` (publish)."""
+        for p in pages:
+            if self.refcount[p] < 1:
+                raise RuntimeError(f"tree publishing unreferenced page {p}")
+            if self.tree_held[p]:
+                raise RuntimeError(f"tree already holds page {p}")
+            self.refcount[p] += 1
+            self.tree_held[p] = True
+
+    def tree_unref(self, pages: Sequence[int]) -> int:
+        """Tree eviction: drop the tree's reference; pages with no other
+        holder return to the pool.  Returns pages actually freed."""
+        n = 0
+        for p in pages:
+            if not self.tree_held[p]:
+                raise RuntimeError(f"tree does not hold page {p}")
+            self.tree_held[p] = False
+            self.refcount[p] -= 1
+            if self.refcount[p] == 0:
+                heapq.heappush(self._free, p)
+                n += 1
+        return n
+
     # -- defrag ------------------------------------------------------------
     def defrag(self) -> list[tuple[int, int]]:
         """Compact referenced pages onto the lowest physical indices.
 
-        Returns the ``(src, dst)`` moves the device copy applies
-        (``PagedCache.defrag``); the block tables and page lists are
-        remapped here.  Afterwards the used set is exactly ``[1,
-        pages_in_use]`` and the free list is contiguous above it."""
+        Returns ``(src, dst)`` moves for the device-side pool copy
+        (``PagedCache.defrag`` applies them); block tables are remapped
+        here.  Shared pages move ONCE — every lane aliasing a page (and
+        the prefix tree, via ``remap_listeners``) is remapped to the same
+        destination, so aliasing survives compaction.  After compaction
+        the used set is exactly ``[1, pages_in_use]``, so a long-running
+        pool's free list stays contiguous no matter the alloc/free
+        history.
+        """
         used = sorted(int(p) for p in np.nonzero(self.refcount)[0])
         targets = set(range(1, len(used) + 1))
         vacant = sorted(targets - set(used))
@@ -182,16 +298,23 @@ class PageManager:
         for src, dst in moves:
             self.refcount[dst] = self.refcount[src]
             self.refcount[src] = 0
+            self.tree_held[dst] = self.tree_held[src]
+            self.tree_held[src] = False
+        for listener in self.remap_listeners:
+            listener(remap)
         self._free = list(range(len(used) + 1, self.n_pages))
         heapq.heapify(self._free)
         self.dirty = True
         return moves
 
-    # -- invariants ----------------------------------------------------------
+    # -- invariants (property tests + the engine's debug mode poke this) ---
     def invariant_violations(self) -> list[str]:
-        """Every bookkeeping inconsistency as a string (empty = consistent):
-        refcounts match holders, nothing is both free and referenced, and
-        block tables mirror the lane page lists."""
+        """Every bookkeeping inconsistency as a human-readable string:
+        refcounts must match actual holders, nothing may be simultaneously
+        free and referenced, and block tables must mirror the lane page
+        lists.  Empty list = pool consistent.  Non-raising so the engine's
+        ``debug_invariants`` mode can log the full set as one structured
+        event before failing."""
         out: list[str] = []
         if (self.refcount < 0).any():
             out.append("negative refcount")
@@ -199,6 +322,7 @@ class PageManager:
         for pages in self.lane_pages:
             for p in pages:
                 holders[p] += 1
+        holders[self.tree_held] += 1
         if not (holders == self.refcount).all():
             bad = np.nonzero(holders != self.refcount)[0]
             out.append(f"refcount mismatch on pages {bad.tolist()}")
@@ -219,7 +343,8 @@ class PageManager:
         return out
 
     def check_invariants(self) -> None:
-        """Raise on the first inconsistency ``invariant_violations`` finds."""
+        """Raise on the first inconsistency ``invariant_violations`` finds
+        (the property-test surface; unchanged behaviour)."""
         bad = self.invariant_violations()
         if bad:
             raise AssertionError(bad[0])

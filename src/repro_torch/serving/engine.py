@@ -24,22 +24,42 @@ Every ``step()``
    following steps, so a long prompt no longer stalls the running
    decodes.  The last prefill row's logits give the first token;
 3. **decodes** one token for every running lane in one ``decode_step``
-   over the whole store, with the ``active`` mask pinning the others;
+   over the whole store, with the ``active`` mask pinning the others,
+   sampling per lane (greedy / temperature / top-k, ``sampling.py``) --
+   or, with ``spec`` set and every running lane greedy, one draft-verify
+   round (``repro_torch/spec/``) that may emit several tokens a lane;
 4. **evicts** lanes the eviction policy releases (budget or EOS; or a
    missed deadline under ``DeadlinePreemption``), the same step;
 5. **defrags** the paged pool when the defrag policy says so: pages move
    to the lowest physical indices and the block tables follow, so no
    token changes.
 
-WHICH requests admit, WHEN a lane leaves and WHEN the pool compacts are
-``policies.EnginePolicies``.  Tokens reach the host every step (the
-reference defers the pull while no scheduling decision needs it; the
-streams are the same).  Scheduling is output-invisible: each request's
-greedy stream is its solo ``serve_batch`` stream.
+WHICH requests admit, WHEN a lane leaves, WHEN the pool compacts and
+HOW cached prefixes are reused are ``policies.EnginePolicies``.  Tokens
+reach the host every step (the reference defers the pull while no
+scheduling decision needs it; the streams are the same).  Scheduling is
+output-invisible: each request's greedy stream is its solo
+``serve_batch`` stream.
 
-Not ported yet, and refused with ``NotImplementedError``: the prefix cache
-and speculative decoding (ROADMAP queue 1, item 6), observability and the
-flight recorder (item 8) and device meshes (item 10).
+With ``EngineConfig.prefix_cache`` (paged) admissions consult the
+shared-prefix radix tree (``repro_torch/prefix/``): the longest
+page-aligned cached prefix is aliased into the lane's block table
+(refcounted pages, copy-on-write on the boundary page for full-prompt
+hits) and only the uncached suffix runs through the chunk step; completed
+prefills publish their full pages, and the tree LRU-evicts under pool
+pressure inside the admission gate.  On int8 pools every admission goes
+through the chunk step, so cold and warm runs attend the same dequantized
+pages.  Greedy streams with the cache on are the cache-off streams.
+
+With ``EngineConfig.spec`` (an enabled ``SpecConfig``) each all-greedy
+decode becomes a draft-verify round: the drafter proposes up to ``k``
+tokens a lane, one ``verify_step`` scores the window, the accepted prefix
+plus one token is emitted, and rejected rows roll back by length.  A batch
+with a stochastic lane decodes plainly that step.
+
+Not ported yet, and refused with ``NotImplementedError``: observability
+and the flight recorder (ROADMAP queue 1, item 8) and device meshes
+(item 10).
 """
 
 from __future__ import annotations
@@ -59,13 +79,23 @@ from repro_torch.configs.base import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
-from repro_torch.paging import PagedCache, chunkable_with_state, make_chunk_step, paged_insert_many
+from repro_torch.paging import (
+    PagedCache,
+    chunkable,
+    chunkable_with_state,
+    make_chunk_step,
+    paged_insert_many,
+    stack_kinds,
+)
+from repro_torch.prefix import PrefixCache
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.policies import EnginePolicies
 from repro_torch.serving.request import Request
-from repro_torch.serving.sampling import SamplingParams, greedy_tokens
+from repro_torch.serving.sampling import SamplingParams, greedy_tokens, request_key, sample_tokens
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.slots import SlotCache, scatter_lanes
+from repro_torch.spec import make_drafter, verify
+from repro_torch.spec.config import SpecConfig
 
 
 def _roundup(n: int, m: int) -> int:
@@ -96,9 +126,13 @@ class EngineConfig:
     # this many tokens, interleaved with decode steps; None = one shot.
     # Must be a multiple of page_size.
     prefill_chunk: Optional[int] = None
-    # options of the reference engine that later slices port
+    # paged mode: shared-prefix KV cache (repro_torch/prefix/) -- admissions
+    # alias the longest page-aligned cached prefix and prefill only the
+    # uncached suffix, through the chunk step
     prefix_cache: bool = False
-    spec: Optional[object] = None
+    # speculative decoding (repro_torch/spec/): draft k tokens a lane and
+    # verify them in one dispatch.  None / enabled=False = plain decode
+    spec: Optional[SpecConfig] = None
 
 
 class ServingEngine:
@@ -109,9 +143,7 @@ class ServingEngine:
         if ecfg.cache_mode not in ("slot", "paged"):
             raise ValueError(f"cache_mode must be 'slot' or 'paged', got "
                              f"{ecfg.cache_mode!r}")
-        for hit, what, item in ((ecfg.prefix_cache, "prefix_cache", "6"),
-                                (ecfg.spec is not None, "spec (speculative decoding)", "6"),
-                                (obs is not None, "obs (observability)", "8"),
+        for hit, what, item in ((obs is not None, "obs (observability)", "8"),
                                 (mesh is not None, "mesh (sharded serving)", "10")):
             if hit:
                 raise NotImplementedError(
@@ -134,8 +166,11 @@ class ServingEngine:
                                    admission=self.policies.admission)
         self.metrics = EngineMetrics()
         self.set_clock(time.perf_counter)
+        # chunk length for both long-prompt chunking and the prefix cache's
+        # suffix prefill (one page a chunk when prefill_chunk is unset)
         self._chunk_len = ecfg.prefill_chunk
         self._chunk_fn = None
+        self.prefix: Optional[PrefixCache] = None
         if self.paged:
             ps = ecfg.page_size
             if self._chunk_len is not None:
@@ -145,17 +180,62 @@ class ServingEngine:
                 if not chunkable_with_state(cfg):
                     raise ValueError(f"{cfg.name}: chunked prefill needs row-independent "
                                      "kinds; use prefill_chunk=None")
-                self._chunk_fn = make_chunk_step(cfg, self._chunk_len)
             self.store = PagedCache(cfg, n, ecfg.cache_len, ps, ecfg.n_pages,
                                     device=self.device)
             self.metrics.set_gauge("pages_total", self.store.n_pages)
             self.metrics.set_gauge("page_size", ps)
+            if ecfg.prefix_cache:
+                if not chunkable(cfg):
+                    raise ValueError(
+                        f"{cfg.name}: prefix_cache resumes the uncached suffix through "
+                        "the chunked-prefill step, which needs a strictly "
+                        f"row-independent stack; got {sorted(stack_kinds(cfg))}")
+                self._chunk_len = ecfg.prefill_chunk or ps
+                # full-prompt hits CoW-fork the boundary page and resume at
+                # the final prompt token -- int8 pools included: every
+                # admission on an int8 + prefix pool goes through the chunk
+                # step (``_should_chunk_len``), so cold and warm runs attend
+                # the same dequantized pages
+                self.prefix = PrefixCache(self.store.manager, ps, allow_fork=True)
+            if self._chunk_len is not None:
+                self._chunk_fn = make_chunk_step(cfg, self._chunk_len)
         else:
             if self._chunk_len is not None:
                 raise ValueError("chunked prefill requires cache_mode='paged'")
+            if ecfg.prefix_cache:
+                raise ValueError("prefix_cache requires cache_mode='paged' "
+                                 "(shared pages live in the page pool)")
             self.store = SlotCache(cfg, n, ecfg.cache_len, device=self.device)
-        # each lane's next decode input (the token it sampled last)
+
+        # speculative decoding: the k-token verify window reuses the
+        # chunked prefill's row-independence contract
+        spec = ecfg.spec
+        self._spec = spec if (spec is not None and spec.enabled) else None
+        self._drafter = None
+        if self._spec is not None:
+            if not chunkable(cfg):
+                raise ValueError(
+                    f"{cfg.name}: speculative decoding needs a stack of strictly "
+                    "row-independent kinds -- the k-token verify window reuses the "
+                    f"chunked-prefill contract; got {sorted(stack_kinds(cfg))}")
+            self._drafter = make_drafter(
+                self._spec, cfg, n, ecfg.cache_len,
+                tree=self.prefix.tree if self.prefix is not None else None,
+                device=self.device)
+
+        # prefix-aware admission orders the queue by adopted-page signature;
+        # the policy is engine-agnostic, so the engine hands it the lookup
+        if hasattr(self.policies.admission, "bind"):
+            self.policies.admission.bind(self._admission_prefix_sig)
+
+        # per-lane state: the next decode input (the token sampled last) on
+        # the device, the sampling policy on the host
         self._tokens = torch.zeros((n,), dtype=torch.int32, device=self.device)
+        self._temps = np.ones((n,), np.float32)
+        self._topk = np.zeros((n,), np.int32)
+        self._greedy = np.ones((n,), bool)
+        # per-request memoized prefix plans: req_id -> (tree epoch, plan)
+        self._plan_cache: dict[int, tuple] = {}
         self._next_id = 0
         self._step_idx = 0
 
@@ -186,7 +266,10 @@ class ServingEngine:
             raise ValueError("empty prompt")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        need = len(prompt) + max_new_tokens
+        # speculative decoding writes up to k rows past the accepted
+        # position (the verify window's overshoot), so the budget check and
+        # the paged reservations carry the extra rows
+        need = len(prompt) + max_new_tokens + self._spec_overshoot
         if need > self.engine_cfg.cache_len + 1:
             raise ValueError(
                 f"request needs {need} cache positions but cache_len="
@@ -225,11 +308,24 @@ class ServingEngine:
         return _roundup(padded_len, self.engine_cfg.page_size)
 
     def _should_chunk_len(self, prompt_len: int) -> bool:
-        c = self._chunk_len
-        if not self.paged or c is None or prompt_len <= c:
+        c = self.engine_cfg.prefill_chunk
+        # int8 pools attend dequantized pages on the chunk path but raw bf16
+        # K/V on the one-shot prefill path: with the prefix cache EVERY
+        # admission goes through the chunk step, so cold and warm runs are
+        # the same computation
+        force = self.prefix is not None and self.cfg.kv_cache_dtype == "int8"
+        if force:
+            c = self._chunk_len
+        if not self.paged or c is None or (prompt_len <= c and not force):
             return False
         # the padded final chunk must stay inside the lane's block table
         return _roundup(prompt_len, c) <= self.store.max_pages * self.engine_cfg.page_size
+
+    @property
+    def _spec_overshoot(self) -> int:
+        """Extra cache rows the verify window may write past the accepted
+        position (rejected drafts' K/V, overwritten next step)."""
+        return self._spec.k if self._spec is not None else 0
 
     def _admit_rows(self, prompt_len: int) -> int:
         """Cache rows the admission itself touches (chunk padding or the
@@ -240,24 +336,83 @@ class ServingEngine:
 
     def _worst_case_rows(self, prompt_len: int, max_new_tokens: int) -> int:
         """Rows a request reserves: its admission footprint or prompt +
-        budget, whichever is larger, capped at the block-table width."""
-        worst = max(self._admit_rows(prompt_len), prompt_len + max_new_tokens)
+        budget (+ the speculative overshoot), whichever is larger, capped at
+        the block-table width."""
+        worst = max(self._admit_rows(prompt_len),
+                    prompt_len + max_new_tokens + self._spec_overshoot)
         return min(worst, self.store.max_pages * self.engine_cfg.page_size)
 
     def _reserve_tokens(self, req: Request) -> int:
         return self._worst_case_rows(req.prompt_len, req.max_new_tokens)
 
+    # -- shared-prefix planning -----------------------------------------
+    def _prefix_rows(self, req: Request, plan) -> int:
+        """Rows a prefix-seeded lane reserves: the suffix-chunk footprint
+        (resume + whole chunks, the padded tail included) or prompt +
+        budget (+ overshoot), whichever is larger."""
+        suffix = plan.resume + _roundup(req.prompt_len - plan.resume, self._chunk_len)
+        return max(suffix, req.prompt_len + req.max_new_tokens + self._spec_overshoot)
+
+    def _prefix_plan(self, req: Request):
+        """The admission's prefix decision (None = admit cold).  A plan
+        whose reservation could never fit a lane's block table falls back
+        to the cold path, which ``add_request`` already validated.
+        Memoized per (request, tree epoch): the bucket key, the capacity
+        gate and the dispatch consult the same plan in one round, and the
+        tree is re-walked only after a structural change."""
+        if self.prefix is None:
+            return None
+        hit = self._plan_cache.get(req.req_id)
+        if hit is not None and hit[0] == self.prefix.epoch:
+            return hit[1]
+        plan = self.policies.prefix.plan(self.prefix, req)
+        if plan is not None:
+            pages = pages_for(self._prefix_rows(req, plan), self.engine_cfg.page_size)
+            if pages > self.store.max_pages or pages > self.store.n_pages - 1:
+                plan = None
+        self._plan_cache[req.req_id] = (self.prefix.epoch, plan)
+        return plan
+
+    def _prefix_draw(self, req: Request, plan) -> int:
+        """Pages a prefix-seeded admission draws from the free pool."""
+        pages = pages_for(self._prefix_rows(req, plan), self.engine_cfg.page_size)
+        return pages - len(plan.pages) + (1 if plan.fork_index is not None else 0)
+
+    def _admission_prefix_sig(self, req: Request):
+        """Adopted-page signature for prefix-aware admission ordering (None
+        = cold admission)."""
+        plan = self._prefix_plan(req)
+        return tuple(plan.pages) if plan is not None else None
+
     def _admit_gate(self):
         """Capacity gate for one admission dispatch.  It tallies every
         member's reservation against one pool snapshot, so two requests
-        that do not fit together never both pass."""
+        that do not fit together never both pass.  A cached prefix
+        discounts the draw, and under pressure the prefix tree LRU-evicts
+        pages no lane uses (never pages a candidate of this dispatch is
+        about to adopt)."""
         if not self.paged:
             return lambda req: True
         tally = [0]
+        protected: list = []
 
         def gate(req: Request) -> bool:
             mgr = self.store.manager
-            need = mgr.pages_for(self._reserve_tokens(req))
+            plan = self._prefix_plan(req)
+            if plan is None:
+                need = mgr.pages_for(self._reserve_tokens(req))
+            else:
+                need = self._prefix_draw(req, plan)
+                protected.extend(plan.nodes)
+            deficit = need - (mgr.available - tally[0])
+            # evict only when it can close the gap: a request that does not
+            # fit even with an empty tree must not drain the cache for nothing
+            if (deficit > 0 and self.prefix is not None
+                    and deficit <= self.prefix.evictable_pages):
+                freed = self.prefix.evict_for(deficit, protect=protected)
+                if freed:
+                    self.metrics.inc("prefix_evicted_pages", freed)
+                    self.metrics.set_gauge("prefix_tree_pages", self.prefix.cached_pages)
             if need <= mgr.available - tally[0]:
                 tally[0] += need
                 return True
@@ -266,18 +421,63 @@ class ServingEngine:
         return gate
 
     def _admit_bucket(self, req: Request) -> int:
-        """Bucket key for stacked admission.  Chunked admissions are
-        single-file (one chunk stream per lane): each gets a sentinel no
-        other request matches."""
-        if self._should_chunk_len(req.prompt_len):
+        """Bucket key for stacked admission.  Chunked and prefix-seeded
+        admissions are single-file (one chunk stream per lane): each gets
+        a sentinel no other request matches."""
+        if self.paged and (self._should_chunk_len(req.prompt_len)
+                           or self._prefix_plan(req) is not None):
             return -(req.req_id + 1)
         return self._bucket_len(req.prompt_len)
 
+    # -- sampling --------------------------------------------------------
+    def _lane_key(self, req: Request) -> int:
+        """The lane's sampling key for its next token (0 for greedy)."""
+        if req.sampling.greedy:
+            return 0
+        return request_key(req.sampling.seed, req.req_id, len(req.output_tokens))
+
+    def _sample(self, logits, reqs: list[Request]) -> torch.Tensor:
+        """An admission's first tokens: one per logits row, row i sampled
+        by ``reqs[i]``'s policy and key.  All-greedy rows take the argmax
+        alone."""
+        if all(r.sampling.greedy for r in reqs):
+            return greedy_tokens(logits)
+        return sample_tokens(logits, [r.sampling.temperature for r in reqs],
+                             [r.sampling.top_k for r in reqs],
+                             [r.sampling.greedy for r in reqs],
+                             [self._lane_key(r) for r in reqs])
+
     def _arm_lane(self, req: Request, slot: int, tok: int) -> None:
         """First token sampled: it is the lane's next decode input."""
+        s = req.sampling
+        self._plan_cache.pop(req.req_id, None)   # admitted: the plan is consumed
         req.append_token(tok)   # stamps TTFT
         self.metrics.inc("prefills")
+        if self._drafter is not None:
+            self._drafter.admit(slot, req.prompt)
         self._tokens[slot] = tok
+        self._temps[slot] = s.temperature
+        self._topk[slot] = s.top_k
+        self._greedy[slot] = s.greedy
+
+    # -- shared-prefix bookkeeping ---------------------------------------
+    def _record_miss(self) -> None:
+        if self.prefix is not None:
+            self.metrics.inc("prefix_misses")
+
+    def _maybe_publish(self, req: Request, slot: int) -> None:
+        """After a prefill completes, enter the prompt's full pages into the
+        prefix tree.  Only prefill-written rows publish, never
+        decode-written ones, whose computation differs."""
+        if self.prefix is None or not self.policies.prefix.should_publish(req):
+            return
+        self.prefix.publish(req.prompt, self.store.manager.lane_pages[slot])
+        self.metrics.set_gauge("prefix_tree_pages", self.prefix.cached_pages)
+
+    def _cow(self, move) -> None:
+        """Apply a copy-on-write fork on the device (``move`` = (src, dst))."""
+        self.store.copy_pages([move[0]], [move[1]])
+        self.metrics.inc("prefix_cow_forks")
 
     def _paged_reserve(self, req: Request, slot: int, single_len: int) -> list[int]:
         """Reserve a paged admission's worst case and take its prefill's
@@ -289,8 +489,8 @@ class ServingEngine:
         return page_ids
 
     def _prefill_rows(self, reqs: list[Request], padded: int, cache_len: int):
-        """Batched prefill of right-padded prompts: (greedy first tokens on
-        the host, contiguous cache of ``cache_len`` rows)."""
+        """Batched prefill of right-padded prompts: (first tokens, sampled
+        per request, contiguous cache of ``cache_len`` rows)."""
         tokens = torch.zeros((len(reqs), padded), dtype=torch.int32)
         for i, req in enumerate(reqs):
             tokens[i, :req.prompt_len] = torch.tensor(req.prompt, dtype=torch.int32)
@@ -298,7 +498,7 @@ class ServingEngine:
                                device=self.device)
         logits, cache = model_lib.prefill(self.params, self.cfg, tokens.to(self.device),
                                           cache_len, lengths=lengths)
-        return greedy_tokens(logits), cache
+        return self._sample(logits, reqs), cache
 
     def _admit_group(self, group: list[tuple[Request, int]]) -> None:
         """One admission dispatch: the group's same-bucket prompts (one, or
@@ -330,6 +530,9 @@ class ServingEngine:
         for req, slot, tok in zip(reqs, slots, toks):
             req.cost.prefill_s += share
             req.cost.dispatches += 1
+            if self.paged:
+                self._record_miss()
+                self._maybe_publish(req, slot)
             self._arm_lane(req, slot, tok)
 
     # -- chunked prefill -------------------------------------------------
@@ -337,15 +540,42 @@ class ServingEngine:
         self.store.manager.admit(slot, self._reserve_tokens(req))
         self.scheduler.begin_chunked(slot)
         req.prefill_done = 0
+        self._record_miss()
+        self._process_chunk(req, slot, finished)
+
+    def _begin_prefix(self, req: Request, slot: int, plan, finished: list[Request]) -> None:
+        """Prefix-seeded admission: alias the cached pages into the lane's
+        block table, CoW-fork the boundary page if the plan resumes inside
+        one (full-prompt hit), then stream only the uncached suffix through
+        the chunk step -- a fully cached prompt recomputes a single token."""
+        mgr = self.store.manager
+        mgr.admit(slot, self._prefix_rows(req, plan), adopt_pages=plan.pages,
+                  forks=0 if plan.fork_index is None else 1)
+        if plan.fork_index is not None:
+            self._cow(mgr.cow_fork(slot, plan.fork_index))
+        self.prefix.tree.touch(plan.nodes)
+        self.metrics.inc("prefix_hits")
+        self.metrics.inc("prefix_hit_tokens", plan.resume)
+        self.scheduler.begin_chunked(slot)
+        req.prefill_done = plan.resume
         self._process_chunk(req, slot, finished)
 
     def _process_chunk(self, req: Request, slot: int, finished: list[Request]) -> None:
-        """Feed one page-aligned prompt chunk; the final chunk gives the
-        first token and moves the lane into the decode batch."""
+        """Feed one prompt chunk; the final chunk gives the first token and
+        moves the lane into the decode batch.  Chunks are page-aligned
+        except a prefix plan's first one, which may start mid-page right
+        after a CoW fork."""
         mgr = self.store.manager
         c = self._chunk_len
         start = req.prefill_done
         n = min(c, req.prompt_len - start)
+        if self.prefix is not None:
+            # CoW guard: the write range never touches a shared page (the
+            # planned fork already privatized the only candidate; this keeps
+            # the invariant literal)
+            move = mgr.ensure_writable(slot, start)
+            if move is not None:
+                self._cow(move)
         mgr.ensure(slot, start + c)   # the padded tail lands in pages too
         self.store.sync_tables()
         tokens = torch.zeros((1, c), dtype=torch.int32)
@@ -355,7 +585,7 @@ class ServingEngine:
                                 start, n)
         req.prefill_done = start + n
         last = req.prefill_done >= req.prompt_len
-        first = int(greedy_tokens(logits)[0]) if last else None   # host pull
+        first = int(self._sample(logits, [req])[0]) if last else None   # host pull
         req.cost.prefill_s += time.perf_counter() - t0
         req.cost.dispatches += 1
         self.metrics.inc("chunk_steps")
@@ -364,6 +594,7 @@ class ServingEngine:
             return
         mgr.set_length(slot, req.prompt_len)
         self.scheduler.promote(slot)
+        self._maybe_publish(req, slot)
         self._arm_lane(req, slot, first)
         if self._should_evict(req):  # max_new_tokens == 1 (or instant EOS)
             self._evict(slot, finished)
@@ -401,9 +632,15 @@ class ServingEngine:
                 break
             budget -= 1
             did_prefill = True
-            if self._should_chunk_len(group[0][0].prompt_len):   # chunked ones come alone
-                self._begin_chunked(*group[0], finished)
-                continue
+            if len(group) == 1:    # chunked and prefix-seeded admissions come alone
+                req, slot = group[0]
+                plan = self._prefix_plan(req) if self.paged else None
+                if plan is not None:
+                    self._begin_prefix(req, slot, plan, finished)
+                    continue
+                if self._should_chunk_len(req.prompt_len):
+                    self._begin_chunked(req, slot, finished)
+                    continue
             self._admit_group(group)
             for req, slot in group:
                 if self._should_evict(req):  # max_new_tokens == 1 (or instant EOS)
@@ -414,12 +651,29 @@ class ServingEngine:
 
         running = self.scheduler.running
         m.max_gauge("peak_running", len(running) + len(self.scheduler.chunking))
-        if running:
+        if running and self._spec is not None and self._spec_ready():
+            t0 = time.perf_counter()
+            spec_reqs = list(running.values())
+            self._spec_decode(finished)
+            dt = time.perf_counter() - t0
+            m.inc("decode_s", dt)
+            for req in spec_reqs:
+                req.cost.verify_s += dt / len(spec_reqs)
+                req.cost.dispatches += 1
+        elif running:
             t0 = time.perf_counter()
             if self.paged:
                 mgr = self.store.manager
                 for slot, req in running.items():
-                    mgr.ensure(slot, int(mgr.lengths[slot]) + 1)
+                    row = int(mgr.lengths[slot])
+                    if self.prefix is not None:
+                        # a lane's first write into a shared page forks it
+                        # (the admission fork already covers this; the guard
+                        # keeps the invariant unconditional)
+                        move = mgr.ensure_writable(slot, row)
+                        if move is not None:
+                            self._cow(move)
+                    mgr.ensure(slot, row + 1)
                     req.cost.page_steps += len(mgr.lane_pages[slot])
                 self.store.sync_tables()
                 m.max_gauge("peak_pages_used", mgr.pages_in_use)
@@ -428,7 +682,13 @@ class ServingEngine:
             logits, _ = model_lib.decode_step(
                 self.params, self.cfg, self._tokens, self.store.cache,
                 active=torch.from_numpy(active).to(self.device))
-            self._tokens = greedy_tokens(logits)
+            if self._greedy.all():
+                self._tokens = greedy_tokens(logits)
+            else:
+                keys = [self._lane_key(running[s]) if s in running else 0
+                        for s in range(self.engine_cfg.n_slots)]
+                self._tokens = sample_tokens(logits, self._temps, self._topk, self._greedy,
+                                             keys)
             if self.paged:
                 mgr.advance(running)
             toks = self._tokens.cpu().numpy()
@@ -455,6 +715,88 @@ class ServingEngine:
         m.touch()
         return finished
 
+    # ------------------------------------------------------------------
+    # Speculative decoding (repro_torch/spec/)
+    # ------------------------------------------------------------------
+    def _spec_ready(self) -> bool:
+        """Speculate only when every running lane is greedy: the accept rule
+        is exact for argmax; a mixed batch decodes plainly this step."""
+        return all(r.sampling.greedy for r in self.scheduler.running.values())
+
+    def _spec_decode(self, finished: list[Request]) -> None:
+        """One draft-verify round over every running lane.  The window is
+        always ``k + 1`` wide; per-lane draft counts and acceptance lengths
+        are data (``n_draft``, the accept rule), never shapes."""
+        spec = self._spec
+        running = dict(self.scheduler.running)
+        n, w = self.engine_cfg.n_slots, spec.width
+        slots = sorted(running)
+        histories = [running[s].prompt + running[s].output_tokens for s in slots]
+        proposals = self._drafter.propose(slots, histories)
+
+        toks = np.zeros((n, w), np.int32)
+        n_draft = np.zeros((n,), np.int32)
+        active = np.zeros((n,), bool)
+        for slot, hist, props in zip(slots, histories, proposals):
+            req = running[slot]
+            # never draft past the lane's budget: the verify row for draft j
+            # emits token j+1, so at most budget-1 drafts
+            allow = max(0, min(spec.k, req.max_new_tokens - len(req.output_tokens) - 1))
+            props = [int(t) for t in props[:allow]]
+            toks[slot, 0] = hist[-1]
+            toks[slot, 1:1 + len(props)] = props
+            n_draft[slot] = len(props)
+            active[slot] = True
+            self.metrics.inc("spec_proposed", len(props))
+
+        base_row = {}
+        if self.paged:
+            mgr = self.store.manager
+            for slot in slots:
+                row = int(mgr.lengths[slot])
+                base_row[slot] = row
+                if self.prefix is not None:
+                    # the whole verify window must be privately writable
+                    for move in mgr.ensure_writable_range(slot, row, w):
+                        self._cow(move)
+                mgr.ensure(slot, row + w)
+                running[slot].cost.page_steps += len(mgr.lane_pages[slot])
+            self.store.sync_tables()
+            self.metrics.max_gauge("peak_pages_used", mgr.pages_in_use)
+
+        dev = self.device
+        _, targets, accepted = verify(
+            self.params, self.cfg, self.store.cache, torch.from_numpy(toks).to(dev),
+            torch.from_numpy(n_draft).to(dev), torch.from_numpy(active).to(dev))
+        self.metrics.inc("verify_dispatches")
+        self.metrics.inc("decode_steps")
+        targets = targets.cpu().numpy()
+        accepted = accepted.cpu().numpy()
+
+        feed = self._tokens.cpu()
+        for slot in slots:
+            req = running[slot]
+            a = int(accepted[slot])
+            # emit the accepted drafts + the bonus/correction row, stopping
+            # at EOS / budget exactly like the plain-decode loop
+            emitted = 0
+            for j in range(a + 1):
+                req.append_token(int(targets[slot, j]))
+                emitted += 1
+                if self._should_evict(req):
+                    break
+            self.metrics.inc("spec_accepted", min(emitted, a))
+            self.metrics.observe("accept_len", min(emitted, a))
+            if self.paged:
+                # rollback = length truncate: rejected rows' pages stay
+                # reserved to the lane and are overwritten in place
+                self.store.manager.set_length(slot, base_row[slot] + emitted)
+            feed[slot] = req.output_tokens[-1]
+        self._tokens = feed.to(dev)
+        for slot in slots:
+            if self._should_evict(running[slot]):
+                self._evict(slot, finished)
+
     def _shed_late(self, finished: list[Request]) -> None:
         """Deadline pre-pass: a waiting request already past its deadline
         can only produce dead tokens, so it is shed before it costs a
@@ -468,6 +810,7 @@ class ServingEngine:
             return
         for req in self.scheduler.drop(idxs):
             req.finish_reason_override = "deadline"
+            self._plan_cache.pop(req.req_id, None)
             self.metrics.inc("deadline_shed")
             self.metrics.record_finished(req)
             finished.append(req)
@@ -478,6 +821,9 @@ class ServingEngine:
     def _evict(self, slot: int, finished: list[Request]) -> None:
         req = self.scheduler.release(slot)
         self.store.free(slot)
+        if self._drafter is not None:
+            self._drafter.release(slot)
+        self._greedy[slot] = True   # free lanes sample nothing
         reason_of = getattr(self.policies.eviction, "evict_reason", None)
         if reason_of is not None and reason_of(req) == "deadline" and not req.done:
             # DeadlinePreemption took the lane back from a request that

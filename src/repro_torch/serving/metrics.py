@@ -11,11 +11,9 @@ Engine code emits events:
 and ``report()`` derives the summary: the reference's keys, with exact
 p50/p95/p99 percentiles of TTFT, per-token decode latency and queue wait
 from the registry's histograms, deadline hits and misses, and goodput.
-Every counter and gauge reads as an attribute (``metrics.prefills``).
-The reference's prefix-cache and speculative-decoding counters, gauges and
-keys (``prefix_*``, ``spec_*``, ``verify_dispatches``, ``acceptance_rate``,
-``accept_len_*``, ``cost_verify_p99_s``) arrive with those subsystems
-(ROADMAP queue 1, item 6).
+Every counter and gauge reads as an attribute (``metrics.prefills``),
+the prefix-cache (``prefix_*``) and speculative-decoding (``spec_*``,
+``verify_dispatches``, ``accept_len``) ones included.
 
 Wall time: ``begin()`` stamps the start once, every engine step
 ``touch()``-es the end, and ``record_finished`` advances it, so a run that
@@ -33,6 +31,10 @@ from repro_torch.serving.request import Request
 _COUNTERS = (
     "steps", "prefills", "prefill_dispatches", "stacked_prefills",
     "decode_steps", "chunk_steps", "defrag_count", "defrag_pages_moved",
+    # shared-prefix cache and speculative decoding
+    "prefix_hits", "prefix_misses", "prefix_hit_tokens", "prefix_cow_forks",
+    "prefix_evicted_pages", "spec_proposed", "spec_accepted",
+    "verify_dispatches",
     # SLO accounting: each request's deadline outcome (stamped at finish)
     # and the goodput numerator (no-deadline requests always count; a
     # missed deadline zeroes the request's contribution)
@@ -46,7 +48,7 @@ _COUNTERS = (
 _TIMERS = ("prefill_s", "decode_s")
 # last-value / running-max gauges
 _GAUGES = ("peak_running", "pages_total", "page_size", "peak_pages_used",
-           "start_time", "end_time")
+           "prefix_tree_pages", "start_time", "end_time")
 
 # request-derived histograms (seconds unless noted)
 _HISTOGRAMS = (
@@ -54,8 +56,9 @@ _HISTOGRAMS = (
     "latency_s",     # submit -> finished
     "per_token_s",   # decode only: (latency - ttft) / (n_tokens - 1)
     "queue_wait_s",  # submit -> admitted into a lane
+    "accept_len",    # accepted drafts per speculative verify round (count)
     # per-request cost attribution (from Request.cost, observed at finish)
-    "cost_prefill_s", "cost_decode_s", "cost_page_steps",
+    "cost_prefill_s", "cost_decode_s", "cost_verify_s", "cost_page_steps",
 )
 
 
@@ -134,6 +137,8 @@ class EngineMetrics:
         if cost.dispatches:
             self.observe("cost_prefill_s", cost.prefill_s)
             self.observe("cost_decode_s", cost.decode_s)
+            if cost.verify_s:
+                self.observe("cost_verify_s", cost.verify_s)
             if cost.page_steps:
                 self.observe("cost_page_steps", cost.page_steps)
 
@@ -154,9 +159,9 @@ class EngineMetrics:
         return round(self.registry.histogram(name).percentile(q), digits)
 
     def report(self) -> dict:
-        """The reference's summary keys less item 6's (module docstring),
-        plus ``decode_step_mean_s`` (unrounded ``decode_s`` over
-        ``decode_steps``)."""
+        """The reference's summary keys, plus ``decode_step_mean_s``
+        (unrounded ``decode_s`` over ``decode_steps``; a speculative verify
+        round counts as one decode step)."""
         reqs = self.finished
         wall = self.wall_s
         hits, misses = self.deadline_hits, self.deadline_misses
@@ -195,6 +200,20 @@ class EngineMetrics:
             "peak_pages_used": self.peak_pages_used,
             "defrag_count": self.defrag_count,
             "defrag_pages_moved": self.defrag_pages_moved,
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_cow_forks": self.prefix_cow_forks,
+            "prefix_evicted_pages": self.prefix_evicted_pages,
+            "prefix_tree_pages": self.prefix_tree_pages,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "verify_dispatches": self.verify_dispatches,
+            "acceptance_rate": (round(self.spec_accepted / self.spec_proposed, 4)
+                                if self.spec_proposed else 0.0),
+            "accept_len_p50": self._pct("accept_len", 50, 2),
+            "accept_len_p95": self._pct("accept_len", 95, 2),
+            "accept_len_p99": self._pct("accept_len", 99, 2),
             "deadline_hits": hits,
             "deadline_misses": misses,
             "deadline_shed": self.deadline_shed,
@@ -204,4 +223,5 @@ class EngineMetrics:
             "goodput_tokens_per_s": round(self.goodput_tokens / max(wall, 1e-9), 2),
             "cost_prefill_p99_s": self._pct("cost_prefill_s", 99),
             "cost_decode_p99_s": self._pct("cost_decode_s", 99),
+            "cost_verify_p99_s": self._pct("cost_verify_s", 99),
         }

@@ -9,16 +9,17 @@ policy class, not engine surgery:
   ``BucketBatchedAdmission`` stacks same-bucket prompts into one batched
   prefill; ``DeadlineAdmission`` also *sheds* requests whose deadline
   expired in queue; ``PriorityAdmission`` ranks by ``Request.priority``
-  with aging.
+  with aging; ``PrefixAwareAdmission`` admits requests that share a hot
+  cached prefix back-to-back.
 * ``EvictionPolicy`` -- when a running request leaves its lane:
   ``BudgetOrEOSEviction`` (the default, ``Request.done``) or
   ``DeadlinePreemption``.
 * ``DefragPolicy`` -- when the paged pool compacts: ``ThresholdDefrag``
   (the default) or ``NeverDefrag``.
 * ``PrefixPolicy`` -- how the shared-prefix cache takes part in
-  admission.  The port has no prefix cache yet, so only the inert
-  ``NoPrefixReuse`` exists; ``PrefixAwareAdmission`` and ``SharedPrefix``
-  arrive with it (ROADMAP queue 1, item 6).
+  admission: ``SharedPrefix`` (the default) adopts any cached prefix of
+  at least ``min_pages`` pages and publishes every completed prefill;
+  ``NoPrefixReuse`` matches and publishes nothing.
 
 Stacking only changes how prefills are dispatched (prefill is
 batch-parallel), the default eviction is ``req.done``, and defrag only
@@ -145,6 +146,57 @@ class DeadlineAdmission:
                 and now - r.submit_time > r.deadline_s - self.slack_s]
 
 
+class PrefixAwareAdmission:
+    """Admit requests sharing a hot radix-tree prefix back-to-back.
+
+    After each admission the policy remembers the admitted request's
+    adopted-page signature (the cached pages its prefix plan aliases);
+    the next poll prefers a waiting request with the SAME signature, so a
+    burst of shared-prefix requests admits consecutively while the trunk
+    pages are warm instead of interleaving with cold prompts in arrival
+    order.
+
+    Starvation-bounded: a skipped head accrues patience, and after
+    ``patience`` consecutive skip-aheads the policy degrades to plain FIFO
+    until the head admits.  The engine injects the signature lookup via
+    ``bind``; unbound, or with no prefix cache, this IS FIFO.  One request
+    per dispatch; ordering only, so no greedy stream changes.
+    """
+
+    def __init__(self, patience: int = 4):
+        if patience < 1:
+            raise ValueError("patience must be >= 1")
+        self.patience = patience
+        self._sig_of = None
+        self._last_sig = None
+        self._skips = 0
+
+    def bind(self, sig_of) -> None:
+        """``sig_of(req) -> hashable | None``: the request's adopted-page
+        signature (None = cold)."""
+        self._sig_of = sig_of
+
+    def next_group(self, waiting, max_group, admit_ok, bucket_of):
+        if not waiting:
+            return []
+
+        def admit(i):
+            if not admit_ok(waiting[i]):
+                return []
+            self._last_sig = (self._sig_of(waiting[i])
+                              if self._sig_of is not None else None)
+            self._skips = 0 if i == 0 else self._skips + 1
+            return [i]
+
+        if (self._sig_of is None or self._last_sig is None
+                or self._skips >= self.patience):
+            return admit(0)
+        for i in range(len(waiting)):
+            if self._sig_of(waiting[i]) == self._last_sig:
+                return admit(i)
+        return admit(0)
+
+
 class PriorityAdmission:
     """Highest effective priority first, starvation-free through aging.
 
@@ -261,8 +313,30 @@ class ThresholdDefrag:
         return (1.0 - used / span) > self.threshold
 
 
+class SharedPrefix:
+    """Default prefix policy: adopt any cached prefix of at least
+    ``min_pages`` pages, publish every completed prefill.  A higher
+    ``min_pages`` skips marginal one-page matches whose adoption
+    bookkeeping outweighs the recompute they save."""
+
+    def __init__(self, min_pages: int = 1):
+        if min_pages < 1:
+            raise ValueError("min_pages must be >= 1")
+        self.min_pages = min_pages
+
+    def plan(self, cache, req: Request):
+        plan = cache.plan(req.prompt)
+        if plan is not None and len(plan.pages) >= self.min_pages:
+            return plan
+        return None
+
+    def should_publish(self, req: Request) -> bool:
+        return True
+
+
 class NoPrefixReuse:
-    """Prefix policy that matches nothing and publishes nothing."""
+    """Prefix subsystem present but inert: match nothing, publish nothing
+    (e.g. to A/B the cache's overhead on a workload with no sharing)."""
 
     def plan(self, cache, req: Request):
         return None
@@ -274,10 +348,11 @@ class NoPrefixReuse:
 @dataclasses.dataclass
 class EnginePolicies:
     """The engine's decision points.  The defaults are FIFO admission,
-    budget-or-EOS eviction and threshold defrag; ``prefix`` only engages
-    with a prefix cache (ROADMAP queue 1, item 6)."""
+    budget-or-EOS eviction, threshold defrag and shared-prefix reuse;
+    ``prefix`` only engages when the engine is built with
+    ``prefix_cache=True``."""
 
     admission: AdmissionPolicy = dataclasses.field(default_factory=FIFOAdmission)
     eviction: EvictionPolicy = dataclasses.field(default_factory=BudgetOrEOSEviction)
     defrag: DefragPolicy = dataclasses.field(default_factory=ThresholdDefrag)
-    prefix: PrefixPolicy = dataclasses.field(default_factory=NoPrefixReuse)
+    prefix: PrefixPolicy = dataclasses.field(default_factory=SharedPrefix)

@@ -39,18 +39,19 @@ class RequestCost:
     Times are host clocks around each dispatch, split evenly across the
     requests riding a batched decode, so the per-phase totals sum to the
     engine's dispatch time.  ``page_steps`` integrates pages held per
-    decode step (paged engines): the request's KV memory x time.  The
-    reference's ``verify_s`` (speculative verification) arrives with
-    ROADMAP queue 1, item 6."""
+    decode step (paged engines): the request's KV memory x time;
+    ``verify_s`` is its share of speculative draft + verify rounds."""
 
     prefill_s: float = 0.0
     decode_s: float = 0.0
+    verify_s: float = 0.0
     dispatches: int = 0
     page_steps: int = 0
 
     def as_dict(self) -> dict:
         return {"prefill_s": self.prefill_s, "decode_s": self.decode_s,
-                "dispatches": self.dispatches, "page_steps": self.page_steps}
+                "verify_s": self.verify_s, "dispatches": self.dispatches,
+                "page_steps": self.page_steps}
 
 
 @dataclasses.dataclass

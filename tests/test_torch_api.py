@@ -1,9 +1,11 @@
 """The port's ``api`` facade against the JAX package's.
 
 ``RuntimeConfig`` validates as the reference does (same errors, same
-messages for the fields both packages serve) and resolves to the same
-model and engine settings; each setting the port's engine does not serve
-yet raises ``NotImplementedError`` naming its ROADMAP item.  ``LLM``
+messages for the fields both packages serve), resolves to the same model
+and engine settings, serializes to the reference's dicts and loads them,
+and has the reference's five presets; the ``mesh`` and ``obs`` settings,
+which the port's engine does not serve yet, raise ``NotImplementedError``
+naming their ROADMAP items.  ``LLM``
 serves the reference's weights (the JAX ``init_params`` tree with its
 projection weights scaled up, so that greedy decoding does not collapse
 onto one repeated token, carried across with ``params_from_jax``) in paged
@@ -24,6 +26,8 @@ from repro.api import QuantRuntime as JaxQuantRuntime
 from repro.api import RuntimeConfig as JaxRuntimeConfig
 from repro.api import SchedulerConfig as JaxSchedulerConfig
 from repro.api import auto_buckets as jax_auto_buckets
+from repro.api import get_preset as jax_get_preset
+from repro.api import list_presets as jax_list_presets
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
 from repro.models import init_params as jax_init_params
@@ -36,7 +40,12 @@ from repro_torch.api import (
     RuntimeConfig,
     SamplingDefaults,
     SchedulerConfig,
+    SpecConfig,
     auto_buckets,
+    get_preset,
+    list_presets,
+    load_runtime,
+    register_preset,
 )
 from repro_torch.kernels import deas_gemm as deas_mod
 from repro_torch.kernels import spoga_gemm_dequant as dequant_mod
@@ -122,12 +131,13 @@ def test_backend_and_impl_validation():
 
 
 def test_defaults_match_jax():
-    """Same fields and defaults as the reference's sub-configs (the mesh,
-    spec and obs sub-configs are not ported: None is their disabled
-    default)."""
+    """Same fields and defaults as the reference's sub-configs (the mesh
+    and obs sub-configs are not ported: None is their disabled default)."""
     from repro.api import SamplingDefaults as JaxSamplingDefaults
+    from repro.api import SpecConfig as JaxSpecConfig
     pairs = [(QuantRuntime, JaxQuantRuntime), (KVConfig, JaxKVConfig),
-             (SchedulerConfig, JaxSchedulerConfig), (SamplingDefaults, JaxSamplingDefaults)]
+             (SchedulerConfig, JaxSchedulerConfig), (SamplingDefaults, JaxSamplingDefaults),
+             (SpecConfig, JaxSpecConfig)]
     for port_cls, jax_cls in pairs:
         assert dataclasses.asdict(port_cls()) == dataclasses.asdict(jax_cls()), port_cls
     port_fields = [f.name for f in dataclasses.fields(RuntimeConfig)]
@@ -135,7 +145,7 @@ def test_defaults_match_jax():
     rc, jrc = RuntimeConfig(), JaxRuntimeConfig()
     for name in ("max_new_tokens", "eos_token", "reduced"):
         assert getattr(rc, name) == getattr(jrc, name)
-    assert (rc.mesh, rc.spec, rc.obs) == (None, None, None)
+    assert (rc.mesh, rc.obs) == (None, None) and rc.spec == SpecConfig()
     for n in (1, 8, 30, 64, 100):
         assert auto_buckets(n) == jax_auto_buckets(n)
 
@@ -173,11 +183,7 @@ def test_resolution_matches_jax():
 
 
 REFUSED = [
-    dict(kv=KVConfig(prefix_cache=True, **PAGED)),
-    dict(scheduler=SchedulerConfig(admission="prefix-aware")),
-    dict(sampling=SamplingDefaults(greedy=False, temperature=0.7)),
     dict(mesh=object()),
-    dict(spec=object()),
     dict(obs=object()),
 ]
 
@@ -347,8 +353,169 @@ def test_llm_refusals_and_device():
     with pytest.raises(RuntimeError, match="engine not built"):
         llm.engine
     assert llm.metrics is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        llm.generate([1, 2, 3], sampling=SamplingParams(greedy=False))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+        LLM(arch="llama3.2-1b", runtime=dataclasses.replace(rc, obs=object()), device="cpu")
+    out, = llm.generate([1, 2, 3], sampling=SamplingParams(greedy=False), max_new_tokens=2)
+    assert len(out.token_ids) == 2               # stochastic sampling is served
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             LLM(arch="llama3.2-1b", runtime=rc)
+
+
+# ---------------------------------------------------------------------------
+# Settings served since the prefix cache, speculation and sampling were ported
+# ---------------------------------------------------------------------------
+
+NEWLY_SERVED = [
+    dict(kv=KVConfig(prefix_cache=True, **PAGED)),
+    dict(kv=KVConfig(prefix_cache=True, **PAGED),
+         scheduler=SchedulerConfig(admission="prefix-aware")),
+    dict(sampling=SamplingDefaults(greedy=False, temperature=0.7, top_k=5, seed=3)),
+    dict(spec=SpecConfig(enabled=True, k=3)),
+    dict(spec=SpecConfig(enabled=True, k=2, drafter="model", draft_layers=1)),
+]
+
+
+@pytest.mark.parametrize("kw", NEWLY_SERVED, ids=["prefix_cache", "prefix-aware", "sampling",
+                                                  "spec-ngram", "spec-model"])
+def test_prefix_spec_and_sampling_settings_are_served(kw):
+    """Each setting resolves to the reference's ``EngineConfig`` fields and
+    policies, and an ``LLM`` serves it (paged KV, reduced model, CPU)."""
+    from repro.api import SamplingDefaults as JaxSamplingDefaults
+    from repro.api import SpecConfig as JaxSpecConfig
+    kw = {"kv": KVConfig(**PAGED), **kw}
+    rc = RuntimeConfig(**kw)
+    jax_classes = {"kv": JaxKVConfig, "scheduler": JaxSchedulerConfig,
+                   "sampling": JaxSamplingDefaults, "spec": JaxSpecConfig}
+    jrc = JaxRuntimeConfig(**{k: jax_classes[k](**dataclasses.asdict(v)) for k, v in kw.items()})
+    tbase = tconfigs.reduced(tconfigs.get_config("llama3.2-1b"))
+    jbase = jax_reduced(jax_get_config("llama3.2-1b")).with_(remat=False)
+    got = rc.resolve_engine(tbase, prompt_len=8, gen_tokens=4)
+    want = jrc.resolve_engine(jbase, prompt_len=8, gen_tokens=4)
+    for f in ("cache_len", "cache_mode", "page_size", "prefill_chunk", "prefix_cache"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert (got.spec is None) == (want.spec is None)
+    if got.spec is not None:
+        assert dataclasses.asdict(got.spec) == dataclasses.asdict(want.spec)
+    pol, jpol = rc.build_policies(), jrc.build_policies()
+    for name in ("admission", "eviction", "defrag", "prefix"):
+        assert type(getattr(pol, name)).__name__ == type(getattr(jpol, name)).__name__
+    assert pol.prefix.min_pages == jpol.prefix.min_pages
+    llm = LLM(arch="llama3.2-1b", runtime=dataclasses.replace(rc, reduced=True), device="cpu")
+    out, = llm.generate([1, 2, 3, 4, 5, 6, 7, 8, 9, 10], max_new_tokens=3)
+    assert len(out.token_ids) == 3
+
+
+# ---------------------------------------------------------------------------
+# Serialization, presets and load_runtime
+# ---------------------------------------------------------------------------
+
+CUSTOM = RuntimeConfig(
+    quant=QuantRuntime(mode="int8_deas", gemm_backend="cuda_deas"),
+    kv=KVConfig(mode="paged", dtype="int8", cache_len=96, page_size=8, n_pages=40,
+                prefix_cache=True, prefix_min_pages=2),
+    scheduler=SchedulerConfig(n_slots=3, prefill_buckets=(16, 32), prefill_chunk=16,
+                              admission="prefix-aware", defrag_threshold=None),
+    sampling=SamplingDefaults(greedy=False, temperature=0.9, top_k=7, seed=4),
+    spec=SpecConfig(enabled=True, k=3, drafter="model", draft_layers=3),
+    max_new_tokens=9, eos_token=2, reduced=True)
+
+
+@pytest.mark.parametrize("rc", [RuntimeConfig(), CUSTOM,
+                                RuntimeConfig(scheduler=SchedulerConfig(prefill_buckets="auto"))],
+                         ids=["default", "custom", "auto-buckets"])
+def test_to_dict_from_dict_round_trip(rc):
+    """``to_dict`` is plain JSON (tuples as lists; ``mesh`` and ``obs`` as
+    the reference's disabled defaults) and ``from_dict`` inverts it."""
+    import json
+    d = rc.to_dict()
+    assert json.loads(json.dumps(d)) == d
+    back = RuntimeConfig.from_dict(json.loads(json.dumps(d)))
+    assert back == rc
+    assert isinstance(back.scheduler.prefill_buckets, (tuple, str, type(None)))
+    assert d["mesh"] == {"tp": 1, "dp": 1, "enable": None, "axes": ["data", "model"]}
+    assert d["obs"]["enabled"] is None and d["obs"]["trace"] is None
+
+
+def test_partial_dicts_take_defaults():
+    assert RuntimeConfig.from_dict({}) == RuntimeConfig()
+    rc = RuntimeConfig.from_dict({"kv": {"mode": "paged"},
+                                  "scheduler": {"prefill_buckets": [8, 16]},
+                                  "spec": {"enabled": True}, "max_new_tokens": 4})
+    assert rc.kv == KVConfig(mode="paged") and rc.scheduler.prefill_buckets == (8, 16)
+    assert rc.spec == SpecConfig(enabled=True) and rc.max_new_tokens == 4
+    jrc = JaxRuntimeConfig.from_dict(rc.to_dict())   # the port's dict loads in the reference
+    assert jrc.to_dict() == rc.to_dict()
+
+
+@pytest.mark.parametrize("sub,item", [
+    ({"mesh": {"tp": 2}}, "10"), ({"mesh": {"enable": True}}, "10"),
+    ({"obs": {"trace": "t.json"}}, "8"), ({"obs": {"enabled": True}}, "8"),
+    ({"obs": {"watchdog": True}}, "8"), ({"obs": {"metrics_port": 0}}, "8"),
+    ({"obs": {"profile_steps": 5}}, "8")])
+def test_from_dict_refuses_mesh_and_obs_turned_on(sub, item):
+    """Only (part of) the disabled defaults that ``to_dict`` writes load."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
+        RuntimeConfig.from_dict(sub)
+    assert RuntimeConfig.from_dict({"mesh": {"tp": 1, "enable": None},
+                                    "obs": {"enabled": None, "trace": None}}) == RuntimeConfig()
+    with pytest.raises(TypeError, match="unexpected keys"):
+        RuntimeConfig.from_dict({"obs": {"no_such_knob": 1}})
+
+
+@pytest.mark.parametrize("name", sorted(jax_list_presets()))
+def test_presets_match_jax(name):
+    """The same five presets: the port's ``to_dict`` is the reference's, the
+    reference's ``to_dict`` loads into the port, and both resolve to the
+    same model and engine fields."""
+    assert list_presets() == jax_list_presets()
+    rc, jrc = get_preset(name), jax_get_preset(name)
+    assert rc.to_dict() == jrc.to_dict()
+    assert RuntimeConfig.from_dict(jrc.to_dict()) == rc
+    tbase = tconfigs.reduced(tconfigs.get_config("llama3.2-1b"))
+    jbase = jax_reduced(jax_get_config("llama3.2-1b")).with_(remat=False)
+    (tcfg, tecfg), (jcfg, jecfg) = rc.resolve(tbase, 40, 8), jrc.resolve(jbase, 40, 8)
+    for f in ("quant_mode", "kv_cache_dtype", "paged_attn_impl", "gemm_backend"):
+        assert getattr(tcfg, f) == getattr(jcfg, f), f
+    for f in ("n_slots", "cache_len", "max_prefills_per_step", "prefill_buckets", "eos_token",
+              "cache_mode", "page_size", "n_pages", "prefill_chunk", "prefix_cache", "spec"):
+        assert getattr(tecfg, f) == getattr(jecfg, f), f
+
+
+@pytest.mark.parametrize("name", sorted(jax_list_presets()))
+def test_every_preset_builds_and_serves_on_cpu(name):
+    llm = LLM(arch="llama3.2-1b", runtime=dataclasses.replace(load_runtime(name), reduced=True),
+              device="cpu")
+    llm.build_engine(24, 4)
+    outs = llm.generate([[5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19, 20, 21],
+                         [1, 2, 3]], max_new_tokens=4)
+    assert [len(o.token_ids) for o in outs] == [4, 4]
+    assert llm.engine.prefix is not None if llm.runtime.kv.prefix_cache \
+        else llm.engine.prefix is None
+
+
+def test_load_runtime_from_file_and_name(tmp_path):
+    import json
+    path = tmp_path / "rt.json"
+    path.write_text(json.dumps(get_preset("int8-byte-serving").to_dict()))
+    assert load_runtime(str(path)) == get_preset("int8-byte-serving")
+    assert load_runtime("paged-server") is get_preset("paged-server")
+    with pytest.raises(ValueError, match="neither a JSON file nor a registered preset"):
+        load_runtime("no-such-preset")
+    with pytest.raises(KeyError, match="unknown runtime preset"):
+        get_preset("no-such-preset")
+
+
+def test_register_preset_guard():
+    with pytest.raises(TypeError, match="must be a RuntimeConfig"):
+        register_preset("bad", {"kv": {}})
+    with pytest.raises(ValueError, match="already registered"):
+        register_preset("paged-server", RuntimeConfig())
+    register_preset("torch-test-preset", CUSTOM)
+    try:
+        assert get_preset("torch-test-preset") is CUSTOM
+        register_preset("torch-test-preset", RuntimeConfig(), overwrite=True)
+        assert get_preset("torch-test-preset") == RuntimeConfig()
+    finally:
+        from repro_torch.api import config as config_mod
+        config_mod._PRESETS.pop("torch-test-preset")

@@ -118,14 +118,19 @@ def test_engine_evicts_on_eos():
 
 
 def test_engine_refuses_what_is_not_ported():
+    """Only observability (item 8) and device meshes (item 10) are refused;
+    the prefix cache, speculation and stochastic sampling are served."""
     _, tcfg, tree = _setup("int8_spoga", "int8", 4)
     tparams = params_from_jax(tree, tcfg, "cpu")
-    for kw in ({"spec": object()}, {"prefix_cache": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-            ServingEngine(tcfg, tparams, EngineConfig(**{**ENGINE, **kw}), device="cpu")
+    for kw, item in (({"obs": object()}, "8"), ({"mesh": object()}, "10")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
+            ServingEngine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu", **kw)
     from repro_torch.serving import SamplingParams
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SamplingParams(greedy=False)
+    from repro_torch.spec import SpecConfig
+    assert not SamplingParams(greedy=False).greedy
+    served = ServingEngine(tcfg, tparams, EngineConfig(
+        **{**ENGINE, "prefix_cache": True, "spec": SpecConfig(enabled=True)}), device="cpu")
+    assert served.prefix is not None and served._drafter is not None
     eng = ServingEngine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu")
     with pytest.raises(ValueError):
         eng.add_request([1, 2, 3], max_new_tokens=64)   # past cache_len
@@ -144,6 +149,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.kernels.spoga_gemm_dequant, repro_torch.kernels.paged_attention\n"
         "import repro_torch.kernels.spoga_gemm, repro_torch.kernels.deas_gemm\n"
         "import repro_torch.kernels.ops, repro_torch.core.spoga, repro_torch.backends\n"
+        "import repro_torch.spec, repro_torch.spec.draft_model, repro_torch.prefix\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                                      'ml_dtypes'))\n"
         "print(','.join(bad))\n"
@@ -174,7 +180,8 @@ def test_no_source_of_the_port_names_jax_or_repro():
     for new in ("api/llm.py", "api/config.py", "kernels/spoga_gemm.py",
                 "kernels/deas_gemm.py", "kernels/ops.py", "checkpoint/checkpoint.py",
                 "paging/prefill.py", "serving/policies.py", "serving/metrics.py",
-                "obs/metrics.py"):
+                "obs/metrics.py", "spec/config.py", "spec/verify.py", "spec/ngram.py",
+                "spec/draft_model.py", "prefix/tree.py", "prefix/cache.py"):
         assert ROOT / "src" / "repro_torch" / new in files, new
     for f in files:
         assert not _imported_roots(f) & {"jax", "jaxlib", "repro", "ml_dtypes"}, f

@@ -364,3 +364,103 @@ def test_paged_attention_kernel_is_deterministic(kind, case):
     torch.cuda.synchronize()
     assert attn_mod.LAUNCHES == launches + 2
     assert torch.equal(first, second)
+
+
+def _verify_case(kind, b, n_tbl, w, seed, hkv=8, g=4, d=64, ps=16):
+    """A speculative verify window on the card: ``b`` lanes at positions
+    ``pos`` (from the seed, the last at the table's end), each lane's pages
+    distinct, ``w`` query rows a lane.  Returns (q (b*w, Hkv, G, D), kp,
+    vp, tables (b, P), pos (b,)), scales."""
+    rng = np.random.default_rng(seed)
+    rows = n_tbl * ps
+    pos = rng.integers(0, rows - w + 1, b)
+    pos[-1] = rows - w
+    used = [-(-(p + w) // ps) for p in pos]
+    n_pages = 1 + sum(used)
+    ids = rng.permutation(n_pages - 1) + 1
+    tables = np.zeros((b, n_tbl), np.int32)
+    start = 0
+    for lane, n in enumerate(used):
+        tables[lane, :n] = ids[start:start + n]
+        start += n
+    q = torch.from_numpy(rng.normal(size=(b * w, hkv, g, d)).astype(np.float32)).bfloat16()
+    shp = (n_pages, ps, hkv, d)
+    scales = {}
+    if kind == "int8":
+        kp = torch.from_numpy(rng.integers(-127, 128, shp).astype(np.int8))
+        vp = torch.from_numpy(rng.integers(-127, 128, shp).astype(np.int8))
+        scales = {k: torch.from_numpy(rng.uniform(1e-3, 0.02, shp[:3]).astype(np.float32)).cuda()
+                  for k in ("k_scale", "v_scale")}
+    else:
+        kp = torch.from_numpy(rng.normal(size=shp).astype(np.float32)).bfloat16()
+        vp = torch.from_numpy(rng.normal(size=shp).astype(np.float32)).bfloat16()
+    pos = torch.tensor(pos, dtype=torch.int32)
+    return [t.cuda() for t in (q, kp, vp, torch.from_numpy(tables), pos)], scales
+
+
+@pytest.mark.parametrize("n_tbl", [11, 512])
+@pytest.mark.parametrize("b", [4, 16])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_paged_attention_verify_layout_is_the_decode_step(kind, b, n_tbl):
+    """The verify layout (B*W lanes, lane b's table row repeated W times,
+    row c at length ``pos + c + 1``, the split count chosen for B lanes) is
+    bitwise the W decode calls of B lanes at those lengths; with the split
+    count chosen for B*W lanes it is the plain version within 2e-5."""
+    _card()
+    w = 5
+    (q, kp, vp, tables, pos), scales = _verify_case(kind, b, n_tbl, w, seed=b + n_tbl)
+    vtables = tables.repeat_interleave(w, dim=0).contiguous()
+    vlengths = (pos[:, None] + 1 + torch.arange(w, device="cuda", dtype=torch.int32)[None])
+    vlengths = vlengths.reshape(b * w).to(torch.int32).contiguous()
+    launches = attn_mod.LAUNCHES
+    got = paged_attention(q, kp, vp, vtables, vlengths, split_lanes=b, **scales)
+    assert attn_mod.LAUNCHES == launches + 1
+    qb = q.reshape(b, w, *q.shape[1:])
+    for c in range(w):
+        step = paged_attention(qb[:, c].contiguous(), kp, vp, tables,
+                               (pos + 1 + c).to(torch.int32), **scales)
+        assert torch.equal(got.reshape(b, w, *got.shape[1:])[:, c], step), c
+    wide = paged_attention(q, kp, vp, vtables, vlengths, **scales)
+    want = paged_attention_plain(q, kp, vp, vtables, vlengths, **scales)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(wide, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("kv", ["int8", "bf16"])
+def test_verify_step_rows_are_the_decode_steps(kv):
+    """A 5-row verify window over paged KV on the card (llama3.2-1b's
+    widths, 2 layers, ``int8_spoga``) gives, row by row, the logits of 5
+    teacher-forced decode steps bitwise, and leaves the same pool: the
+    attention kernel splits each row as the decode step does and the
+    window's norms reduce column by column (``layers.rmsnorm_columns``)."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill, verify_step
+    from repro_torch.paging.cache import PagedCache
+    cfg = get_config("llama3.2-1b").with_(n_layers=2, quant_mode="int8_spoga",
+                                          kv_cache_dtype=kv)
+    params = init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1040)).astype(np.int32))
+    window = rng.integers(0, cfg.vocab_size, 5).tolist()
+    _, single = prefill(params, cfg, prompt.cuda(), 1040)
+    stores = []
+    for _ in range(2):
+        store = PagedCache(cfg, 4, 1104, 16, device="cuda")
+        store.manager.admit(0, 1104)
+        ids = store.manager.alloc(0, 65)
+        store.manager.ensure(0, 1045)
+        store.insert(single, 0, ids, 1040)
+        store.sync_tables()
+        stores.append(store)
+    active = torch.tensor([True, False, False, False], device="cuda")
+    toks = torch.zeros((4, 5), dtype=torch.int32, device="cuda")
+    toks[0] = torch.tensor(window, dtype=torch.int32)
+    got, _ = verify_step(params, cfg, toks, stores[0].cache, active)
+    for c in range(5):
+        want, _ = decode_step(params, cfg, toks[:, c].contiguous(), stores[1].cache, active=active)
+        assert torch.equal(got[0, c], want[0]), c
+    torch.cuda.synchronize()
+    for a, b in zip(stores[0].cache["blocks"][0].values(), stores[1].cache["blocks"][0].values()):
+        assert torch.equal(a[:, 1:], b[:, 1:])      # page 0 is the trash page

@@ -44,10 +44,6 @@ from repro_torch.serving import (
 WEIGHT_SCALE = 8.0
 # report keys of the reference that belong to the prefix cache and to
 # speculative decoding (ROADMAP queue 1, item 6); the port adds one key
-ITEM_6_KEYS = {"prefix_hits", "prefix_misses", "prefix_hit_tokens", "prefix_cow_forks",
-               "prefix_evicted_pages", "prefix_tree_pages", "spec_proposed", "spec_accepted",
-               "verify_dispatches", "acceptance_rate", "accept_len_p50", "accept_len_p95",
-               "accept_len_p99", "cost_verify_p99_s"}
 PORT_KEYS = {"decode_step_mean_s"}
 
 
@@ -120,18 +116,26 @@ def _finished_pair(i):
 
 
 def test_engine_metrics_report_matches_reference():
-    """``EngineMetrics.report()`` has the reference's keys less item 6's
-    (``ITEM_6_KEYS``) plus ``decode_step_mean_s``; on the same finished
-    requests and events, the counts, TTFT and queue-wait percentiles and
-    deadline and goodput numbers equal the reference's."""
+    """``EngineMetrics.report()`` has the reference's keys plus
+    ``decode_step_mean_s``; on the same finished requests and
+    events, the counts, TTFT, queue-wait and accept-length percentiles and
+    deadline, goodput, prefix and speculation numbers equal the
+    reference's."""
     m, jm = EngineMetrics(), JaxEngineMetrics()
-    assert set(m.report()) == (set(jm.report()) - ITEM_6_KEYS) | PORT_KEYS
+    assert set(m.report()) == set(jm.report()) | PORT_KEYS
     for metrics in (m, jm):
         metrics.begin()
         for name, n in (("steps", 9), ("prefills", 7), ("prefill_dispatches", 5),
                         ("stacked_prefills", 4), ("chunk_steps", 2), ("decode_steps", 8),
-                        ("defrag_count", 1), ("defrag_pages_moved", 3), ("decode_s", 0.25)):
+                        ("defrag_count", 1), ("defrag_pages_moved", 3), ("decode_s", 0.25),
+                        ("prefix_hits", 3), ("prefix_misses", 2), ("prefix_hit_tokens", 48),
+                        ("prefix_cow_forks", 1), ("prefix_evicted_pages", 4),
+                        ("spec_proposed", 12), ("spec_accepted", 7),
+                        ("verify_dispatches", 5)):
             metrics.inc(name, n)
+        metrics.set_gauge("prefix_tree_pages", 6)
+        for a in (0, 2, 4, 1, 0):
+            metrics.observe("accept_len", a)
         metrics.max_gauge("peak_running", 3)
         metrics.max_gauge("peak_running", 2)
     for i in range(12):
@@ -144,7 +148,11 @@ def test_engine_metrics_report_matches_reference():
                 "defrag_count", "defrag_pages_moved", "peak_running", "decode_s",
                 "ttft_mean_s", "ttft_max_s", "ttft_p50_s", "ttft_p95_s", "ttft_p99_s",
                 "queue_wait_p50_s", "queue_wait_p95_s", "queue_wait_p99_s",
-                "deadline_hits", "deadline_misses", "deadline_hit_rate", "goodput_tokens"):
+                "deadline_hits", "deadline_misses", "deadline_hit_rate", "goodput_tokens",
+                "prefix_hits", "prefix_misses", "prefix_hit_tokens", "prefix_cow_forks",
+                "prefix_evicted_pages", "prefix_tree_pages", "spec_proposed", "spec_accepted",
+                "verify_dispatches", "acceptance_rate", "accept_len_p50", "accept_len_p95",
+                "accept_len_p99"):
         assert rep[key] == jrep[key], key
     assert rep["deadline_hits"] == 4 and rep["decode_step_mean_s"] == 0.25 / 8
     assert m.prefills == 7 and m.peak_running == 3

@@ -48,6 +48,7 @@ from repro_torch.serving import (
     EnginePolicies,
     FIFOAdmission,
     NeverDefrag,
+    PrefixAwareAdmission,
     PriorityAdmission,
     Request,
     SamplingParams,
@@ -408,9 +409,9 @@ def test_defrag_policy_triggers_and_is_output_invisible():
 # ---------------------------------------------------------------------------
 
 def test_build_policies_mapping():
-    """test_api.py::test_build_policies_mapping, less the prefix-aware
-    case, which raises naming its ROADMAP item; each config maps to the
-    policy classes the reference's maps to."""
+    """test_api.py::test_build_policies_mapping: each config maps to the
+    policy classes the reference's maps to, the prefix-aware case and the
+    shared-prefix policy included."""
     cases = [
         (dict(), FIFOAdmission, BudgetOrEOSEviction, ThresholdDefrag),
         (dict(batched_admission=True, defrag_threshold=None), BucketBatchedAdmission,
@@ -418,6 +419,8 @@ def test_build_policies_mapping():
         (dict(admission="priority"), PriorityAdmission, BudgetOrEOSEviction, ThresholdDefrag),
         (dict(admission="deadline", eviction="deadline-preempt", defrag_threshold=0.2),
          DeadlineAdmission, DeadlinePreemption, ThresholdDefrag),
+        (dict(admission="prefix-aware"), PrefixAwareAdmission, BudgetOrEOSEviction,
+         ThresholdDefrag),
     ]
     for sched, adm, ev, dfr in cases:
         p = RuntimeConfig(scheduler=SchedulerConfig(**sched)).build_policies()
@@ -427,6 +430,6 @@ def test_build_policies_mapping():
             [type(x).__name__ for x in (jp.admission, jp.eviction, jp.defrag)]
         if dfr is ThresholdDefrag:
             assert p.defrag.threshold == jp.defrag.threshold
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 6"):
-        RuntimeConfig(scheduler=SchedulerConfig(admission="prefix-aware")).build_policies()
+        assert type(p.prefix).__name__ == type(jp.prefix).__name__ == "SharedPrefix"
+        assert p.prefix.min_pages == jp.prefix.min_pages
     assert dataclasses.fields(EnginePolicies)[3].name == "prefix"
