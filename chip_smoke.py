@@ -19,7 +19,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 3. paged-attention kernel: bf16 and int8 pools against the plain version at
    rtol/atol 2e-5, stale rows poisoned, two calls bitwise equal, at (a) the
    main path's decode shape and (b) an 8K-token table (B=16, 8 KV heads,
-   lengths 1,024-8,192 from a seed, pools read cold); device and event
+   lengths 1,024-8,192 from a seed, pools read cold), and at the decode
+   layouts of phase 9's MoE archs (deepseek 16 KV heads G=1 D=128, granite
+   8 KV heads G=3 D=64, the main path's lengths); device and event
    times beside the bound and ``scaled_dot_product_attention`` on the
    gathered view;
 4. main path: full-width llama3.2-1b, ``int8_spoga``, int8 paged KV, random
@@ -87,13 +89,33 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    while 4 short requests decode, at 512-token chunks and unchunked (the
    longest gap between two tokens of a short request printed); every run's
    kernel launches counted exactly, a verify dispatch as one decode step;
-9. the ``kernels`` JSON line, then the ``ok`` line last.
+9. the attention-family archs at full width (runs last), random weights
+   from ``init_params(seed=0)``, phase 4's traffic, 4 lanes, pages of 16:
+   (a) minicpm3-4b (MLA) at ``int8_spoga`` paged (496 ``spoga_gemm_dequant``
+   launches a decode or verify step, 620 a prefill dispatch or chunk step,
+   no ``paged_attention``: paged MLA attends the gathered latent pages in
+   torch), ``LLM("minicpm3-4b")`` with the default runtime (no kernel),
+   512-token chunks against one-shot on phase 7 (b)'s two long prompts,
+   the prefix cache on against off on phase 8 (b)'s traffic (bitwise),
+   n-gram speculation against off; (b) deepseek-moe-16b over int8 paged
+   KV (196 GEMM launches and 28 ``paged_attention`` a decode step), the
+   engine's ``ValueError`` for chunking, the prefix cache and speculation,
+   peak memory and a decode-step profile split into kernels, the grouped
+   expert product, routing and attention; (c) granite-moe-3b-a800m over
+   bf16 paged KV on 4 requests (128 and 32 a step); (d) 2 layers of each
+   on the card against the CPU, bf16 GEMMs and ``int8_spoga``, and the
+   grouped expert product's int32 accumulators bitwise; (e)
+   ``spoga_gemm_dequant`` bitwise against its plain version at every
+   (M, K, N) that (a)-(c) gave it and at M=4, 20, 128 and 512 of every
+   projection shape, timed at M=4 and M=128;
+10. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -317,6 +339,36 @@ def _gemm_operands(m, k, n, mode, gen):
     return spec, x, w, xs, ws
 
 
+def _gemm_timing(name, mode, m, k, n, gen, tag="gemm"):
+    """``spoga_gemm_dequant`` at (M, K, N): the profiler's device time (event
+    time beside it), the plain version's time, ``torch._int_mm``'s and the
+    bound, with weight copies enough to keep L2 cold."""
+    from repro_torch.kernels.spoga_gemm_dequant import (
+        spoga_gemm_dequant,
+        spoga_gemm_dequant_plain,
+    )
+    spec, x, w, xs, ws = _gemm_operands(m, k, n, mode, gen)
+    nb = copies_for(w.numel() * w.element_size())
+    ws_copies = [w.clone() for _ in range(nb)]
+    kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
+              slice_bits=spec.slice_bits)
+    t_kernel, t_event = kernel_times(
+        lambda i: spoga_gemm_dequant(x, ws_copies[i], xs, ws, **kw), nb, iters=40)
+    t_plain = time_ms(lambda i: spoga_gemm_dequant_plain(x, ws_copies[i], xs, ws),
+                      nb, iters=5, warmup=1)
+    t_lib = _lib_int_mm(x, ws_copies, m, k, n)
+    nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+              + 4 * (m + n) + 4 * m * n)
+    b_ms, b_by = bound(nbytes, _int_product_ops(m, k, n), INT8_OPS_PER_S)
+    lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
+    lib += " (padded)" if m <= 16 and t_lib is not None else ""
+    print(f"[{tag}] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms device "
+          f"({t_event:.4f} ms by events), plain {t_plain:.4f} ms, _int_mm {lib}, "
+          f"bound {b_ms:.4f} ms ({b_by}, {b_ms / t_kernel:.1%} of it)", flush=True)
+    return dict(ms=t_kernel, event_ms=t_event, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
 def phase_gemm():
     from repro_torch.kernels.spoga_gemm_dequant import (
         spoga_gemm_dequant,
@@ -342,29 +394,7 @@ def phase_gemm():
         # M=CHUNK_M: every projection of a chunked-prefill step (phase 7), at W8A8
         for m in (4, 128) + ((CHUNK_M,) if name == "w8a8" else ()):
             for k, n in GEMM_KN:
-                spec, x, w, xs, ws = _gemm_operands(m, k, n, mode, gen)
-                nb = copies_for(w.numel() * w.element_size())
-                ws_copies = [w.clone() for _ in range(nb)]
-                kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
-                          slice_bits=spec.slice_bits)
-                t_kernel, t_event = kernel_times(
-                    lambda i: spoga_gemm_dequant(x, ws_copies[i], xs, ws, **kw), nb, iters=40)
-                t_plain = time_ms(lambda i: spoga_gemm_dequant_plain(x, ws_copies[i], xs, ws),
-                                  nb, iters=5, warmup=1)
-                t_lib = _lib_int_mm(x, ws_copies, m, k, n)
-                nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
-                          + 4 * (m + n) + 4 * m * n)
-                ops = _int_product_ops(m, k, n)
-                b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
-                timings[(name, m, k, n)] = dict(ms=t_kernel, event_ms=t_event,
-                                                plain_ms=t_plain, library_ms=t_lib,
-                                                bound_ms=b_ms, bound_by=b_by)
-                lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
-                lib += " (padded)" if m <= 16 and t_lib is not None else ""
-                print(f"[gemm] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms device "
-                      f"({t_event:.4f} ms by events), plain {t_plain:.4f} ms, _int_mm {lib}, "
-                      f"bound {b_ms:.4f} ms ({b_by}, {b_ms / t_kernel:.1%} of it)", flush=True)
-                del ws_copies
+                timings[(name, m, k, n)] = _gemm_timing(name, mode, m, k, n, gen)
     # one decode step's projections (q, k, v, o, gate, up, down) per layer
     layer = [(2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
              (2048, 8192), (2048, 8192), (8192, 2048)]
@@ -608,13 +638,16 @@ ATTN_SHAPES = {
     "main": dict(b=4, hkv=8, g=4, d=64, ps=16, n_tbl=11),
     "long": dict(b=16, hkv=8, g=4, d=64, ps=16, n_tbl=512),
     "short": dict(b=16, hkv=8, g=4, d=64, ps=16, n_tbl=512),
+    # phase 9's MoE decode layouts at the main path's lengths
+    "deepseek": dict(b=4, hkv=16, g=1, d=128, ps=16, n_tbl=11),
+    "granite": dict(b=4, hkv=8, g=3, d=64, ps=16, n_tbl=11),
 }
 ATTN_MAIN_LENGTHS = [1, 17, 100, 165]
 ATTN_LONG_SEED = 7
 
 
 def attn_lengths(name, shape):
-    if name == "main":
+    if name in ("main", "deepseek", "granite"):
         return ATTN_MAIN_LENGTHS
     return [1] * shape["b"] if name == "short" else long_lengths(shape)
 
@@ -790,6 +823,28 @@ def _serve(cfg, params, arrivals, n_slots, cache_mode="paged"):
     return engine, metrics
 
 
+def _gemm_launches(cfg):
+    """(``spoga_gemm_dequant`` launches per decode or verify step, per
+    prefill dispatch or chunk step, layers with a ``paged_attention`` launch
+    per paged decode step) of the stack at ``int8_spoga``: a GQA block runs
+    q, k, v, o and the GLU's 3 projections; an MLA block w_dq, w_uq, w_dkv,
+    w_kr, wo and the GLU's 3, plus w_uk and w_uv where K/V are rebuilt
+    (prefill and chunk steps), and attends in torch; a MoE block runs the
+    attention's 4 and its shared experts' GLU (the routed experts are plain
+    torch)."""
+    from repro_torch.models.transformer import effective_kind, layer_layout
+    lead, n_periods, tail = layer_layout(cfg)
+    kinds = ["dense_ffn_layer"] * lead + list(cfg.block_pattern) * n_periods + list(tail)
+    step = prefill = attn = 0
+    for kind in (effective_kind(k, cfg) for k in kinds):
+        if kind == "mla":
+            step, prefill = step + 8, prefill + 10
+            continue
+        n = 4 + 3 * (kind != "moe" or bool(cfg.moe.num_shared_experts))
+        step, prefill, attn = step + n, prefill + n, attn + 1
+    return step, prefill, attn
+
+
 def _kernel_modules():
     from repro_torch.backends import impls
     from repro_torch.kernels import deas_gemm, paged_attention, spoga_gemm, spoga_gemm_dequant
@@ -919,8 +974,10 @@ def _kernel_group(name: str) -> str:
             return kernel.replace("_kernel", " kernel")
     if "paged_attention_kernel" in name:
         return "paged_attention kernel"
+    if "f64" in name.lower() and "gemm" in name.lower():
+        return "library matmul (float64 plane products of the routed experts)"
     if any(t in name.lower() for t in ("gemm", "xmma", "cutlass", "cublas", "matmul", "nvjet")):
-        return "library matmul (bf16 unembed)"
+        return "library matmul (bf16 unembed, MLA latent einsums)"
     return ("elementwise and reductions (weight + activation quantization, nibble slicing, "
             "norms, rope)")
 
@@ -955,9 +1012,10 @@ def _timed_steps(engine, steps):
 def phase_profile(cfg, params, card, label, steps=5, prompt_len=64, cache_mode="paged"):
     """Device time by kernel over ``steps`` decode steps with 4 busy lanes of
     ``prompt_len``-token prompts; returns {"attn_ms": ``paged_attention``'s
-    device time per step, "device_ms", "wall_ms", "busy"} per step, or None
-    where the profiler recorded no device time.  A paged engine launches one
-    ``paged_attention`` kernel per layer and step, a slot engine none.
+    device time per step, "device_ms", "wall_ms", "busy", "groups"} per
+    step, or None where the profiler recorded no device time.  A paged
+    engine launches one ``paged_attention`` kernel per GQA layer and step
+    (none for MLA), a slot engine none.
 
     Two engines fed the same requests do the same steps: the first is
     timed without the profiler (wall), the second under it (device time
@@ -992,14 +1050,14 @@ def phase_profile(cfg, params, card, label, steps=5, prompt_len=64, cache_mode="
               f"{e.count // steps} launches/step  {e.key[:90]}", flush=True)
     attn = [e for e in kernels if "paged_attention_kernel" in e.key]
     n_attn = sum(e.count for e in attn)
-    want_attn = cfg.n_layers * steps if cache_mode == "paged" else 0
+    want_attn = _gemm_launches(cfg)[2] * steps if cache_mode == "paged" else 0
     require(n_attn == want_attn,
             f"{label}: {n_attn} paged_attention kernels in {steps} steps, want {want_attn}")
     attn_ms = groups.get("paged_attention kernel", 0.0)
     print(f"[profile]   paged_attention: {attn_ms:.4f} ms/step, {100 * attn_ms / total:.2f}% of "
           f"device time, {n_attn // steps} launches/step", flush=True)
     return {"attn_ms": attn_ms, "device_ms": total, "wall_ms": plain_ms,
-            "busy": total / plain_ms}
+            "busy": total / plain_ms, "groups": groups}
 
 
 # ---------------------------------------------------------------------------
@@ -1458,13 +1516,15 @@ def _leaves(tree):
     return [("", tree)]
 
 
-def _feature_runtime(cache_len, page_size=16, prefix_cache=False, spec=None, **sched):
-    """``int8_spoga`` over int8 paged KV, 4 lanes unless ``sched`` says
-    otherwise; the prefix cache and a ``SpecConfig`` on request."""
+def _feature_runtime(cache_len, page_size=16, prefix_cache=False, spec=None, kv_dtype="int8",
+                     **sched):
+    """``int8_spoga`` over paged KV (int8 unless ``kv_dtype`` says
+    otherwise), 4 lanes unless ``sched`` says otherwise; the prefix cache
+    and a ``SpecConfig`` on request."""
     from repro_torch.api import KVConfig, QuantRuntime, RuntimeConfig, SchedulerConfig, SpecConfig
     sched = {"n_slots": 4, "prefill_buckets": (32, 64, 128), **sched}
     return RuntimeConfig(quant=QuantRuntime(mode="int8_spoga"),
-                         kv=KVConfig(mode="paged", dtype="int8", page_size=page_size,
+                         kv=KVConfig(mode="paged", dtype=kv_dtype, page_size=page_size,
                                      cache_len=cache_len, prefix_cache=prefix_cache),
                          scheduler=SchedulerConfig(**sched),
                          spec=spec if spec is not None else SpecConfig())
@@ -1798,11 +1858,12 @@ def _counted(engine, label, drive):
     """Run ``drive(engine)`` (it returns the metrics) with every kernel
     count at 0 just before and read just after.  Gated exactly over the
     steps the drive takes: a verify dispatch is one decode step, and
-    ``spoga_gemm_dequant`` launches 7 times a layer for every decode step
-    and every prefill dispatch of the target, plus 7 times a layer of the
-    draft model for every dispatch the draft model makes;
-    ``paged_attention`` once a layer for every decode step of a paged
-    engine, never in slot mode (chunk steps, slot caches and the draft
+    ``spoga_gemm_dequant`` launches for every decode step and every prefill
+    dispatch of the target as often as ``_gemm_launches`` counts for its
+    stack (7 a layer for llama), plus a decode step's count of the draft
+    model for every dispatch the draft model makes; ``paged_attention``
+    once a GQA layer for every decode step of a paged engine, never in
+    slot mode (chunk steps, slot caches and the draft
     model's slot cache attend in plain torch); no plain version runs.  An
     engine left without work holds no page but the prefix tree's.
     Returns (metrics, launches)."""
@@ -1814,15 +1875,18 @@ def _counted(engine, label, drive):
     metrics = drive(engine)
     torch.cuda.synchronize()
     launches, plain = read_counts()
-    expect = ("spoga_gemm_dequant", "paged_attention") if engine.paged else ("spoga_gemm_dequant",)
+    per_step, per_prefill, attn_layers = _gemm_launches(engine.cfg)
+    expect = (("spoga_gemm_dequant", "paged_attention") if engine.paged and attn_layers
+              else ("spoga_gemm_dequant",))
     check_counts(launches, plain, expect, label)
-    n_layers = engine.cfg.n_layers
     steps = metrics.decode_steps - steps0
     draft = getattr(drafter, "dispatches", 0) - d0
-    draft_layers = drafter.cfg.n_layers if draft else 0
-    expect_gemm = (7 * n_layers * (steps + metrics.prefill_dispatches - prefills0)
-                   + 7 * draft_layers * draft)
-    expect_attn = n_layers * steps if engine.paged else 0
+    # a draft-model dispatch (admission or step) runs every draft layer's
+    # projections once; the draft models here are GQA stacks
+    draft_gemms = _gemm_launches(drafter.cfg)[0] if draft else 0
+    expect_gemm = (per_step * steps + per_prefill * (metrics.prefill_dispatches - prefills0)
+                   + draft_gemms * draft)
+    expect_attn = attn_layers * steps if engine.paged else 0
     require(launches["spoga_gemm_dequant"] == expect_gemm,
             f"{label}: GEMM launches {launches['spoga_gemm_dequant']} != {expect_gemm}")
     require(launches["paged_attention"] == expect_attn,
@@ -1837,9 +1901,9 @@ def _counted(engine, label, drive):
     return metrics, launches
 
 
-def _spec_engine(params, cache_len, spec=None, **kw):
+def _spec_engine(params, cache_len, spec=None, arch="llama3.2-1b", **kw):
     from repro_torch.api import LLM
-    return LLM(arch="llama3.2-1b", params=params,
+    return LLM(arch=arch, params=params, device="cuda",
                runtime=_feature_runtime(cache_len, spec=spec, **kw)).engine
 
 
@@ -2421,6 +2485,362 @@ def phase_spec_serving(card, params, ckpt_dir):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# 9. the attention-family archs: MLA and the routed-expert FFN
+# ---------------------------------------------------------------------------
+
+# (K, N) of every projection the three archs run at int8_spoga, by arch
+ARCH_KN = {
+    "minicpm3-4b": [(2560, 768), (768, 3840), (2560, 256), (2560, 32), (2560, 2560),
+                    (2560, 6400), (6400, 2560), (256, 2560)],
+    "deepseek-moe-16b": [(2048, 2048), (2048, 10944), (10944, 2048), (2048, 2816),
+                         (2816, 2048)],
+    "granite-moe-3b-a800m": [(1536, 1536), (1536, 512)],
+}
+
+
+def _arch_params(arch):
+    """Full-width ``arch`` weights from ``init_params(seed=0)`` on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=ENGINE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    n = sum(t.numel() for _, t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    print(f"[archs] {arch} full width: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n / 1e9:.3f} B parameters, {nbytes / 2**30:.2f} GiB, made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return params
+
+
+def _arch_run(card, engine, arrivals, label):
+    """``_counted`` over ``engine.run(arrivals)``: every request finished,
+    the exact launch counts; one line of its numbers.  Returns (streams,
+    report, launches)."""
+    torch.cuda.reset_peak_memory_stats()
+    metrics, launches = _counted(engine, label, lambda e: e.run(arrivals))
+    streams = _check_finished(metrics, arrivals, engine.cfg.vocab_size, label)
+    rep = metrics.report()
+    print(f"[archs] {label}: {rep['requests']} requests, {rep['generated_tokens']} tokens, "
+          f"{rep['tokens_per_s']:.2f} tok/s, TTFT mean {1e3 * rep['ttft_mean_s']:.1f} ms, "
+          f"decode step mean {1e3 * rep['decode_step_mean_s']:.2f} ms ({rep['decode_steps']} "
+          f"steps, {rep['prefill_dispatches']} prefill dispatches, {rep['chunk_steps']} chunk "
+          f"steps); launches spoga_gemm_dequant {launches['spoga_gemm_dequant']}, "
+          f"paged_attention {launches['paged_attention']}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+    return streams, rep, launches
+
+
+def phase_mla(card):
+    """(a) minicpm3-4b at full width, ``int8_spoga`` paged (the latent pages
+    are bf16): phase 4's traffic; ``LLM("minicpm3-4b")`` with the default
+    runtime; 512-token chunks against one-shot on phase 7 (b)'s long
+    prompts; the prefix cache on and off on phase 8 (b)'s traffic; n-gram
+    speculation (k=4) against off.  Greedy streams equal (a flip only on a
+    near-tie row, ``_hold_streams``); prefix on/off bitwise."""
+    from repro_torch.api import LLM
+    from repro_torch.configs import default_cache_len
+    from repro_torch.spec import SpecConfig
+    from repro_torch.configs import get_config
+    arch = "minicpm3-4b"
+    params = _arch_params(arch)
+    vocab = get_config(arch).vocab_size
+    arrivals = _traffic(8, vocab, ENGINE_SEED)
+    kw = dict(arch=arch, kv_dtype="bf16")
+    out = {}
+    engine = _spec_engine(params, default_cache_len(128, 32), **kw)
+    engine_cfg = engine.cfg
+    base, out["paged"], launches = _arch_run(card, engine, arrivals, f"{arch} paged")
+    out["launches"] = launches
+    del engine
+
+    prompts = [p for _, p, _ in arrivals]
+    llm = LLM(arch, params=params, device="cuda")
+    require(llm.runtime.kv.mode == "slot" and llm.config.quant_mode == "bf16",
+            "the default runtime is not slot KV with bf16 GEMMs")
+    reset_counts()
+    outs = llm.generate(prompts, max_new_tokens=16)
+    torch.cuda.synchronize()
+    check_counts(*read_counts(), (), f"LLM('{arch}') default")
+    require(all(len(o.token_ids) == 16 for o in outs), "default LLM: a request did not finish")
+    rep = llm.metrics.report()
+    print(f"[archs] LLM('{arch}').generate, default runtime (slot bf16 KV, bf16 GEMMs): "
+          f"{rep['requests']} prompts x 16 tokens, {rep['tokens_per_s']:.2f} tok/s, decode "
+          f"step mean {1e3 * rep['decode_step_mean_s']:.2f} ms, no kernel launched [{card}]",
+          flush=True)
+    out["slot default"] = rep
+    del llm
+
+    long = _long_traffic(vocab)[:2]
+    longest = max(len(p) for _, p, _ in long)
+    cache_len = max(longest + 32, _roundup(longest, CHUNK_M))
+    runs = {}
+    for label, chunk in (("one-shot", None), ("chunked", CHUNK_M)):
+        engine = _spec_engine(params, cache_len, prefill_chunk=chunk, **kw)
+        runs[label] = _arch_run(card, engine, long, f"{arch} {label}, prompts of "
+                                f"{[len(p) for _, p, _ in long]} tokens")
+        if label == "chunked":
+            near = _hold_streams(runs["chunked"][0], runs["one-shot"][0],
+                                 f"{arch} chunked against one-shot", long, engine, params)
+            out["chunked near ties"] = near
+        del engine
+    out["chunked"] = runs["chunked"][1]
+
+    pre = _prefix_traffic(vocab)
+    cache_len = PREFIX_LEN + 64 + PREFIX_CHUNK
+    runs = {}
+    for label, on in (("off", False), ("on", True)):
+        engine = _spec_engine(params, cache_len, prefill_chunk=PREFIX_CHUNK,
+                              prefill_buckets=None, prefix_cache=on, **kw)
+        runs[label] = _arch_run(card, engine, pre, f"{arch} prefix cache {label}")
+        del engine
+    on = runs["on"][1]
+    require(on["prefix_hits"] >= 7 and on["prefix_cow_forks"] >= 1,
+            f"{arch} prefix cache: {on['prefix_hits']} hits, {on['prefix_cow_forks']} forks")
+    require(runs["on"][0] == runs["off"][0],
+            f"{arch}: greedy streams differ with the prefix cache on and off")
+    print(f"[archs] {arch} prefix cache on against off: streams bitwise equal, "
+          f"{on['prefix_hits']} hits, {on['prefix_cow_forks']} CoW forks, TTFT p50 "
+          f"{1e3 * on['ttft_p50_s']:.1f} / {1e3 * runs['off'][1]['ttft_p50_s']:.1f} ms", flush=True)
+    out["prefix"] = {k: v[1] for k, v in runs.items()}
+
+    # the n-gram drafter, and an oracle that proposes the spec-off stream so
+    # that every verify window holds k + 1 rows (random weights give the
+    # n-gram lookup little to match)
+    out["spec"] = {}
+    for label, drafter in (("n-gram", None),
+                           ("oracle", ScriptedDrafter(_oracle(arrivals, base), SPEC_K))):
+        engine = _spec_engine(params, default_cache_len(128, 32),
+                              spec=SpecConfig(enabled=True, k=SPEC_K), **kw)
+        if drafter is not None:
+            engine._drafter = drafter
+        streams, rep, _ = _arch_run(card, engine, arrivals,
+                                    f"{arch} {label} speculation k={SPEC_K}")
+        require(rep["verify_dispatches"] > 0, f"{arch} {label}: never verified")
+        if drafter is not None:
+            require(rep["spec_accepted"] == rep["spec_proposed"] > 0,
+                    f"{arch} oracle: {rep['spec_accepted']} of {rep['spec_proposed']} accepted")
+        near = _hold_streams(streams, base, f"{arch} {label} speculation", arrivals, engine,
+                             params)
+        print(f"[archs] {arch} {label} speculation against off: streams equal"
+              + (f" except {len(near)} near-tie divergences" if near else "")
+              + f"; {rep['verify_dispatches']} verifies, {rep['spec_proposed']} proposed, "
+              f"{rep['spec_accepted']} accepted, {rep['tokens_per_s']:.2f} tok/s (off "
+              f"{out['paged']['tokens_per_s']:.2f})", flush=True)
+        out["spec"][label] = dict(report=rep, near_ties=near)
+        del engine
+    out["profile"] = phase_profile(engine_cfg, params, card, f"{arch} int8_spoga", steps=3)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_profile(cfg, params, card):
+    """A deepseek decode step's device time split: the profile of 4 busy
+    lanes by kernel group (``phase_profile``), and per MoE layer at the
+    step's shape (4 rows) the grouped expert product with its per-call
+    weight quantization, the routing (router, top-k, sort-based dispatch,
+    combine) and the attention block, each by ``device_ms``, times the
+    layers that run it."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import period_params
+    prof = phase_profile(cfg, params, card, f"{cfg.name} int8_spoga", steps=3)
+    p = period_params(params["blocks"][0], 0)
+    x = torch.randn((4, 1, cfg.d_model), device="cuda").to(torch.bfloat16)
+    m = cfg.moe
+    cap = moe.capacity(cfg, 1)
+    buf = torch.randn((4, m.num_experts, cap, cfg.d_model), device="cuda").to(torch.bfloat16)
+    glu_ms = device_ms(lambda i: moe._grouped_glu(buf, p["moe"], cfg.act, cfg.quant_mode), 1,
+                       iters=5, warmup=1)
+    # routing alone: moe_ffn without shared experts, the grouped product
+    # replaced by the identity on the dispatch buffer for this measurement
+    routed_only = cfg.with_(moe=dataclasses.replace(m, num_shared_experts=0))
+    grouped = moe._grouped_glu
+    moe._grouped_glu = lambda buf_, *_: buf_
+    try:
+        route_ms = device_ms(lambda i: moe.moe_ffn(x, p["moe"], routed_only), 1, iters=10)
+    finally:
+        moe._grouped_glu = grouped
+    from repro_torch.models.layers import glu_mlp
+    shared_ms = device_ms(lambda i: glu_mlp(x, p["moe"]["shared"], cfg.act, cfg.quant_mode),
+                          1, iters=5, warmup=1)
+    from repro_torch.paging.cache import PagedCache
+    store = PagedCache(cfg.with_(n_layers=2), 4, 168, 16, device="cuda")
+    for lane in range(4):
+        store.manager.admit(lane, 168)
+        store.manager.ensure(lane, 101)
+    store.sync_tables()
+    layer = period_params(store.cache["blocks"][0], 0)
+    pos = torch.full((4,), 100, dtype=torch.int32, device="cuda")
+    attn_ms = device_ms(lambda i: attn.paged_attention_decode(
+        x, p["attn"], cfg, layer, pos, store.cache["block_tables"]), 1, iters=10)
+    n_moe = cfg.n_layers - m.first_k_dense
+    split = {"grouped expert product (per-call weight quantization included)": n_moe * glu_ms,
+             "routing, dispatch and combine": n_moe * route_ms,
+             "shared experts (3 spoga_gemm_dequant each)": n_moe * shared_ms,
+             "attention block (4 spoga_gemm_dequant + paged_attention + RoPE)":
+                 cfg.n_layers * attn_ms}
+    for what, ms in split.items():
+        print(f"[archs] deepseek decode step, 4 rows: {ms:.3f} ms {what} [{card}]", flush=True)
+    return {"profile": prof, "split_ms": split}
+
+
+def phase_moe(card, arch, n_requests, kv_dtype):
+    """(b)/(c) A MoE arch at full width, ``int8_spoga`` over paged KV:
+    phase 4's traffic (its first ``n_requests``); the engine refuses
+    chunked prefill, the prefix cache and speculation; deepseek adds its
+    peak memory and a decode-step profile."""
+    from repro_torch.configs import default_cache_len
+    from repro_torch.serving import EngineConfig, ServingEngine
+    from repro_torch.spec import SpecConfig
+    params = _arch_params(arch)
+    engine = _spec_engine(params, default_cache_len(128, 32), arch=arch, kv_dtype=kv_dtype)
+    cfg = engine.cfg
+    arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)[:n_requests]
+    _, rep, launches = _arch_run(card, engine, arrivals, f"{arch} paged {kv_dtype} KV")
+    out = {"report": rep, "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del engine
+    for kw, match in (({"cache_mode": "paged", "prefill_chunk": 512}, "chunk"),
+                      ({"cache_mode": "paged", "prefix_cache": True}, "row-independent"),
+                      ({"spec": SpecConfig(enabled=True, k=SPEC_K)}, "row-independent")):
+        try:
+            ServingEngine(cfg, params, EngineConfig(cache_len=168, **kw), device="cuda")
+        except ValueError as e:
+            require(match in str(e), f"{arch}: refused with {e}")
+        else:
+            fail(f"{arch}: the engine served {kw}")
+    print(f"[archs] {arch}: chunked prefill, the prefix cache and speculation refused with "
+          f"ValueError", flush=True)
+    if arch == "deepseek-moe-16b":
+        out.update(_moe_profile(cfg, params, card))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _card_vs_cpu(arch, quant_mode):
+    """2 layers of ``arch`` at full width, the same weights on the card and
+    the CPU, one 16-token prefill: last-token logits within LOGIT_TOL of
+    their scale, the greedy token equal unless the CPU row is a near tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, prefill
+    cfg = get_config(arch).with_(n_layers=2, quant_mode=quant_mode)
+    params = init_params(cfg, seed=3, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 16))
+                              .astype(np.int32))
+    got = prefill(params, cfg, tokens.cuda(), 16)[0].cpu()
+    want = prefill(_to_cpu(params), cfg, tokens, 16)[0]
+    scale, err = want.abs().max().item(), (got - want).abs().max().item()
+    tok, ulps = _top2(want[0])
+    print(f"[archs] (d) {arch}, 2 layers, {quant_mode}: max |logit diff| {err:.4g} of max "
+          f"|logit| {scale:.4g}, greedy card {int(got.argmax())} cpu {tok} (cpu top-2 margin "
+          f"{ulps:.3g} bf16 ulps)", flush=True)
+    require(bool(torch.isfinite(got).all()), f"{arch}: card logits not finite")
+    require(err <= LOGIT_TOL * scale, f"{arch} {quant_mode}: logits off the CPU's by {err}")
+    require(int(got.argmax()) == tok or ulps <= NEAR_TIE_ULPS,
+            f"{arch} {quant_mode}: greedy token differs on a {ulps:.3g}-ulp margin")
+    if cfg.moe is not None and quant_mode == "int8_spoga":
+        from repro_torch.backends.spec import parse_quant_mode
+        from repro_torch.models import moe
+        spec, family = parse_quant_mode(quant_mode)
+        w = params["blocks"][0]["moe"]["experts_gate"][0]
+        x = torch.randn((4, w.shape[0], 2, w.shape[1]), device="cuda").to(torch.bfloat16)
+        accs = []
+        for dev in ("cuda", "cpu"):
+            xq, _ = moe.dynamic_quant(x.to(dev).float(), dim=-1, bits=8)
+            wq, _ = moe.dynamic_quant(w.to(dev).float(), dim=1, bits=8)
+            accs.append(moe._grouped_int(xq, wq, spec, family).cpu())
+        require(torch.equal(*accs), f"{arch}: grouped int32 accumulators differ from the CPU's")
+        print(f"[archs] (d) {arch}: grouped expert product's int32 accumulators "
+              f"{tuple(accs[0].shape)} bitwise equal to the CPU's", flush=True)
+    return {"max_abs_err": err, "scale": scale}
+
+
+class GemmShapes:
+    """Records (M, K, N) of every ``spoga_gemm_dequant`` call the serving
+    path makes while it is entered: the backend's reference to the wrapper
+    is swapped for one that notes the shape and calls it (the kernel and
+    its launch count are unchanged)."""
+
+    def __init__(self):
+        self.seen = set()
+
+    def __enter__(self):
+        from repro_torch.backends import impls
+        self._wrapper = kernel = impls.spoga_gemm_dequant
+        spec = dict(n_x_slices=2, n_w_slices=2, slice_bits=4)
+
+        def record(x, w, x_scale, w_scale, **kw):
+            require(kw == spec and x.dtype == w.dtype == torch.int8,
+                    f"phase 9 GEMM outside int8_spoga: {kw}, {x.dtype} x {w.dtype}")
+            self.seen.add((x.shape[0], x.shape[1], w.shape[1]))
+            return kernel(x, w, x_scale, w_scale, **kw)
+
+        impls.spoga_gemm_dequant = record
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.backends import impls
+        impls.spoga_gemm_dequant = self._wrapper
+        return False
+
+
+def phase_arch_gemms(card, seen):
+    """(e) ``spoga_gemm_dequant`` alone at the three archs' projection
+    shapes: bitwise against the plain version at every (M, K, N) that
+    (a)-(c) gave it (``seen``: decode and verify rows, stacked prefill
+    dispatches, chunk steps, and w_uk / w_uv over the gathered latent
+    prefix), and at M = 4, 20, 128 and CHUNK_M for every shape of
+    ``ARCH_KN``; then device time, plain time, ``torch._int_mm`` and the
+    bound at M=4 and M=128."""
+    from repro_torch.kernels.spoga_gemm_dequant import (
+        spoga_gemm_dequant,
+        spoga_gemm_dequant_plain,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    shapes = sorted({kn for kns in ARCH_KN.values() for kn in kns})
+    seen_kn = {(k, n) for _, k, n in seen}
+    require(seen_kn == set(shapes),
+            f"phase 9 ran the GEMM at (K, N) {sorted(seen_kn - set(shapes))} outside ARCH_KN "
+            f"and never at {sorted(set(shapes) - seen_kn)}")
+    cases = sorted(seen | {(m, k, n) for k, n in shapes for m in (4, 20, 128, CHUNK_M)})
+    for m, k, n in cases:
+        spec, x, w, xs, ws = _gemm_operands(m, k, n, "int8_spoga", gen)
+        got = spoga_gemm_dequant(x, w, xs, ws, n_x_slices=spec.n_a_slices,
+                                 n_w_slices=spec.n_w_slices, slice_bits=spec.slice_bits)
+        require(torch.equal(got, spoga_gemm_dequant_plain(x, w, xs, ws)),
+                f"GEMM ({m},{k},{n}) differs from the plain version")
+    for k, n in shapes:
+        print(f"[archs] (e) GEMM K={k} N={n} bitwise equal to the plain version at M = "
+              f"{sorted(m for m, kk, nn in cases if (kk, nn) == (k, n))}; (a)-(c) ran M = "
+              f"{sorted(m for m, kk, nn in seen if (kk, nn) == (k, n))}", flush=True)
+    print(f"[archs] (e) {len(cases)} GEMM cases bitwise equal, {len(seen)} of them the "
+          f"shapes (a)-(c) ran", flush=True)
+    out = {}
+    for k, n in shapes:
+        for m in (4, 128):
+            out[(m, k, n)] = _gemm_timing("w8a8", "int8_spoga", m, k, n, gen, tag="archs gemm")
+    return out
+
+
+def phase_archs(card):
+    """9. minicpm3-4b, deepseek-moe-16b and granite-moe-3b-a800m at full
+    width, then 2-layer card-against-CPU parity and the GEMM at their
+    shapes."""
+    with GemmShapes() as shapes:
+        out = {"mla": phase_mla(card),
+               "deepseek": phase_moe(card, "deepseek-moe-16b", 8, "int8"),
+               "granite": phase_moe(card, "granite-moe-3b-a800m", 4, "bf16")}
+    out["cpu"] = {f"{arch} {qm}": _card_vs_cpu(arch, qm)
+                  for arch in ARCH_KN for qm in ("bf16", "int8_spoga")}
+    out["gemm"] = phase_arch_gemms(card, shapes.seen)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -2455,6 +2875,7 @@ def main() -> int:
     phase_default_llm(card)
     phase_cpu_parity()
     phase_cpu_long_decode(card)
+    archs = phase_archs(card)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -2490,6 +2911,12 @@ def main() -> int:
                 **{f"busy {k}": v for k, v in serving["busy_chunking"].items()}}
         return {label: run["launches"][name] for label, run in runs.items()}
 
+    def arch_launches(name):
+        """A kernel's launches in phase 9's main runs of the three archs."""
+        return {"minicpm3-4b paged": archs["mla"]["launches"][name],
+                "deepseek-moe-16b paged int8 KV": archs["deepseek"]["launches"][name],
+                "granite-moe-3b-a800m paged bf16 KV": archs["granite"]["launches"][name]}
+
     chunk = gemm[("w8a8", CHUNK_M, 2048, 8192)]
     kernels = [gemm_row("spoga_gemm_dequant", "src/repro_torch/csrc/spoga_gemm_dequant.cu",
                         "src/repro/kernels/spoga_gemm_dequant.py:62",
@@ -2502,7 +2929,11 @@ def main() -> int:
                                        "fraction_of_bound": chunk["bound_ms"] / chunk["ms"]},
                         slot_decode_profile=slot_profile, long_prefill=long_prefill,
                         verify=serving["profile"]["gemm"],
-                        launches_spec_serving=serving_launches("spoga_gemm_dequant"))]
+                        launches_spec_serving=serving_launches("spoga_gemm_dequant"),
+                        launches_archs=arch_launches("spoga_gemm_dequant"),
+                        arch_shapes={f"W8A8 M={m} K={k} N={n}": {
+                            **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
+                            for (m, k, n), t in archs["gemm"].items()})]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
         a, long, short = (dict(attn[(kind, name)]) for name in ("main", "long", "short"))
@@ -2519,6 +2950,9 @@ def main() -> int:
                             "launches_spec_serving": serving_launches("paged_attention")}
                            if kind == "int8" else {}),
                         "verify": serving["profile"]["attn"][kind],
+                        "launches_archs": arch_launches("paged_attention"),
+                        "arch_shapes": {name: attn[(kind, name)]
+                                        for name in ("deepseek", "granite")},
                         "card": card})
     unfused, deas_run = facade["spoga unfused"], facade["deas"]
     kernels.append(gemm_row("spoga_gemm", "src/repro_torch/csrc/spoga_gemm.cu",

@@ -26,13 +26,22 @@ checkpoint format, ``checkpoint.restore_checkpoint``), or else from
 ``RuntimeConfig.build_policies`` derives; one policy object serves every
 engine the ``LLM`` builds.
 
-Every runtime the reference can build for llama3.2-1b serves, the five
-presets included (``load_runtime("int8-byte-serving")``): the prefix cache
-with prefix-aware admission, speculative decoding (``RuntimeConfig(spec=
-SpecConfig(enabled=True))``) and stochastic ``SamplingParams``.  Not ported
-yet, and refused with ``NotImplementedError``: ``replay`` and the metrics
-server (the observability stack, ROADMAP queue 1, item 8), and the
-``mesh`` and ``obs`` settings that ``RuntimeConfig.check_served`` names.
+The attention-family archs serve: ``llama3.2-1b``, ``mistral-nemo-12b``
+(GQA), ``minicpm3-4b`` (MLA), ``deepseek-moe-16b`` and
+``granite-moe-3b-a800m`` (routed experts).  ``mistral-large-123b`` builds
+(GQA, reduced or at full width on a host that holds it) but at full width
+its 229 GiB of bf16 weights do not fit one card; serving it waits for
+sharding (ROADMAP queue 1, item 10).  Every runtime the
+reference can build for them serves, the five presets included
+(``load_runtime("int8-byte-serving")``): the prefix cache with
+prefix-aware admission, speculative decoding (``RuntimeConfig(spec=
+SpecConfig(enabled=True))``) and stochastic ``SamplingParams``; a MoE
+stack refuses chunked prefill, the prefix cache and speculation with the
+reference's ``ValueError``.  Not ported yet, and refused with
+``NotImplementedError``: the recurrent, local-attention, encoder-decoder
+and frontend archs (ROADMAP queue 1, item 7), ``replay`` and the metrics
+server (the observability stack, item 8), and the ``mesh`` and ``obs``
+settings that ``RuntimeConfig.check_served`` names.
 """
 
 from __future__ import annotations
@@ -45,7 +54,7 @@ import numpy as np
 from repro_torch.api.config import RuntimeConfig
 from repro_torch.api.outputs import RequestOutput
 from repro_torch.checkpoint import restore_checkpoint
-from repro_torch.configs import get_config, reduced as reduce_config
+from repro_torch.configs import check_ported, get_config, reduced as reduce_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serving.engine import ServingEngine
@@ -79,6 +88,7 @@ class LLM:
         if self.runtime.reduced:
             base = reduce_config(base)
         self.config = self.runtime.resolve_model(base)
+        check_ported(self.config)
         self.device = resolve_device(device)
         if checkpoint_dir is not None:
             _, params, _ = restore_checkpoint(checkpoint_dir, None, self.config,

@@ -1,9 +1,15 @@
-"""Model configuration dataclass and KV-cache sizing policy.
+"""Model configuration dataclasses and KV-cache sizing policy.
 
 The port's own copy of what it needs from ``repro/configs/base.py``: the
-dense-attention fields of ``ModelConfig`` plus the cache sizing helpers
-the serving engine shares with the reference, so both packages agree on
-cache shapes for the same workload.
+``ModelConfig`` fields the serving path reads (with ``MoEConfig`` and
+``MLAConfig``) plus the cache sizing helpers the serving engine shares
+with the reference, so both packages agree on cache shapes for the same
+workload.  Every one of the reference's architectures can be written
+down; the constructors (``models.model.init_params``, the caches, the engine
+and ``LLM``) refuse the parts the port does not serve yet through
+:func:`check_ported`.  The training-only fields (``scan_layers``,
+``remat``, ``remat_policy``, ``scan_unroll``) and ``numerics_watchdog``
+come with ROADMAP queue 1, items 9 and 8.
 """
 
 from __future__ import annotations
@@ -20,9 +26,9 @@ KV_CACHE_HEADROOM = 8
 # Token rows per KV page (paged cache, repro_torch/paging/).
 DEFAULT_PAGE_SIZE = 16
 
-# Block kinds this package serves; other kinds of the reference
-# (MLA, MoE, recurrent, local attention) are later slices of the port.
-SUPPORTED_KINDS = ("attn",)
+# Block kinds of the reference that the port does not serve yet: the
+# recurrent cells and the local-attention ring (ROADMAP queue 1, item 7).
+UNPORTED_KINDS = ("rglru", "mlstm", "slstm", "local_attn")
 
 
 def default_cache_len(prompt_len: int, gen_tokens: int,
@@ -44,6 +50,26 @@ def default_page_count(n_lanes: int, cache_len: int,
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0          # routed experts
+    top_k: int = 0
+    num_shared_experts: int = 0   # DeepSeekMoE-style always-on experts
+    d_expert: int = 0             # per-expert FFN hidden size
+    capacity_factor: float = 1.25
+    first_k_dense: int = 0        # leading layers that use a dense FFN
+    d_ff_dense: int = 0           # hidden size of those dense FFN layers
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -54,8 +80,24 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: Optional[int] = None       # defaults to d_model // n_heads
-    block_pattern: tuple = ("attn",)     # cycled through the stack
+    # cycled through the stack; entries in
+    # {"attn", "local_attn", "moe", "mlstm", "slstm", "rglru"}
+    block_pattern: tuple = ("attn",)
+    # attention
+    sliding_window: Optional[int] = None  # for local_attn blocks
     rope_theta: float = 10_000.0
+    use_mla: bool = False
+    mla: Optional[MLAConfig] = None
+    # MoE
+    moe: Optional[MoEConfig] = None
+    # recurrent (rglru / xlstm)
+    conv_width: int = 4
+    lru_width: Optional[int] = None
+    # encoder-decoder
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    # modality frontend stub: None | "vision" | "audio"
+    frontend: Optional[str] = None
     # "bf16" or a quantized mode (backends/spec.py)
     quant_mode: str = "bf16"
     # GEMM backend registry name ("cuda_spoga", "cuda_deas", ...); None =
@@ -91,13 +133,10 @@ class ModelConfig:
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError("kv_cache_dtype must be 'bf16' or 'int8', got "
                              f"{self.kv_cache_dtype!r}")
-        bad = sorted(set(self.block_pattern) - set(SUPPORTED_KINDS))
-        if bad:
-            raise NotImplementedError(
-                f"block kinds {bad} are not ported yet (ROADMAP queue 1, "
-                f"item 7); this package serves {SUPPORTED_KINDS}")
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
+        if self.family == "moe" and self.moe is None:
+            raise ValueError("moe family requires moe config")
 
     @property
     def resolved_head_dim(self) -> int:
@@ -107,5 +146,26 @@ class ModelConfig:
     def pattern_period(self) -> int:
         return len(self.block_pattern)
 
+    def layer_type(self, i: int) -> str:
+        if self.moe is not None and i < self.moe.first_k_dense:
+            return "dense_ffn_layer"
+        return self.block_pattern[i % len(self.block_pattern)]
+
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a model the port cannot build yet:
+    a stack with a recurrent cell or the local-attention ring, an
+    encoder-decoder, or a modality frontend (ROADMAP queue 1, item 7)."""
+    parts = sorted(set(cfg.block_pattern) & set(UNPORTED_KINDS))
+    if cfg.is_encoder_decoder:
+        parts.append("encoder-decoder")
+    if cfg.frontend is not None:
+        parts.append(f"{cfg.frontend} frontend")
+    if parts:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(parts)} not ported yet (ROADMAP queue 1, "
+            "item 7: the recurrent cells with the local-attention ring, then "
+            "encoder-decoder and frontends)")

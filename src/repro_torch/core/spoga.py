@@ -48,18 +48,21 @@ def direct_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return wrap_int32(int_matmul(x, w))
 
 
-def sliced_dot_planes(x_planes, w_planes, slice_bits: int, *,
+def sliced_dot_planes(x_planes, w_planes, slice_bits: int, *, dot_fn=None,
                       materialize: bool = False) -> torch.Tensor:
     """``O = sum_{i,j} (Xp_i . Wp_j) << ((i + j) * slice_bits)``, int32 out.
 
     Plane pairs are grouped into ``i + j`` radix lanes; each lane is summed,
     then shifted once.  The combine runs in int64 and wraps to int32 once
     at the end, which equals the reference's int32 wrap-around arithmetic.
+    ``dot_fn`` (exact, int64 out) defaults to :func:`int_matmul`; the MoE
+    grouped GEMM passes its expert-batched product.
     """
+    dot = dot_fn or int_matmul
     lanes: dict[int, list] = {}
     for i, xp in enumerate(x_planes):
         for j, wp in enumerate(w_planes):
-            lanes.setdefault(i + j, []).append(int_matmul(xp, wp))
+            lanes.setdefault(i + j, []).append(dot(xp, wp))
     if materialize:
         # every partial is already its own tensor; clone pins it as a
         # separate buffer before any combine touches it

@@ -30,6 +30,14 @@ attends under a per-row causal mask: over a slot cache in plain torch
 through the gather twin on CPU tensors, and on CUDA tensors through the
 ``paged_attention`` kernel, the W rows as single-query lanes split as the
 decode step splits them.
+
+Multi-head Latent Attention (the MLA section, ``mla_*``) caches the
+compressed latents ``c_kv`` and the shared RoPE key instead of K/V.
+Prefill and chunk steps reconstruct K/V through the up-projections (the
+non-absorbed form); decode and verify attend in latent space (the
+absorbed form, :func:`_mla_attend`), over a slot cache or over the
+gathered latent pages on either device: the reference's paged MLA path is
+its gather form only, so no kernel serves it.
 """
 
 from __future__ import annotations
@@ -38,7 +46,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.models.layers import apply_rope, init_linear, linear
+from repro_torch.models.layers import (
+    apply_rope,
+    init_linear,
+    linear,
+    rmsnorm,
+    rmsnorm_columns,
+)
 
 NEG_INF = -1e30
 
@@ -472,3 +486,198 @@ def attention_chunk(x, p, cfg: ModelConfig, cache, tables_row, start: int, *, po
     out = _attend_chunk(qg, k_all.float(), v_all.float(), start, v_all.dtype)
     out = out.reshape(b, cs, hq * hd)
     return linear(out, p["wo"], qm, be), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA -- Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+def init_mla(cfg: ModelConfig, gen: torch.Generator, device, stack=()):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": init_linear(gen, device, (*stack, d, m.q_lora_rank)),
+        "q_norm": torch.ones((*stack, m.q_lora_rank), dtype=torch.float32, device=device),
+        "w_uq": init_linear(gen, device, (*stack, m.q_lora_rank, h * qk_dim)),
+        "w_dkv": init_linear(gen, device, (*stack, d, m.kv_lora_rank)),
+        "kv_norm": torch.ones((*stack, m.kv_lora_rank), dtype=torch.float32, device=device),
+        "w_uk": init_linear(gen, device, (*stack, m.kv_lora_rank, h * m.qk_nope_head_dim)),
+        "w_uv": init_linear(gen, device, (*stack, m.kv_lora_rank, h * m.v_head_dim)),
+        "w_kr": init_linear(gen, device, (*stack, d, m.qk_rope_head_dim)),
+        "wo": init_linear(gen, device, (*stack, h * m.v_head_dim, d)),
+    }
+
+
+def _mla_qkv(x, p, cfg: ModelConfig, positions, norm=rmsnorm):
+    """Query halves and the latents of x (B, S, d): q_nope (B, S, H,
+    nope), q_rope (B, S, H, rope) after RoPE, c_kv (B, S, rank) after its
+    norm, k_rope (B, S, 1, rope) after RoPE.  ``norm`` is
+    ``layers.rmsnorm_columns`` for a verify window (see
+    ``transformer.apply_block_verify``)."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    qm, be = cfg.quant_mode, cfg.gemm_backend
+    cq = norm(linear(x, p["w_dq"], qm, be), p["q_norm"], cfg.norm_eps)
+    q = linear(cq, p["w_uq"], qm, be).reshape(b, s, h, -1)
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv = norm(linear(x, p["w_dkv"], qm, be), p["kv_norm"], cfg.norm_eps)
+    k_rope = linear(x, p["w_kr"], qm, be).reshape(b, s, 1, m.qk_rope_head_dim)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_kv(c_kv, k_rope, p, cfg: ModelConfig):
+    """Reconstruct K (B, S, H, nope + rope) and V (B, S, H, v) from the
+    latents (the non-absorbed form of prefill and chunk steps)."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = c_kv.shape
+    qm, be = cfg.quant_mode, cfg.gemm_backend
+    k_nope = linear(c_kv, p["w_uk"], qm, be).reshape(b, s, h, m.qk_nope_head_dim)
+    v = linear(c_kv, p["w_uv"], qm, be).reshape(b, s, h, m.v_head_dim)
+    k = torch.cat([k_nope, k_rope.reshape(b, s, 1, -1).expand(b, s, h, m.qk_rope_head_dim)],
+                  dim=-1)
+    return k, v
+
+
+def mla_block(x, p, cfg: ModelConfig, positions):
+    """Prefill MLA (non-absorbed: K and V reconstructed per token).
+    Returns (out, (c_kv (B, S, rank), k_rope (B, S, rope))) for the cache."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(x, p, cfg, positions)
+    k, v = _mla_kv(c_kv, k_rope, p, cfg)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    out = multihead_attention(q, k, v)
+    out = linear(out.reshape(b, s, h * m.v_head_dim), p["wo"], cfg.quant_mode,
+                 cfg.gemm_backend)
+    return out, (c_kv, k_rope.reshape(b, s, m.qk_rope_head_dim))
+
+
+def _mla_attend_rows(q_nope, q_rope, ckv_view, kr_view, valid, p, cfg: ModelConfig):
+    """Absorbed attention of one query row a lane; valid: (B, S)."""
+    m, h = cfg.mla, cfg.n_heads
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    # the reference's bf16 einsums accumulate in f32; bf16 values are
+    # exact in f32, so f32 operands give its products
+    q_lat = torch.einsum("bchd,lhd->bchl", q_nope.float(), w_uk.float())
+    scores = torch.einsum("bchl,bsl->bchs", q_lat.to(ckv_view.dtype).float(),
+                          ckv_view.float())
+    scores = scores + torch.einsum("bchr,bsr->bchs", q_rope.to(kr_view.dtype).float(),
+                                   kr_view.float())
+    scores = scores * (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    scores = torch.where(valid[:, None, None, :], scores, _neg_inf_like(scores))
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bchs,bsl->bchl", probs.to(ckv_view.dtype).float(),
+                           ckv_view.float())
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    return torch.einsum("bchl,lhv->bchv", out_lat, w_uv.float())
+
+
+def _mla_attend(q_nope, q_rope, ckv_view, kr_view, pos, p, cfg: ModelConfig):
+    """Absorbed-matmul MLA attention over a logically contiguous latent view.
+
+    ckv_view: (B, S, rank); kr_view: (B, S, rope).  Shared by the slot
+    path and the paged gather form.  q_nope/q_rope may carry C > 1 query
+    rows (the speculative verify window): row c attends positions
+    ``<= pos + c`` and is computed alone, with the decode step's shapes, so
+    each verify row sums in the decode step's order on any device (one
+    batched pass over the window sums otherwise on an H100: row 0 differs
+    from the decode step, ``test_mla_verify_rows_are_the_decode_steps_on_card``).
+    Returns f32 (B, C, H * v_head_dim)."""
+    m, h = cfg.mla, cfg.n_heads
+    b, c = q_nope.shape[:2]
+    kpos = torch.arange(ckv_view.shape[1], device=pos.device)[None, :]
+    out = torch.cat([
+        _mla_attend_rows(q_nope[:, r:r + 1], q_rope[:, r:r + 1], ckv_view, kr_view,
+                         kpos <= (pos[:, None] + r), p, cfg)
+        for r in range(c)], dim=1)
+    return out.reshape(b, c, h * m.v_head_dim)
+
+
+def mla_decode(x_t, p, cfg: ModelConfig, ckv_cache, krope_cache, pos):
+    """Absorbed-matmul MLA decode over slot caches of latents: the token's
+    (c_kv, k_rope) go into row ``pos`` of each lane in place (clamped to the
+    last row, as ``dynamic_update_slice`` clamps), then rows ``0..pos`` are
+    attended in latent space.  Returns (out, (ckv_cache, krope_cache))."""
+    return mla_verify(x_t, p, cfg, ckv_cache, krope_cache, pos, norm=rmsnorm)
+
+
+def mla_verify(x, p, cfg: ModelConfig, ckv_cache, krope_cache, pos, norm=None):
+    """W-token speculative verify over the slot latent caches (the MLA twin
+    of :func:`attention_verify`; W = 1 is :func:`mla_decode`).  Writes the
+    window's latents at rows ``pos .. pos + W - 1`` in place (the start
+    clamped so the window fits), then attends under the per-row causal
+    mask.  The window's norms reduce column by column
+    (``layers.rmsnorm_columns``), as the decode step reduces its rows."""
+    m = cfg.mla
+    b, w, _ = x.shape
+    positions = pos[:, None] + torch.arange(w, dtype=pos.dtype, device=pos.device)[None, :]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(x, p, cfg, positions,
+                                            norm=norm or rmsnorm_columns)
+    smax = ckv_cache.shape[1]
+    lanes = torch.arange(b, device=pos.device)[:, None]
+    start = torch.clamp(pos.long(), 0, smax - w)
+    rows = start[:, None] + torch.arange(w, device=pos.device)[None, :]
+    ckv_cache[lanes, rows] = c_kv.to(ckv_cache.dtype)
+    krope_cache[lanes, rows] = k_rope.reshape(b, w, m.qk_rope_head_dim).to(krope_cache.dtype)
+    out = _mla_attend(q_nope, q_rope, ckv_cache, krope_cache, pos, p, cfg).to(x.dtype)
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), (ckv_cache, krope_cache)
+
+
+def mla_paged_decode(x_t, p, cfg: ModelConfig, cache, pos, tables, *, active=None):
+    """Absorbed MLA decode over latent page pools.
+
+    cache: {"ckvp","krp"} (n_pages, page_size, rank / rope) views of the
+    layer's pools.  The token's latents go into page ``tables[b, pos //
+    page_size]`` in place (inactive lanes into the trash page), then the
+    lane's gathered latent view is attended, on CPU and CUDA tensors
+    alike: the reference serves paged MLA through its gather form only.
+    Returns (out (B, 1, d_model), cache)."""
+    return _mla_paged(x_t, p, cfg, cache, pos, tables, active, rmsnorm)
+
+
+def mla_paged_verify(x, p, cfg: ModelConfig, cache, pos, tables, *, active=None):
+    """W-token speculative verify over the latent page pools (the paged
+    twin of :func:`mla_verify`, gather form like :func:`mla_paged_decode`)."""
+    return _mla_paged(x, p, cfg, cache, pos, tables, active, rmsnorm_columns)
+
+
+def _mla_paged(x, p, cfg: ModelConfig, cache, pos, tables, active, norm):
+    m = cfg.mla
+    b, w, _ = x.shape
+    positions = pos[:, None] + torch.arange(w, dtype=pos.dtype, device=pos.device)[None, :]
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(x, p, cfg, positions, norm=norm)
+    ckvp, krp = cache["ckvp"], cache["krp"]
+    pg, off = _write_pages(tables, pos, w, ckvp.shape[1], active)
+    ckvp[pg, off] = c_kv.to(ckvp.dtype)
+    krp[pg, off] = k_rope.reshape(b, w, m.qk_rope_head_dim).to(krp.dtype)
+    out = _mla_attend(q_nope, q_rope, _gather_pages(ckvp, tables), _gather_pages(krp, tables),
+                      pos, p, cfg).to(x.dtype)
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
+
+
+def mla_chunk(x, p, cfg: ModelConfig, cache, tables_row, start: int, *, positions):
+    """Chunked-prefill extend of one lane's paged MLA latents (B == 1).
+
+    The chunk's latents are written to its pages in place, then K/V are
+    recomputed from the gathered latents through the up-projections (the
+    non-absorbed form of :func:`mla_block`): the latent pages hold bf16
+    exactly and every projection is row-independent, so earlier chunks'
+    rows give what a one-shot prefill computes.  Returns (out (1, C,
+    d_model), cache)."""
+    m, h = cfg.mla, cfg.n_heads
+    b, cs, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(x, p, cfg, positions)
+    ckvp, krp = cache["ckvp"], cache["krp"]
+    pg, off = _chunk_pages(tables_row, start, cs, ckvp.shape[1])
+    ckvp[pg, off] = c_kv[0].to(ckvp.dtype)
+    krp[pg, off] = k_rope.reshape(b, cs, m.qk_rope_head_dim)[0].to(krp.dtype)
+    k_all, v_all = _mla_kv(_gather_pages(ckvp, tables_row), _gather_pages(krp, tables_row),
+                           p, cfg)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    qg = q.reshape(b, cs, 1, h, q.shape[-1])
+    out = _attend_chunk(qg, k_all.float(), v_all.float(), start, v_all.dtype)
+    out = out.to(x.dtype).reshape(b, cs, h * m.v_head_dim)
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache

@@ -76,6 +76,14 @@ def _silu(x):
 _ACTS = {"silu": _silu, "gelu": torch.nn.functional.gelu, "relu": torch.relu}
 
 
+def init_glu_mlp(gen, device, d_model: int, d_ff: int, stack=()):
+    return {
+        "w_gate": init_linear(gen, device, (*stack, d_model, d_ff)),
+        "w_up": init_linear(gen, device, (*stack, d_model, d_ff)),
+        "w_down": init_linear(gen, device, (*stack, d_ff, d_model)),
+    }
+
+
 def glu_mlp(x, p, act="silu", quant_mode="bf16", backend=None):
     """``down(act(gate(x)) * up(x))``.  The product is formed in f32 and
     quantized unrounded, as the reference's compiled graph does (XLA keeps

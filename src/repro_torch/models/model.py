@@ -1,11 +1,13 @@
-"""Model entry points: init / caches / prefill / decode for dense GQA stacks.
+"""Model entry points: init / caches / prefill / decode / verify for the
+attention family (GQA, MLA, MoE with leading dense layers).
 
-Port of ``repro/models/model.py`` for the ``"attn"`` kind.  Parameter
-layout mirrors the reference's (plain dicts of tensors):
+Port of ``repro/models/model.py``.  Parameter layout mirrors the
+reference's (plain dicts of tensors):
 
     {"embed": (V, d) bf16,
-     "head_blocks": [], "tail_blocks": [per-layer trees],
+     "head_blocks": [per-layer trees of the first_k_dense layers],
      "blocks": (slot_0_tree, ...),   # leaves stacked over n_periods
+     "tail_blocks": [per-layer trees],
      "final_norm": (d,) f32,
      "head": (V, d) bf16 (absent if tied)}
 
@@ -18,9 +20,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, pages_for
+from repro_torch.configs.base import ModelConfig, check_ported, pages_for
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.models.transformer import layer_layout
 from repro_torch.models.kvcache import (
     block_cache_shape,
     paged_block_cache_shape,
@@ -35,28 +38,22 @@ from repro_torch.models.layers import (
 )
 
 
-def layer_layout(cfg: ModelConfig):
-    """(n_periods, tail_kinds) for the stack's depth."""
-    period = cfg.pattern_period
-    n_periods = cfg.n_layers // period
-    tail = tuple(cfg.block_pattern[i % period]
-                 for i in range(n_periods * period, cfg.n_layers))
-    return n_periods, tail
-
-
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random weights from a ``torch.Generator`` seeded with ``seed``, made
     on ``device`` (default CUDA).  Same distributions as the reference's
     ``init_params``; not the same numbers (use ``weights.params_from_jax``
     to carry the reference's weights across).  ``device="meta"`` gives the
-    layout (names, shapes, dtypes) without memory."""
+    layout (names, shapes, dtypes) without memory.  A stack the port does
+    not serve yet raises ``NotImplementedError`` (``check_ported``)."""
+    check_ported(cfg)
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
-    n_periods, tail = layer_layout(cfg)
+    lead, n_periods, tail = layer_layout(cfg)
     emb_scale = 1.0 / (cfg.d_model ** 0.5)
     params = {
         "embed": truncated_normal(gen, dev, (cfg.vocab_size, cfg.d_model), emb_scale),
-        "head_blocks": [],
+        "head_blocks": [tfm.init_block(cfg, gen, dev, "dense_ffn_layer")
+                        for _ in range(lead)],
         "blocks": tuple(tfm.init_block(cfg, gen, dev, kind, stack=(n_periods,))
                         for kind in cfg.block_pattern) if n_periods else (),
         "tail_blocks": [tfm.init_block(cfg, gen, dev, kind) for kind in tail],
@@ -77,18 +74,22 @@ def _stack(trees):
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
-    """Zero contiguous cache (the layout :func:`prefill` returns)."""
-    n_periods, tail = layer_layout(cfg)
+    """Zero contiguous cache (the layout :func:`prefill` returns).  The lead
+    layers' caches are keyed ``one("attn")`` as in the reference."""
+    check_ported(cfg)
+    lead, n_periods, tail = layer_layout(cfg)
+
+    def one(kind):
+        return block_cache_shape(tfm.effective_kind(kind, cfg), cfg, batch, cache_len)
 
     def stacked(kind):
-        return {k: ((n_periods,) + shp, dt)
-                for k, (shp, dt) in block_cache_shape(kind, cfg, batch, cache_len).items()}
+        return {k: ((n_periods,) + shp, dt) for k, (shp, dt) in one(kind).items()}
 
     shapes = {
         "pos": ((batch,), torch.int32),
-        "head_blocks": [],
+        "head_blocks": [one("attn") for _ in range(lead)],
         "blocks": tuple(stacked(kind) for kind in cfg.block_pattern) if n_periods else (),
-        "tail_blocks": [block_cache_shape(kind, cfg, batch, cache_len) for kind in tail],
+        "tail_blocks": [one(kind) for kind in tail],
     }
     return zeros_like_shapes(shapes, device)
 
@@ -97,20 +98,23 @@ def paged_cache_shapes(cfg: ModelConfig, n_lanes: int, cache_len: int,
                        page_size: int, n_pages: int):
     """(shape, dtype) tree of the paged decode cache: KV in global page
     pools (stacked over periods) indexed through ``block_tables``
-    ``(n_lanes, pages_for(cache_len))`` int32."""
-    n_periods, tail = layer_layout(cfg)
+    ``(n_lanes, pages_for(cache_len))`` int32.  The lead layers' pools are
+    keyed ``one("dense_ffn_layer")`` as in the reference."""
+    check_ported(cfg)
+    lead, n_periods, tail = layer_layout(cfg)
+
+    def one(kind):
+        return paged_block_cache_shape(tfm.effective_kind(kind, cfg), cfg, n_pages, page_size)
 
     def stacked(kind):
-        return {k: ((n_periods,) + shp, dt)
-                for k, (shp, dt) in paged_block_cache_shape(kind, cfg, n_pages, page_size).items()}
+        return {k: ((n_periods,) + shp, dt) for k, (shp, dt) in one(kind).items()}
 
     return {
         "pos": ((n_lanes,), torch.int32),
         "block_tables": ((n_lanes, pages_for(cache_len, page_size)), torch.int32),
-        "head_blocks": [],
+        "head_blocks": [one("dense_ffn_layer") for _ in range(lead)],
         "blocks": tuple(stacked(kind) for kind in cfg.block_pattern) if n_periods else (),
-        "tail_blocks": [paged_block_cache_shape(kind, cfg, n_pages, page_size)
-                        for kind in tail],
+        "tail_blocks": [one(kind) for kind in tail],
     }
 
 
@@ -125,7 +129,11 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, lengths=None):
     b, s = tokens.shape
     x = embed(tokens, params["embed"])
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-    n_periods, tail = layer_layout(cfg)
+    _, n_periods, tail = layer_layout(cfg)
+    head_caches = []
+    for p in params["head_blocks"]:
+        x, c = tfm.apply_block_prefill(x, p, "dense_ffn_layer", cfg, positions, cache_len)
+        head_caches.append(c)
     per_slot = [[] for _ in cfg.block_pattern]
     for i in range(n_periods):
         for slot, kind in enumerate(cfg.block_pattern):
@@ -138,7 +146,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, lengths=None):
         x, c = tfm.apply_block_prefill(x, p, kind, cfg, positions, cache_len)
         tail_caches.append(c)
     cache = {
-        "head_blocks": [],
+        "head_blocks": head_caches,
         "blocks": tuple(_stack(per) for per in per_slot) if n_periods else (),
         "tail_blocks": tail_caches,
     }
@@ -168,7 +176,10 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
     pos = cache["pos"]
     tables = cache.get("block_tables")
     x = embed(tokens[:, None], params["embed"])
-    n_periods, tail = layer_layout(cfg)
+    _, n_periods, tail = layer_layout(cfg)
+    for p, c in zip(params["head_blocks"], cache["head_blocks"]):
+        x, _ = tfm.apply_block_decode(x, p, "dense_ffn_layer", cfg, c, pos, tables=tables,
+                                      active=active)
     for i in range(n_periods):
         for slot, kind in enumerate(cfg.block_pattern):
             x, _ = tfm.apply_block_decode(
@@ -201,8 +212,10 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, active=None):
     pos = cache["pos"]
     tables = cache.get("block_tables")
     x = embed(tokens, params["embed"])
-    n_periods, tail = layer_layout(cfg)
+    _, n_periods, tail = layer_layout(cfg)
     kw = dict(tables=tables, active=active)
+    for p, c in zip(params["head_blocks"], cache["head_blocks"]):
+        x, _ = tfm.apply_block_verify(x, p, "dense_ffn_layer", cfg, c, pos, **kw)
     for i in range(n_periods):
         for slot, kind in enumerate(cfg.block_pattern):
             x, _ = tfm.apply_block_verify(

@@ -3,9 +3,11 @@
 ``params_from_jax(np_tree, cfg, device)`` takes the tree that
 ``jax.tree_util.tree_map(np.asarray, repro.models.model.init_params(cfg,
 key))`` gives — numpy arrays, bf16 ones with the ``ml_dtypes`` bfloat16
-dtype — and returns the port's parameter tree, same layout: ``"blocks"``
+dtype — and returns the port's parameter tree, same layout:
+``"head_blocks"`` holds a MoE stack's leading dense layers, ``"blocks"``
 is a tuple with one slot tree per ``block_pattern`` entry, each leaf
-stacked over periods; weights bf16 ``(d_in, d_out)``, norm scales f32.
+stacked over periods; weights bf16 ``(d_in, d_out)`` (expert stacks
+``(E, d_in, d_out)``), norm scales and the MoE router f32.
 Leaves that are already tensors (``checkpoint.restore_checkpoint``) are
 moved as they are.
 """
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.model import layer_layout
+from repro_torch.models.transformer import layer_layout
 
 
 def _to_torch(a, device) -> torch.Tensor:
@@ -45,17 +47,19 @@ def _convert(tree, device):
 def params_from_jax(np_tree, cfg: ModelConfig, device=None):
     """The reference's numpy parameter tree -> the port's, on ``device``."""
     dev = resolve_device(device)
-    n_periods, tail = layer_layout(cfg)
+    lead, n_periods, tail = layer_layout(cfg)
     if tuple(np.shape(np_tree["embed"])) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed {np.shape(np_tree['embed'])} does not match "
                          f"cfg ({cfg.vocab_size}, {cfg.d_model})")
     if len(np_tree.get("blocks", ())) != (len(cfg.block_pattern) if n_periods else 0):
         raise ValueError("the tree's block slots do not match cfg.block_pattern")
-    if len(np_tree.get("tail_blocks", [])) != len(tail) or np_tree.get("head_blocks"):
-        raise ValueError("the tree's layer layout does not match cfg")
-    keep = ("embed", "blocks", "tail_blocks", "final_norm", "head")
+    if (len(np_tree.get("tail_blocks", [])) != len(tail)
+            or len(np_tree.get("head_blocks", [])) != lead):
+        raise ValueError(f"the tree's layer layout does not match cfg ({lead} lead "
+                         f"layers, {n_periods} periods, {len(tail)} tail layers)")
+    keep = ("embed", "head_blocks", "blocks", "tail_blocks", "final_norm", "head")
     out = {k: _convert(np_tree[k], dev) for k in keep if k in np_tree}
-    out["head_blocks"] = []
+    out.setdefault("head_blocks", [])
     for slot in out.get("blocks", ()):
         if slot["norm1"].shape[0] != n_periods:
             raise ValueError(f"blocks are stacked over {slot['norm1'].shape[0]} "

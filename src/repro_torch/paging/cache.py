@@ -8,8 +8,9 @@ per-lane ``pos`` and the block table.  Host bookkeeping lives in
 
 Unlike the reference, whose functional ``.at[].set`` returns new pools,
 every write here is **in place**: :func:`paged_insert_many` scatters a
-prefill's rows (one lane or a stacked admission's k) into the pools
-with ``index_put_``, the chunk and decode steps write their rows the same
+prefill's rows (K/V with their int8 scales, or MLA latents; one lane or a
+stacked admission's k) into the pools with ``index_put_`` (the lead dense
+layers' pools included), the chunk and decode steps write their rows the same
 way, and ``PagedCache.defrag`` copies moved pages within the pools, so the
 pools are allocated once and never copied whole.
 """
@@ -25,7 +26,8 @@ from repro_torch.models.kvcache import zeros_like_shapes
 from repro_torch.paging.manager import PageManager
 
 # paged-pool leaf -> the key holding the same rows in a contiguous prefill cache
-_POOL_KEY_MAP = {"kp": "k", "vp": "v", "kp_scale": "k_scale", "vp_scale": "v_scale"}
+_POOL_KEY_MAP = {"kp": "k", "vp": "v", "kp_scale": "k_scale", "vp_scale": "v_scale",
+                 "ckvp": "ckv", "krp": "kr"}
 
 
 def _scatter_block(pool_blk, multi_blk, page_ids, stacked: bool, src_row: int):
@@ -60,6 +62,8 @@ def paged_insert_many(cache, multi, lanes, page_ids, table_rows, new_lens):
         cache["pos"][lane] = int(new_lens[i])
         cache["block_tables"][lane] = torch.as_tensor(table_rows[i], dtype=torch.int32,
                                                       device=dev)
+        for pb, mb in zip(cache["head_blocks"], multi["head_blocks"]):
+            _scatter_block(pb, mb, ids, stacked=False, src_row=i)
         for pb, mb in zip(cache["blocks"], multi["blocks"]):
             _scatter_block(pb, mb, ids, stacked=True, src_row=i)
         for pb, mb in zip(cache["tail_blocks"], multi["tail_blocks"]):
@@ -78,7 +82,7 @@ def _move_pages(cache, src, dst) -> None:
     for blk in cache["blocks"]:
         for leaf in blk.values():
             leaf[:, dst] = leaf[:, src]
-    for blk in cache["tail_blocks"]:
+    for blk in (*cache["head_blocks"], *cache["tail_blocks"]):
         for leaf in blk.values():
             leaf[dst] = leaf[src]
 

@@ -75,6 +75,7 @@ from repro_torch.configs.base import (
     DEFAULT_PAGE_SIZE,
     KV_CACHE_HEADROOM,
     ModelConfig,
+    check_ported,
     pages_for,
 )
 from repro_torch.device import resolve_device
@@ -140,6 +141,11 @@ class ServingEngine:
                  device=None, policies: Optional[EnginePolicies] = None, obs=None,
                  mesh=None):
         ecfg = engine_cfg
+        if cfg.is_encoder_decoder or cfg.frontend is not None:
+            raise ValueError(
+                "ServingEngine handles decoder-only token-input models; "
+                "encoder-decoder and frontend archs are not served by the engine")
+        check_ported(cfg)
         if ecfg.cache_mode not in ("slot", "paged"):
             raise ValueError(f"cache_mode must be 'slot' or 'paged', got "
                              f"{ecfg.cache_mode!r}")
@@ -179,17 +185,19 @@ class ServingEngine:
                                      "(chunks are page-aligned)")
                 if not chunkable_with_state(cfg):
                     raise ValueError(f"{cfg.name}: chunked prefill needs row-independent "
-                                     "kinds; use prefill_chunk=None")
-            self.store = PagedCache(cfg, n, ecfg.cache_len, ps, ecfg.n_pages,
-                                    device=self.device)
-            self.metrics.set_gauge("pages_total", self.store.n_pages)
-            self.metrics.set_gauge("page_size", ps)
+                                     "kinds (attn/MLA/dense); use prefill_chunk=None")
             if ecfg.prefix_cache:
                 if not chunkable(cfg):
                     raise ValueError(
                         f"{cfg.name}: prefix_cache resumes the uncached suffix through "
                         "the chunked-prefill step, which needs a strictly "
-                        f"row-independent stack; got {sorted(stack_kinds(cfg))}")
+                        "row-independent stack (attn/MLA/dense); "
+                        f"got {sorted(stack_kinds(cfg))}")
+            self.store = PagedCache(cfg, n, ecfg.cache_len, ps, ecfg.n_pages,
+                                    device=self.device)
+            self.metrics.set_gauge("pages_total", self.store.n_pages)
+            self.metrics.set_gauge("page_size", ps)
+            if ecfg.prefix_cache:
                 self._chunk_len = ecfg.prefill_chunk or ps
                 # full-prompt hits CoW-fork the boundary page and resume at
                 # the final prompt token -- int8 pools included: every
@@ -216,8 +224,9 @@ class ServingEngine:
             if not chunkable(cfg):
                 raise ValueError(
                     f"{cfg.name}: speculative decoding needs a stack of strictly "
-                    "row-independent kinds -- the k-token verify window reuses the "
-                    f"chunked-prefill contract; got {sorted(stack_kinds(cfg))}")
+                    "row-independent kinds (attn/MLA/dense) -- the k-token verify "
+                    "window reuses the chunked-prefill contract; "
+                    f"got {sorted(stack_kinds(cfg))}")
             self._drafter = make_drafter(
                 self._spec, cfg, n, ecfg.cache_len,
                 tree=self.prefix.tree if self.prefix is not None else None,

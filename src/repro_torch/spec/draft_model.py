@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, check_ported
 from repro_torch.models import model as model_lib
 from repro_torch.serving.sampling import greedy_tokens
 from repro_torch.serving.slots import SlotCache, scatter_lane
@@ -35,15 +35,18 @@ def draft_config(target: ModelConfig, spec: SpecConfig) -> ModelConfig:
     """Derive the draft architecture: ``spec.draft_arch`` names a registry
     config (reduced to smoke size, vocab forced to the target's so
     proposals index the same token space); otherwise the target truncated
-    to ``spec.draft_layers`` layers (whole periods of its pattern)."""
+    to ``spec.draft_layers`` layers: its lead dense layers plus whole
+    periods of its pattern.  An architecture the port does not serve yet
+    raises ``NotImplementedError`` (ROADMAP queue 1, item 7)."""
     if spec.draft_arch is not None:
-        if spec.draft_arch != "llama3.2-1b":
-            raise NotImplementedError(
-                f"draft_arch {spec.draft_arch!r}: the port serves llama3.2-1b only; "
-                "the other archs are not ported yet (ROADMAP queue 1, item 7)")
-        return reduced(get_config(spec.draft_arch)).with_(vocab_size=target.vocab_size)
-    period = target.pattern_period
-    return target.with_(n_layers=period * max(1, spec.draft_layers // period))
+        cfg = reduced(get_config(spec.draft_arch)).with_(vocab_size=target.vocab_size)
+    else:
+        lead = target.moe.first_k_dense if target.moe is not None else 0
+        period = target.pattern_period
+        cfg = target.with_(n_layers=lead + period * max(
+            1, (spec.draft_layers - lead) // period))
+    check_ported(cfg)
+    return cfg
 
 
 class DraftModelDrafter:

@@ -36,9 +36,9 @@ from repro_torch.models import params_from_jax
 WEIGHT_SCALE = 8.0
 
 
-def _configs():
-    jcfg = jax_reduced(jax_get_config("llama3.2-1b")).with_(remat=False, n_kv_heads=4)
-    tcfg = tconfigs.reduced(tconfigs.get_config("llama3.2-1b")).with_(n_kv_heads=4)
+def _configs(arch="llama3.2-1b"):
+    jcfg = jax_reduced(jax_get_config(arch)).with_(remat=False, n_kv_heads=4)
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch)).with_(n_kv_heads=4)
     return jcfg, tcfg
 
 
@@ -99,6 +99,37 @@ def test_save_restore_bit_identical(tmp_path):
         np.testing.assert_array_equal(np.asarray(x).view(np.uint8),
                                       np.asarray(y).view(np.uint8))
     _assert_port_trees_equal(restore_checkpoint(str(tmp_path), 7, tcfg, "cpu")[1], params)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "granite-moe-3b-a800m",
+                                  "deepseek-moe-16b"])
+def test_new_arch_checkpoints_round_trip(tmp_path, arch):
+    """The MLA and MoE trees in the reference's format, both ways: key
+    paths through ``head_blocks``, 3-D expert stacks, the f32 router and
+    the MLA leaves.  The reference's save loads into the port as
+    ``params_from_jax`` of the same tree; the port's save of its own init
+    loads into the reference bitwise, and back into the port."""
+    from repro_torch.models import init_params
+
+    jcfg, tcfg = _configs(arch)
+    tree = _scaled_tree(jcfg)
+    jax_save_checkpoint(str(tmp_path / "ref"), 1, jax.tree_util.tree_map(jnp.asarray, tree))
+    _, params, _ = restore_checkpoint(str(tmp_path / "ref"), None, tcfg, device="cpu")
+    _assert_port_trees_equal(params, params_from_jax(tree, tcfg, "cpu"))
+    own = init_params(tcfg, seed=3, device="cpu")
+    save_checkpoint(str(tmp_path / "port"), 2, own)
+    _, restored, _ = jax_restore_checkpoint(str(tmp_path / "port"), None,
+                                            jax.tree_util.tree_map(jnp.asarray, tree))
+    flat = jax.tree_util.tree_flatten_with_path(restored)[0]
+    assert [jax.tree_util.keystr(p) for p, _ in flat] == [n for n, _ in _named_leaves(own)]
+    for (_, x), (name, t) in zip(flat, _named_leaves(own)):
+        np.testing.assert_array_equal(np.asarray(x).view(np.uint8),
+                                      _bits(t).view(np.uint8), err_msg=name)
+    _assert_port_trees_equal(restore_checkpoint(str(tmp_path / "port"), 2, tcfg, "cpu")[1],
+                             own)
+    if tcfg.moe is not None:
+        assert own["blocks"][0]["moe"]["router"].dtype == torch.float32
+        assert own["blocks"][0]["moe"]["experts_up"].dim() == 4   # (periods, E, d, de)
 
 
 def test_latest_step_and_overwrite(tmp_path):

@@ -23,6 +23,9 @@ from repro.models import init_params as jax_init_params
 from repro.models.attention import attention_chunk as jax_attention_chunk
 from repro.paging import PagedCache as JaxPagedCache
 from repro.paging import make_chunk_step as jax_make_chunk_step
+from repro.paging import chunkable as jax_chunkable
+from repro.paging import stack_kinds as jax_stack_kinds
+from repro.paging.prefill import _apply_block_chunk as jax_apply_block_chunk
 from repro.serving import EngineConfig as JaxEngineConfig
 from repro.serving import ServingEngine as JaxServingEngine
 from repro_torch import configs as tconfigs
@@ -33,6 +36,8 @@ from repro_torch.models import params_from_jax
 from repro_torch.models.attention import attention_chunk
 from repro_torch.models.transformer import period_params
 from repro_torch.paging import PagedCache, chunkable, chunkable_with_state, make_chunk_step
+from repro_torch.paging import stack_kinds
+from repro_torch.paging.prefill import _apply_block_chunk
 from repro_torch.serving import EngineConfig, ServingEngine
 
 WEIGHT_SCALE = 8.0
@@ -46,11 +51,18 @@ def _configs(quant_mode="bf16", kv_dtype="bf16"):
     return jcfg, tcfg
 
 
+def _arch_configs(arch, quant_mode="int8_spoga", kv_dtype="bf16"):
+    kw = dict(quant_mode=quant_mode, kv_cache_dtype=kv_dtype)
+    return (jax_reduced(jax_get_config(arch)).with_(remat=False, **kw),
+            tconfigs.reduced(tconfigs.get_config(arch)).with_(**kw))
+
+
 def _scaled_tree(jcfg, seed=0):
     tree = jax.tree_util.tree_map(np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(seed)))
 
     def scale(path, a):
-        if "'w" in jax.tree_util.keystr(path):
+        key = jax.tree_util.keystr(path)
+        if "'w" in key or "'experts" in key:
             return (a.astype(np.float32) * WEIGHT_SCALE).astype(a.dtype)
         return a
 
@@ -192,9 +204,88 @@ def test_chunked_prefill_gate_tiers():
                       device="cpu")
 
 
+def test_stack_kinds_and_chunkable_match_jax():
+    """``stack_kinds`` counts the lead dense layers and the effective kinds
+    (``attn`` under MLA is ``mla``) as the reference does, for all ten
+    archs; ``chunkable`` agrees: the attention family without MoE."""
+    for arch in tconfigs.ARCHS:
+        jcfg, tcfg = jax_get_config(arch), tconfigs.get_config(arch)
+        for j, t in ((jcfg, tcfg), (jax_reduced(jcfg), tconfigs.reduced(tcfg))):
+            assert stack_kinds(t) == jax_stack_kinds(j), arch
+            assert chunkable(t) == jax_chunkable(j), arch
+    assert chunkable(tconfigs.get_config("minicpm3-4b"))
+    for moe in ("granite-moe-3b-a800m", "deepseek-moe-16b"):
+        assert not chunkable_with_state(tconfigs.get_config(moe))
+
+
+@pytest.mark.parametrize("arch,kind", [("minicpm3-4b", "attn"),
+                                       ("deepseek-moe-16b", "dense_ffn_layer")])
+@pytest.mark.parametrize("quant_mode", ["bf16", "int8_spoga"])
+def test_chunk_block_matches_jax(arch, kind, quant_mode):
+    """One block of the chunk step against the reference's: an MLA block
+    (``mla_chunk`` over latent pages) and deepseek's lead dense layer
+    (``attention_chunk`` + the dense FFN), an 8-row chunk at offset 12 of
+    a lane whose table holds pages 5, 2, 7, 1: the block's output and the
+    written pools, bitwise."""
+    jcfg, tcfg = _arch_configs(arch, quant_mode)
+    tree = _scaled_tree(jcfg)
+    tparams = params_from_jax(tree, tcfg, "cpu")
+    if kind == "attn":
+        jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a[0]), tree["blocks"][0])
+        tp = period_params(tparams["blocks"][0], 0)
+        m = jcfg.mla
+        rng = np.random.default_rng(3)
+        pool = {"ckvp": rng.normal(size=(9, 8, m.kv_lora_rank)).astype(jnp.bfloat16),
+                "krp": rng.normal(size=(9, 8, m.qk_rope_head_dim)).astype(jnp.bfloat16)}
+    else:
+        jp = jax.tree_util.tree_map(jnp.asarray, tree["head_blocks"][0])
+        tp = tparams["head_blocks"][0]
+        rng = np.random.default_rng(3)
+        pool = _random_pool(rng, tcfg, 9, 8)
+    table = np.asarray([[5, 2, 7, 1]], np.int32)
+    start, cs = 12, 8
+    x = (rng.normal(size=(1, cs, jcfg.d_model))).astype(jnp.bfloat16)
+    positions = (start + np.arange(cs, dtype=np.int32))[None]
+    jout, jpool = jax.jit(lambda xx, p, c, t, s, pos: jax_apply_block_chunk(
+        xx, p, kind, jcfg, c, t, 0, s, s, pos))(
+        jnp.asarray(x), jp, jax.tree_util.tree_map(jnp.asarray, pool), jnp.asarray(table),
+        jnp.asarray([start], jnp.int32), jnp.asarray(positions))
+    tpool = {k: _to_port(v) for k, v in pool.items()}
+    tout = _apply_block_chunk(_to_port(x), tp, kind, tcfg, tpool, torch.from_numpy(table),
+                              start, torch.from_numpy(positions))
+    for name, leaf in tpool.items():
+        np.testing.assert_array_equal(_np(leaf), _jnp(jpool[name]), err_msg=name)
+    np.testing.assert_array_equal(_np(tout), _jnp(jout))
+
+
 # ---------------------------------------------------------------------------
 # serving/engine.py: chunked admissions
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_engine_chunked_mla_matches_jax_and_solo(kv_dtype):
+    """test_serving.py::test_engine_chunked_prefill_matches_solo for the MLA
+    stack (minicpm3-4b, ``int8_spoga``): chunked admissions over latent
+    pages give the JAX chunked engine's streams and each request's solo
+    ``serve_batch`` stream (the latent pages are bf16 whatever
+    ``kv_cache_dtype`` says, so int8 does not change the chunks)."""
+    jcfg, tcfg = _arch_configs("minicpm3-4b", kv_dtype=kv_dtype)
+    tree = _scaled_tree(jcfg)
+    arrivals = _chunk_arrivals(jcfg.vocab_size)
+    jmetrics = JaxServingEngine(jcfg, jax.tree_util.tree_map(jnp.asarray, tree),
+                                JaxEngineConfig(**CHUNKED)).run(arrivals)
+    tparams = params_from_jax(tree, tcfg, "cpu")
+    teng = ServingEngine(tcfg, tparams, EngineConfig(**CHUNKED), device="cpu")
+    metrics = teng.run(arrivals)
+    got = _streams(metrics)
+    assert got == _streams(jmetrics)
+    assert len({t for s in got.values() for t in s}) > 2, "streams collapsed"
+    assert metrics.chunk_steps == jmetrics.chunk_steps == 2 + 3 + 3
+    for rid, (_, prompt, gen) in enumerate(arrivals):
+        solo, _ = serve_batch(tcfg, tparams, torch.tensor([prompt], dtype=torch.int32),
+                              cache_len=CHUNKED["cache_len"], gen_tokens=gen)
+        assert got[rid] == solo[0].tolist(), rid
+    assert teng.store.manager.pages_in_use == 0
 
 @pytest.mark.parametrize("quant_mode", ["bf16", "int8_spoga"])
 def test_engine_chunked_prefill_matches_solo(quant_mode):

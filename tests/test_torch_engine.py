@@ -99,6 +99,73 @@ def test_engine_matches_jax_engine_and_solo(quant_mode, kv_dtype, n_kv_heads):
         assert _streams(solo.run([(0, prompt, gen)]))[0] == got[rid], rid
 
 
+# the new archs' cache mechanisms: MLA latent pages, MoE over GQA pages,
+# MoE with a lead dense layer (``head_blocks``)
+ARCHS = ["minicpm3-4b", "granite-moe-3b-a800m", "deepseek-moe-16b"]
+
+
+def _arch_setup(arch, kv_dtype):
+    """Reduced ``arch`` at ``int8_spoga`` in both packages, on the JAX tree
+    with its projection and expert weights scaled up."""
+    kw = dict(quant_mode="int8_spoga", kv_cache_dtype=kv_dtype)
+    jcfg = jax_reduced(jax_get_config(arch)).with_(remat=False, **kw)
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch)).with_(**kw)
+    tree = jax.tree_util.tree_map(np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(0)))
+
+    def scale(path, a):
+        key = jax.tree_util.keystr(path)
+        if "'w" in key or "'experts" in key:
+            return (a.astype(np.float32) * WEIGHT_SCALE).astype(a.dtype)
+        return a
+
+    return jcfg, tcfg, jax.tree_util.tree_map_with_path(scale, tree)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_engine_archs_match_jax_engine_and_solo(arch, kv_dtype):
+    """``test_serving.py::test_engine_paged_matches_solo`` for the MLA and
+    MoE archs: the paged engine's greedy streams (staggered requests, more
+    than lanes, bucketed prefills whose pad tokens route through the
+    experts) equal the JAX engine's and each request's solo run, bitwise;
+    the latent pools are bf16 whatever ``kv_cache_dtype`` says."""
+    jcfg, tcfg, tree = _arch_setup(arch, kv_dtype)
+    arrivals = _arrivals(jcfg.vocab_size)
+    jeng = JaxServingEngine(jcfg, jax.tree_util.tree_map(jnp.asarray, tree),
+                            JaxEngineConfig(**ENGINE))
+    want = _streams(jeng.run(arrivals))
+    tparams = params_from_jax(tree, tcfg, "cpu")
+    teng = ServingEngine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu")
+    pools = {k: v.dtype for blk in teng.store.cache["blocks"] for k, v in blk.items()}
+    if arch == "minicpm3-4b":
+        assert pools == {"ckvp": torch.bfloat16, "krp": torch.bfloat16}
+    got = _streams(teng.run(arrivals))
+    assert got == want
+    assert len({t for s in got.values() for t in s}) > 2, "streams collapsed"
+    assert teng.store.manager.pages_in_use == 0
+    for rid, (_, prompt, gen) in enumerate(arrivals):
+        solo = ServingEngine(tcfg, tparams, EngineConfig(**{**ENGINE, "n_slots": 1}),
+                             device="cpu")
+        assert _streams(solo.run([(0, prompt, gen)]))[0] == got[rid], rid
+
+
+def test_engine_refuses_chunking_prefix_and_spec_on_moe():
+    """A routed FFN's capacity depends on how many tokens share a dispatch,
+    so a MoE stack refuses chunked prefill, the prefix cache and
+    speculation with the reference's ``ValueError`` (``test_serving.py``,
+    ``test_prefix.py``, ``test_spec.py``)."""
+    from repro_torch.spec import SpecConfig
+
+    _, tcfg, tree = _arch_setup("granite-moe-3b-a800m", "bf16")
+    tparams = params_from_jax(tree, tcfg, "cpu")
+    paged = dict(cache_mode="paged", page_size=8)
+    for kw, match in (({**paged, "prefill_chunk": 8}, "chunk"),
+                      ({**paged, "prefix_cache": True}, "row-independent"),
+                      ({"spec": SpecConfig(enabled=True, k=4)}, "row-independent")):
+        with pytest.raises(ValueError, match=match):
+            ServingEngine(tcfg, tparams, EngineConfig(**kw), device="cpu")
+
+
 def test_engine_evicts_on_eos():
     """A request stops at its EOS token, before its budget, and frees its
     lane and pages the same step."""
@@ -181,7 +248,8 @@ def test_no_source_of_the_port_names_jax_or_repro():
                 "kernels/deas_gemm.py", "kernels/ops.py", "checkpoint/checkpoint.py",
                 "paging/prefill.py", "serving/policies.py", "serving/metrics.py",
                 "obs/metrics.py", "spec/config.py", "spec/verify.py", "spec/ngram.py",
-                "spec/draft_model.py", "prefix/tree.py", "prefix/cache.py"):
+                "spec/draft_model.py", "prefix/tree.py", "prefix/cache.py", "models/moe.py",
+                "configs/minicpm3_4b.py", "configs/deepseek_moe_16b.py"):
         assert ROOT / "src" / "repro_torch" / new in files, new
     for f in files:
         assert not _imported_roots(f) & {"jax", "jaxlib", "repro", "ml_dtypes"}, f

@@ -41,6 +41,17 @@ SHAPES = [(8, 16, 8), (128, 128, 128), (130, 257, 100), (1, 249, 16),
           (1, 2048, 8192), (4, 8192, 512), (4, 257, 100), (16, 249, 16), (16, 8192, 8192),
           (17, 2048, 100), (64, 2048, 512), (64, 249, 8192), (130, 8192, 512),
           (128, 257, 16)]
+# the projections of minicpm3-4b (MLA), deepseek-moe-16b (attention, the
+# dense FFN, the shared experts) and granite-moe-3b-a800m, at the widths
+# their serving path gives them: decode (4 lanes), a 5-row verify window
+# on 4 lanes, a prefill bucket, a 512-row chunk step or stacked prefill;
+# and MLA's w_uk / w_uv over a gathered latent prefix of 1,216 and 4,096
+# rows (the prefix-cache and long-prompt chunk steps)
+ARCH_KN = [(2560, 768), (768, 3840), (2560, 256), (2560, 32), (2560, 2560), (2560, 6400),
+           (6400, 2560), (256, 2560), (2048, 10944), (10944, 2048), (2048, 2816),
+           (2816, 2048), (1536, 1536), (1536, 512)]
+SHAPES += [(m, k, n) for k, n in ARCH_KN for m in (4, 20, 128, 512)]
+SHAPES += [(1216, 256, 2560), (4096, 256, 2560)]
 MODES = ["int8_spoga", "w4a8", "w4a4", "w16a16", "w8a8_s2", "w8a8_s3", "w6a6_s1"]
 
 
@@ -255,6 +266,9 @@ ATTN_CASES = {
     "D24 (element loads)": (3, 2, 4, 24, 16, 10, "random"),
     "G1 D20 (element loads)": (3, 2, 1, 20, 16, 10, "random"),
     "G2 D32 ps8": (3, 2, 2, 32, 8, 20, "random"),
+    # the MoE archs' decode layouts: deepseek-moe-16b, granite-moe-3b-a800m
+    "deepseek G1 D128": (4, 16, 1, 128, 16, 11, [1, 17, 100, 165]),
+    "granite G3 D64": (4, 8, 3, 64, 16, 11, [1, 17, 100, 165]),
 }
 ATTN_KINDS = [("bf16", torch.bfloat16), ("int8", torch.bfloat16), ("bf16", torch.float32),
               ("int8", torch.float32)]
@@ -464,3 +478,124 @@ def test_verify_step_rows_are_the_decode_steps(kv):
     torch.cuda.synchronize()
     for a, b in zip(stores[0].cache["blocks"][0].values(), stores[1].cache["blocks"][0].values()):
         assert torch.equal(a[:, 1:], b[:, 1:])      # page 0 is the trash page
+
+
+# ---------------------------------------------------------------------------
+# The MLA and MoE layers on the card against the same call on the CPU
+# ---------------------------------------------------------------------------
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_grouped_expert_product_int32_on_card_is_the_cpus():
+    """The routed experts' grouped product at deepseek-moe-16b's expert
+    shape (64 experts, d 2048, d_expert 1408; capacity 1 a decode row):
+    the int32 accumulators on the card equal the CPU's bitwise in every
+    int8 dataflow, and so does the dequantized product."""
+    _card()
+    from repro_torch.models import moe
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(4, 64, 1, 2048)).astype(np.float32)).bfloat16()
+    w = torch.from_numpy((rng.normal(size=(64, 2048, 1408)) * 0.02).astype(np.float32)).bfloat16()
+    for mode in ("int8_spoga", "int8_deas", "int8_direct"):
+        spec, family = parse_quant_mode(mode)
+        accs, outs = [], []
+        for dev in ("cpu", "cuda"):
+            xd, wd = x.to(dev), w.to(dev)
+            xq, _ = moe.dynamic_quant(xd.float(), dim=-1, bits=8)
+            wq, _ = moe.dynamic_quant(wd.float(), dim=1, bits=8)
+            accs.append(moe._grouped_int(xq, wq, spec, family).cpu())
+            outs.append(moe._grouped_matmul(xd, wd, mode).cpu())
+        assert torch.equal(accs[0], accs[1]), mode
+        assert torch.equal(outs[0], outs[1]), mode
+
+
+def _layer_setup(arch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(arch).with_(n_layers=1, quant_mode="int8_spoga")
+    return cfg, init_params(cfg, seed=0, device="cpu")
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def test_moe_ffn_on_card_matches_cpu():
+    """granite-moe-3b-a800m's routed FFN (40 experts, top-8) at full width
+    over 4 decode rows and a 64-token prefill row: the card's output within
+    2% of the output's scale of the CPU's (router logits and norms sum in
+    another order on the card), the greedy-relevant scale."""
+    _card()
+    from repro_torch.models import moe
+    cfg, params = _layer_setup("granite-moe-3b-a800m")
+    p = params["blocks"][0]["moe"]
+    p = {k: v[0] for k, v in p.items()}
+    rng = np.random.default_rng(1)
+    for shape in ((4, 1), (1, 64)):
+        x = torch.from_numpy(rng.normal(size=shape + (cfg.d_model,)).astype(np.float32)).bfloat16()
+        want, _ = moe.moe_ffn(x, p, cfg)
+        launches = gemm_mod.LAUNCHES
+        got, _ = moe.moe_ffn(x.cuda(), _to(p, "cuda"), cfg)
+        assert gemm_mod.LAUNCHES == launches          # the experts are plain torch
+        assert _rel(got.cpu(), want) < 2e-2, shape
+
+
+def test_mla_paged_decode_on_card_matches_cpu():
+    """minicpm3-4b's paged MLA decode (gather form on both devices) at full
+    width over 4 lanes of random latent pages: the output and the written
+    pools within 2% of their scale of the CPU's; no attention kernel."""
+    _card()
+    from repro_torch.models import attention as attn
+    cfg, params = _layer_setup("minicpm3-4b")
+    p = {k: v[0] for k, v in params["blocks"][0]["attn"].items()}
+    m = cfg.mla
+    rng = np.random.default_rng(2)
+    pools = {"ckvp": torch.from_numpy(rng.normal(size=(45, 16, m.kv_lora_rank))
+                                      .astype(np.float32)).bfloat16(),
+             "krp": torch.from_numpy(rng.normal(size=(45, 16, m.qk_rope_head_dim))
+                                     .astype(np.float32)).bfloat16()}
+    tables = torch.from_numpy(rng.permutation(44)[:44].reshape(4, 11).astype(np.int32) + 1)
+    pos = torch.tensor([0, 16, 99, 164], dtype=torch.int32)
+    x = torch.from_numpy(rng.normal(size=(4, 1, cfg.d_model)).astype(np.float32)).bfloat16()
+    cpu_pools = {k: v.clone() for k, v in pools.items()}
+    want, _ = attn.mla_paged_decode(x, p, cfg, cpu_pools, pos, tables)
+    card_pools = _to(pools, "cuda")
+    launches = attn_mod.LAUNCHES
+    got, _ = attn.mla_paged_decode(x.cuda(), _to(p, "cuda"), cfg, card_pools, pos.cuda(),
+                                   tables.cuda())
+    assert attn_mod.LAUNCHES == launches
+    assert _rel(got.cpu(), want) < 2e-2
+    for k in pools:
+        assert _rel(card_pools[k].cpu(), cpu_pools[k]) < 2e-2, k
+
+
+def test_mla_verify_rows_are_the_decode_steps_on_card():
+    """A 5-row MLA verify window over latent pages on the card gives, row
+    by row, what 5 decode steps give, bitwise, and leaves the same pools
+    (rows attend one at a time, the window's norms column by column)."""
+    _card()
+    from repro_torch.models import attention as attn
+    cfg, params = _layer_setup("minicpm3-4b")
+    p = _to({k: v[0] for k, v in params["blocks"][0]["attn"].items()}, "cuda")
+    m = cfg.mla
+    rng = np.random.default_rng(3)
+    pools = {"ckvp": torch.from_numpy(rng.normal(size=(45, 16, m.kv_lora_rank))
+                                      .astype(np.float32)).bfloat16().cuda(),
+             "krp": torch.from_numpy(rng.normal(size=(45, 16, m.qk_rope_head_dim))
+                                     .astype(np.float32)).bfloat16().cuda()}
+    tables = torch.from_numpy(rng.permutation(44).reshape(4, 11).astype(np.int32) + 1).cuda()
+    pos = torch.tensor([0, 16, 99, 150], dtype=torch.int32, device="cuda")
+    x = torch.from_numpy(rng.normal(size=(4, 5, cfg.d_model)).astype(np.float32)) \
+        .bfloat16().cuda()
+    vpools = {k: v.clone() for k, v in pools.items()}
+    got, _ = attn.mla_paged_verify(x, p, cfg, vpools, pos, tables)
+    for c in range(5):
+        want, _ = attn.mla_paged_decode(x[:, c:c + 1].contiguous(), p, cfg, pools, pos + c,
+                                        tables)
+        assert torch.equal(got[:, c], want[:, 0]), c
+    for k in pools:
+        assert torch.equal(pools[k], vpools[k]), k

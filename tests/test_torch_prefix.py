@@ -288,10 +288,10 @@ def test_manager_invariants_under_random_ops(seed):
 # Engine: prefix cache on == off == the JAX engine, bitwise
 # ---------------------------------------------------------------------------
 
-def _configs(kv_dtype):
+def _configs(kv_dtype, arch="llama3.2-1b"):
     kw = dict(quant_mode="int8_spoga", kv_cache_dtype=kv_dtype, n_kv_heads=4)
-    jcfg = jax_reduced(jax_get_config("llama3.2-1b")).with_(remat=False, **kw)
-    tcfg = tconfigs.reduced(tconfigs.get_config("llama3.2-1b")).with_(**kw)
+    jcfg = jax_reduced(jax_get_config(arch)).with_(remat=False, **kw)
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch)).with_(**kw)
     return jcfg, tcfg
 
 
@@ -299,7 +299,8 @@ def _scaled_tree(jcfg):
     tree = jax.tree_util.tree_map(np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(0)))
 
     def scale(path, a):
-        if "'w" in jax.tree_util.keystr(path):
+        key = jax.tree_util.keystr(path)
+        if "'w" in key or "'experts" in key:
             return (a.astype(np.float32) * WEIGHT_SCALE).astype(a.dtype)
         return a
 
@@ -330,9 +331,9 @@ def _run_checked(engine, arrivals):
     return engine.metrics
 
 
-def _pair(kv_dtype, jax_policies=None, policies=None, **ecfg_kw):
+def _pair(kv_dtype, jax_policies=None, policies=None, arch="llama3.2-1b", **ecfg_kw):
     """(JAX engine, port engine) on the same weights and settings."""
-    jcfg, tcfg = _configs(kv_dtype)
+    jcfg, tcfg = _configs(kv_dtype, arch)
     tree = _scaled_tree(jcfg)
     ecfg = {**ENGINE, **ecfg_kw}
     jeng = JaxServingEngine(jcfg, jax.tree_util.tree_map(jnp.asarray, tree),
@@ -356,8 +357,12 @@ def _shared_traffic(seed, tails, gens):
     return [(2 * i, p, g) for i, (p, g) in enumerate(zip(prompts, gens))]
 
 
-@pytest.mark.parametrize("kv", ["bf16", "int8"])
-def test_engine_prefix_cache_is_bitwise_invisible(kv):
+@pytest.mark.parametrize("arch,kv", [
+    pytest.param("llama3.2-1b", "bf16", id="bf16"),          # GQA pages
+    pytest.param("llama3.2-1b", "int8", id="int8"),          # byte-size pages + scales
+    pytest.param("minicpm3-4b", "bf16", id="minicpm3-4b"),   # MLA latent pages
+])
+def test_engine_prefix_cache_is_bitwise_invisible(arch, kv):
     """``test_prefix.py::test_engine_prefix_cache_is_bitwise_invisible``:
     staggered requests sharing a 2-page prefix give the same greedy tokens
     with the prefix cache on as off, both equal the JAX engine's (cache on)
@@ -365,7 +370,7 @@ def test_engine_prefix_cache_is_bitwise_invisible(kv):
     arrivals = _shared_traffic(0, (5, 9, 3), (6, 5, 4))
     outs = {}
     for on in (False, True):
-        jeng, teng = _pair(kv, prefix_cache=on)
+        jeng, teng = _pair(kv, arch=arch, prefix_cache=on)
         m, jm = _run_checked(teng, arrivals), jeng.run(arrivals)
         outs[on] = _streams(m)
         assert outs[on] == _streams(jm)
@@ -382,9 +387,19 @@ def test_engine_prefix_cow_fork_under_concurrent_decode():
     """A full-prompt hit CoW-forks the boundary page while the publishing
     request still decodes through it: both streams equal the solo decode
     and the JAX engine's."""
+    _cow_fork_case("llama3.2-1b")
+
+
+def test_engine_prefix_cow_fork_copies_mla_latent_pages():
+    """The CoW fork of :func:`test_engine_prefix_cow_fork_under_concurrent_decode`
+    on minicpm3-4b: the forked page's latents (``ckvp``/``krp``) are copied."""
+    _cow_fork_case("minicpm3-4b")
+
+
+def _cow_fork_case(arch):
     prompt = np.random.default_rng(1).integers(0, 512, 16).tolist()   # 2 pages
     arrivals = [(0, prompt, 10), (2, prompt, 10)]
-    jeng, teng = _pair("bf16", prefix_cache=True)
+    jeng, teng = _pair("bf16", arch=arch, prefix_cache=True)
     m, jm = _run_checked(teng, arrivals), jeng.run(arrivals)
     assert m.prefix_cow_forks >= 1 and m.prefix_hits == 1
     assert m.prefix_cow_forks == jm.prefix_cow_forks

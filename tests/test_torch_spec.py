@@ -56,10 +56,10 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _configs(kv_dtype="bf16", quant_mode="int8_spoga"):
+def _configs(kv_dtype="bf16", quant_mode="int8_spoga", arch="llama3.2-1b"):
     kw = dict(quant_mode=quant_mode, kv_cache_dtype=kv_dtype, n_kv_heads=4)
-    jcfg = jax_reduced(jax_get_config("llama3.2-1b")).with_(remat=False, **kw)
-    tcfg = tconfigs.reduced(tconfigs.get_config("llama3.2-1b")).with_(**kw)
+    jcfg = jax_reduced(jax_get_config(arch)).with_(remat=False, **kw)
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch)).with_(**kw)
     return jcfg, tcfg
 
 
@@ -95,9 +95,9 @@ def _streams(metrics):
     return {r.req_id: r.output_tokens for r in metrics.finished}
 
 
-def _pair(kv_dtype="bf16", spec=None, **ecfg_kw):
+def _pair(kv_dtype="bf16", spec=None, arch="llama3.2-1b", **ecfg_kw):
     """(JAX engine, port engine) on the same weights and settings."""
-    jcfg, tcfg = _configs(kv_dtype)
+    jcfg, tcfg = _configs(kv_dtype, arch=arch)
     tree = _scaled_tree(jcfg)
     ecfg = {**ENGINE, **ecfg_kw}
     jspec = None if spec is None else JaxSpecConfig(**spec.to_dict())
@@ -307,8 +307,12 @@ def test_verify_window_is_the_decode_step():
 # The engine: spec on == off == solo == the JAX engine
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kv", ["bf16", "int8"])
-def test_spec_is_bitwise_invisible_paged(kv):
+@pytest.mark.parametrize("arch,kv", [
+    pytest.param("llama3.2-1b", "bf16", id="bf16"),          # GQA pages
+    pytest.param("llama3.2-1b", "int8", id="int8"),          # int8 pages + scales
+    pytest.param("minicpm3-4b", "bf16", id="minicpm3-4b"),   # MLA verify window
+])
+def test_spec_is_bitwise_invisible_paged(arch, kv):
     """``test_spec_is_bitwise_invisible_paged``: the n-gram drafter over
     paged KV; streams with speculation on equal off and the JAX engine's
     (spec on), with the reference's verify and draft counts; on the bf16
@@ -318,7 +322,7 @@ def test_spec_is_bitwise_invisible_paged(kv):
     arrivals = _mixed_workload(np.random.default_rng(0))
     outs = {}
     for spec in (None, SpecConfig(enabled=True, k=4)):
-        jeng, teng = _pair(kv, spec=spec)
+        jeng, teng = _pair(kv, spec=spec, arch=arch)
         m, jm = _run_checked(teng, arrivals), jeng.run(arrivals)
         outs[spec is not None] = _streams(m)
         assert _streams(m) == _streams(jm)
@@ -333,9 +337,13 @@ def test_spec_is_bitwise_invisible_paged(kv):
             assert outs[True][i] == _solo(teng, p, g), i
 
 
-@pytest.mark.parametrize("kv", ["bf16", "int8"])
+@pytest.mark.parametrize("arch,kv", [
+    pytest.param("llama3.2-1b", "bf16", id="bf16"),          # GQA pages
+    pytest.param("llama3.2-1b", "int8", id="int8"),          # int8 pages + scales
+    pytest.param("minicpm3-4b", "bf16", id="minicpm3-4b"),   # MLA verify window
+])
 @pytest.mark.parametrize("mode", ["oracle", "adversarial"])
-def test_spec_accept_and_reject_paths_exact(mode, kv):
+def test_spec_accept_and_reject_paths_exact(mode, arch, kv):
     """``test_spec_accept_and_reject_paths_exact``: an oracle drafter (every
     draft accepted) and an adversarial one (every draft rejected) both
     reproduce the spec-off streams and the JAX engine's, with the
@@ -344,11 +352,11 @@ def test_spec_accept_and_reject_paths_exact(mode, kv):
     prompts = [rng.integers(0, 512, n).tolist() for n in (12, 14)]
     gens = [9, 8]
     arrivals = [(0, prompts[0], gens[0]), (1, prompts[1], gens[1])]
-    _, off = _pair(kv)
+    _, off = _pair(kv, arch=arch)
     base = _streams(_run_checked(off, arrivals))
     refs = {tuple(p): base[i] for i, p in enumerate(prompts)}
     spec = SpecConfig(enabled=True, k=3)
-    jeng, teng = _pair(kv, spec=spec)
+    jeng, teng = _pair(kv, spec=spec, arch=arch)
     fn = _oracle_fn(refs) if mode == "oracle" else _adversarial_fn(refs, 512)
     teng._drafter = ScriptedDrafter(fn, spec.k)
     jeng._drafter = ScriptedDrafter(fn, spec.k)
@@ -364,14 +372,18 @@ def test_spec_accept_and_reject_paths_exact(mode, kv):
     assert teng.store.manager.pages_in_use == 0
 
 
-@pytest.mark.parametrize("kv", ["bf16", "int8"])
-def test_spec_is_bitwise_invisible_slot_mode(kv):
+@pytest.mark.parametrize("arch,kv", [
+    pytest.param("llama3.2-1b", "bf16", id="bf16"),          # GQA pages
+    pytest.param("llama3.2-1b", "int8", id="int8"),          # int8 pages + scales
+    pytest.param("minicpm3-4b", "bf16", id="minicpm3-4b"),   # MLA verify window
+])
+def test_spec_is_bitwise_invisible_slot_mode(arch, kv):
     """``test_spec_is_bitwise_invisible_slot_mode``, with the oracle drafter
     so every window is accepted in full: slot KV, spec on == off == solo ==
     the JAX engine (slot admissions prefill in one shot on both pools)."""
     rng = np.random.default_rng(1)
     arrivals = _mixed_workload(rng)
-    kw = dict(cache_mode="slot", prefill_chunk=None)
+    kw = dict(cache_mode="slot", prefill_chunk=None, arch=arch)
     _, off = _pair(kv, **kw)
     base = _streams(_run_checked(off, arrivals))
     spec = SpecConfig(enabled=True, k=4)
@@ -429,8 +441,10 @@ def test_draft_config_and_arch_refusal():
     _, tcfg = _configs("bf16")
     assert draft_config(tcfg, SpecConfig(draft_layers=1)).n_layers == 1
     assert draft_config(tcfg, SpecConfig(draft_arch="llama3.2-1b")).vocab_size == 512
+    mla = draft_config(tcfg, SpecConfig(draft_arch="minicpm3-4b"))
+    assert mla.use_mla and mla.vocab_size == 512
     with pytest.raises(NotImplementedError, match="item 7"):
-        draft_config(tcfg, SpecConfig(draft_arch="minicpm3-4b"))
+        draft_config(tcfg, SpecConfig(draft_arch="xlstm-125m"))
 
 
 def test_spec_respects_eos_and_budget():
