@@ -97,8 +97,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    torch), ``LLM("minicpm3-4b")`` with the default runtime (no kernel),
    512-token chunks against one-shot on phase 7 (b)'s two long prompts,
    the prefix cache on against off on phase 8 (b)'s traffic (bitwise),
-   n-gram speculation against off; (b) deepseek-moe-16b over int8 paged
-   KV (196 GEMM launches and 28 ``paged_attention`` a decode step), the
+   n-gram speculation against off; (b) deepseek-moe-16b, 8 of its 28
+   layers at full width (1 dense + 7 MoE), over int8 paged KV (56 GEMM
+   launches and 8 ``paged_attention`` a decode step), the
    engine's ``ValueError`` for chunking, the prefix cache and speculation,
    peak memory and a decode-step profile split into kernels, the grouped
    expert product, routing and attention; (c) granite-moe-3b-a800m over
@@ -108,7 +109,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``spoga_gemm_dequant`` bitwise against its plain version at every
    (M, K, N) that (a)-(c) gave it and at M=4, 20, 128 and 512 of every
    projection shape, timed at M=4 and M=128;
-10. the ``kernels`` JSON line, then the ``ok`` line last.
+10. the recurrent archs at full width (after phase 9), random weights from
+   ``init_params(seed=0)``, ``int8_spoga``, 4 lanes, pages of 16, exact-length
+   prefill: (a) recurrentgemma-9b (RG-LRU cells and local attention over
+   2,048-row rings) on phase 4's traffic, paged over int8 KV and again slot
+   (streams equal), then two prompts of 2,100 and 3,000 tokens with 32 new
+   tokens each (the rings wrap in the prefill's roll and in decode); every
+   run's launches exact (292 ``spoga_gemm_dequant`` a decode step, no
+   ``paged_attention``: the rings are per lane and attended in torch), peak
+   memory and tok/s, a decode-step profile split into GEMM kernels, weight
+   quantization, ring attention and scan/elementwise work, the engine's
+   ``ValueError``s; (b) xlstm-125m (mLSTM and sLSTM cells) paged and slot
+   (69 a step), a decode-step profile, 256-token chunks against one-shot on
+   512- and 768-token prompts (agreement printed, completion and launches
+   gated),
+   ``LLM("xlstm-125m")`` with the default runtime, its ``ValueError``s;
+   (c) xlstm-125m through the four dataflows via ``LLM``, greedy streams
+   identical, each run's launches exact; (d) 3 layers of recurrentgemma and
+   4 of xlstm on the card against the CPU, bf16 and ``int8_spoga``; (e)
+   ``spoga_gemm_dequant`` bitwise against its plain version at every
+   (M, K, N) that (a)-(c) gave it (N=4 included) and at M=4, 20, 128, 512,
+   timed at M=4 and M=128;
+11. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -831,17 +853,25 @@ def _gemm_launches(cfg):
     w_kr, wo and the GLU's 3, plus w_uk and w_uv where K/V are rebuilt
     (prefill and chunk steps), and attends in torch; a MoE block runs the
     attention's 4 and its shared experts' GLU (the routed experts are plain
-    torch)."""
+    torch); an RG-LRU block its two branches, two gates, w_out and the
+    GLU's 3 (8), an mLSTM block q, k, v, the two gates, the output gate and
+    w_out (7), an sLSTM block w_zifo and w_out (2); a local-attention block
+    the GQA block's 7, attending its per-lane ring in torch."""
     from repro_torch.models.transformer import effective_kind, layer_layout
     lead, n_periods, tail = layer_layout(cfg)
     kinds = ["dense_ffn_layer"] * lead + list(cfg.block_pattern) * n_periods + list(tail)
     step = prefill = attn = 0
+    cells = {"rglru": 8, "mlstm": 7, "slstm": 2}
     for kind in (effective_kind(k, cfg) for k in kinds):
         if kind == "mla":
             step, prefill = step + 8, prefill + 10
             continue
+        if kind in cells:
+            step, prefill = step + cells[kind], prefill + cells[kind]
+            continue
         n = 4 + 3 * (kind != "moe" or bool(cfg.moe.num_shared_experts))
-        step, prefill, attn = step + n, prefill + n, attn + 1
+        ring = kind == "local_attn" and cfg.sliding_window is not None
+        step, prefill, attn = step + n, prefill + n, attn + (not ring)
     return step, prefill, attn
 
 
@@ -988,9 +1018,13 @@ def _busy_engine(cfg, params, prompt_len=64, cache_mode="paged"):
     from repro_torch.configs import default_cache_len
     from repro_torch.serving import EngineConfig, ServingEngine
     buckets = (32, 64, 128) if prompt_len <= 128 else (prompt_len,)
+    cache_len = default_cache_len(max(128, prompt_len), 32)
+    if set(cfg.block_pattern) & {"rglru", "mlstm", "slstm", "local_attn"}:
+        # recurrent state takes exact-length prefill; a ring, a page-aligned cache
+        buckets, cache_len = None, _roundup(cache_len, 16)
     engine = ServingEngine(cfg, params, EngineConfig(
         n_slots=4, page_size=16, prefill_buckets=buckets,
-        cache_len=default_cache_len(max(128, prompt_len), 32), cache_mode=cache_mode),
+        cache_len=cache_len, cache_mode=cache_mode),
         device="cuda")
     rng = np.random.default_rng(ENGINE_SEED + 2)
     for _ in range(4):
@@ -1901,9 +1935,12 @@ def _counted(engine, label, drive):
     return metrics, launches
 
 
-def _spec_engine(params, cache_len, spec=None, arch="llama3.2-1b", **kw):
+def _spec_engine(params, cache_len, spec=None, arch="llama3.2-1b", config=None, **kw):
+    """An ``int8_spoga`` paged engine through ``LLM``: of ``arch``, or of
+    ``config`` (a cut-down depth) when given."""
     from repro_torch.api import LLM
-    return LLM(arch=arch, params=params, device="cuda",
+    named = dict(config=config) if config is not None else dict(arch=arch)
+    return LLM(**named, params=params, device="cuda",
                runtime=_feature_runtime(cache_len, spec=spec, **kw)).engine
 
 
@@ -2499,11 +2536,13 @@ ARCH_KN = {
 }
 
 
-def _arch_params(arch):
-    """Full-width ``arch`` weights from ``init_params(seed=0)`` on the card."""
+def _arch_params(arch, n_layers=None):
+    """Full-width ``arch`` weights from ``init_params(seed=0)`` on the card,
+    at ``n_layers`` (default: the config's depth)."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     cfg = get_config(arch)
+    cfg = cfg if n_layers is None else cfg.with_(n_layers=n_layers)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=ENGINE_SEED, device="cuda")
     torch.cuda.synchronize()
@@ -2688,7 +2727,7 @@ def _moe_profile(cfg, params, card):
     return {"profile": prof, "split_ms": split}
 
 
-def phase_moe(card, arch, n_requests, kv_dtype):
+def phase_moe(card, arch, n_requests, kv_dtype, n_layers=None):
     """(b)/(c) A MoE arch at full width, ``int8_spoga`` over paged KV:
     phase 4's traffic (its first ``n_requests``); the engine refuses
     chunked prefill, the prefix cache and speculation; deepseek adds its
@@ -2696,8 +2735,11 @@ def phase_moe(card, arch, n_requests, kv_dtype):
     from repro_torch.configs import default_cache_len
     from repro_torch.serving import EngineConfig, ServingEngine
     from repro_torch.spec import SpecConfig
-    params = _arch_params(arch)
-    engine = _spec_engine(params, default_cache_len(128, 32), arch=arch, kv_dtype=kv_dtype)
+    from repro_torch.configs import get_config
+    params = _arch_params(arch, n_layers)
+    config = None if n_layers is None else get_config(arch).with_(n_layers=n_layers)
+    engine = _spec_engine(params, default_cache_len(128, 32), arch=arch, config=config,
+                          kv_dtype=kv_dtype)
     cfg = engine.cfg
     arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)[:n_requests]
     _, rep, launches = _arch_run(card, engine, arrivals, f"{arch} paged {kv_dtype} KV")
@@ -2722,13 +2764,14 @@ def phase_moe(card, arch, n_requests, kv_dtype):
     return out
 
 
-def _card_vs_cpu(arch, quant_mode):
-    """2 layers of ``arch`` at full width, the same weights on the card and
-    the CPU, one 16-token prefill: last-token logits within LOGIT_TOL of
-    their scale, the greedy token equal unless the CPU row is a near tie."""
+def _card_vs_cpu(arch, quant_mode, n_layers=2, tag="archs"):
+    """``n_layers`` of ``arch`` at full width, the same weights on the card
+    and the CPU, one 16-token prefill: last-token logits within LOGIT_TOL
+    of their scale, the greedy token equal unless the CPU row is a near
+    tie."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, prefill
-    cfg = get_config(arch).with_(n_layers=2, quant_mode=quant_mode)
+    cfg = get_config(arch).with_(n_layers=n_layers, quant_mode=quant_mode)
     params = init_params(cfg, seed=3, device="cuda")
     tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 16))
                               .astype(np.int32))
@@ -2736,7 +2779,7 @@ def _card_vs_cpu(arch, quant_mode):
     want = prefill(_to_cpu(params), cfg, tokens, 16)[0]
     scale, err = want.abs().max().item(), (got - want).abs().max().item()
     tok, ulps = _top2(want[0])
-    print(f"[archs] (d) {arch}, 2 layers, {quant_mode}: max |logit diff| {err:.4g} of max "
+    print(f"[{tag}] (d) {arch}, {n_layers} layers, {quant_mode}: max |logit diff| {err:.4g} of max "
           f"|logit| {scale:.4g}, greedy card {int(got.argmax())} cpu {tok} (cpu top-2 margin "
           f"{ulps:.3g} bf16 ulps)", flush=True)
     require(bool(torch.isfinite(got).all()), f"{arch}: card logits not finite")
@@ -2789,7 +2832,7 @@ class GemmShapes:
         return False
 
 
-def phase_arch_gemms(card, seen):
+def phase_arch_gemms(card, seen, table=None, tag="archs", phase="9"):
     """(e) ``spoga_gemm_dequant`` alone at the three archs' projection
     shapes: bitwise against the plain version at every (M, K, N) that
     (a)-(c) gave it (``seen``: decode and verify rows, stacked prefill
@@ -2802,11 +2845,11 @@ def phase_arch_gemms(card, seen):
         spoga_gemm_dequant_plain,
     )
     gen = torch.Generator(device="cuda").manual_seed(9)
-    shapes = sorted({kn for kns in ARCH_KN.values() for kn in kns})
+    shapes = sorted({kn for kns in (table or ARCH_KN).values() for kn in kns})
     seen_kn = {(k, n) for _, k, n in seen}
     require(seen_kn == set(shapes),
-            f"phase 9 ran the GEMM at (K, N) {sorted(seen_kn - set(shapes))} outside ARCH_KN "
-            f"and never at {sorted(set(shapes) - seen_kn)}")
+            f"phase {phase} ran the GEMM at (K, N) {sorted(seen_kn - set(shapes))} outside its "
+            f"table and never at {sorted(set(shapes) - seen_kn)}")
     cases = sorted(seen | {(m, k, n) for k, n in shapes for m in (4, 20, 128, CHUNK_M)})
     for m, k, n in cases:
         spec, x, w, xs, ws = _gemm_operands(m, k, n, "int8_spoga", gen)
@@ -2815,15 +2858,15 @@ def phase_arch_gemms(card, seen):
         require(torch.equal(got, spoga_gemm_dequant_plain(x, w, xs, ws)),
                 f"GEMM ({m},{k},{n}) differs from the plain version")
     for k, n in shapes:
-        print(f"[archs] (e) GEMM K={k} N={n} bitwise equal to the plain version at M = "
+        print(f"[{tag}] (e) GEMM K={k} N={n} bitwise equal to the plain version at M = "
               f"{sorted(m for m, kk, nn in cases if (kk, nn) == (k, n))}; (a)-(c) ran M = "
               f"{sorted(m for m, kk, nn in seen if (kk, nn) == (k, n))}", flush=True)
-    print(f"[archs] (e) {len(cases)} GEMM cases bitwise equal, {len(seen)} of them the "
+    print(f"[{tag}] (e) {len(cases)} GEMM cases bitwise equal, {len(seen)} of them the "
           f"shapes (a)-(c) ran", flush=True)
     out = {}
     for k, n in shapes:
         for m in (4, 128):
-            out[(m, k, n)] = _gemm_timing("w8a8", "int8_spoga", m, k, n, gen, tag="archs gemm")
+            out[(m, k, n)] = _gemm_timing("w8a8", "int8_spoga", m, k, n, gen, tag=f"{tag} gemm")
     return out
 
 
@@ -2833,11 +2876,296 @@ def phase_archs(card):
     shapes."""
     with GemmShapes() as shapes:
         out = {"mla": phase_mla(card),
-               "deepseek": phase_moe(card, "deepseek-moe-16b", 8, "int8"),
+               # 8 of deepseek's 28 layers (1 dense + 7 MoE, full width): phase 10's
+               # recurrent archs take the time its other 20 layers took
+               "deepseek": phase_moe(card, "deepseek-moe-16b", 8, "int8", n_layers=8),
                "granite": phase_moe(card, "granite-moe-3b-a800m", 4, "bf16")}
     out["cpu"] = {f"{arch} {qm}": _card_vs_cpu(arch, qm)
                   for arch in ARCH_KN for qm in ("bf16", "int8_spoga")}
     out["gemm"] = phase_arch_gemms(card, shapes.seen)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 10. the recurrent archs at full width
+# ---------------------------------------------------------------------------
+
+# (K, N) of every projection the two archs run at int8_spoga
+RECURRENT_KN = {
+    "recurrentgemma-9b": [(4096, 4096), (4096, 256), (4096, 12288), (12288, 4096)],
+    "xlstm-125m": [(768, 768), (768, 4), (768, 3072)],
+}
+RECURRENT_LONG = (2100, 3000)      # recurrentgemma's long prompts: past its 2,048-row ring
+XLSTM_CHUNK = 256
+
+
+def _recurrent_engine(arch, params, cache_len, cache_mode="paged", kv_dtype="int8",
+                      chunk=None):
+    """A 4-lane ``int8_spoga`` engine of ``arch`` through ``LLM``: pages of
+    16, exact-length prefill (a recurrent state integrates padding)."""
+    from repro_torch.api import LLM, KVConfig, QuantRuntime, RuntimeConfig, SchedulerConfig
+    rt = RuntimeConfig(quant=QuantRuntime(mode="int8_spoga"),
+                       kv=KVConfig(mode=cache_mode, dtype=kv_dtype, page_size=16,
+                                   cache_len=cache_len),
+                       scheduler=SchedulerConfig(n_slots=4, prefill_buckets=None,
+                                                 prefill_chunk=chunk))
+    return LLM(arch=arch, params=params, device="cuda", runtime=rt).engine
+
+
+def _recurrent_run(card, engine, arrivals, label):
+    """``_arch_run`` with the decode step's exact GEMM count printed."""
+    per_step = _gemm_launches(engine.cfg)[0]
+    streams, rep, launches = _arch_run(card, engine, arrivals, label)
+    print(f"[recurrent] {label}: {per_step} spoga_gemm_dequant launches a decode step, "
+          f"{_gemm_launches(engine.cfg)[2]} paged_attention, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]", flush=True)
+    return streams, rep, launches
+
+
+def _refusals(cfg, params, cases):
+    """Each engine config of ``cases`` is refused with ``ValueError`` naming
+    its match."""
+    from repro_torch.serving import EngineConfig, ServingEngine
+    for kw, match in cases:
+        try:
+            ServingEngine(cfg, params, EngineConfig(**kw), device="cuda")
+        except ValueError as e:
+            require(match in str(e), f"{cfg.name}: {kw} refused with {e}")
+        else:
+            fail(f"{cfg.name}: the engine served {kw}")
+    print(f"[recurrent] {cfg.name}: {len(cases)} configurations refused with the "
+          f"reference's ValueError", flush=True)
+
+
+def _recurrentgemma_split(cfg, params, card, prof):
+    """A recurrentgemma decode step's device time (4 lanes) split: the
+    ``spoga_gemm_dequant`` kernels and the library unembed from the step's
+    profile; per layer at the step's shape, each projection's per-call
+    weight quantization (``dynamic_quant`` of its weights) and the ring
+    attention (``_decode_attend`` over a wrapped 2,048-row int8 ring), by
+    ``device_ms``, times the layers; the scan and elementwise work (the
+    activation quantization, the RG-LRU recurrence, the conv, norms, RoPE
+    and the ring write) the rest of the step."""
+    from repro_torch.backends.pipeline import dynamic_quant
+    from repro_torch.models import attention as attn
+    from repro_torch.models.transformer import period_params
+    groups = prof["groups"] if prof is not None else {}
+    p = period_params(params["blocks"][0], 0)
+    pa = period_params(params["blocks"][2], 0)
+    rg_w = [p["cell"][k] for k in ("w_gate_branch", "w_x_branch", "w_rec_gate", "w_in_gate",
+                                   "w_out")] + list(p["mlp"].values())
+    at_w = list(pa["attn"].values()) + list(pa["mlp"].values())
+    wq_rg = device_ms(lambda i: [dynamic_quant(w, dim=0, bits=8) for w in rg_w], 1, iters=3,
+                      warmup=1)
+    wq_at = device_ms(lambda i: [dynamic_quant(w, dim=0, bits=8) for w in at_w], 1, iters=3,
+                      warmup=1)
+    rows, hd = min(cfg.sliding_window, 3040), cfg.resolved_head_dim
+    g = torch.Generator(device="cuda").manual_seed(5)
+    k = torch.randint(-127, 128, (4, rows, cfg.n_kv_heads, hd), generator=g, device="cuda",
+                      dtype=torch.int32).to(torch.int8)
+    v = torch.randint_like(k, -127, 128)
+    ks = torch.rand((4, rows, cfg.n_kv_heads), generator=g, device="cuda") * 0.05
+    vs = torch.rand((4, rows, cfg.n_kv_heads), generator=g, device="cuda") * 0.05
+    qg = torch.randn((4, 1, cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, hd),
+                     generator=g, device="cuda").to(torch.bfloat16)
+    valid = torch.ones((4, rows), dtype=torch.bool, device="cuda")
+    ring_ms = device_ms(lambda i: attn._decode_attend(qg, k, v, ks, vs, valid), 1, iters=10)
+    n_rg = sum(kind == "rglru" for kind in
+               list(cfg.block_pattern) * (cfg.n_layers // 3) + ["rglru"] * (cfg.n_layers % 3))
+    n_at = cfg.n_layers - n_rg
+    total = prof["device_ms"] if prof is not None else float("nan")
+    gemm = groups.get("spoga_gemm_dequant kernel", float("nan"))
+    lib = sum(ms for name, ms in groups.items() if name.startswith("library"))
+    split = {"spoga_gemm_dequant kernels (292 a step)": gemm,
+             "weight quantization (dynamic_quant of every projection, every call)":
+                 n_rg * wq_rg + n_at * wq_at,
+             f"ring attention ({n_at} layers, {rows}-row int8 rings)": n_at * ring_ms,
+             "library matmul (the bf16 unembed over 256,000 tokens)": lib}
+    split["scan and elementwise (activation quantization, RG-LRU recurrence, conv, norms, "
+          "RoPE, ring writes)"] = total - sum(split.values())
+    for what, ms in split.items():
+        print(f"[recurrent] recurrentgemma decode step, 4 lanes: {ms:.3f} ms {what} [{card}]",
+              flush=True)
+    return split
+
+
+def phase_recurrentgemma(card):
+    """(a) recurrentgemma-9b at full width, ``int8_spoga``: phase 4's traffic
+    paged over int8 KV, then slot; two prompts of 2,100-3,000 tokens with 32
+    new tokens each, paged (the 2,048-row rings wrap in the prefill's roll
+    and again while decoding); every run's launches exact (292 GEMMs a
+    decode step, no ``paged_attention``: the rings are per lane and attended
+    in torch); peak memory and tok/s; a decode-step profile split into
+    GEMM kernels, weight quantization, scan and elementwise work and ring
+    attention; the engine's ``ValueError``s."""
+    from repro_torch.configs import default_cache_len, get_config
+    from repro_torch.spec import SpecConfig
+    arch = "recurrentgemma-9b"
+    cfg = get_config(arch)
+    params = _arch_params(arch)
+    arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
+    cache_len = _roundup(default_cache_len(128, 32), 16)
+    out = {"params_gib": sum(t.numel() * t.element_size() for _, t in _leaves(params)) / 2**30}
+    runs = {}
+    for mode in ("paged", "slot"):
+        engine = _recurrent_engine(arch, params, cache_len, mode)
+        ecfg = engine.cfg
+        runs[mode] = _recurrent_run(card, engine, arrivals, f"{arch} {mode} int8 KV")
+        out[mode] = {"report": runs[mode][1], "launches": runs[mode][2],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del engine
+    # the rings and the cell states are per lane in both modes: one computation
+    require(runs["slot"][0] == runs["paged"][0], f"{arch}: slot and paged streams differ")
+    print(f"[recurrent] {arch} slot against paged: greedy streams equal", flush=True)
+    rng = np.random.default_rng(ENGINE_SEED + 10)
+    long = [(0, rng.integers(0, cfg.vocab_size, n).tolist(), 32) for n in RECURRENT_LONG]
+    long_len = _roundup(max(RECURRENT_LONG) + 32 + 8, 16)
+    engine = _recurrent_engine(arch, params, long_len)
+    require(engine.store.cache["blocks"][2]["k"].shape[2] == cfg.sliding_window,
+            "the ring is not the window")
+    _, rep, launches = _recurrent_run(card, engine, long, f"{arch} long prompts "
+                                      f"{list(RECURRENT_LONG)} (rings wrapped)")
+    out["long"] = {"report": rep, "launches": launches,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del engine
+    prof = phase_profile(ecfg, params, card, f"{arch} int8_spoga", steps=3)
+    out["profile"] = prof
+    out["split_ms"] = _recurrentgemma_split(ecfg, params, card, prof)
+    paged = dict(cache_mode="paged", page_size=16, cache_len=cache_len)
+    _refusals(ecfg, params, [
+        (dict(prefill_buckets=(32, 64, 128), cache_len=cache_len), "prefill buckets pad"),
+        ({**paged, "prefill_chunk": 256}, "chunked prefill needs"),
+        ({**paged, "cache_len": cache_len + 8}, "multiple of page_size"),
+        ({**paged, "prefix_cache": True}, "needs attention-family KV pages"),
+        (dict(cache_len=cache_len, spec=SpecConfig(enabled=True, k=SPEC_K)),
+         "row-independent")])
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _xlstm_long_traffic(vocab):
+    """Two prompts of 512 and 768 tokens (multiples of the mLSTM's 256-row
+    chunk, which a one-shot prefill needs past 256 tokens) and two short
+    ones, 24 new tokens each."""
+    rng = np.random.default_rng(ENGINE_SEED + 11)
+    return [(0, rng.integers(0, vocab, n).tolist(), 24) for n in (512, 768, 40, 100)]
+
+
+def phase_xlstm(card):
+    """(b) xlstm-125m at full width, ``int8_spoga``: phase 4's traffic
+    paged and slot (69 GEMMs a decode step), a decode-step profile by
+    kernel group; 256-token chunks against
+    one-shot prefill on 512- and 768-token prompts (greedy agreement
+    printed; completion and launch counts gated: ROADMAP queue 3);
+    ``LLM("xlstm-125m")`` with the default runtime; the engine's
+    ``ValueError``s.  (c) the four dataflows through ``LLM``: the greedy
+    streams identical, each run's launches exact."""
+    from repro_torch.api import LLM, KVConfig, QuantRuntime, RuntimeConfig, SchedulerConfig
+    from repro_torch.configs import default_cache_len, get_config
+    from repro_torch.spec import SpecConfig
+    arch = "xlstm-125m"
+    cfg = get_config(arch)
+    params = _arch_params(arch)
+    arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
+    cache_len = _roundup(default_cache_len(128, 32), 16)
+    out = {}
+    streams = {}
+    for mode in ("paged", "slot"):
+        engine = _recurrent_engine(arch, params, cache_len, mode)
+        streams[mode], rep, launches = _recurrent_run(card, engine, arrivals,
+                                                      f"{arch} {mode} int8 KV")
+        out[mode] = {"report": rep, "launches": launches}
+        del engine
+    require(streams["slot"] == streams["paged"], f"{arch}: slot and paged streams differ")
+    print(f"[recurrent] {arch} slot against paged: greedy streams equal", flush=True)
+    out["profile"] = phase_profile(cfg.with_(quant_mode="int8_spoga", kv_cache_dtype="int8"),
+                                   params, card, f"{arch} int8_spoga", steps=3)
+    long = _xlstm_long_traffic(cfg.vocab_size)
+    long_len = _roundup(768 + 24 + 8, XLSTM_CHUNK)
+    runs = {}
+    for label, chunk in (("one-shot", None), ("chunked", XLSTM_CHUNK)):
+        engine = _recurrent_engine(arch, params, long_len, chunk=chunk)
+        runs[label] = _recurrent_run(card, engine, long, f"{arch} {label}, prompts of "
+                                     f"{[len(p) for _, p, _ in long]} tokens")
+        del engine
+    require(runs["chunked"][1]["chunk_steps"] == (512 + 768) // XLSTM_CHUNK,
+            f"{arch}: {runs['chunked'][1]['chunk_steps']} chunk steps")
+    same, total = _agreement(runs["chunked"][0], runs["one-shot"][0])
+    print(f"[recurrent] {arch} chunked at {XLSTM_CHUNK} against one-shot: {same} of {total} "
+          f"greedy tokens agree (not gated: ROADMAP queue 3)", flush=True)
+    out["chunked"] = {"report": runs["chunked"][1], "agree": [same, total]}
+    llm = LLM(arch, params=params, device="cuda")
+    require(llm.runtime.kv.mode == "slot" and llm.config.quant_mode == "bf16",
+            "the default runtime is not slot KV with bf16 GEMMs")
+    reset_counts()
+    outs = llm.generate([p for _, p, _ in arrivals], max_new_tokens=16)
+    torch.cuda.synchronize()
+    check_counts(*read_counts(), (), f"LLM('{arch}') default")
+    require(all(len(o.token_ids) == 16 for o in outs), "default LLM: a request did not finish")
+    rep = llm.metrics.report()
+    print(f"[recurrent] LLM('{arch}').generate, default runtime (slot bf16 KV, bf16 GEMMs): "
+          f"{rep['requests']} prompts x 16 tokens, {rep['tokens_per_s']:.2f} tok/s, no kernel "
+          f"launched [{card}]", flush=True)
+    out["slot default"] = rep
+    del llm
+    paged = dict(cache_mode="paged", page_size=16, cache_len=cache_len)
+    _refusals(cfg.with_(quant_mode="int8_spoga", kv_cache_dtype="int8"), params, [
+        (dict(prefill_buckets=(32, 64, 128), cache_len=cache_len), "prefill buckets pad"),
+        ({**paged, "prefix_cache": True}, "needs attention-family KV pages"),
+        (dict(cache_len=cache_len, spec=SpecConfig(enabled=True, k=SPEC_K)),
+         "row-independent")])
+
+    # (c) the four dataflows
+    prompts = [p for _, p, _ in arrivals]
+    kv = KVConfig(mode="paged", dtype="int8", page_size=16, cache_len=cache_len)
+    sched = SchedulerConfig(n_slots=4, prefill_buckets=None)
+    per_call = {"spoga_gemm_dequant": 1, "spoga_gemm": 1, "nibble_gemm": 4,
+                "deas_combine": 1, "torch._int_mm": 1}
+    first, counts = None, {}
+    for label, (mode, backend), route in DATAFLOWS:
+        llm = LLM(arch=arch, params=params, device="cuda", runtime=RuntimeConfig(
+            quant=QuantRuntime(mode=mode, gemm_backend=backend), kv=kv, scheduler=sched))
+        reset_counts()
+        outs = llm.generate(prompts, max_new_tokens=FACADE_NEW_TOKENS)
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
+        check_counts(launches, plain, route, f"{arch} {label}")
+        got = [o.token_ids for o in outs]
+        require(all(len(t) == FACADE_NEW_TOKENS for t in got), f"{arch} {label}: unfinished")
+        if first is None:
+            first = got
+            require(len({t for g in got for t in g}) > 2, f"{arch}: streams collapsed")
+        require(got == first, f"{arch} {label}: greedy streams differ from spoga fused's")
+        rep = llm.metrics.report()
+        gemms = _gemm_launches(llm.config)[0] * (rep["decode_steps"] + rep["prefill_dispatches"])
+        for name in route:
+            require(launches[name] == per_call[name] * gemms,
+                    f"{arch} {label}: {name} launched {launches[name]}, want "
+                    f"{per_call[name] * gemms}")
+        counts[label] = launches
+        print(f"[recurrent] (c) {arch} {label} ({mode}, gemm_backend={backend}): "
+              f"{rep['tokens_per_s']:.1f} tok/s, decode step mean "
+              f"{1e3 * rep['decode_step_mean_s']:.2f} ms, launches "
+              f"{ {k: launches[k] for k in route} } [{card}]", flush=True)
+        del llm
+    print(f"[recurrent] (c) {arch}: 4 dataflows, 8 prompts x {FACADE_NEW_TOKENS} tokens, greedy "
+          f"streams identical", flush=True)
+    out["dataflows"] = counts
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_recurrent(card):
+    """10. recurrentgemma-9b and xlstm-125m at full width, then 3- and
+    4-layer card-against-CPU parity and the GEMM at their shapes."""
+    with GemmShapes() as shapes:
+        out = {"recurrentgemma": phase_recurrentgemma(card), "xlstm": phase_xlstm(card)}
+    out["cpu"] = {f"{arch} {qm}": _card_vs_cpu(arch, qm, n_layers=n, tag="recurrent")
+                  for arch, n in (("recurrentgemma-9b", 3), ("xlstm-125m", 4))
+                  for qm in ("bf16", "int8_spoga")}
+    out["gemm"] = phase_arch_gemms(card, shapes.seen, RECURRENT_KN, "recurrent", "10")
     return out
 
 
@@ -2876,6 +3204,7 @@ def main() -> int:
     phase_cpu_parity()
     phase_cpu_long_decode(card)
     archs = phase_archs(card)
+    recurrent = phase_recurrent(card)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -2914,8 +3243,19 @@ def main() -> int:
     def arch_launches(name):
         """A kernel's launches in phase 9's main runs of the three archs."""
         return {"minicpm3-4b paged": archs["mla"]["launches"][name],
-                "deepseek-moe-16b paged int8 KV": archs["deepseek"]["launches"][name],
+                "deepseek-moe-16b (8 layers) paged int8 KV":
+                    archs["deepseek"]["launches"][name],
                 "granite-moe-3b-a800m paged bf16 KV": archs["granite"]["launches"][name]}
+
+    def recurrent_launches(name):
+        """A kernel's launches in phase 10's runs of the two recurrent archs."""
+        rg, xl = recurrent["recurrentgemma"], recurrent["xlstm"]
+        return {"recurrentgemma-9b paged int8 KV": rg["paged"]["launches"][name],
+                "recurrentgemma-9b slot int8 KV": rg["slot"]["launches"][name],
+                "recurrentgemma-9b long prompts": rg["long"]["launches"][name],
+                "xlstm-125m paged int8 KV": xl["paged"]["launches"][name],
+                "xlstm-125m slot int8 KV": xl["slot"]["launches"][name],
+                **{f"xlstm-125m LLM {label}": c[name] for label, c in xl["dataflows"].items()}}
 
     chunk = gemm[("w8a8", CHUNK_M, 2048, 8192)]
     kernels = [gemm_row("spoga_gemm_dequant", "src/repro_torch/csrc/spoga_gemm_dequant.cu",
@@ -2933,7 +3273,12 @@ def main() -> int:
                         launches_archs=arch_launches("spoga_gemm_dequant"),
                         arch_shapes={f"W8A8 M={m} K={k} N={n}": {
                             **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
-                            for (m, k, n), t in archs["gemm"].items()})]
+                            for (m, k, n), t in archs["gemm"].items()},
+                        launches_recurrent=recurrent_launches("spoga_gemm_dequant"),
+                        recurrent_shapes={f"W8A8 M={m} K={k} N={n}": {
+                            **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
+                            for (m, k, n), t in recurrent["gemm"].items()},
+                        recurrentgemma_decode_split_ms=recurrent["recurrentgemma"]["split_ms"])]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
         a, long, short = (dict(attn[(kind, name)]) for name in ("main", "long", "short"))
@@ -2951,17 +3296,20 @@ def main() -> int:
                            if kind == "int8" else {}),
                         "verify": serving["profile"]["attn"][kind],
                         "launches_archs": arch_launches("paged_attention"),
+                        "launches_recurrent": recurrent_launches("paged_attention"),
                         "arch_shapes": {name: attn[(kind, name)]
                                         for name in ("deepseek", "granite")},
                         "card": card})
     unfused, deas_run = facade["spoga unfused"], facade["deas"]
     kernels.append(gemm_row("spoga_gemm", "src/repro_torch/csrc/spoga_gemm.cu",
                             "src/repro/kernels/spoga_gemm.py:116", unfused["spoga_gemm"], 1,
-                            int_err, at(int_gemm, lambda m: ("w8a8", m, 2048, 8192))))
+                            int_err, at(int_gemm, lambda m: ("w8a8", m, 2048, 8192)),
+                            launches_recurrent=recurrent_launches("spoga_gemm")))
     kernels.append(gemm_row("nibble_gemm", "src/repro_torch/csrc/deas_gemm.cu",
                             "src/repro/kernels/deas_gemm.py:50", deas_run["nibble_gemm"], 4,
                             deas_err, at(nibble, lambda m: (m, 2048, 8192)),
-                            library_operands="the int8 nibble planes of this call"))
+                            library_operands="the int8 nibble planes of this call",
+                            launches_recurrent=recurrent_launches("nibble_gemm")))
     kernels.append(gemm_row("deas_gemm", "src/repro_torch/csrc/deas_gemm.cu",
                             "src/repro/kernels/deas_gemm.py:95",
                             deas_run["nibble_gemm"] + deas_run["deas_combine"], 5, deas_err,
@@ -2969,7 +3317,8 @@ def main() -> int:
                             replaces_parts={"nibble_gemm": "src/repro/kernels/deas_gemm.py:50",
                                             "deas_combine": "src/repro/kernels/deas_gemm.py:79"},
                             nibble_gemm_launches=deas_run["nibble_gemm"],
-                            deas_combine_launches=deas_run["deas_combine"]))
+                            deas_combine_launches=deas_run["deas_combine"],
+                            launches_recurrent=recurrent_launches("deas_combine")))
 
     def combine_at(m):
         t = deas[(m, 2048, 8192)]
@@ -2987,6 +3336,7 @@ def main() -> int:
                     "launches": deas_run["deas_combine"], "launches_per_decode_step": calls_per_step,
                     "max_abs_err": combine_err, **combine_at(4), "prefill": combine_at(128),
                     "sustained": combine_long,
+                    "launches_recurrent": recurrent_launches("deas_combine"),
                     "library": "none: no one PyTorch call computes the shift-add", "card": card})
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -38,6 +38,7 @@ from typing import Optional, Tuple, Union
 
 from repro_torch.backends.spec import QUANT_MODES, parse_quant_mode
 from repro_torch.configs.base import DEFAULT_PAGE_SIZE, ModelConfig, default_cache_len
+from repro_torch.models.transformer import RECURRENT_KINDS
 from repro_torch.serving.engine import EngineConfig
 from repro_torch.serving.policies import (
     BucketBatchedAdmission,
@@ -340,9 +341,9 @@ class RuntimeConfig:
                        gen_tokens: Optional[int] = None) -> EngineConfig:
         """Derive the ``EngineConfig``.  ``prompt_len``/``gen_tokens`` are
         workload hints used when ``kv.cache_len`` is None (sized by the
-        shared ``default_cache_len`` policy) and when buckets are 'auto'.
-        (The reference drops 'auto' buckets for recurrent stacks; the port
-        serves attention stacks only.)"""
+        shared ``default_cache_len`` policy) and when buckets are 'auto'
+        ('auto' means exact-length prefill for a recurrent stack, whose
+        state would integrate the padding)."""
         self.check_served()
         if self.kv.cache_len is not None:
             cache_len = self.kv.cache_len
@@ -354,7 +355,8 @@ class RuntimeConfig:
                 "prompt_len/gen_tokens workload hints to resolve_engine")
         buckets = self.scheduler.prefill_buckets
         if buckets == "auto":
-            buckets = auto_buckets(prompt_len or cache_len)
+            recurrent = bool(RECURRENT_KINDS & set(cfg.block_pattern))
+            buckets = None if recurrent else auto_buckets(prompt_len or cache_len)
         return EngineConfig(
             n_slots=self.scheduler.n_slots,
             cache_len=cache_len,

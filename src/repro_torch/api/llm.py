@@ -26,9 +26,11 @@ checkpoint format, ``checkpoint.restore_checkpoint``), or else from
 ``RuntimeConfig.build_policies`` derives; one policy object serves every
 engine the ``LLM`` builds.
 
-The attention-family archs serve: ``llama3.2-1b``, ``mistral-nemo-12b``
+Every decoder-only arch serves: ``llama3.2-1b``, ``mistral-nemo-12b``
 (GQA), ``minicpm3-4b`` (MLA), ``deepseek-moe-16b`` and
-``granite-moe-3b-a800m`` (routed experts).  ``mistral-large-123b`` builds
+``granite-moe-3b-a800m`` (routed experts), ``xlstm-125m`` (mLSTM and
+sLSTM cells) and ``recurrentgemma-9b`` (RG-LRU cells and local attention
+over a window ring).  ``mistral-large-123b`` builds
 (GQA, reduced or at full width on a host that holds it) but at full width
 its 229 GiB of bf16 weights do not fit one card; serving it waits for
 sharding (ROADMAP queue 1, item 10).  Every runtime the
@@ -36,10 +38,12 @@ reference can build for them serves, the five presets included
 (``load_runtime("int8-byte-serving")``): the prefix cache with
 prefix-aware admission, speculative decoding (``RuntimeConfig(spec=
 SpecConfig(enabled=True))``) and stochastic ``SamplingParams``; a MoE
-stack refuses chunked prefill, the prefix cache and speculation with the
-reference's ``ValueError``.  Not ported yet, and refused with
-``NotImplementedError``: the recurrent, local-attention, encoder-decoder
-and frontend archs (ROADMAP queue 1, item 7), ``replay`` and the metrics
+stack refuses chunked prefill, the prefix cache and speculation, and a
+recurrent stack refuses prefill buckets, the prefix cache and speculation
+(recurrentgemma's rings chunked prefill too), each with the reference's
+``ValueError``.  Not ported yet, and refused with
+``NotImplementedError``: the encoder-decoder and frontend archs (ROADMAP
+queue 1, item 7.2), ``replay`` and the metrics
 server (the observability stack, item 8), and the ``mesh`` and ``obs``
 settings that ``RuntimeConfig.check_served`` names.
 """

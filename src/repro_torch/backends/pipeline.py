@@ -61,7 +61,8 @@ def quantized_linear(x: torch.Tensor, w: torch.Tensor, quant_mode: str, *,
     lead = xq.shape[:-1]
     k = xq.shape[-1]
     n = wq.shape[-1]
-    x2 = xq.reshape(-1, k)
+    # a strided activation (a transposed einsum output) takes one copy
+    x2 = xq.reshape(-1, k).contiguous()
     xs2 = xs.reshape(-1, 1)
     ws2 = ws.reshape(1, n)
     if b.gemm_dequant is not None:

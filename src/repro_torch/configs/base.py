@@ -26,9 +26,9 @@ KV_CACHE_HEADROOM = 8
 # Token rows per KV page (paged cache, repro_torch/paging/).
 DEFAULT_PAGE_SIZE = 16
 
-# Block kinds of the reference that the port does not serve yet: the
-# recurrent cells and the local-attention ring (ROADMAP queue 1, item 7).
-UNPORTED_KINDS = ("rglru", "mlstm", "slstm", "local_attn")
+# Block kinds of the reference that the port does not serve yet (none: the
+# recurrent cells and the local-attention ring are ported).
+UNPORTED_KINDS = ()
 
 
 def default_cache_len(prompt_len: int, gen_tokens: int,
@@ -157,8 +157,7 @@ class ModelConfig:
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for a model the port cannot build yet:
-    a stack with a recurrent cell or the local-attention ring, an
-    encoder-decoder, or a modality frontend (ROADMAP queue 1, item 7)."""
+    an encoder-decoder or a modality frontend (ROADMAP queue 1, item 7.2)."""
     parts = sorted(set(cfg.block_pattern) & set(UNPORTED_KINDS))
     if cfg.is_encoder_decoder:
         parts.append("encoder-decoder")
@@ -167,5 +166,4 @@ def check_ported(cfg: ModelConfig) -> None:
     if parts:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(parts)} not ported yet (ROADMAP queue 1, "
-            "item 7: the recurrent cells with the local-attention ring, then "
-            "encoder-decoder and frontends)")
+            "item 7.2: encoder-decoder and frontends)")

@@ -80,8 +80,9 @@ def _pick_chunk(s: int) -> int:
     return s
 
 
-def _attend_chunk(q, k, v, q_offset: int, prob_dtype):
-    """Causal attention of query rows ``q_offset ..`` over every key.
+def _attend_chunk(q, k, v, q_offset: int, prob_dtype, kv_offset: int = 0, window=None):
+    """Causal attention of query rows ``q_offset ..`` over keys ``kv_offset
+    ..``, within ``window`` positions when one is given.
 
     q: (B, C, G, Hkv, D) bf16; k/v: (B, S, Hkv, D) f32 copies of the bf16
     keys and values.  Exact f32 softmax: f32 accumulation, probabilities
@@ -89,15 +90,17 @@ def _attend_chunk(q, k, v, q_offset: int, prob_dtype):
     d = q.shape[-1]
     scores = torch.einsum("bcghd,bshd->bcghs", q.float(), k) * (d ** -0.5)
     qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
-    kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+    kpos = kv_offset + torch.arange(k.shape[1], device=q.device)[None, :]
     mask = kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
     scores = torch.where(mask[None, :, None, None, :], scores, _neg_inf_like(scores))
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bcghs,bshd->bcghd", probs.to(prob_dtype).float(), v)
     return out.to(q.dtype)
 
 
-def multihead_attention(q, k, v):
+def multihead_attention(q, k, v, window=None):
     """Causal GQA. q: (B, Sq, Hq, D), k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
 
     Query-chunked as the reference chunks it (:func:`_pick_chunk`: 512,
@@ -106,20 +109,37 @@ def multihead_attention(q, k, v):
     That bound is what lets a long prompt prefill: at 16,384 tokens and 32
     heads, unchunked scores would take 34 GB a copy.  Every query row is
     computed the same way in either form; a prompt length that the
-    reference leaves in one pass stays in one pass here."""
+    reference leaves in one pass stays in one pass here.
+
+    ``window`` (sliding-window attention) masks keys more than ``window -
+    1`` positions back.  Chunked self-attention (``Sq == Skv``) then reads
+    only the key band a chunk needs, ``window + chunk`` rows starting at
+    ``max(start - window, 0)`` (clamped into the keys), as the reference
+    slices it."""
     b, sq, hq, d = q.shape
-    hkv = k.shape[2]
+    skv, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, sq, hq // hkv, hkv, d)
     kf, vf = k.float(), v.float()
     chunk = _pick_chunk(sq)
-    out = torch.cat([_attend_chunk(qg[:, i:i + chunk], kf, vf, i, v.dtype)
-                     for i in range(0, sq, chunk)], dim=1)
-    return out.reshape(b, sq, hq, v.shape[-1])
+    band = None if window is None or sq != skv or chunk == sq else window + chunk
+    outs = []
+    for i in range(0, sq, chunk):
+        start, rows, kw = 0, skv, {}
+        if window is not None:
+            if band is not None:
+                start = max(i - window, 0)
+                start = min(start, skv - band) if skv >= band else 0
+                rows = min(band, skv)
+            kw = dict(kv_offset=start, window=window)
+        outs.append(_attend_chunk(qg[:, i:i + chunk], kf[:, start:start + rows],
+                                  vf[:, start:start + rows], i, v.dtype, **kw))
+    return torch.cat(outs, dim=1).reshape(b, sq, hq, v.shape[-1])
 
 
-def attention_block(x, p, cfg: ModelConfig, positions):
-    """Full causal self-attention over x: projections + RoPE + attend + output.
-    Returns (out, (k, v)) with the fresh K/V for the cache."""
+def attention_block(x, p, cfg: ModelConfig, positions, window=None):
+    """Full causal self-attention over x (within ``window`` positions when
+    one is given): projections + RoPE + attend + output.  Returns (out,
+    (k, v)) with the fresh K/V for the cache."""
     b, s, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     qm, be = cfg.quant_mode, cfg.gemm_backend
@@ -128,7 +148,7 @@ def attention_block(x, p, cfg: ModelConfig, positions):
     v = linear(x, p["wv"], qm, be).reshape(b, s, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = multihead_attention(q, k, v)
+    out = multihead_attention(q, k, v, window=window)
     return linear(out.reshape(b, s, hq * hd), p["wo"], qm, be), (k, v)
 
 
@@ -208,10 +228,12 @@ def attention_decode(x_t, p, cfg: ModelConfig, cache, pos, *, window=None):
     (B,) int32.  The token's K/V (quantized for int8 caches) is written
     into row ``pos`` of each lane IN PLACE, clamped to the last row as the
     reference's ``dynamic_update_slice`` clamps, then rows ``0..pos`` are
-    attended.  Returns (out (B, 1, d_model), cache)."""
-    if window is not None:
-        raise NotImplementedError("windowed (ring) decode caches belong to local_attn, "
-                                  "not ported yet (ROADMAP queue 1, item 7)")
+    attended.
+
+    With ``window`` the cache is a ring (local attention, ``Smax <=
+    window``): the token goes to slot ``pos % Smax``; before the ring wraps
+    slots ``0..pos`` are attended, after it every slot (all lie within the
+    window).  Returns (out (B, 1, d_model), cache)."""
     b = x_t.shape[0]
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     int8_cache = cfg.kv_cache_dtype == "int8"
@@ -219,8 +241,10 @@ def attention_decode(x_t, p, cfg: ModelConfig, cache, pos, *, window=None):
 
     k_cache, v_cache = cache["k"], cache["v"]
     smax = k_cache.shape[1]
+    if window is not None and smax > window:
+        raise ValueError("local decode cache must be allocated with Smax == window")
     lanes = torch.arange(b, device=pos.device)
-    row = torch.clamp(pos.long(), 0, smax - 1)
+    row = pos.long() % smax if window is not None else torch.clamp(pos.long(), 0, smax - 1)
     k_scale = v_scale = None
     if int8_cache:
         kq, ks = quantize_kv(k)
@@ -236,6 +260,8 @@ def attention_decode(x_t, p, cfg: ModelConfig, cache, pos, *, window=None):
 
     qg = q.reshape(b, 1, hq // hkv, hkv, hd)
     valid = torch.arange(smax, device=pos.device)[None, :] <= pos[:, None]
+    if window is not None:
+        valid = valid | (pos[:, None] >= smax)
     out = _decode_attend(qg, k_cache, v_cache, k_scale, v_scale, valid)
     out = out.to(x_t.dtype).reshape(b, 1, hq * hd)
     return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache

@@ -7,6 +7,8 @@ the :mod:`repro_torch.backends` pipeline; ``"bf16"`` is a bf16 matmul.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.backends import quantized_linear
@@ -73,7 +75,8 @@ def _silu(x):
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
-_ACTS = {"silu": _silu, "gelu": torch.nn.functional.gelu, "relu": torch.relu}
+_ACTS = {"silu": _silu, "gelu": functools.partial(torch.nn.functional.gelu, approximate="tanh"),
+         "relu": torch.relu}
 
 
 def init_glu_mlp(gen, device, d_model: int, d_ff: int, stack=()):
@@ -119,3 +122,32 @@ def apply_rope(x, positions, theta=10_000.0):
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise 1D conv (Griffin / xLSTM temporal conv)
+# ---------------------------------------------------------------------------
+
+def init_conv1d(gen, device, d: int, width: int, stack=()):
+    return truncated_normal(gen, device, (*stack, width, d), scale=0.1)
+
+
+def causal_conv1d(x, w):
+    """x: (B, S, D), w: (W, D) depthwise causal convolution.  The sum runs
+    in f32 (a bf16 ``w`` promotes), tap by tap in the reference's order,
+    and is cast to ``x``'s dtype."""
+    width = w.shape[0]
+    xf = x.float()
+    pad = torch.nn.functional.pad(xf, (0, 0, width - 1, 0))
+    out = torch.zeros_like(xf)
+    for i in range(width):
+        out = out + pad[:, i:i + x.shape[1], :] * w[i]
+    return out.to(x.dtype)
+
+
+def conv1d_decode(x_t, conv_state, w):
+    """Single-step conv: x_t (B, D), conv_state (B, W-1, D) f32 ->
+    (y_t in x_t's dtype, new state (B, W-1, D))."""
+    hist = torch.cat([conv_state, x_t.float()[:, None, :]], dim=1)   # (B, W, D)
+    y = torch.einsum("bwd,wd->bd", hist, w.float())
+    return y.to(x_t.dtype), hist[:, 1:, :]

@@ -30,6 +30,7 @@ from repro_torch.models.kvcache import (
     zeros_like_shapes,
 )
 from repro_torch.models.layers import (
+    COMPUTE_DTYPE,
     embed,
     rmsnorm,
     rmsnorm_columns,
@@ -104,7 +105,8 @@ def paged_cache_shapes(cfg: ModelConfig, n_lanes: int, cache_len: int,
     lead, n_periods, tail = layer_layout(cfg)
 
     def one(kind):
-        return paged_block_cache_shape(tfm.effective_kind(kind, cfg), cfg, n_pages, page_size)
+        return paged_block_cache_shape(tfm.effective_kind(kind, cfg), cfg, n_lanes, cache_len,
+                                       n_pages, page_size)
 
     def stacked(kind):
         return {k: ((n_periods,) + shp, dt) for k, (shp, dt) in one(kind).items()}
@@ -129,22 +131,14 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, lengths=None):
     b, s = tokens.shape
     x = embed(tokens, params["embed"])
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
-    _, n_periods, tail = layer_layout(cfg)
-    head_caches = []
-    for p in params["head_blocks"]:
-        x, c = tfm.apply_block_prefill(x, p, "dense_ffn_layer", cfg, positions, cache_len)
-        head_caches.append(c)
+    _, n_periods, _ = layer_layout(cfg)
+    head_caches, tail_caches = [], []
     per_slot = [[] for _ in cfg.block_pattern]
-    for i in range(n_periods):
-        for slot, kind in enumerate(cfg.block_pattern):
-            x, c = tfm.apply_block_prefill(
-                x, tfm.period_params(params["blocks"][slot], i), kind, cfg,
-                positions, cache_len)
-            per_slot[slot].append(c)
-    tail_caches = []
-    for p, kind in zip(params["tail_blocks"], tail):
-        x, c = tfm.apply_block_prefill(x, p, kind, cfg, positions, cache_len)
-        tail_caches.append(c)
+    for group, idx, period, kind, carry in tfm.layer_plan(cfg):
+        x, c = tfm.apply_block_prefill(x, tfm.plan_entry(params, group, idx, period), kind,
+                                       cfg, positions, cache_len, carry=carry)
+        (per_slot[idx] if group == "blocks" else
+         head_caches if group == "head_blocks" else tail_caches).append(c)
     cache = {
         "head_blocks": head_caches,
         "blocks": tuple(_stack(per) for per in per_slot) if n_periods else (),
@@ -176,22 +170,13 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
     pos = cache["pos"]
     tables = cache.get("block_tables")
     x = embed(tokens[:, None], params["embed"])
-    _, n_periods, tail = layer_layout(cfg)
-    for p, c in zip(params["head_blocks"], cache["head_blocks"]):
-        x, _ = tfm.apply_block_decode(x, p, "dense_ffn_layer", cfg, c, pos, tables=tables,
-                                      active=active)
-    for i in range(n_periods):
-        for slot, kind in enumerate(cfg.block_pattern):
-            x, _ = tfm.apply_block_decode(
-                x, tfm.period_params(params["blocks"][slot], i), kind, cfg,
-                tfm.period_params(cache["blocks"][slot], i), pos,
-                tables=tables, active=active)
-    for p, kind, c in zip(params["tail_blocks"], tail, cache["tail_blocks"]):
-        x, _ = tfm.apply_block_decode(x, p, kind, cfg, c, pos, tables=tables,
-                                      active=active)
+    for group, idx, period, kind, carry in tfm.layer_plan(cfg, carry_out=True):
+        x, _ = tfm.apply_block_decode(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
+                                      tfm.plan_entry(cache, group, idx, period), pos,
+                                      tables=tables, active=active, carry=carry)
     cache["pos"] = (pos + 1 if active is None
                     else torch.where(active, pos + 1, torch.zeros_like(pos)))
-    h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    h = rmsnorm(x, params["final_norm"], cfg.norm_eps, dtype=COMPUTE_DTYPE)
     return unembed(h, _head_table(params, cfg))[:, 0, :], cache
 
 
@@ -212,16 +197,9 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, active=None):
     pos = cache["pos"]
     tables = cache.get("block_tables")
     x = embed(tokens, params["embed"])
-    _, n_periods, tail = layer_layout(cfg)
-    kw = dict(tables=tables, active=active)
-    for p, c in zip(params["head_blocks"], cache["head_blocks"]):
-        x, _ = tfm.apply_block_verify(x, p, "dense_ffn_layer", cfg, c, pos, **kw)
-    for i in range(n_periods):
-        for slot, kind in enumerate(cfg.block_pattern):
-            x, _ = tfm.apply_block_verify(
-                x, tfm.period_params(params["blocks"][slot], i), kind, cfg,
-                tfm.period_params(cache["blocks"][slot], i), pos, **kw)
-    for p, kind, c in zip(params["tail_blocks"], tail, cache["tail_blocks"]):
-        x, _ = tfm.apply_block_verify(x, p, kind, cfg, c, pos, **kw)
+    for group, idx, period, kind, carry in tfm.layer_plan(cfg):
+        x, _ = tfm.apply_block_verify(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
+                                      tfm.plan_entry(cache, group, idx, period), pos,
+                                      tables=tables, active=active, carry=carry)
     h = rmsnorm_columns(x, params["final_norm"], cfg.norm_eps)
     return unembed(h, _head_table(params, cfg)), cache

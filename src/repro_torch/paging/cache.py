@@ -2,17 +2,20 @@
 
 Port of ``repro/paging/cache.py``.  ``PagedCache`` allocates the pool tree
 once (``models/model.paged_cache_shapes``): attention KV in global
-``(n_pages, page_size, ...)`` pools stacked over periods, plus the
-per-lane ``pos`` and the block table.  Host bookkeeping lives in
-``manager.PageManager``.
+``(n_pages, page_size, ...)`` pools stacked over periods, per-lane state
+(the recurrent cells' states and the local-attention rings, lane-indexed
+leaves), plus the per-lane ``pos`` and the block table.  Host bookkeeping
+lives in ``manager.PageManager``.
 
 Unlike the reference, whose functional ``.at[].set`` returns new pools,
 every write here is **in place**: :func:`paged_insert_many` scatters a
 prefill's rows (K/V with their int8 scales, or MLA latents; one lane or a
 stacked admission's k) into the pools with ``index_put_`` (the lead dense
-layers' pools included), the chunk and decode steps write their rows the same
-way, and ``PagedCache.defrag`` copies moved pages within the pools, so the
-pools are allocated once and never copied whole.
+layers' pools included) and writes every per-lane leaf of the lane whole,
+so an admission leaves nothing of the lane's last occupant; the chunk and
+decode steps write their rows the same way, and ``PagedCache.defrag``
+copies moved pages within the pools (per-lane leaves hold no pages), so
+the pools are allocated once and never copied whole.
 """
 
 from __future__ import annotations
@@ -30,9 +33,22 @@ _POOL_KEY_MAP = {"kp": "k", "vp": "v", "kp_scale": "k_scale", "vp_scale": "v_sca
                  "ckvp": "ckv", "krp": "kr"}
 
 
-def _scatter_block(pool_blk, multi_blk, page_ids, stacked: bool, src_row: int):
+def _is_pool(blk) -> bool:
+    return any(k in blk for k in ("kp", "ckvp"))
+
+
+def _scatter_block(pool_blk, multi_blk, page_ids, stacked: bool, src_row: int,
+                   lane: int):
     """Write batch row ``src_row`` of a contiguous cache into whole pages,
-    in place."""
+    or for a per-lane block into lane ``lane`` of its leaves, in place."""
+    if not _is_pool(pool_blk):
+        for name, leaf in pool_blk.items():
+            src = multi_blk[name]
+            if stacked:
+                leaf[:, lane] = src[:, src_row].to(leaf.dtype)
+            else:
+                leaf[lane] = src[src_row].to(leaf.dtype)
+        return
     for pk, leaf in pool_blk.items():
         src = multi_blk[_POOL_KEY_MAP[pk]]
         if stacked:
@@ -63,11 +79,11 @@ def paged_insert_many(cache, multi, lanes, page_ids, table_rows, new_lens):
         cache["block_tables"][lane] = torch.as_tensor(table_rows[i], dtype=torch.int32,
                                                       device=dev)
         for pb, mb in zip(cache["head_blocks"], multi["head_blocks"]):
-            _scatter_block(pb, mb, ids, stacked=False, src_row=i)
+            _scatter_block(pb, mb, ids, stacked=False, src_row=i, lane=lane)
         for pb, mb in zip(cache["blocks"], multi["blocks"]):
-            _scatter_block(pb, mb, ids, stacked=True, src_row=i)
+            _scatter_block(pb, mb, ids, stacked=True, src_row=i, lane=lane)
         for pb, mb in zip(cache["tail_blocks"], multi["tail_blocks"]):
-            _scatter_block(pb, mb, ids, stacked=False, src_row=i)
+            _scatter_block(pb, mb, ids, stacked=False, src_row=i, lane=lane)
     return cache
 
 
@@ -78,11 +94,12 @@ def paged_insert(cache, single, lane: int, page_ids, table_row, new_len: int):
 
 def _move_pages(cache, src, dst) -> None:
     """Copy pool pages ``src -> dst`` in every layer, in place (all sources
-    are read before any destination is written)."""
-    for blk in cache["blocks"]:
+    are read before any destination is written); per-lane blocks hold no
+    pages."""
+    for blk in filter(_is_pool, cache["blocks"]):
         for leaf in blk.values():
             leaf[:, dst] = leaf[:, src]
-    for blk in (*cache["head_blocks"], *cache["tail_blocks"]):
+    for blk in filter(_is_pool, (*cache["head_blocks"], *cache["tail_blocks"])):
         for leaf in blk.values():
             leaf[dst] = leaf[src]
 

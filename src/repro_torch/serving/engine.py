@@ -80,6 +80,8 @@ from repro_torch.configs.base import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
+from repro_torch.models.kvcache import is_paged_kind
+from repro_torch.models.transformer import RECURRENT_KINDS
 from repro_torch.paging import (
     PagedCache,
     chunkable,
@@ -155,6 +157,12 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"{what} is not ported yet (ROADMAP queue 1, item {item})")
         buckets = tuple(sorted(ecfg.prefill_buckets or ()))
+        recurrent = sorted(RECURRENT_KINDS & set(cfg.block_pattern))
+        if buckets and recurrent:
+            raise ValueError(
+                f"prefill buckets pad prompts, but {recurrent} state integrates padded "
+                "tokens; use exact-length prefill (prefill_buckets=None) for recurrent "
+                "stacks")
         if buckets and buckets[-1] > ecfg.cache_len:
             raise ValueError("largest prefill bucket exceeds cache_len")
         self.device = resolve_device(device)
@@ -172,6 +180,12 @@ class ServingEngine:
                                    admission=self.policies.admission)
         self.metrics = EngineMetrics()
         self.set_clock(time.perf_counter)
+        # whole-stack effective kinds: the local-attention rings and the
+        # recurrent states stay per lane in both cache modes, so a stack of
+        # only those reserves no pages
+        kinds = stack_kinds(cfg)
+        self._has_ring = "local_attn" in kinds and cfg.sliding_window is not None
+        self._has_paged_kinds = any(is_paged_kind(k, cfg) for k in kinds)
         # chunk length for both long-prompt chunking and the prefix cache's
         # suffix prefill (one page a chunk when prefill_chunk is unset)
         self._chunk_len = ecfg.prefill_chunk
@@ -179,14 +193,25 @@ class ServingEngine:
         self.prefix: Optional[PrefixCache] = None
         if self.paged:
             ps = ecfg.page_size
+            if self._has_ring and ecfg.cache_len % ps:
+                raise ValueError(
+                    "paged serving of local-attention stacks needs cache_len to be a "
+                    "multiple of page_size (the per-lane ring insert must match the "
+                    "pool's ring length)")
             if self._chunk_len is not None:
                 if self._chunk_len % ps:
                     raise ValueError("prefill_chunk must be a multiple of page_size "
                                      "(chunks are page-aligned)")
                 if not chunkable_with_state(cfg):
-                    raise ValueError(f"{cfg.name}: chunked prefill needs row-independent "
-                                     "kinds (attn/MLA/dense); use prefill_chunk=None")
+                    raise ValueError(
+                        f"{cfg.name}: chunked prefill needs row-independent kinds "
+                        "(attn/MLA/dense) or state-carrying recurrent cells "
+                        "(rglru/mlstm/slstm); use prefill_chunk=None")
             if ecfg.prefix_cache:
+                if not self._has_paged_kinds:
+                    raise ValueError(
+                        f"{cfg.name}: prefix_cache needs attention-family KV pages to "
+                        "share; this stack keeps all state per-lane")
                 if not chunkable(cfg):
                     raise ValueError(
                         f"{cfg.name}: prefix_cache resumes the uncached suffix through "
@@ -224,7 +249,7 @@ class ServingEngine:
             if not chunkable(cfg):
                 raise ValueError(
                     f"{cfg.name}: speculative decoding needs a stack of strictly "
-                    "row-independent kinds (attn/MLA/dense) -- the k-token verify "
+                    "row-independent kinds (attn/MLA/dense) — the k-token verify "
                     "window reuses the chunked-prefill contract; "
                     f"got {sorted(stack_kinds(cfg))}")
             self._drafter = make_drafter(
@@ -284,7 +309,7 @@ class ServingEngine:
                 f"request needs {need} cache positions but cache_len="
                 f"{self.engine_cfg.cache_len}; size the engine with "
                 f"default_cache_len(prompt_len, gen) [headroom={KV_CACHE_HEADROOM}]")
-        if self.paged:
+        if self.paged and self._has_paged_kinds:
             # a request the pool can never reserve would block the queue
             pages = pages_for(self._worst_case_rows(len(prompt), max_new_tokens),
                               self.engine_cfg.page_size)
@@ -313,7 +338,10 @@ class ServingEngine:
 
     def _single_len(self, padded_len: int) -> int:
         """Rows a paged admission prefill allocates: the bucket rounded up
-        to whole pages."""
+        to whole pages -- except for local-attention ring stacks, whose ring
+        must be the pool's (``cache_len`` is page-aligned there)."""
+        if self._has_ring:
+            return self.engine_cfg.cache_len
         return _roundup(padded_len, self.engine_cfg.page_size)
 
     def _should_chunk_len(self, prompt_len: int) -> bool:
@@ -400,7 +428,7 @@ class ServingEngine:
         discounts the draw, and under pressure the prefix tree LRU-evicts
         pages no lane uses (never pages a candidate of this dispatch is
         about to adopt)."""
-        if not self.paged:
+        if not (self.paged and self._has_paged_kinds):
             return lambda req: True
         tally = [0]
         protected: list = []
@@ -490,8 +518,13 @@ class ServingEngine:
 
     def _paged_reserve(self, req: Request, slot: int, single_len: int) -> list[int]:
         """Reserve a paged admission's worst case and take its prefill's
-        pages; returns the page ids."""
+        pages; returns the page ids (none for a stack that keeps all its
+        state per lane)."""
         mgr = self.store.manager
+        if not self._has_paged_kinds:
+            mgr.admit(slot, 0)
+            mgr.set_length(slot, req.prompt_len)
+            return []
         mgr.admit(slot, self._reserve_tokens(req))
         page_ids = mgr.alloc(slot, single_len // self.engine_cfg.page_size)
         mgr.set_length(slot, req.prompt_len)
@@ -546,7 +579,10 @@ class ServingEngine:
 
     # -- chunked prefill -------------------------------------------------
     def _begin_chunked(self, req: Request, slot: int, finished: list[Request]) -> None:
-        self.store.manager.admit(slot, self._reserve_tokens(req))
+        # a stack that keeps all its state per lane reserves no pages, or
+        # the pool gate would veto admissions that touch no pool rows
+        self.store.manager.admit(slot, self._reserve_tokens(req)
+                                 if self._has_paged_kinds else 0)
         self.scheduler.begin_chunked(slot)
         req.prefill_done = 0
         self._record_miss()
@@ -585,7 +621,8 @@ class ServingEngine:
             move = mgr.ensure_writable(slot, start)
             if move is not None:
                 self._cow(move)
-        mgr.ensure(slot, start + c)   # the padded tail lands in pages too
+        if self._has_paged_kinds:
+            mgr.ensure(slot, start + c)   # the padded tail lands in pages too
         self.store.sync_tables()
         tokens = torch.zeros((1, c), dtype=torch.int32)
         tokens[0, :n] = torch.tensor(req.prompt[start:start + n], dtype=torch.int32)
@@ -671,7 +708,7 @@ class ServingEngine:
                 req.cost.dispatches += 1
         elif running:
             t0 = time.perf_counter()
-            if self.paged:
+            if self.paged and self._has_paged_kinds:
                 mgr = self.store.manager
                 for slot, req in running.items():
                     row = int(mgr.lengths[slot])
@@ -699,7 +736,7 @@ class ServingEngine:
                 self._tokens = sample_tokens(logits, self._temps, self._topk, self._greedy,
                                              keys)
             if self.paged:
-                mgr.advance(running)
+                self.store.manager.advance(running)
             toks = self._tokens.cpu().numpy()
             decoded = list(running.items())
             for slot, req in decoded:
@@ -716,7 +753,8 @@ class ServingEngine:
 
         # evictions may have left holes in the pool: compact before the
         # next admissions when the defrag policy says so
-        if self.paged and self.policies.defrag.should_defrag(self.store.manager):
+        if (self.paged and self._has_paged_kinds
+                and self.policies.defrag.should_defrag(self.store.manager)):
             moves = self.store.defrag()
             if moves:
                 m.inc("defrag_count")

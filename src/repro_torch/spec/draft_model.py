@@ -37,7 +37,8 @@ def draft_config(target: ModelConfig, spec: SpecConfig) -> ModelConfig:
     proposals index the same token space); otherwise the target truncated
     to ``spec.draft_layers`` layers: its lead dense layers plus whole
     periods of its pattern.  An architecture the port does not serve yet
-    raises ``NotImplementedError`` (ROADMAP queue 1, item 7)."""
+    (encoder-decoder, frontends) raises ``NotImplementedError`` (ROADMAP
+    queue 1, item 7.2)."""
     if spec.draft_arch is not None:
         cfg = reduced(get_config(spec.draft_arch)).with_(vocab_size=target.vocab_size)
     else:

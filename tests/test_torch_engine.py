@@ -166,6 +166,55 @@ def test_engine_refuses_chunking_prefix_and_spec_on_moe():
             ServingEngine(tcfg, tparams, EngineConfig(**kw), device="cpu")
 
 
+# the recurrent archs: per-lane cell states (xLSTM) and RG-LRU states with
+# local-attention rings (recurrentgemma), in both cache modes
+RECURRENT = ["xlstm-125m", "recurrentgemma-9b"]
+
+
+def _recurrent_setup(arch, quant_mode):
+    kw = dict(quant_mode=quant_mode,
+              kv_cache_dtype="int8" if quant_mode == "int8_spoga" else "bf16")
+    jcfg = jax_reduced(jax_get_config(arch)).with_(remat=False, **kw)
+    tcfg = tconfigs.reduced(tconfigs.get_config(arch)).with_(**kw)
+    tree = jax.tree_util.tree_map(np.asarray, jax_init_params(jcfg, jax.random.PRNGKey(0)))
+
+    def scale(path, a):
+        if "'w" in jax.tree_util.keystr(path):
+            return (a.astype(np.float32) * WEIGHT_SCALE).astype(a.dtype)
+        return a
+
+    return jcfg, tcfg, jax.tree_util.tree_map_with_path(scale, tree)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_engine_refuses_buckets_chunking_prefix_and_spec_on_recurrent(arch):
+    """The reference's ``ValueError``s, message for message: prefill
+    buckets on a recurrent stack, chunked prefill on recurrentgemma (its
+    rings), a ring stack's paged cache_len off the page size, the prefix
+    cache and speculation on both."""
+    from repro.spec import SpecConfig as JaxSpecConfig
+    from repro_torch.spec import SpecConfig
+
+    jcfg, tcfg, tree = _recurrent_setup(arch, "bf16")
+    tparams = params_from_jax(tree, tcfg, "cpu")
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    paged = dict(cache_mode="paged", page_size=8, cache_len=32)
+    cases = [dict(prefill_buckets=(8, 16)),
+             {**paged, "prefix_cache": True, "prefill_chunk": 8},
+             {"spec": "on"}]
+    if arch == "recurrentgemma-9b":
+        cases += [{**paged, "prefill_chunk": 8}, {**paged, "cache_len": 36}]
+    for kw in cases:
+        spec = kw.pop("spec", None)
+        with pytest.raises(ValueError) as jerr:
+            JaxServingEngine(jcfg, jparams, JaxEngineConfig(
+                **kw, spec=JaxSpecConfig(enabled=True, k=4) if spec else None))
+        with pytest.raises(ValueError) as terr:
+            ServingEngine(tcfg, tparams, EngineConfig(
+                **kw, spec=SpecConfig(enabled=True, k=4) if spec else None), device="cpu")
+        assert str(terr.value) == str(jerr.value), kw
+
+
 def test_engine_evicts_on_eos():
     """A request stops at its EOS token, before its budget, and frees its
     lane and pages the same step."""

@@ -52,6 +52,12 @@ ARCH_KN = [(2560, 768), (768, 3840), (2560, 256), (2560, 32), (2560, 2560), (256
            (2816, 2048), (1536, 1536), (1536, 512)]
 SHAPES += [(m, k, n) for k, n in ARCH_KN for m in (4, 20, 128, 512)]
 SHAPES += [(1216, 256, 2560), (4096, 256, 2560)]
+# the recurrent archs' projections: recurrentgemma-9b (the RG-LRU branches
+# and gates, MQA's K/V heads, the GLU) and xlstm-125m (q/k/v/o, the two
+# 4-wide gate projections, w_zifo) at decode, prefill and chunk widths
+RECURRENT_KN = [(4096, 4096), (4096, 256), (4096, 12288), (12288, 4096), (768, 768),
+                (768, 4), (768, 3072)]
+SHAPES += [(m, k, n) for k, n in RECURRENT_KN for m in (4, 128, 256)]
 MODES = ["int8_spoga", "w4a8", "w4a4", "w16a16", "w8a8_s2", "w8a8_s3", "w6a6_s1"]
 
 
@@ -487,6 +493,8 @@ def test_verify_step_rows_are_the_decode_steps(kv):
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
     return tree.to(device)
 
 
@@ -599,3 +607,53 @@ def test_mla_verify_rows_are_the_decode_steps_on_card():
         assert torch.equal(got[:, c], want[:, 0]), c
     for k in pools:
         assert torch.equal(pools[k], vpools[k]), k
+
+
+def test_gemm_recurrent_shapes_bitwise():
+    """``spoga_gemm_dequant`` at ``int8_spoga`` on the recurrent archs'
+    narrowest and widest projections -- xlstm's 4-wide gates (K x N 768 x
+    4: one partial N tile, element loads), recurrentgemma's MQA K/V (4096
+    x 256) and GLU down projection (12288 x 4096) -- at the decode step's
+    4 lanes, a 37-token prefill and a 256-token chunk: bitwise the plain
+    version."""
+    _card()
+    for k, n in [(768, 4), (4096, 256), (12288, 4096)]:
+        for m in (1, 4, 37, 256):
+            spec, ops = _operands(m, k, n, "int8_spoga", seed=m * 7 + n)
+            launches = gemm_mod.LAUNCHES
+            got = spoga_gemm_dequant(*ops, n_x_slices=spec.n_a_slices,
+                                     n_w_slices=spec.n_w_slices, slice_bits=spec.slice_bits)
+            assert gemm_mod.LAUNCHES == launches + 1
+            assert torch.equal(got, spoga_gemm_dequant_plain(*ops)), (m, k, n)
+
+
+def test_rglru_and_ring_decode_step_on_card_match_cpu():
+    """recurrentgemma-9b at full width, one RG-LRU and one local-attention
+    layer (int8_spoga, a 64-row int8 ring), 4 lanes prefilled with 40
+    tokens (the ring rolled), then 3 decode steps fed the CPU's tokens: the
+    card's logits within 2% of their scale of the CPU's at every step (the
+    cells' f32 math and the norms sum in another order on the card), and
+    the RG-LRU state within 2% of its scale."""
+    _card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config("recurrentgemma-9b").with_(
+        n_layers=2, block_pattern=("rglru", "local_attn"), sliding_window=64,
+        quant_mode="int8_spoga", kv_cache_dtype="int8")
+    params = init_params(cfg, seed=0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 40))
+                              .astype(np.int32))
+    card = _to(params, "cuda")
+    want, cpu_cache = prefill(params, cfg, tokens, 96)
+    got, card_cache = prefill(card, cfg, tokens.cuda(), 96)
+    assert tuple(card_cache["blocks"][1]["k"].shape)[2] == 64
+    launches = gemm_mod.LAUNCHES
+    for step in range(3):
+        assert _rel(got.cpu(), want) < 2e-2, step
+        h = card_cache["blocks"][0]["h"]
+        assert _rel(h.cpu(), cpu_cache["blocks"][0]["h"]) < 2e-2, step
+        tok = want.argmax(-1).to(torch.int32)
+        want, cpu_cache = decode_step(params, cfg, tok, cpu_cache)
+        got, card_cache = decode_step(card, cfg, tok.cuda(), card_cache)
+    # 8 projections of the RG-LRU layer, 7 of the local-attention layer
+    assert gemm_mod.LAUNCHES - launches == 3 * 15

@@ -268,9 +268,10 @@ def test_config_port_matches_reference():
                 assert getattr(cfg_j, f) == getattr(cfg_t, f), (name, f)
     with pytest.raises(ValueError):
         tconfigs.get_config("llama3.2-1b").with_(paged_attn_impl="jnp")
-    # every config constructs; building a model of a kind not ported yet is refused
+    # every config constructs; building a model of a part not ported yet is refused
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
-        init_params(tconfigs.get_config("llama3.2-1b").with_(block_pattern=("mlstm",)),
+        init_params(tconfigs.get_config("llama3.2-1b").with_(is_encoder_decoder=True,
+                                                             n_encoder_layers=2),
                     device="meta")
     assert tconfigs.default_cache_len(128, 32) == 168
     assert tconfigs.default_page_count(4, 168, 16) == 45

@@ -148,8 +148,27 @@ def test_attention_decode_matches_jax(n_kv_heads, kv_dtype):
     else:
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=RESIDUE_TOL * np.abs(want).max())
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 7"):
+    # a window shorter than the cache is the reference's ValueError; a
+    # 16-row ring (window 16) against the reference's, lanes before, at and
+    # past the wrap (slots 5, 15 and 3 of positions 5, 15 and 19)
+    with pytest.raises(ValueError, match="Smax == window"):
         attention_decode(_to_port(x), tattn, tcfg, tlayer, torch.from_numpy(pos), window=8)
+    ring_pos = np.asarray([5, 15, 19], np.int32)
+    jout, jnew = jax.jit(lambda *a: jax_attention_decode(*a[:2], jcfg, *a[2:], window=16))(
+        jnp.asarray(x), jax.tree_util.tree_map(lambda a: jnp.asarray(a[0]),
+                                               tree["blocks"][0]["attn"]),
+        jax.tree_util.tree_map(jnp.asarray, layer), jnp.asarray(ring_pos))
+    tlayer = {k: _to_port(v) for k, v in layer.items()}
+    tout, tnew = attention_decode(_to_port(x), tattn, tcfg, tlayer,
+                                  torch.from_numpy(ring_pos), window=16)
+    for name, leaf in tnew.items():
+        np.testing.assert_array_equal(_np(leaf), _jnp(jnew[name]), err_msg=name)
+    want, got = _jnp(jout), _np(tout)
+    if n_kv_heads == 4:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=RESIDUE_TOL * np.abs(want).max())
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from repro.serving import ServingEngine as JaxServingEngine
 from repro.spec import NgramDrafter as JaxNgramDrafter
 from repro.spec import SpecConfig as JaxSpecConfig
 from repro.spec.draft_model import DraftModelDrafter as JaxDraftModelDrafter
+from repro.spec.draft_model import draft_config as jax_draft_config
 from repro_torch import configs as tconfigs
 from repro_torch.api import serve_batch
 from repro_torch.kernels import paged_attention as attn_mod
@@ -443,8 +444,15 @@ def test_draft_config_and_arch_refusal():
     assert draft_config(tcfg, SpecConfig(draft_arch="llama3.2-1b")).vocab_size == 512
     mla = draft_config(tcfg, SpecConfig(draft_arch="minicpm3-4b"))
     assert mla.use_mla and mla.vocab_size == 512
+    # a recurrent draft arch is derived as the reference derives it (reduced,
+    # the target's vocab); the encoder-decoder archs are not ported yet
+    xl = draft_config(tcfg, SpecConfig(draft_arch="xlstm-125m"))
+    want = jax_draft_config(_configs("bf16")[0], JaxSpecConfig(draft_arch="xlstm-125m"))
+    assert (xl.block_pattern, xl.n_layers, xl.d_model, xl.vocab_size) == \
+        (want.block_pattern, want.n_layers, want.d_model, want.vocab_size) == \
+        (("mlstm", "mlstm", "mlstm", "slstm"), 8, 128, 512)
     with pytest.raises(NotImplementedError, match="item 7"):
-        draft_config(tcfg, SpecConfig(draft_arch="xlstm-125m"))
+        draft_config(tcfg, SpecConfig(draft_arch="seamless-m4t-large-v2"))
 
 
 def test_spec_respects_eos_and_budget():
