@@ -130,7 +130,28 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``spoga_gemm_dequant`` bitwise against its plain version at every
    (M, K, N) that (a)-(c) gave it (N=4 included) and at M=4, 20, 128, 512,
    timed at M=4 and M=128;
-11. the ``kernels`` JSON line, then the ``ok`` line last.
+11. the encoder-decoder and frontend archs at full width, depth not cut
+   (after phase 10), random weights from ``init_params(seed=0)``, through
+   ``api.serve_batch`` at ``int8_spoga`` (the engine refuses them, as the
+   reference's does), 4 rows, 32 new tokens: (a) seamless-m4t-large-v2
+   (24 + 24 layers) from 128 ``fake_audio_frames`` and 8 target tokens,
+   432 ``spoga_gemm_dequant`` launches a prefill (the encoder's 7 a layer,
+   each decoder layer's cross K/V once, its 7 and the cross q and o) and
+   216 a decode step; (b) llava-next-mistral-7b from 576
+   ``fake_vision_embeds`` (one 336-px anyres tile), 224 a prefill and a
+   decode step; every count exact, read around a prefill alone and the
+   whole ``serve_batch``, no plain version; wall time, peak memory and a
+   decode-step split per model; (c) 2 layers of llava and 2 + 2 of
+   seamless on the card against the CPU, the same weights and embeddings,
+   one prefill and 4 decode steps fed the CPU's tokens, bf16 GEMMs and
+   ``int8_spoga``; (d) ``spoga_gemm_dequant`` bitwise against its plain
+   version at every (M, K, N) that (a)-(b) gave it and at M=4, 20, 128,
+   512, timed at M=4 and M=128; (e) ``ServingEngine.stream`` of one
+   request to full-width llama3.2-1b through ``LLM``'s engine, the tokens
+   ``LLM.generate`` gave, launches exact; (f) ``layers.mlp`` and
+   ``layers.layernorm`` at d 2048 on the card against the CPU, the int32
+   accumulators of the MLP's ``int8_spoga`` projections bitwise;
+12. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -1158,7 +1179,7 @@ def _slot_vs_paged(cfg, params):
         single_len = pages_for(len(prompt), ps) * ps
         tokens = torch.zeros((1, single_len), dtype=torch.int32)
         tokens[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
-        logits, single = prefill(params, cfg, tokens.cuda(), single_len,
+        logits, single = prefill(params, cfg, {"tokens": tokens.cuda()}, single_len,
                                  lengths=torch.tensor([len(prompt)], dtype=torch.int32,
                                                       device="cuda"))
         slot.insert(single, lane)
@@ -1276,7 +1297,7 @@ def phase_long_prefill(card, params):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, cfg, tokens, LONG_PREFILL)
+    logits, cache = prefill(params, cfg, {"tokens": tokens}, LONG_PREFILL)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1432,9 +1453,9 @@ def phase_cpu_parity():
     rng = np.random.default_rng(3)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 16)).astype(np.int32))
     t0 = time.perf_counter()
-    got, _ = prefill(params, cfg, tokens.cuda(), 16)
+    got, _ = prefill(params, cfg, {"tokens": tokens.cuda()}, 16)
     got = got.cpu()
-    want, _ = prefill(cpu_params, cfg, tokens, 16)
+    want, _ = prefill(cpu_params, cfg, {"tokens": tokens}, 16)
     scale = want.abs().max().item()
     err = (got - want).abs().max().item()
     top2 = torch.topk(want[0], 2).values
@@ -1487,7 +1508,7 @@ def phase_cpu_long_decode(card):
         mgr.admit(0, LONG_PROMPT + LONG_STEPS)
         page_ids = mgr.alloc(0, single_len // ps)
         mgr.set_length(0, LONG_PROMPT)
-        logits, single = prefill(p, cfg, tokens.to(device), single_len,
+        logits, single = prefill(p, cfg, {"tokens": tokens.to(device)}, single_len,
                                  lengths=lengths.to(device))
         store.insert(single, 0, page_ids, LONG_PROMPT)
         return store, logits
@@ -1766,7 +1787,7 @@ def _chunked_and_one_shot(cfg, params, prompt, chunk):
         chunked = step(params, store.cache, tokens.cuda(), 0, start, k)
     tokens = torch.zeros((1, _roundup(n, ps)), dtype=torch.int32)
     tokens[0, :n] = torch.tensor(prompt, dtype=torch.int32)
-    one_shot, _ = prefill(params, cfg, tokens.cuda(), tokens.shape[1],
+    one_shot, _ = prefill(params, cfg, {"tokens": tokens.cuda()}, tokens.shape[1],
                           lengths=torch.tensor([n], dtype=torch.int32, device="cuda"))
     return chunked.float(), one_shot.float()
 
@@ -1779,8 +1800,9 @@ def _stacked_and_solo(cfg, params, prompts, padded):
     for i, p in enumerate(prompts):
         tokens[i, :len(p)] = torch.tensor(p, dtype=torch.int32)
     lengths = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
-    stacked, _ = prefill(params, cfg, tokens.cuda(), padded, lengths=lengths.cuda())
-    solo = torch.cat([prefill(params, cfg, tokens[i:i + 1].cuda(), padded,
+    stacked, _ = prefill(params, cfg, {"tokens": tokens.cuda()}, padded,
+                         lengths=lengths.cuda())
+    solo = torch.cat([prefill(params, cfg, {"tokens": tokens[i:i + 1].cuda()}, padded,
                               lengths=lengths[i:i + 1].cuda())[0] for i in range(len(prompts))])
     return stacked.float(), solo.float()
 
@@ -1973,7 +1995,7 @@ def _margins(engine, params, prompt, stream, idx, bucket=None, chunk=None):
         single = _roundup(bucket, ps)
         tokens = torch.zeros((1, single), dtype=torch.int32)
         tokens[0, :len(prompt)] = torch.tensor(prompt, dtype=torch.int32)
-        logits, cache = prefill(params, cfg, tokens.cuda(), single,
+        logits, cache = prefill(params, cfg, {"tokens": tokens.cuda()}, single,
                                 lengths=torch.tensor([len(prompt)], dtype=torch.int32,
                                                      device="cuda"))
         ids = mgr.alloc(0, single // ps)
@@ -2775,8 +2797,8 @@ def _card_vs_cpu(arch, quant_mode, n_layers=2, tag="archs"):
     params = init_params(cfg, seed=3, device="cuda")
     tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 16))
                               .astype(np.int32))
-    got = prefill(params, cfg, tokens.cuda(), 16)[0].cpu()
-    want = prefill(_to_cpu(params), cfg, tokens, 16)[0]
+    got = prefill(params, cfg, {"tokens": tokens.cuda()}, 16)[0].cpu()
+    want = prefill(_to_cpu(params), cfg, {"tokens": tokens}, 16)[0]
     scale, err = want.abs().max().item(), (got - want).abs().max().item()
     tok, ulps = _top2(want[0])
     print(f"[{tag}] (d) {arch}, {n_layers} layers, {quant_mode}: max |logit diff| {err:.4g} of max "
@@ -2832,7 +2854,8 @@ class GemmShapes:
         return False
 
 
-def phase_arch_gemms(card, seen, table=None, tag="archs", phase="9"):
+def phase_arch_gemms(card, seen, table=None, tag="archs", phase="9", part="(e)",
+                     runs="(a)-(c)"):
     """(e) ``spoga_gemm_dequant`` alone at the three archs' projection
     shapes: bitwise against the plain version at every (M, K, N) that
     (a)-(c) gave it (``seen``: decode and verify rows, stacked prefill
@@ -2858,11 +2881,11 @@ def phase_arch_gemms(card, seen, table=None, tag="archs", phase="9"):
         require(torch.equal(got, spoga_gemm_dequant_plain(x, w, xs, ws)),
                 f"GEMM ({m},{k},{n}) differs from the plain version")
     for k, n in shapes:
-        print(f"[{tag}] (e) GEMM K={k} N={n} bitwise equal to the plain version at M = "
-              f"{sorted(m for m, kk, nn in cases if (kk, nn) == (k, n))}; (a)-(c) ran M = "
+        print(f"[{tag}] {part} GEMM K={k} N={n} bitwise equal to the plain version at M = "
+              f"{sorted(m for m, kk, nn in cases if (kk, nn) == (k, n))}; {runs} ran M = "
               f"{sorted(m for m, kk, nn in seen if (kk, nn) == (k, n))}", flush=True)
-    print(f"[{tag}] (e) {len(cases)} GEMM cases bitwise equal, {len(seen)} of them the "
-          f"shapes (a)-(c) ran", flush=True)
+    print(f"[{tag}] {part} {len(cases)} GEMM cases bitwise equal, {len(seen)} of them the "
+          f"shapes {runs} ran", flush=True)
     out = {}
     for k, n in shapes:
         for m in (4, 128):
@@ -3169,6 +3192,313 @@ def phase_recurrent(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 11. the encoder-decoder and frontend archs at full width
+# ---------------------------------------------------------------------------
+
+# (K, N) of every projection the two archs run at int8_spoga
+ENCDEC_KN = {
+    "seamless-m4t-large-v2": [(1024, 1024), (1024, 8192), (8192, 1024)],
+    "llava-next-mistral-7b": [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)],
+}
+ENCDEC_BATCH = 4
+SEAMLESS_SRC, SEAMLESS_TGT = 128, 8     # source frames; target tokens (launch/serve.py)
+LLAVA_PATCHES = 576                     # one 336-px tile of LLaVA-NeXT's anyres grid
+ENCDEC_NEW_TOKENS = 32
+ENCDEC_PARITY_STEPS = 4
+
+
+def _encdec_launches(cfg):
+    """(``spoga_gemm_dequant`` launches of a prefill, of a decode step) at
+    ``int8_spoga``: an encoder-decoder prefill runs each encoder layer's 7
+    (q, k, v, o, the GLU's 3), each decoder layer's cross K/V once (2) and
+    each decoder layer's 7 plus its cross-attention q and o (2); a decode
+    step the decoder's 9 a layer (the cross K/V come from the cache).  A
+    frontend-fed decoder runs a GQA stack's 7 a layer in both."""
+    if cfg.is_encoder_decoder:
+        step = cfg.n_layers * (7 + 2)
+        return cfg.n_encoder_layers * 7 + cfg.n_layers * 2 + step, step
+    step, prefill, _ = _gemm_launches(cfg)
+    return prefill, step
+
+
+def _encdec_batch(cfg, device, batch=ENCDEC_BATCH, src=SEAMLESS_SRC, patches=LLAVA_PATCHES,
+                  seed=ENGINE_SEED):
+    """The batch of the reference's static serving path (``launch/serve.py``
+    ``_static_main``): source frames and 8 target tokens for an
+    encoder-decoder, patch embeddings for a frontend arch; from the port's
+    stubs."""
+    from repro_torch.models.frontends import fake_audio_frames, fake_vision_embeds
+    if cfg.is_encoder_decoder:
+        tgt = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (batch, SEAMLESS_TGT)).astype(np.int32)).to(device)
+        return {"src_embeds": fake_audio_frames(seed, cfg, batch, src, device=device),
+                "tgt_tokens": tgt}
+    return {"embeds": fake_vision_embeds(seed, cfg, batch, patches, device=device)}
+
+
+def _counted_serve(card, cfg, params, batch, cache_len, label):
+    """A prefill alone, then ``serve_batch`` of ``ENCDEC_NEW_TOKENS`` tokens,
+    each with every kernel count at 0 just before and read just after: the
+    exact ``spoga_gemm_dequant`` launches (``_encdec_launches``), nothing
+    else launched, no plain version.  Returns the run's numbers."""
+    from repro_torch.api import serve_batch
+    from repro_torch.models import prefill
+    per_prefill, per_step = _encdec_launches(cfg)
+    reset_counts()
+    prefill(params, cfg, batch, cache_len)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    check_counts(launches, plain, ("spoga_gemm_dequant",), f"{label} prefill")
+    require(launches["spoga_gemm_dequant"] == per_prefill,
+            f"{label}: prefill GEMM launches {launches['spoga_gemm_dequant']} != {per_prefill}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    toks, times = serve_batch(cfg, params, batch, cache_len=cache_len,
+                              gen_tokens=ENCDEC_NEW_TOKENS)
+    launches, plain = read_counts()
+    check_counts(launches, plain, ("spoga_gemm_dequant",), label)
+    want = per_prefill + (ENCDEC_NEW_TOKENS - 1) * per_step
+    require(launches["spoga_gemm_dequant"] == want,
+            f"{label}: GEMM launches {launches['spoga_gemm_dequant']} != {want}")
+    b = toks.shape[0]
+    require(tuple(toks.shape) == (b, ENCDEC_NEW_TOKENS), f"{label}: tokens {tuple(toks.shape)}")
+    require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{label}: token out of range")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = 1e3 * times["decode_s"] / (ENCDEC_NEW_TOKENS - 1)
+    tps = b * (ENCDEC_NEW_TOKENS - 1) / times["decode_s"]
+    print(f"[encdec] {label}: prefill {1e3 * times['prefill_s']:.1f} ms, decode step "
+          f"{step_ms:.2f} ms ({tps:.2f} tok/s over {b} rows), launches spoga_gemm_dequant "
+          f"{launches['spoga_gemm_dequant']} ({per_prefill} the prefill, {per_step} a decode "
+          f"step), peak memory {peak:.2f} GiB; row 0: {toks[0, :12].tolist()} [{card}]",
+          flush=True)
+    return {"launches": launches, "prefill_ms": 1e3 * times["prefill_s"],
+            "decode_step_ms": step_ms, "tokens_per_s": tps, "peak_gib": peak,
+            "tokens": toks.cpu()}
+
+
+def _decode_split(cfg, params, batch, cache_len, card, label, steps=3):
+    """A decode step's device time (``ENCDEC_BATCH`` rows) by kernel group
+    from the profiler, with the per-call weight quantization of every
+    projection (``dynamic_quant`` of one decoder layer's weights, by
+    ``device_ms``, times the layers) split out of the elementwise group."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.backends.pipeline import dynamic_quant
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.transformer import period_params
+    logits, cache = prefill(params, cfg, batch, cache_len)
+    tok = logits.argmax(-1).to(torch.int32)
+    decode_step(params, cfg, tok, cache)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = decode_step(params, cfg, tok, cache)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    if not kernels or total <= 0:
+        print(f"[encdec] {label}: the profiler recorded no device time: split not measured",
+              flush=True)
+        return None
+    groups: dict[str, float] = {}
+    for e in kernels:
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / steps
+    layer = period_params(params["blocks"][0], 0)
+    weights = list(layer["attn"].values()) + list(layer["mlp"].values())
+    if cfg.is_encoder_decoder:
+        xattn = period_params(params["cross_blocks"]["xattn"], 0)
+        weights += [xattn["wq"], xattn["wo"]]
+    wq_ms = cfg.n_layers * device_ms(
+        lambda i: [dynamic_quant(w, dim=0, bits=8) for w in weights], 1, iters=3, warmup=1)
+    gemm = groups.get("spoga_gemm_dequant kernel", 0.0)
+    lib = sum(ms for name, ms in groups.items() if name.startswith("library"))
+    split = {f"spoga_gemm_dequant kernels ({_encdec_launches(cfg)[1]} a step)": gemm,
+             "weight quantization (dynamic_quant of every projection, every call)": wq_ms,
+             f"library matmul (the bf16 unembed over {cfg.vocab_size:,} tokens, attention "
+             f"einsums)": lib}
+    split["elementwise (activation quantization, attention softmax, norms, RoPE, cache "
+          "writes)"] = total - sum(split.values())
+    print(f"[encdec] {label} decode step, {ENCDEC_BATCH} rows: {total:.3f} ms device time, "
+          f"{wall:.3f} ms wall under the profiler (device busy {100 * total / wall:.1f}%) "
+          f"[{card}]", flush=True)
+    for what, ms in split.items():
+        print(f"[encdec]   {ms:.3f} ms ({100 * ms / total:.1f}%) {what}", flush=True)
+    return {"device_ms": total, "wall_ms": wall, "split_ms": split}
+
+
+def _encdec_arch(card, arch, label):
+    """(a) / (b): ``arch`` at full width, depth not cut, through
+    ``serve_batch`` at ``int8_spoga``; the phase's wall time and peak
+    memory; a decode-step split."""
+    from repro_torch.configs import default_cache_len, get_config
+    t0 = time.perf_counter()
+    cfg = get_config(arch).with_(quant_mode="int8_spoga")
+    params = _arch_params(arch)
+    batch = _encdec_batch(cfg, "cuda")
+    prompt = SEAMLESS_SRC if cfg.is_encoder_decoder else LLAVA_PATCHES
+    cache_len = default_cache_len(prompt, ENCDEC_NEW_TOKENS)
+    out = _counted_serve(card, cfg, params, batch, cache_len, label)
+    out["profile"] = _decode_split(cfg, params, batch, cache_len, card, label)
+    out["params_gib"] = sum(t.numel() * t.element_size() for _, t in _leaves(params)) / 2**30
+    out["wall_s"] = time.perf_counter() - t0
+    out["phase_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[encdec] {label}: {out['wall_s']:.1f} s wall, peak memory "
+          f"{out['phase_peak_gib']:.2f} GiB ({out['params_gib']:.2f} GiB of weights)", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _encdec_card_vs_cpu(arch, quant_mode, n_layers):
+    """(c) ``n_layers`` of ``arch`` at full width (encoder and decoder each
+    for seamless), the same weights and embeddings on the card and the CPU:
+    one prefill, then ``ENCDEC_PARITY_STEPS`` decode steps fed the CPU's
+    greedy tokens; every step's logits within LOGIT_TOL of their scale and
+    its greedy token equal unless the CPU row is a near tie."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = get_config(arch).with_(n_layers=n_layers, quant_mode=quant_mode)
+    if cfg.is_encoder_decoder:
+        cfg = cfg.with_(n_encoder_layers=n_layers)
+    params = init_params(cfg, seed=3, device="cuda")
+    cpu_params = _to_cpu(params)
+    batch = _encdec_batch(cfg, "cpu", batch=1, src=16, patches=16, seed=3)
+    got, card_cache = prefill(params, cfg, {k: v.cuda() for k, v in batch.items()}, 32)
+    want, cpu_cache = prefill(cpu_params, cfg, batch, 32)
+    worst = 0.0
+    for step in range(ENCDEC_PARITY_STEPS + 1):
+        got = got.float().cpu()
+        scale, err = want.abs().max().item(), (got - want).abs().max().item()
+        tok, ulps = _top2(want[0])
+        require(bool(torch.isfinite(got).all()), f"{arch}: card logits not finite")
+        require(err <= LOGIT_TOL * scale,
+                f"{arch} {quant_mode} step {step}: logits off the CPU's by {err}")
+        require(int(got.argmax()) == tok or ulps <= NEAR_TIE_ULPS,
+                f"{arch} {quant_mode} step {step}: greedy token differs on a {ulps:.3g}-ulp "
+                f"margin")
+        worst = max(worst, err / scale)
+        if step == ENCDEC_PARITY_STEPS:
+            break
+        nxt = torch.tensor([tok], dtype=torch.int32)
+        got, card_cache = decode_step(params, cfg, nxt.cuda(), card_cache)
+        want, cpu_cache = decode_step(cpu_params, cfg, nxt, cpu_cache)
+    print(f"[encdec] (c) {arch}, {n_layers} layers{' + encoder' if cfg.is_encoder_decoder else ''}"
+          f", {quant_mode}: prefill and {ENCDEC_PARITY_STEPS} decode steps, largest |logit diff| "
+          f"{worst:.3g} of the scale (tolerance {LOGIT_TOL}), first greedy token equal",
+          flush=True)
+    return {"max_rel_err": worst}
+
+
+def _stream_on_main_path(card):
+    """(e) ``ServingEngine.stream`` on the main path: full-width llama3.2-1b
+    (phase 4's weights) through ``LLM`` at ``int8_spoga`` over int8 paged
+    KV; one request streamed from the ``LLM``'s engine yields the tokens
+    ``LLM.generate`` gave for it, the stream's launches exact."""
+    from repro_torch.api import LLM, KVConfig, QuantRuntime, RuntimeConfig
+    params = full_width_params()
+    rt = RuntimeConfig(quant=QuantRuntime(mode="int8_spoga"),
+                       kv=KVConfig(mode="paged", dtype="int8", page_size=16))
+    llm = LLM("llama3.2-1b", runtime=rt, params=params, device="cuda")
+    prompt = np.random.default_rng(11).integers(0, llm.config.vocab_size, 64).tolist()
+    generated = list(llm.generate(prompt, max_new_tokens=16)[0].token_ids)
+    engine = llm.engine
+    m0 = (engine.metrics.decode_steps, engine.metrics.prefill_dispatches)
+    reset_counts()
+    streamed = list(engine.stream(prompt, 16))
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    check_counts(launches, plain, ("spoga_gemm_dequant", "paged_attention"), "stream")
+    per_step, per_prefill, attn_layers = _gemm_launches(engine.cfg)
+    steps = engine.metrics.decode_steps - m0[0]
+    prefills = engine.metrics.prefill_dispatches - m0[1]
+    require(launches["spoga_gemm_dequant"] == per_step * steps + per_prefill * prefills,
+            f"stream: GEMM launches {launches['spoga_gemm_dequant']} over {steps} steps and "
+            f"{prefills} prefills")
+    require(launches["paged_attention"] == attn_layers * steps,
+            f"stream: attention launches {launches['paged_attention']} over {steps} steps")
+    require(streamed == generated, f"stream {streamed} != generate {generated}")
+    print(f"[encdec] (e) ServingEngine.stream, llama3.2-1b full width, int8_spoga, int8 paged "
+          f"KV: 16 tokens equal to LLM.generate's; launches {launches['spoga_gemm_dequant']} "
+          f"spoga_gemm_dequant, {launches['paged_attention']} paged_attention ({steps} decode "
+          f"steps, {prefills} prefill) [{card}]", flush=True)
+    del params, llm, engine
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def _layers_card_vs_cpu(card):
+    """(f) ``layers.mlp`` (GELU) at d 2048 (d_ff 8192), bf16 GEMMs and
+    ``int8_spoga``, and ``layers.layernorm`` on the card against the CPU,
+    the same weights and inputs: outputs within LOGIT_TOL of their scale;
+    at ``int8_spoga`` the int32 accumulators of both projections, on the
+    CPU run's quantized operands, bitwise (``spoga_gemm`` on the card
+    against its plain version on the CPU)."""
+    from repro_torch.backends import impls
+    from repro_torch.models import layers
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    d, d_ff = 2048, 8192
+    p = layers.init_mlp(gen, "cuda", d, d_ff)
+    x = torch.randn((4, 8, d), generator=gen, device="cuda").to(torch.bfloat16)
+    out = {}
+    for qm in ("bf16", "int8_spoga"):
+        got = layers.mlp(x, p, quant_mode=qm).float().cpu()
+        want = layers.mlp(x.cpu(), _to_cpu(p), quant_mode=qm).float()
+        scale, err = want.abs().max().item(), (got - want).abs().max().item()
+        require(err <= LOGIT_TOL * scale, f"mlp {qm}: card off the CPU's by {err} of {scale}")
+        out[f"mlp {qm}"] = err / scale
+    seen = []
+    plain_gemm = impls.spoga_gemm
+
+    def record(x_q, w_q, **kw):
+        seen.append((x_q, w_q, kw))
+        return plain_gemm(x_q, w_q, **kw)
+
+    impls.spoga_gemm = record
+    try:
+        layers.mlp(x.cpu(), _to_cpu(p), quant_mode="int8_spoga", backend="cuda_spoga")
+    finally:
+        impls.spoga_gemm = plain_gemm
+    require(len(seen) == 2, f"mlp ran {len(seen)} int32 GEMMs, want 2")
+    for x_q, w_q, kw in seen:
+        acc = plain_gemm(x_q.cuda(), w_q.cuda(), **kw).cpu()
+        require(torch.equal(acc, plain_gemm(x_q, w_q, **kw)),
+                f"mlp int32 accumulators ({tuple(x_q.shape)} x {tuple(w_q.shape)}) differ")
+    ln = {"gamma": torch.randn(d, generator=gen, device="cuda"),
+          "beta": torch.randn(d, generator=gen, device="cuda")}
+    got = layers.layernorm(x, ln).float().cpu()
+    want = layers.layernorm(x.cpu(), _to_cpu(ln)).float()
+    scale, err = want.abs().max().item(), (got - want).abs().max().item()
+    require(err <= LOGIT_TOL * scale, f"layernorm: card off the CPU's by {err} of {scale}")
+    out["layernorm"] = err / scale
+    print(f"[encdec] (f) mlp (GELU, d {d}, d_ff {d_ff}) and layernorm, card against CPU: "
+          + ", ".join(f"{k} {v:.3g} of the scale" for k, v in out.items())
+          + f"; int32 accumulators of both int8_spoga projections bitwise [{card}]", flush=True)
+    return out
+
+
+def phase_encdec(card):
+    """11. seamless-m4t-large-v2 and llava-next-mistral-7b at full width
+    through ``serve_batch``, card-against-CPU parity, the GEMM at their
+    shapes, ``ServingEngine.stream`` on the main path, and the non-GLU MLP
+    and LayerNorm on the card."""
+    t0 = time.perf_counter()
+    with GemmShapes() as shapes:
+        out = {"seamless": _encdec_arch(card, "seamless-m4t-large-v2", "seamless-m4t-large-v2"),
+               "llava": _encdec_arch(card, "llava-next-mistral-7b", "llava-next-mistral-7b")}
+    out["cpu"] = {f"{arch} {qm}": _encdec_card_vs_cpu(arch, qm, 2)
+                  for arch in ENCDEC_KN for qm in ("bf16", "int8_spoga")}
+    out["gemm"] = phase_arch_gemms(card, shapes.seen, ENCDEC_KN, "encdec", "11", "(d)",
+                                   "(a)-(b)")
+    out["stream"] = _stream_on_main_path(card)
+    out["layers"] = _layers_card_vs_cpu(card)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[encdec] phase 11 in {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3205,6 +3535,7 @@ def main() -> int:
     phase_cpu_long_decode(card)
     archs = phase_archs(card)
     recurrent = phase_recurrent(card)
+    encdec = phase_encdec(card)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -3257,6 +3588,12 @@ def main() -> int:
                 "xlstm-125m slot int8 KV": xl["slot"]["launches"][name],
                 **{f"xlstm-125m LLM {label}": c[name] for label, c in xl["dataflows"].items()}}
 
+    def encdec_launches(name):
+        """A kernel's launches in phase 11's counted runs."""
+        return {"seamless-m4t-large-v2 serve_batch": encdec["seamless"]["launches"][name],
+                "llava-next-mistral-7b serve_batch": encdec["llava"]["launches"][name],
+                "llama3.2-1b ServingEngine.stream": encdec["stream"]["launches"][name]}
+
     chunk = gemm[("w8a8", CHUNK_M, 2048, 8192)]
     kernels = [gemm_row("spoga_gemm_dequant", "src/repro_torch/csrc/spoga_gemm_dequant.cu",
                         "src/repro/kernels/spoga_gemm_dequant.py:62",
@@ -3278,7 +3615,11 @@ def main() -> int:
                         recurrent_shapes={f"W8A8 M={m} K={k} N={n}": {
                             **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
                             for (m, k, n), t in recurrent["gemm"].items()},
-                        recurrentgemma_decode_split_ms=recurrent["recurrentgemma"]["split_ms"])]
+                        recurrentgemma_decode_split_ms=recurrent["recurrentgemma"]["split_ms"],
+                        launches_encdec_frontends=encdec_launches("spoga_gemm_dequant"),
+                        encdec_frontend_shapes={f"W8A8 M={m} K={k} N={n}": {
+                            **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
+                            for (m, k, n), t in encdec["gemm"].items()})]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
         a, long, short = (dict(attn[(kind, name)]) for name in ("main", "long", "short"))
@@ -3297,6 +3638,7 @@ def main() -> int:
                         "verify": serving["profile"]["attn"][kind],
                         "launches_archs": arch_launches("paged_attention"),
                         "launches_recurrent": recurrent_launches("paged_attention"),
+                        "launches_encdec_frontends": encdec_launches("paged_attention"),
                         "arch_shapes": {name: attn[(kind, name)]
                                         for name in ("deepseek", "granite")},
                         "card": card})

@@ -3,7 +3,8 @@
 ``serve_batch`` prefills a whole rectangular batch together and decodes
 ``gen_tokens`` greedy steps in lockstep over a slot cache.  It is the
 reference the continuous-batching engine is held against: scheduling must
-not change a request's greedy stream.
+not change a request's greedy stream.  It is also the serving path of the
+encoder-decoder and frontend archs, which the engine does not admit.
 """
 
 from __future__ import annotations
@@ -21,13 +22,16 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def serve_batch(cfg, params, tokens, *, cache_len: int, gen_tokens: int):
-    """Every sequence of ``tokens`` (B, S) int prefills together and decodes
-    ``gen_tokens`` steps together (greedy).  Returns ((B, gen_tokens)
-    int32 tokens, {"prefill_s", "decode_s"})."""
-    device = tokens.device
+def serve_batch(cfg, params, batch, *, cache_len: int, gen_tokens: int):
+    """Every sequence of ``batch`` prefills together and decodes
+    ``gen_tokens`` steps together (greedy).  ``batch`` is the reference's
+    dict: ``{"tokens": (B, S) int}``, ``{"embeds": (B, S, d)}`` for a
+    frontend arch, or ``{"src_embeds": (B, Ssrc, d), "tgt_tokens": (B, St)}``
+    for an encoder-decoder.  Returns ((B, gen_tokens) int32 tokens,
+    {"prefill_s", "decode_s"})."""
+    device = next(iter(batch.values())).device
     t0 = time.perf_counter()
-    logits, cache = model_lib.prefill(params, cfg, tokens, cache_len)
+    logits, cache = model_lib.prefill(params, cfg, batch, cache_len)
     tok = greedy_tokens(logits)
     _sync(device)
     prefill_s = time.perf_counter() - t0

@@ -41,11 +41,14 @@ SpecConfig(enabled=True))``) and stochastic ``SamplingParams``; a MoE
 stack refuses chunked prefill, the prefix cache and speculation, and a
 recurrent stack refuses prefill buckets, the prefix cache and speculation
 (recurrentgemma's rings chunked prefill too), each with the reference's
-``ValueError``.  Not ported yet, and refused with
-``NotImplementedError``: the encoder-decoder and frontend archs (ROADMAP
-queue 1, item 7.2), ``replay`` and the metrics
-server (the observability stack, item 8), and the ``mesh`` and ``obs``
-settings that ``RuntimeConfig.check_served`` names.
+``ValueError``.  The encoder-decoder and frontend archs
+(``seamless-m4t-large-v2``, ``llava-next-mistral-7b``) build their
+parameters, but the engine refuses them with the reference's
+``ValueError`` at ``generate``: they serve through ``api.serve_batch``
+with a batch dict.  Not ported yet, and refused with
+``NotImplementedError``: ``replay`` and the metrics server (the
+observability stack, item 8), and the ``mesh`` and ``obs`` settings that
+``RuntimeConfig.check_served`` names.
 """
 
 from __future__ import annotations
@@ -58,12 +61,12 @@ import numpy as np
 from repro_torch.api.config import RuntimeConfig
 from repro_torch.api.outputs import RequestOutput
 from repro_torch.checkpoint import restore_checkpoint
-from repro_torch.configs import check_ported, get_config, reduced as reduce_config
+from repro_torch.configs import get_config, reduced as reduce_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.policies import EnginePolicies
-from repro_torch.serving.request import RequestState, default_detokenizer
+from repro_torch.serving.request import default_detokenizer
 from repro_torch.serving.sampling import SamplingParams
 
 Prompt = Sequence[int]
@@ -92,7 +95,6 @@ class LLM:
         if self.runtime.reduced:
             base = reduce_config(base)
         self.config = self.runtime.resolve_model(base)
-        check_ported(self.config)
         self.device = resolve_device(device)
         if checkpoint_dir is not None:
             _, params, _ = restore_checkpoint(checkpoint_dir, None, self.config,
@@ -211,12 +213,4 @@ class LLM:
         req = engine.add_request(prompt, gen,
                                  sampling=self._sampling_for(1, sampling)[0],
                                  eos_token=eos_token, **hook)
-        i = 0
-        while True:
-            while i < len(emitted):
-                yield emitted[i]
-                i += 1
-            if req.state is RequestState.FINISHED or not engine.has_work:
-                break
-            engine.step()
-        yield from emitted[i:]
+        yield from engine.follow(req, emitted)

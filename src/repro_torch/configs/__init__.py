@@ -25,7 +25,6 @@ from repro_torch.configs.base import (
     MLAConfig,
     ModelConfig,
     MoEConfig,
-    check_ported,
     default_cache_len,
     default_page_count,
     pages_for,
@@ -56,7 +55,6 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "SUBQUADRATIC",
-    "check_ported",
     "default_cache_len",
     "default_page_count",
     "get_config",

@@ -4,10 +4,8 @@ The port's own copy of what it needs from ``repro/configs/base.py``: the
 ``ModelConfig`` fields the serving path reads (with ``MoEConfig`` and
 ``MLAConfig``) plus the cache sizing helpers the serving engine shares
 with the reference, so both packages agree on cache shapes for the same
-workload.  Every one of the reference's architectures can be written
-down; the constructors (``models.model.init_params``, the caches, the engine
-and ``LLM``) refuse the parts the port does not serve yet through
-:func:`check_ported`.  The training-only fields (``scan_layers``,
+workload.  Every one of the reference's architectures builds.  The
+training-only fields (``scan_layers``,
 ``remat``, ``remat_policy``, ``scan_unroll``) and ``numerics_watchdog``
 come with ROADMAP queue 1, items 9 and 8.
 """
@@ -25,11 +23,6 @@ KV_CACHE_HEADROOM = 8
 
 # Token rows per KV page (paged cache, repro_torch/paging/).
 DEFAULT_PAGE_SIZE = 16
-
-# Block kinds of the reference that the port does not serve yet (none: the
-# recurrent cells and the local-attention ring are ported).
-UNPORTED_KINDS = ()
-
 
 def default_cache_len(prompt_len: int, gen_tokens: int,
                       headroom: int = KV_CACHE_HEADROOM) -> int:
@@ -154,16 +147,3 @@ class ModelConfig:
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a model the port cannot build yet:
-    an encoder-decoder or a modality frontend (ROADMAP queue 1, item 7.2)."""
-    parts = sorted(set(cfg.block_pattern) & set(UNPORTED_KINDS))
-    if cfg.is_encoder_decoder:
-        parts.append("encoder-decoder")
-    if cfg.frontend is not None:
-        parts.append(f"{cfg.frontend} frontend")
-    if parts:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(parts)} not ported yet (ROADMAP queue 1, "
-            "item 7.2: encoder-decoder and frontends)")

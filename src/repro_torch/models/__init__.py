@@ -2,6 +2,7 @@
 
 from repro_torch.models.model import (
     decode_step,
+    forward,
     init_cache,
     init_params,
     paged_cache_shapes,
@@ -10,5 +11,5 @@ from repro_torch.models.model import (
 )
 from repro_torch.models.weights import params_from_jax
 
-__all__ = ["decode_step", "init_cache", "init_params", "paged_cache_shapes",
+__all__ = ["decode_step", "forward", "init_cache", "init_params", "paged_cache_shapes",
            "params_from_jax", "prefill", "verify_step"]

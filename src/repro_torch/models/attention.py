@@ -7,7 +7,9 @@ query head ``h`` reads KV head ``h % hkv``.
 Plain PyTorch, as the reference computes these outside Pallas:
 
 * prefill attention (:func:`multihead_attention`), query-chunked at the
-  reference's sizes so that its memory grows as chunk x prompt;
+  reference's sizes so that its memory grows as chunk x prompt; causal,
+  or unmasked for cross-attention (:func:`cross_attention_block` over the
+  encoder's K/V from :func:`encode_cross_kv`);
 * slot-cache decode (:func:`attention_decode`): the token's K/V goes into
   row ``pos`` of its lane's contiguous cache, in place, then
   :func:`_decode_attend` attends rows ``0..pos``.
@@ -80,9 +82,11 @@ def _pick_chunk(s: int) -> int:
     return s
 
 
-def _attend_chunk(q, k, v, q_offset: int, prob_dtype, kv_offset: int = 0, window=None):
-    """Causal attention of query rows ``q_offset ..`` over keys ``kv_offset
-    ..``, within ``window`` positions when one is given.
+def _attend_chunk(q, k, v, q_offset: int, prob_dtype, kv_offset: int = 0, window=None,
+                  causal: bool = True):
+    """Attention of query rows ``q_offset ..`` over keys ``kv_offset ..``:
+    causal unless ``causal=False``, within ``window`` positions when one is
+    given.
 
     q: (B, C, G, Hkv, D) bf16; k/v: (B, S, Hkv, D) f32 copies of the bf16
     keys and values.  Exact f32 softmax: f32 accumulation, probabilities
@@ -91,7 +95,7 @@ def _attend_chunk(q, k, v, q_offset: int, prob_dtype, kv_offset: int = 0, window
     scores = torch.einsum("bcghd,bshd->bcghs", q.float(), k) * (d ** -0.5)
     qpos = q_offset + torch.arange(q.shape[1], device=q.device)[:, None]
     kpos = kv_offset + torch.arange(k.shape[1], device=q.device)[None, :]
-    mask = kpos <= qpos
+    mask = (kpos <= qpos) | (not causal)
     if window is not None:
         mask &= kpos > qpos - window
     scores = torch.where(mask[None, :, None, None, :], scores, _neg_inf_like(scores))
@@ -100,8 +104,10 @@ def _attend_chunk(q, k, v, q_offset: int, prob_dtype, kv_offset: int = 0, window
     return out.to(q.dtype)
 
 
-def multihead_attention(q, k, v, window=None):
-    """Causal GQA. q: (B, Sq, Hq, D), k/v: (B, Skv, Hkv, D) -> (B, Sq, Hq, D).
+def multihead_attention(q, k, v, *, causal: bool = True, window=None):
+    """GQA, causal unless ``causal=False`` (cross-attention, where ``Sq``
+    and ``Skv`` may differ). q: (B, Sq, Hq, D), k/v: (B, Skv, Hkv, D) ->
+    (B, Sq, Hq, D).
 
     Query-chunked as the reference chunks it (:func:`_pick_chunk`: 512,
     256, 128 or 64 rows), so the f32 scores of one chunk, (B, C, G, Hkv,
@@ -132,14 +138,15 @@ def multihead_attention(q, k, v, window=None):
                 rows = min(band, skv)
             kw = dict(kv_offset=start, window=window)
         outs.append(_attend_chunk(qg[:, i:i + chunk], kf[:, start:start + rows],
-                                  vf[:, start:start + rows], i, v.dtype, **kw))
+                                  vf[:, start:start + rows], i, v.dtype, causal=causal,
+                                  **kw))
     return torch.cat(outs, dim=1).reshape(b, sq, hq, v.shape[-1])
 
 
-def attention_block(x, p, cfg: ModelConfig, positions, window=None):
-    """Full causal self-attention over x (within ``window`` positions when
-    one is given): projections + RoPE + attend + output.  Returns (out,
-    (k, v)) with the fresh K/V for the cache."""
+def attention_block(x, p, cfg: ModelConfig, positions, window=None, causal: bool = True):
+    """Full self-attention over x, causal unless ``causal=False`` (within
+    ``window`` positions when one is given): projections + RoPE + attend +
+    output.  Returns (out, (k, v)) with the fresh K/V for the cache."""
     b, s, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     qm, be = cfg.quant_mode, cfg.gemm_backend
@@ -148,8 +155,40 @@ def attention_block(x, p, cfg: ModelConfig, positions, window=None):
     v = linear(x, p["wv"], qm, be).reshape(b, s, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = multihead_attention(q, k, v, window=window)
+    out = multihead_attention(q, k, v, causal=causal, window=window)
     return linear(out.reshape(b, s, hq * hd), p["wo"], qm, be), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attention(cfg: ModelConfig, gen: torch.Generator, device, stack=()):
+    return init_attention(cfg, gen, device, stack)
+
+
+def cross_attention_block(x, enc_kv, p, cfg: ModelConfig):
+    """x: (B, St, d) decoder states; enc_kv: the encoder's (k, v), each
+    (B, Ssrc, Hkv, D), from :func:`encode_cross_kv`.  Every decoder row
+    attends every encoder row (no mask, no RoPE)."""
+    b, s, _ = x.shape
+    hd, hq = cfg.resolved_head_dim, cfg.n_heads
+    qm, be = cfg.quant_mode, cfg.gemm_backend
+    q = linear(x, p["wq"], qm, be).reshape(b, s, hq, hd)
+    k, v = enc_kv
+    out = multihead_attention(q, k, v, causal=False)
+    return linear(out.reshape(b, s, hq * hd), p["wo"], qm, be)
+
+
+def encode_cross_kv(enc_out, p, cfg: ModelConfig):
+    """The encoder output's cross K/V for one decoder layer, (B, Ssrc, Hkv,
+    D) each, bf16 in every quant mode (``linear``'s output)."""
+    b, s, _ = enc_out.shape
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    qm, be = cfg.quant_mode, cfg.gemm_backend
+    k = linear(enc_out, p["wk"], qm, be).reshape(b, s, hkv, hd)
+    v = linear(enc_out, p["wv"], qm, be).reshape(b, s, hkv, hd)
+    return k, v
 
 
 def quantize_kv(t):

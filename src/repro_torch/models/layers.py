@@ -1,4 +1,4 @@
-"""Base layers: norms, embeddings, the GLU MLP and the quantized linear.
+"""Base layers: norms, embeddings, the MLPs and the quantized linear.
 
 Port of ``repro/models/layers.py`` (forward only).  Compute dtype is bf16;
 weights are stored bf16 and norm scales f32.  Integer modes route through
@@ -68,6 +68,20 @@ def rmsnorm_columns(x, gamma, eps=1e-6, dtype=None):
     return ((xf * torch.rsqrt(var + eps)) * gamma).to(dtype or x.dtype)
 
 
+def init_layernorm(d: int, device=None):
+    return {"gamma": torch.ones((d,), dtype=torch.float32, device=device),
+            "beta": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(x, p, eps=1e-6):
+    """LayerNorm in f32 (the variance is the mean of the centred squares,
+    as ``jnp.var`` forms it), cast to ``x``'s dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * p["gamma"] + p["beta"]).to(x.dtype)
+
+
 def _silu(x):
     """x * sigmoid(x) with sigmoid written out as 1 / (1 + exp(-x)), each op
     rounding to x's dtype — the reference's logistic expansion, so bf16
@@ -95,6 +109,17 @@ def glu_mlp(x, p, act="silu", quant_mode="bf16", backend=None):
     g = _ACTS[act](linear(x, p["w_gate"], quant_mode, backend))
     u = linear(x, p["w_up"], quant_mode, backend)
     return linear(g.float() * u.float(), p["w_down"], quant_mode, backend)
+
+
+def init_mlp(gen, device, d_model: int, d_ff: int, stack=()):
+    return {"w_in": init_linear(gen, device, (*stack, d_model, d_ff)),
+            "w_out": init_linear(gen, device, (*stack, d_ff, d_model))}
+
+
+def mlp(x, p, act="gelu", quant_mode="bf16", backend=None):
+    """The non-GLU MLP, ``out(act(in(x)))``."""
+    return linear(_ACTS[act](linear(x, p["w_in"], quant_mode, backend)),
+                  p["w_out"], quant_mode, backend)
 
 
 def embed(tokens, table):

@@ -1,5 +1,6 @@
-"""Model entry points: init / caches / prefill / decode / verify for the
-attention family (GQA, MLA, MoE with leading dense layers).
+"""Model entry points: init / forward / caches / prefill / decode / verify
+for every architecture of the reference (decoder-only, encoder-decoder,
+frontend-fed).
 
 Port of ``repro/models/model.py``.  Parameter layout mirrors the
 reference's (plain dicts of tensors):
@@ -9,7 +10,21 @@ reference's (plain dicts of tensors):
      "blocks": (slot_0_tree, ...),   # leaves stacked over n_periods
      "tail_blocks": [per-layer trees],
      "final_norm": (d,) f32,
-     "head": (V, d) bf16 (absent if tied)}
+     "head": (V, d) bf16 (absent if tied),
+     # encoder-decoder only:
+     "enc_blocks": (attn slot tree stacked over n_encoder_layers,),
+     "enc_tail_blocks": [],
+     "enc_final_norm": (d,) f32,
+     "cross_blocks": {"xattn": {wq, wk, wv, wo}, "norm_x"}  # over n_periods}
+
+A batch is the reference's dict: ``{"tokens": (B, S)}``, precomputed
+frontend embeddings ``{"embeds": (B, S, d)}``, or for an encoder-decoder
+``{"src_embeds": (B, Ssrc, d), "tgt_tokens": (B, St)}``.  The encoder is
+causal, as the reference's ``_run_encoder`` runs it.  After each decoder
+period an encoder-decoder runs its cross-attention block on
+``rmsnorm(h, norm_x)`` and adds it to the stream: :func:`forward`
+projects the encoder's K/V anew in each period, :func:`prefill` once per
+period into ``cache["cross_kv"]``, which :func:`decode_step` reads.
 
 The reference's ``lax.scan`` over periods is a Python loop here.  Decode
 runs over a contiguous (slot) cache or a paged one; its writes land in the
@@ -20,10 +35,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, check_ported, pages_for
+from repro_torch.configs.base import ModelConfig, pages_for
 from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
-from repro_torch.models.transformer import layer_layout
+from repro_torch.models.transformer import layer_layout, period_params
 from repro_torch.models.kvcache import (
     block_cache_shape,
     paged_block_cache_shape,
@@ -39,30 +55,52 @@ from repro_torch.models.layers import (
 )
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None):
-    """Random weights from a ``torch.Generator`` seeded with ``seed``, made
-    on ``device`` (default CUDA).  Same distributions as the reference's
-    ``init_params``; not the same numbers (use ``weights.params_from_jax``
-    to carry the reference's weights across).  ``device="meta"`` gives the
-    layout (names, shapes, dtypes) without memory.  A stack the port does
-    not serve yet raises ``NotImplementedError`` (``check_ported``)."""
-    check_ported(cfg)
-    dev = resolve_device(device)
-    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
+def _ones(shape, dev):
+    return torch.ones(shape, dtype=torch.float32, device=dev)
+
+
+def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The encoder's stack: ``n_encoder_layers`` attention layers."""
+    return cfg.with_(block_pattern=("attn",), n_layers=cfg.n_encoder_layers,
+                     is_encoder_decoder=False)
+
+
+def _init_stack(cfg: ModelConfig, gen, dev):
     lead, n_periods, tail = layer_layout(cfg)
-    emb_scale = 1.0 / (cfg.d_model ** 0.5)
-    params = {
-        "embed": truncated_normal(gen, dev, (cfg.vocab_size, cfg.d_model), emb_scale),
+    return {
         "head_blocks": [tfm.init_block(cfg, gen, dev, "dense_ffn_layer")
                         for _ in range(lead)],
         "blocks": tuple(tfm.init_block(cfg, gen, dev, kind, stack=(n_periods,))
                         for kind in cfg.block_pattern) if n_periods else (),
         "tail_blocks": [tfm.init_block(cfg, gen, dev, kind) for kind in tail],
-        "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32, device=dev),
     }
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+    """Random weights from a ``torch.Generator`` seeded with ``seed``, made
+    on ``device`` (default CUDA).  Same distributions as the reference's
+    ``init_params``; not the same numbers (use ``weights.params_from_jax``
+    to carry the reference's weights across).  ``device="meta"`` gives the
+    layout (names, shapes, dtypes) without memory."""
+    dev = resolve_device(device)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
+    emb_scale = 1.0 / (cfg.d_model ** 0.5)
+    params = {"embed": truncated_normal(gen, dev, (cfg.vocab_size, cfg.d_model), emb_scale)}
+    params.update(_init_stack(cfg, gen, dev))
+    params["final_norm"] = _ones((cfg.d_model,), dev)
     if not cfg.tie_embeddings:
         params["head"] = truncated_normal(gen, dev, (cfg.vocab_size, cfg.d_model),
                                           emb_scale)
+    if cfg.is_encoder_decoder:
+        enc = _init_stack(_encoder_cfg(cfg), gen, dev)
+        params["enc_blocks"] = enc["blocks"]
+        params["enc_tail_blocks"] = enc["tail_blocks"]
+        params["enc_final_norm"] = _ones((cfg.d_model,), dev)
+        _, n_periods, _ = layer_layout(cfg)
+        params["cross_blocks"] = {
+            "xattn": attn.init_cross_attention(cfg, gen, dev, stack=(n_periods,)),
+            "norm_x": _ones((n_periods, cfg.d_model), dev),
+        } if n_periods else ()
     return params
 
 
@@ -74,10 +112,105 @@ def _stack(trees):
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
+# ---------------------------------------------------------------------------
+# Backbone forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _plan(cfg: ModelConfig, carry_out: bool = False):
+    """``transformer.layer_plan`` plus a sixth field, ``cross``: True for an
+    encoder-decoder's last slot of a period, after which the period's
+    cross-attention step runs.  That slot's output then stays f32 into
+    ``norm_x`` (it is not the scan's carry: the cross add ends the period,
+    rounded)."""
+    last = len(cfg.block_pattern) - 1
+    for group, idx, period, kind, carry in tfm.layer_plan(cfg, carry_out):
+        cross = cfg.is_encoder_decoder and group == "blocks" and idx == last
+        yield group, idx, period, kind, carry or cross, cross
+
+
+def _cross_step(x, params, cfg: ModelConfig, period: int, enc_kv):
+    """Period ``period``'s cross-attention: ``x + xattn(rmsnorm(x, norm_x),
+    enc_kv)``, the sum rounded to bf16."""
+    cross_p = period_params(params["cross_blocks"], period)
+    hx = rmsnorm(x, cross_p["norm_x"], cfg.norm_eps, dtype=COMPUTE_DTYPE)
+    return x.to(COMPUTE_DTYPE) + attn.cross_attention_block(hx, enc_kv, cross_p["xattn"], cfg)
+
+
+def _cross_kv(enc_out, params, cfg: ModelConfig, period: int):
+    return attn.encode_cross_kv(
+        enc_out, period_params(params["cross_blocks"]["xattn"], period), cfg)
+
+
+def _embed_input(params, cfg: ModelConfig, batch):
+    """(x (B, S, d) bf16, positions (B, S)) of ``batch["embeds"]`` or of
+    the tokens ``batch["tokens"]``; ``batch["positions"]`` when given."""
+    if "embeds" in batch:
+        x = batch["embeds"].to(COMPUTE_DTYPE)
+    else:
+        x = embed(batch["tokens"], params["embed"])
+    b, s = x.shape[0], x.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    return x, positions
+
+
+def _run_stack(x, params, cfg: ModelConfig, positions, *, causal: bool = True,
+               enc_out=None, carry_out: bool = False, aux_out=None):
+    """The stack's layers over the full sequence (the cross-attention steps
+    against ``enc_out`` for an encoder-decoder).  ``carry_out``: leave a
+    last tail layer's output f32 for the final norm."""
+    for group, idx, period, kind, carry, cross in _plan(cfg, carry_out):
+        x, _ = tfm.apply_block(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
+                               positions, carry=carry, causal=causal, aux_out=aux_out)
+        if cross:
+            x = _cross_step(x, params, cfg, period, _cross_kv(enc_out, params, cfg, period))
+    return x
+
+
+def _run_encoder(src, params, cfg: ModelConfig):
+    """The encoder over ``src`` (B, Ssrc, d) embeddings, cast to bf16:
+    causal, as the reference runs it.  Returns rmsnorm'd (B, Ssrc, d) bf16."""
+    b, s = src.shape[0], src.shape[1]
+    positions = torch.arange(s, dtype=torch.int32, device=src.device).expand(b, s)
+    enc = {"head_blocks": [], "blocks": params["enc_blocks"],
+           "tail_blocks": params.get("enc_tail_blocks", [])}
+    x = _run_stack(src.to(COMPUTE_DTYPE), enc, _encoder_cfg(cfg), positions)
+    return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
+
+
+def backbone(params, cfg: ModelConfig, batch):
+    """-> (final-normed hidden (B, S, d) bf16, MoE load-balance loss f32)."""
+    aux = []
+    if cfg.is_encoder_decoder:
+        enc_out = _run_encoder(batch["src_embeds"], params, cfg)
+        x, positions = _embed_input(params, cfg, {"tokens": batch["tgt_tokens"]})
+    else:
+        enc_out = None
+        x, positions = _embed_input(params, cfg, batch)
+    x = _run_stack(x, params, cfg, positions, enc_out=enc_out, carry_out=True, aux_out=aux)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in aux:
+        total = total + a
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps, dtype=COMPUTE_DTYPE), total
+
+
+def forward(params, cfg: ModelConfig, batch):
+    """Full logits (B, S, V) f32 of ``batch`` -- for small configs and
+    tests: prefill and decode are held against it."""
+    h, _ = backbone(params, cfg, batch)
+    return unembed(h, _head_table(params, cfg))
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device, cross_len: int = 0):
     """Zero contiguous cache (the layout :func:`prefill` returns).  The lead
-    layers' caches are keyed ``one("attn")`` as in the reference."""
-    check_ported(cfg)
+    layers' caches are keyed ``one("attn")`` as in the reference.  An
+    encoder-decoder's cache adds ``cross_kv``: the encoder's K/V for each
+    period, (n_periods, batch, cross_len, Hkv, D) bf16."""
     lead, n_periods, tail = layer_layout(cfg)
 
     def one(kind):
@@ -92,6 +225,10 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
         "blocks": tuple(stacked(kind) for kind in cfg.block_pattern) if n_periods else (),
         "tail_blocks": [one(kind) for kind in tail],
     }
+    if cfg.is_encoder_decoder:
+        kv = ((n_periods, batch, cross_len, cfg.n_kv_heads, cfg.resolved_head_dim),
+              COMPUTE_DTYPE)
+        shapes["cross_kv"] = {"k": kv, "v": kv}
     return zeros_like_shapes(shapes, device)
 
 
@@ -100,8 +237,10 @@ def paged_cache_shapes(cfg: ModelConfig, n_lanes: int, cache_len: int,
     """(shape, dtype) tree of the paged decode cache: KV in global page
     pools (stacked over periods) indexed through ``block_tables``
     ``(n_lanes, pages_for(cache_len))`` int32.  The lead layers' pools are
-    keyed ``one("dense_ffn_layer")`` as in the reference."""
-    check_ported(cfg)
+    keyed ``one("dense_ffn_layer")`` as in the reference.  Decoder-only
+    stacks only, as in the reference."""
+    if cfg.is_encoder_decoder:
+        raise ValueError("paged caches support decoder-only stacks")
     lead, n_periods, tail = layer_layout(cfg)
 
     def one(kind):
@@ -120,32 +259,49 @@ def paged_cache_shapes(cfg: ModelConfig, n_lanes: int, cache_len: int,
     }
 
 
-def prefill(params, cfg: ModelConfig, tokens, cache_len: int, lengths=None):
-    """Process prompts ``tokens`` (B, S); return (last-position logits
-    (B, V) f32, contiguous cache with rows [0, S) filled).
+# ---------------------------------------------------------------------------
+# Prefill / decode
+# ---------------------------------------------------------------------------
+
+def prefill(params, cfg: ModelConfig, batch, cache_len: int, lengths=None):
+    """Process the prompts of ``batch`` (``{"tokens": (B, S)}``,
+    ``{"embeds": (B, S, d)}``, or ``{"src_embeds", "tgt_tokens"}`` for an
+    encoder-decoder); return (last-position logits (B, V) f32, contiguous
+    cache with rows [0, S) filled).
 
     ``lengths`` (B,) are the true lengths of right-padded prompts: logits
     come from position ``lengths - 1`` and the cache ``pos`` starts at
     ``lengths``, so padded rows are overwritten before any query can
-    attend them."""
-    b, s = tokens.shape
-    x = embed(tokens, params["embed"])
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    attend them.  An encoder-decoder runs the encoder once and keeps each
+    period's cross K/V in ``cache["cross_kv"]``."""
     _, n_periods, _ = layer_layout(cfg)
+    cross_kv = None
+    if cfg.is_encoder_decoder:
+        enc_out = _run_encoder(batch["src_embeds"], params, cfg)
+        cross_kv = [_cross_kv(enc_out, params, cfg, i) for i in range(n_periods)]
+        x, positions = _embed_input(params, cfg, {"tokens": batch["tgt_tokens"]})
+    else:
+        x, positions = _embed_input(params, cfg, batch)
+    b, s = x.shape[0], x.shape[1]
     head_caches, tail_caches = [], []
     per_slot = [[] for _ in cfg.block_pattern]
-    for group, idx, period, kind, carry in tfm.layer_plan(cfg):
+    for group, idx, period, kind, carry, cross in _plan(cfg):
         x, c = tfm.apply_block_prefill(x, tfm.plan_entry(params, group, idx, period), kind,
                                        cfg, positions, cache_len, carry=carry)
         (per_slot[idx] if group == "blocks" else
          head_caches if group == "head_blocks" else tail_caches).append(c)
+        if cross:
+            x = _cross_step(x, params, cfg, period, cross_kv[period])
     cache = {
         "head_blocks": head_caches,
         "blocks": tuple(_stack(per) for per in per_slot) if n_periods else (),
         "tail_blocks": tail_caches,
     }
+    if cross_kv is not None:
+        cache["cross_kv"] = {"k": torch.stack([k for k, _ in cross_kv]),
+                             "v": torch.stack([v for _, v in cross_kv])}
     if lengths is None:
-        cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+        cache["pos"] = torch.full((b,), s, dtype=torch.int32, device=x.device)
         x_last = x[:, -1:, :]
     else:
         lengths = lengths.to(torch.int32)
@@ -157,7 +313,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache_len: int, lengths=None):
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
-    """One token for every lane.  tokens: (B,) int.
+    """One token for every lane.  tokens: (B,) int, or (B, d) embeddings.
 
     A ``block_tables`` key in ``cache`` marks a paged cache (see
     :func:`paged_cache_shapes`); without one, ``cache`` is the contiguous
@@ -165,15 +321,22 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
     marks lanes serving a request: idle lanes still ride the fixed-shape
     step, but their ``pos`` is pinned to 0; their paged writes go to the
     trash page, their slot writes stay in their own lane at row 0.
-    ``active=None`` advances every lane.  The cache is updated in place and
-    returned with ``pos`` advanced.  Returns (logits (B, V), cache)."""
+    ``active=None`` advances every lane.  An encoder-decoder attends
+    ``cache["cross_kv"]`` after each period.  The cache is updated in place
+    and returned with ``pos`` advanced.  Returns (logits (B, V), cache)."""
     pos = cache["pos"]
     tables = cache.get("block_tables")
-    x = embed(tokens[:, None], params["embed"])
-    for group, idx, period, kind, carry in tfm.layer_plan(cfg, carry_out=True):
+    if tokens.ndim == 1:
+        x = embed(tokens[:, None], params["embed"])
+    else:
+        x = tokens[:, None, :].to(COMPUTE_DTYPE)
+    for group, idx, period, kind, carry, cross in _plan(cfg, carry_out=True):
         x, _ = tfm.apply_block_decode(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
                                       tfm.plan_entry(cache, group, idx, period), pos,
                                       tables=tables, active=active, carry=carry)
+        if cross:
+            xkv = cache["cross_kv"]
+            x = _cross_step(x, params, cfg, period, (xkv["k"][period], xkv["v"][period]))
     cache["pos"] = (pos + 1 if active is None
                     else torch.where(active, pos + 1, torch.zeros_like(pos)))
     h = rmsnorm(x, params["final_norm"], cfg.norm_eps, dtype=COMPUTE_DTYPE)

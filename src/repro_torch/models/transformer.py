@@ -141,15 +141,20 @@ def _norm1(x, p, cfg: ModelConfig, norm=rmsnorm):
     return norm(x, p["norm1"], cfg.norm_eps, dtype=COMPUTE_DTYPE)
 
 
-def _residual_mlp(x, a, p, cfg: ModelConfig, norm=rmsnorm, carry: bool = False):
+def _residual_mlp(x, a, p, cfg: ModelConfig, norm=rmsnorm, carry: bool = False,
+                  aux_out=None):
     """``x + a`` then ``+ ffn(norm2(x + a))``, the FFN being the routed
     experts of a ``"moe"`` block or the GLU MLP.  The mid-block residual
     stays f32 into the norm and is rounded to bf16 only for the second
-    add, where the reference's compiled graph rounds it."""
+    add, where the reference's compiled graph rounds it.  A ``"moe"``
+    block appends its load-balance loss to the list ``aux_out`` when one
+    is given."""
     mid = x.to(COMPUTE_DTYPE).float() + a.float()
     h = norm(mid, p["norm2"], cfg.norm_eps, dtype=COMPUTE_DTYPE)
     if "moe" in p:
-        f, _ = moe_ffn(h, p["moe"], cfg)
+        f, aux = moe_ffn(h, p["moe"], cfg)
+        if aux_out is not None:
+            aux_out.append(aux)
     else:
         f = glu_mlp(h, p["mlp"], cfg.act, cfg.quant_mode, cfg.gemm_backend)
     return _add(mid, f, carry)
@@ -164,11 +169,14 @@ def _apply_cell(x, p, kind: str, cfg: ModelConfig, state, carry: bool):
     return _add(x, a, carry), state
 
 
-def apply_block(x, p, kind: str, cfg: ModelConfig, positions, carry: bool = False):
-    """Full-sequence causal application.  Returns (x, fresh cache rows):
-    (k, v) for the GQA kinds, (c_kv, k_rope) for MLA, None for the
-    recurrent kinds.  ``carry``: return the output stream in f32, unrounded
-    (:func:`layer_plan`)."""
+def apply_block(x, p, kind: str, cfg: ModelConfig, positions, carry: bool = False,
+                causal: bool = True, aux_out=None):
+    """Full-sequence application.  Returns (x, fresh cache rows): (k, v)
+    for the GQA kinds, (c_kv, k_rope) for MLA, None for the recurrent
+    kinds.  ``carry``: return the output stream in f32, unrounded
+    (:func:`layer_plan`).  ``causal=False`` unmasks the GQA kinds'
+    self-attention, as in the reference (MLA and the cells stay causal).
+    ``aux_out``: see :func:`_residual_mlp`."""
     kind = effective_kind(kind, cfg)
     if kind in RECURRENT_KINDS:
         return _apply_cell(x, p, kind, cfg, None, carry)[0], None
@@ -177,10 +185,11 @@ def apply_block(x, p, kind: str, cfg: ModelConfig, positions, carry: bool = Fals
         a, fresh = attn.mla_block(h, p["attn"], cfg, positions)
     elif kind in _ATTN_KINDS:
         window = cfg.sliding_window if kind == "local_attn" else None
-        a, fresh = attn.attention_block(h, p["attn"], cfg, positions, window=window)
+        a, fresh = attn.attention_block(h, p["attn"], cfg, positions, window=window,
+                                        causal=causal)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    return _residual_mlp(x, a, p, cfg, carry=carry), fresh
+    return _residual_mlp(x, a, p, cfg, carry=carry, aux_out=aux_out), fresh
 
 
 def apply_block_prefill(x, p, kind: str, cfg: ModelConfig, positions, cache_len: int,

@@ -7,7 +7,10 @@ dtype — and returns the port's parameter tree, same layout:
 ``"head_blocks"`` holds a MoE stack's leading dense layers, ``"blocks"``
 is a tuple with one slot tree per ``block_pattern`` entry, each leaf
 stacked over periods; weights bf16 ``(d_in, d_out)`` (expert stacks
-``(E, d_in, d_out)``), norm scales and the MoE router f32.
+``(E, d_in, d_out)``), norm scales and the MoE router f32.  An
+encoder-decoder's tree also carries ``enc_blocks`` (stacked over its
+``n_encoder_layers``), ``enc_tail_blocks``, ``enc_final_norm`` and
+``cross_blocks`` (``xattn`` and ``norm_x``, stacked over periods).
 Leaves that are already tensors (``checkpoint.restore_checkpoint``) are
 moved as they are.
 """
@@ -44,6 +47,10 @@ def _convert(tree, device):
     return _to_torch(tree, device)
 
 
+# an encoder-decoder's leaves beside the decoder's
+ENC_KEYS = ("enc_blocks", "enc_tail_blocks", "enc_final_norm", "cross_blocks")
+
+
 def params_from_jax(np_tree, cfg: ModelConfig, device=None):
     """The reference's numpy parameter tree -> the port's, on ``device``."""
     dev = resolve_device(device)
@@ -58,10 +65,21 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None):
         raise ValueError(f"the tree's layer layout does not match cfg ({lead} lead "
                          f"layers, {n_periods} periods, {len(tail)} tail layers)")
     keep = ("embed", "head_blocks", "blocks", "tail_blocks", "final_norm", "head")
+    if cfg.is_encoder_decoder:
+        missing = [k for k in ENC_KEYS if k not in np_tree]
+        if missing:
+            raise ValueError(f"an encoder-decoder tree needs {missing}")
+        keep += ENC_KEYS
     out = {k: _convert(np_tree[k], dev) for k in keep if k in np_tree}
     out.setdefault("head_blocks", [])
-    for slot in out.get("blocks", ()):
-        if slot["norm1"].shape[0] != n_periods:
-            raise ValueError(f"blocks are stacked over {slot['norm1'].shape[0]} "
-                             f"periods, cfg has {n_periods}")
+    stacks = [(slot["norm1"], n_periods, "blocks") for slot in out.get("blocks", ())]
+    if cfg.is_encoder_decoder:
+        _, n_enc, _ = layer_layout(cfg, cfg.n_encoder_layers)
+        stacks += [(slot["norm1"], n_enc, "enc_blocks") for slot in out["enc_blocks"]]
+        if n_periods:
+            stacks.append((out["cross_blocks"]["norm_x"], n_periods, "cross_blocks"))
+    for lead_axis, want, name in stacks:
+        if lead_axis.shape[0] != want:
+            raise ValueError(f"{name} are stacked over {lead_axis.shape[0]} "
+                             f"periods, cfg has {want}")
     return out

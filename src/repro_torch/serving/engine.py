@@ -66,7 +66,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional, Sequence
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -75,7 +75,7 @@ from repro_torch.configs.base import (
     DEFAULT_PAGE_SIZE,
     KV_CACHE_HEADROOM,
     ModelConfig,
-    check_ported,
+    default_cache_len,
     pages_for,
 )
 from repro_torch.device import resolve_device
@@ -93,7 +93,7 @@ from repro_torch.paging import (
 from repro_torch.prefix import PrefixCache
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.policies import EnginePolicies
-from repro_torch.serving.request import Request
+from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import SamplingParams, greedy_tokens, request_key, sample_tokens
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.slots import SlotCache, scatter_lanes
@@ -137,6 +137,13 @@ class EngineConfig:
     # verify them in one dispatch.  None / enabled=False = plain decode
     spec: Optional[SpecConfig] = None
 
+    @staticmethod
+    def for_workload(prompt_len: int, gen_tokens: int, n_slots: int = 4,
+                     **kw) -> "EngineConfig":
+        """Cache sized by the shared serving policy (prompt + gen + headroom)."""
+        return EngineConfig(n_slots=n_slots,
+                            cache_len=default_cache_len(prompt_len, gen_tokens), **kw)
+
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig,
@@ -146,8 +153,7 @@ class ServingEngine:
         if cfg.is_encoder_decoder or cfg.frontend is not None:
             raise ValueError(
                 "ServingEngine handles decoder-only token-input models; "
-                "encoder-decoder and frontend archs are not served by the engine")
-        check_ported(cfg)
+                "encoder-decoder and frontend archs serve via api.serve_batch")
         if ecfg.cache_mode not in ("slot", "paged"):
             raise ValueError(f"cache_mode must be 'slot' or 'paged', got "
                              f"{ecfg.cache_mode!r}")
@@ -538,7 +544,8 @@ class ServingEngine:
             tokens[i, :req.prompt_len] = torch.tensor(req.prompt, dtype=torch.int32)
         lengths = torch.tensor([r.prompt_len for r in reqs], dtype=torch.int32,
                                device=self.device)
-        logits, cache = model_lib.prefill(self.params, self.cfg, tokens.to(self.device),
+        logits, cache = model_lib.prefill(self.params, self.cfg,
+                                          {"tokens": tokens.to(self.device)},
                                           cache_len, lengths=lengths)
         return self._sample(logits, reqs), cache
 
@@ -903,3 +910,28 @@ class ServingEngine:
             self.step()
             steps += 1
         return self.metrics
+
+    def stream(self, prompt: Sequence[int], max_new_tokens: int,
+               sampling: Optional[SamplingParams] = None,
+               eos_token: Optional[int] = None) -> Iterator[int]:
+        """Submit a request and yield its tokens as the engine produces
+        them, driving ``step()`` in between.  Other queued requests advance
+        normally -- the single-caller convenience over the ``on_token``
+        hook."""
+        emitted: list[int] = []
+        req = self.add_request(prompt, max_new_tokens, sampling=sampling,
+                               eos_token=eos_token, on_token=emitted.append)
+        yield from self.follow(req, emitted)
+
+    def follow(self, req: Request, emitted: list) -> Iterator:
+        """Yield what a hook of ``req`` appends to ``emitted``, stepping the
+        engine until ``req`` finishes (or the engine runs dry)."""
+        i = 0
+        while True:
+            while i < len(emitted):
+                yield emitted[i]
+                i += 1
+            if req.state is RequestState.FINISHED or not self.has_work:
+                break
+            self.step()
+        yield from emitted[i:]

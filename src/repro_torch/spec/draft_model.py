@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import get_config, reduced
-from repro_torch.configs.base import ModelConfig, check_ported
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import model as model_lib
 from repro_torch.serving.sampling import greedy_tokens
 from repro_torch.serving.slots import SlotCache, scatter_lane
@@ -36,9 +36,7 @@ def draft_config(target: ModelConfig, spec: SpecConfig) -> ModelConfig:
     config (reduced to smoke size, vocab forced to the target's so
     proposals index the same token space); otherwise the target truncated
     to ``spec.draft_layers`` layers: its lead dense layers plus whole
-    periods of its pattern.  An architecture the port does not serve yet
-    (encoder-decoder, frontends) raises ``NotImplementedError`` (ROADMAP
-    queue 1, item 7.2)."""
+    periods of its pattern."""
     if spec.draft_arch is not None:
         cfg = reduced(get_config(spec.draft_arch)).with_(vocab_size=target.vocab_size)
     else:
@@ -46,7 +44,6 @@ def draft_config(target: ModelConfig, spec: SpecConfig) -> ModelConfig:
         period = target.pattern_period
         cfg = target.with_(n_layers=lead + period * max(
             1, (spec.draft_layers - lead) // period))
-    check_ported(cfg)
     return cfg
 
 
@@ -57,6 +54,10 @@ class DraftModelDrafter:
                  cache_len: int, device=None):
         self.spec = spec
         self.cfg = draft_config(target_cfg, spec)
+        if self.cfg.is_encoder_decoder or self.cfg.frontend is not None:
+            # the reference fails later, at the first admission's prefill
+            raise ValueError(f"a draft model of {self.cfg.name} takes no token "
+                             "prompts: encoder-decoder and frontend archs cannot draft")
         self.cache_len = cache_len
         self.store = SlotCache(self.cfg, n_slots, cache_len, device=device)
         self.device = self.store.device
@@ -73,8 +74,8 @@ class DraftModelDrafter:
         prompt = [int(t) for t in history]
         tokens = torch.tensor([prompt], dtype=torch.int32, device=self.device)
         lengths = torch.tensor([len(prompt)], dtype=torch.int32, device=self.device)
-        _, single = model_lib.prefill(self.params, self.cfg, tokens, self.cache_len,
-                                      lengths=lengths)
+        _, single = model_lib.prefill(self.params, self.cfg, {"tokens": tokens},
+                                      self.cache_len, lengths=lengths)
         scatter_lane(self.store.cache, single, slot, self.store._axes)
         self.dispatches += 1
         self._fed[slot] = prompt

@@ -87,6 +87,16 @@ BAD = [
 ]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _build(pkg, bad):
     """RuntimeConfig of package ``pkg`` from a BAD entry, or the error."""
     classes = {"quant": pkg["QuantRuntime"], "kv": pkg["KVConfig"],

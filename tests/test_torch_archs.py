@@ -1,5 +1,6 @@
 """Every architecture config of the port against the JAX package's, the
-refusal of the parts not ported yet, and the reference's per-arch smoke
+engine's refusal of the encoder-decoder and frontend archs (which build,
+and serve through ``api.serve_batch``), and the reference's per-arch smoke
 contract (``tests/test_archs.py::test_smoke_prefill_decode``) for the
 attention-family and recurrent archs, held to the JAX model.
 
@@ -61,7 +62,18 @@ WEIGHT_SCALE = 8.0
 LOGIT_TOL = 2e-2
 SERVED = ["minicpm3-4b", "granite-moe-3b-a800m", "deepseek-moe-16b", "mistral-nemo-12b",
           "xlstm-125m", "recurrentgemma-9b"]
-UNPORTED = ["llava-next-mistral-7b", "seamless-m4t-large-v2"]
+# the archs the engine refuses: they serve through api.serve_batch
+BATCH_ONLY = ["llava-next-mistral-7b", "seamless-m4t-large-v2"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _fields(cfg):
@@ -92,26 +104,32 @@ def test_config_and_reduced_equal_the_reference(arch):
             [cj.layer_type(i) for i in range(cj.n_layers)]
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
+@pytest.mark.parametrize("arch", BATCH_ONLY)
 def test_unported_archs_are_refused_when_built(arch):
-    """Each config constructs; building a model of it is refused, naming
-    item 7 (the engine refuses encoder-decoder and frontend archs with the
-    reference's ``ValueError``, before anything else).  The recurrent archs
-    serve (``test_smoke_prefill_decode_matches_jax``)."""
+    """The encoder-decoder and frontend archs build as in the reference:
+    ``init_params``, ``init_cache`` (with the encoder-decoder's
+    ``cross_kv``) and ``LLM`` give the reference's layouts; the paged
+    cache refuses the encoder-decoder stack, and the engine refuses both,
+    each with the reference's ``ValueError`` (they serve through
+    ``api.serve_batch``, ``test_torch_encdec.py`` and
+    ``test_torch_frontends.py``)."""
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    item7 = "ROADMAP queue 1, item 7"
-    for build in (lambda: init_params(cfg, device="meta"),
-                  lambda: init_cache(cfg, 2, 16, "cpu"),
-                  lambda: PagedCache(cfg, 2, 16, 8, device="cpu"),
-                  lambda: LLM(arch, runtime=RuntimeConfig(reduced=True), device="cpu")):
-        with pytest.raises(NotImplementedError, match=item7):
-            build()
-    if cfg.is_encoder_decoder or cfg.frontend is not None:
+    jcfg = jax_reduced(JAX_ARCHS[arch]).with_(remat=False)
+    params = init_params(cfg, device="meta")
+    assert _layout(params) == _layout(jax_param_shapes(jcfg))
+    assert _layout(init_cache(cfg, 2, 16, "cpu", cross_len=6)) == \
+        _layout(jax_init_cache(jcfg, 2, 16, 6))
+    llm = LLM(arch, runtime=RuntimeConfig(reduced=True), device="cpu")
+    assert _layout(llm.params) == _layout(params)
+    if cfg.is_encoder_decoder:
         with pytest.raises(ValueError, match="decoder-only"):
-            ServingEngine(cfg, None, EngineConfig(), device="cpu")
+            PagedCache(cfg, 2, 16, 8, device="cpu")
     else:
-        with pytest.raises(NotImplementedError, match=item7):
-            ServingEngine(cfg, None, EngineConfig(), device="cpu")
+        assert PagedCache(cfg, 2, 16, 8, device="cpu").n_pages == 5
+    with pytest.raises(ValueError, match="decoder-only"):
+        ServingEngine(cfg, None, EngineConfig(), device="cpu")
+    with pytest.raises(ValueError, match="decoder-only"):
+        llm.generate([1, 2, 3], max_new_tokens=2)
 
 
 def _layout(tree):
@@ -135,7 +153,7 @@ def test_params_and_cache_layouts_match_jax(arch, kv_dtype):
     assert _layout(init_cache(tcfg, 3, 40, "cpu")) == _layout(jax_init_cache(jcfg, 3, 40))
     assert _layout(zeros_like_shapes(paged_cache_shapes(tcfg, 3, 40, 8, 13), "cpu")) == \
         _layout(jax_paged_cache_shapes(jcfg, 3, 40, 8, 13))
-    _, cache = prefill(tparams, tcfg, torch.zeros((3, 8), dtype=torch.int32), 40)
+    _, cache = prefill(tparams, tcfg, {"tokens": torch.zeros((3, 8), dtype=torch.int32)}, 40)
     assert _layout(cache) == _layout(init_cache(tcfg, 3, 40, "cpu"))
 
 
@@ -178,7 +196,7 @@ def test_smoke_prefill_decode_matches_jax(arch, quant_mode):
     tokens = np.random.default_rng(0).integers(0, tcfg.vocab_size, (2, 32)).astype(np.int32)
 
     ties = quant_mode == "bf16" and arch in ("xlstm-125m", "recurrentgemma-9b")
-    logits, cache = prefill(tparams, tcfg, torch.from_numpy(tokens), 64)
+    logits, cache = prefill(tparams, tcfg, {"tokens": torch.from_numpy(tokens)}, 64)
     jlogits, jcache = jax.jit(lambda p, t: jax_prefill(p, jcfg, {"tokens": t}, 64))(
         jparams, jnp.asarray(tokens))
     assert logits.shape == (2, tcfg.vocab_size)

@@ -36,6 +36,16 @@ from repro_torch.models import params_from_jax
 WEIGHT_SCALE = 8.0
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(arch="llama3.2-1b"):
     jcfg = jax_reduced(jax_get_config(arch)).with_(remat=False, n_kv_heads=4)
     tcfg = tconfigs.reduced(tconfigs.get_config(arch)).with_(n_kv_heads=4)

@@ -44,6 +44,16 @@ WEIGHT_SCALE = 8.0
 CHUNKED = dict(n_slots=2, cache_len=32, cache_mode="paged", page_size=8, prefill_chunk=8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(quant_mode="bf16", kv_dtype="bf16"):
     kw = dict(quant_mode=quant_mode, kv_cache_dtype=kv_dtype, n_kv_heads=4)
     jcfg = jax_reduced(jax_get_config("llama3.2-1b")).with_(remat=False, **kw)
@@ -282,7 +292,7 @@ def test_engine_chunked_mla_matches_jax_and_solo(kv_dtype):
     assert len({t for s in got.values() for t in s}) > 2, "streams collapsed"
     assert metrics.chunk_steps == jmetrics.chunk_steps == 2 + 3 + 3
     for rid, (_, prompt, gen) in enumerate(arrivals):
-        solo, _ = serve_batch(tcfg, tparams, torch.tensor([prompt], dtype=torch.int32),
+        solo, _ = serve_batch(tcfg, tparams, {"tokens": torch.tensor([prompt], dtype=torch.int32)},
                               cache_len=CHUNKED["cache_len"], gen_tokens=gen)
         assert got[rid] == solo[0].tolist(), rid
     assert teng.store.manager.pages_in_use == 0
@@ -311,7 +321,7 @@ def test_engine_chunked_prefill_matches_solo(quant_mode):
     assert metrics.chunk_steps == jmetrics.chunk_steps == 2 + 3 + 3
     assert metrics.prefill_dispatches == jmetrics.prefill_dispatches
     for rid, (_, prompt, gen) in enumerate(arrivals):
-        solo, _ = serve_batch(tcfg, tparams, torch.tensor([prompt], dtype=torch.int32),
+        solo, _ = serve_batch(tcfg, tparams, {"tokens": torch.tensor([prompt], dtype=torch.int32)},
                               cache_len=CHUNKED["cache_len"], gen_tokens=gen)
         assert got[rid] == solo[0].tolist(), rid
     assert teng.store.manager.pages_in_use == 0

@@ -65,6 +65,16 @@ SPOGA_CASES = ([(shape, "w8a8") for shape in SHAPES]
                + [(shape, spec) for spec in ("w4a8", "w16a16") for shape in SHAPES[3:5]])
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ints(rng, lo, hi, shape, dtype):
     return rng.integers(lo, hi + 1, shape).astype(dtype)
 
@@ -328,7 +338,7 @@ def test_model_dataflows_match_jax(mode, port_backend, jax_backend, n_kv_heads):
         lengths = np.asarray([n], np.int32)
         jl, jsingle = jax_prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, SINGLE,
                                   lengths=jnp.asarray(lengths))
-        tl, tsingle = prefill(tparams, tcfg, torch.from_numpy(toks), SINGLE,
+        tl, tsingle = prefill(tparams, tcfg, {"tokens": torch.from_numpy(toks)}, SINGLE,
                               lengths=torch.from_numpy(lengths))
         _close(tl.numpy(), np.asarray(jl), f"{mode} prefill lane {lane}", exact)
         for pool in (jpool, tpool):

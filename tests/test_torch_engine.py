@@ -36,6 +36,16 @@ ENGINE = dict(n_slots=2, cache_len=32, prefill_buckets=(8, 16), cache_mode="page
               page_size=8)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _arrivals(vocab):
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, vocab, n).tolist() for n in (5, 9, 3, 7)]

@@ -42,6 +42,16 @@ SPECS = {
 MODES = [m for m in QUANT_MODES if m != "bf16"] + ["w8a8_s2"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _operands(m, k, n, spec, seed):
     nx, nw, bits, xdt, wdt, xr, wr = SPECS[spec]
     rng = np.random.default_rng(seed)

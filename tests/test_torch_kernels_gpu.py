@@ -58,6 +58,14 @@ SHAPES += [(1216, 256, 2560), (4096, 256, 2560)]
 RECURRENT_KN = [(4096, 4096), (4096, 256), (4096, 12288), (12288, 4096), (768, 768),
                 (768, 4), (768, 3072)]
 SHAPES += [(m, k, n) for k, n in RECURRENT_KN for m in (4, 128, 256)]
+# the encoder-decoder and frontend archs' projections at the widths their
+# serve_batch gives them: seamless-m4t-large-v2 (4 decode rows, 32 target
+# rows, 512 source rows) and llava-next-mistral-7b (4 decode rows, 4 x 576
+# patch rows)
+SHAPES += [(m, k, n) for k, n in [(1024, 1024), (1024, 8192), (8192, 1024)]
+           for m in (4, 32, 128, 512)]
+SHAPES += [(m, k, n) for k, n in [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
+           for m in (4, 128, 2304)]
 MODES = ["int8_spoga", "w4a8", "w4a4", "w16a16", "w8a8_s2", "w8a8_s3", "w6a6_s1"]
 
 
@@ -464,7 +472,7 @@ def test_verify_step_rows_are_the_decode_steps(kv):
     rng = np.random.default_rng(0)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 1040)).astype(np.int32))
     window = rng.integers(0, cfg.vocab_size, 5).tolist()
-    _, single = prefill(params, cfg, prompt.cuda(), 1040)
+    _, single = prefill(params, cfg, {"tokens": prompt.cuda()}, 1040)
     stores = []
     for _ in range(2):
         store = PagedCache(cfg, 4, 1104, 16, device="cuda")
@@ -644,8 +652,8 @@ def test_rglru_and_ring_decode_step_on_card_match_cpu():
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 40))
                               .astype(np.int32))
     card = _to(params, "cuda")
-    want, cpu_cache = prefill(params, cfg, tokens, 96)
-    got, card_cache = prefill(card, cfg, tokens.cuda(), 96)
+    want, cpu_cache = prefill(params, cfg, {"tokens": tokens}, 96)
+    got, card_cache = prefill(card, cfg, {"tokens": tokens.cuda()}, 96)
     assert tuple(card_cache["blocks"][1]["k"].shape)[2] == 64
     launches = gemm_mod.LAUNCHES
     for step in range(3):

@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
@@ -45,6 +46,16 @@ WEIGHT_SCALE = 8.0
 # report keys of the reference that belong to the prefix cache and to
 # speculative decoding (ROADMAP queue 1, item 6); the port adds one key
 PORT_KEYS = {"decode_step_mean_s"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _samples(seed, n=257):

@@ -35,6 +35,16 @@ MODES = ["bf16", "int8_spoga"]
 BF16_SHARE = 0.01
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _setup(quant_mode):
     jcfg = jax_reduced(jax_get_config("minicpm3-4b")).with_(remat=False, quant_mode=quant_mode)
     tcfg = tconfigs.reduced(tconfigs.get_config("minicpm3-4b")).with_(quant_mode=quant_mode)

@@ -38,6 +38,16 @@ INT8_MODES = ["int8_spoga", "int8_deas", "int8_direct"]
 DENSE_TOL = dict(rtol=5e-2, atol=5e-3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(arch="granite-moe-3b-a800m", quant_mode="bf16", capacity_factor=8.0):
     out = []
     for cfg in (jax_reduced(jax_get_config(arch)).with_(remat=False),

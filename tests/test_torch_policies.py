@@ -61,6 +61,16 @@ WEIGHT_SCALE = 8.0
 KV_MODES = {"slot": {}, "paged": dict(mode="paged", page_size=8)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs():
     jcfg = jax_reduced(jax_get_config("llama3.2-1b")).with_(remat=False, n_kv_heads=4)
     tcfg = tconfigs.reduced(tconfigs.get_config("llama3.2-1b")).with_(n_kv_heads=4)
@@ -91,7 +101,8 @@ def _llms(kv, **sched):
 
 
 def _solo(llm, prompt, gen):
-    out, _ = serve_batch(llm.config, llm.params, torch.tensor([prompt], dtype=torch.int32),
+    out, _ = serve_batch(llm.config, llm.params,
+                         {"tokens": torch.tensor([prompt], dtype=torch.int32)},
                          cache_len=llm.engine.engine_cfg.cache_len, gen_tokens=gen)
     return out[0].tolist()
 
@@ -346,7 +357,7 @@ def test_paged_cache_defrag_preserves_lane_contents():
     rng = np.random.default_rng(1)
     for lane in range(3):
         tokens = torch.from_numpy(rng.integers(0, tcfg.vocab_size, (1, 16)).astype(np.int32))
-        _, single = prefill(params, tcfg, tokens, cache_len=16)
+        _, single = prefill(params, tcfg, {"tokens": tokens}, cache_len=16)
         mgr.admit(lane, reserve_tokens=16)
         ids = mgr.alloc(lane, 2)
         mgr.set_length(lane, 16)

@@ -345,7 +345,8 @@ def _pair(kv_dtype, jax_policies=None, policies=None, arch="llama3.2-1b", **ecfg
 
 def _solo(engine, prompt, gen, cache_len=48):
     """The prompt's solo slot-cache decode on the port (``serve_batch``)."""
-    out, _ = serve_batch(engine.cfg, engine.params, torch.tensor([prompt], dtype=torch.int32),
+    out, _ = serve_batch(engine.cfg, engine.params,
+                         {"tokens": torch.tensor([prompt], dtype=torch.int32)},
                          cache_len=cache_len, gen_tokens=gen)
     return out[0].tolist()
 

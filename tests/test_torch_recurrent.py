@@ -63,6 +63,16 @@ LOGIT_TOL = 2e-2
 QUANT_MODES = ["bf16", "int8_spoga"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(arch, quant_mode="bf16", kv_dtype="bf16"):
     kw = dict(quant_mode=quant_mode, kv_cache_dtype=kv_dtype)
     return (jax_reduced(jax_get_config(arch)).with_(remat=False, **kw),
@@ -306,7 +316,7 @@ def test_ring_prefill_and_decode_across_the_wrap(prompt, kv_dtype):
     jp = jax.tree_util.tree_map(jnp.asarray, tree)
     tp = params_from_jax(tree, tcfg, "cpu")
     tokens = np.random.default_rng(prompt).integers(0, 512, (2, prompt)).astype(np.int32)
-    logits, cache = prefill(tp, tcfg, torch.from_numpy(tokens), 64)
+    logits, cache = prefill(tp, tcfg, {"tokens": torch.from_numpy(tokens)}, 64)
     jlogits, jcache = jax.jit(lambda p, t: jax_prefill(p, jcfg, {"tokens": t}, 64))(
         jp, jnp.asarray(tokens))
     assert tuple(cache["blocks"][0]["k"].shape)[:3] == (1, 2, 32)   # periods, lanes, rows

@@ -14,6 +14,7 @@ files' runs spread over two test workers.)
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from repro.serving import EngineConfig as JaxEngineConfig
 from repro.serving import ServingEngine as JaxServingEngine
@@ -21,6 +22,16 @@ from repro_torch.models import params_from_jax
 from repro_torch.serving import EngineConfig, ServingEngine
 
 from test_torch_engine import ENGINE, RECURRENT, _arrivals, _recurrent_setup, _streams
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("quant_mode", ["int8_spoga", "bf16"])

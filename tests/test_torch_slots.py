@@ -51,6 +51,16 @@ RESIDUE_TOL = 2e-2
 SLOT = dict(n_slots=2, cache_len=32, prefill_buckets=(8, 16), cache_mode="slot")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Several worker processes share the host's cores; small ops slow down
+    when torch's intra-op threads spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _configs(quant_mode="bf16", kv_dtype="bf16", n_kv_heads=4):
     kw = dict(quant_mode=quant_mode, kv_cache_dtype=kv_dtype, n_kv_heads=n_kv_heads)
     jcfg = jax_reduced(jax_get_config("llama3.2-1b")).with_(remat=False, **kw)
@@ -184,8 +194,8 @@ def test_slot_cache_insert_free_roundtrip():
     tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size, (1, 6)).astype(np.int32)
     _, jsingle = jax_prefill(jax.tree_util.tree_map(jnp.asarray, tree), jcfg,
                              {"tokens": jnp.asarray(tokens)}, cache_len=16)
-    _, single = prefill(params_from_jax(tree, tcfg, "cpu"), tcfg, torch.from_numpy(tokens),
-                        cache_len=16)
+    _, single = prefill(params_from_jax(tree, tcfg, "cpu"), tcfg,
+                        {"tokens": torch.from_numpy(tokens)}, cache_len=16)
     jpool = JaxSlotCache(jcfg, n_slots=3, cache_len=16)
     pool = SlotCache(tcfg, n_slots=3, cache_len=16, device="cpu")
     assert batch_axes(pool.cache)["blocks"][0]["k"] == 1
@@ -300,7 +310,7 @@ def test_llm_generate_matches_solo(kv):
     cache_len = llm.engine.engine_cfg.cache_len
     for out, prompt in zip(outs, prompts):
         solo, times = serve_batch(llm.config, llm.params,
-                                  torch.tensor([prompt], dtype=torch.int32),
+                                  {"tokens": torch.tensor([prompt], dtype=torch.int32)},
                                   cache_len=cache_len, gen_tokens=5)
         assert solo.shape == (1, 5) and solo.dtype == torch.int32
         assert out.token_ids == solo[0].tolist()

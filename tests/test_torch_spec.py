@@ -111,7 +111,8 @@ def _pair(kv_dtype="bf16", spec=None, arch="llama3.2-1b", **ecfg_kw):
 
 def _solo(engine, prompt, gen, cache_len=48):
     """The prompt's solo slot-cache decode on the port (``serve_batch``)."""
-    out, _ = serve_batch(engine.cfg, engine.params, torch.tensor([prompt], dtype=torch.int32),
+    out, _ = serve_batch(engine.cfg, engine.params,
+                         {"tokens": torch.tensor([prompt], dtype=torch.int32)},
                          cache_len=cache_len, gen_tokens=gen)
     return out[0].tolist()
 
@@ -444,15 +445,25 @@ def test_draft_config_and_arch_refusal():
     assert draft_config(tcfg, SpecConfig(draft_arch="llama3.2-1b")).vocab_size == 512
     mla = draft_config(tcfg, SpecConfig(draft_arch="minicpm3-4b"))
     assert mla.use_mla and mla.vocab_size == 512
-    # a recurrent draft arch is derived as the reference derives it (reduced,
-    # the target's vocab); the encoder-decoder archs are not ported yet
+    # a recurrent or encoder-decoder draft arch is derived as the reference
+    # derives it (reduced, the target's vocab)
     xl = draft_config(tcfg, SpecConfig(draft_arch="xlstm-125m"))
     want = jax_draft_config(_configs("bf16")[0], JaxSpecConfig(draft_arch="xlstm-125m"))
     assert (xl.block_pattern, xl.n_layers, xl.d_model, xl.vocab_size) == \
         (want.block_pattern, want.n_layers, want.d_model, want.vocab_size) == \
         (("mlstm", "mlstm", "mlstm", "slstm"), 8, 128, 512)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        draft_config(tcfg, SpecConfig(draft_arch="seamless-m4t-large-v2"))
+    sm = draft_config(tcfg, SpecConfig(draft_arch="seamless-m4t-large-v2"))
+    want = jax_draft_config(_configs("bf16")[0],
+                            JaxSpecConfig(draft_arch="seamless-m4t-large-v2"))
+    assert (sm.is_encoder_decoder, sm.frontend, sm.n_layers, sm.n_encoder_layers,
+            sm.d_model, sm.vocab_size) == \
+        (want.is_encoder_decoder, want.frontend, want.n_layers, want.n_encoder_layers,
+         want.d_model, want.vocab_size) == (True, "audio", 2, 2, 128, 512)
+    # such a drafter takes no token prompts: the port refuses it when it is
+    # built (the reference fails later, at its first admission)
+    with pytest.raises(ValueError, match="cannot draft"):
+        DraftModelDrafter(SpecConfig(draft_arch="seamless-m4t-large-v2"), tcfg, 2, 32,
+                          device="cpu")
 
 
 def test_spec_respects_eos_and_budget():
