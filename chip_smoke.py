@@ -151,7 +151,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``LLM.generate`` gave, launches exact; (f) ``layers.mlp`` and
    ``layers.layernorm`` at d 2048 on the card against the CPU, the int32
    accumulators of the MLP's ``int8_spoga`` projections bitwise;
-12. the ``kernels`` JSON line, then the ``ok`` line last.
+12. observability on the main path (after phase 11): phase 4's weights
+   and traffic, ``int8_spoga``, int8 paged KV, every run's launches exact
+   through ``_counted``: (a) spans and events off against on (fenced
+   spans, trace and event sinks), greedy streams bitwise equal, the event
+   kinds; the mean fenced ``decode`` span of 4 busy lanes against the
+   profiler's device time a step (not shorter); (b) the numerics watchdog
+   on against off: streams bitwise, 112 ``spoga_gemm_dequant`` launches a
+   step still, the saturation report's labels all ``prefill.``/``decode.``,
+   the extra device and wall time a step; (c) ``/metrics`` (port 0)
+   scraped mid-run and at the end, ``validate_exposition`` clean both times,
+   the server gone after ``LLM.close()``; (d) a ``StepProfiler`` over 5
+   decode steps (after its warm-up step), its Chrome trace holding 5 x 112
+   ``spoga_gemm_dequant`` kernels (no other profiler runs while it is
+   armed); (e) the traffic
+   recorded to a flight-recorder bundle, replayed on the card by
+   ``LLM.replay`` (bitwise, the replay's launches the recording's) and by
+   ``python -m repro_torch.launch.replay`` in a subprocess (exit 0); the
+   phase's time printed (budget 120 s);
+13. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -3499,6 +3517,262 @@ def phase_encdec(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. observability on the main path
+# ---------------------------------------------------------------------------
+
+def _obs_engine(cfg, params, obs=None):
+    """Phase 4's engine geometry (4 lanes, pages of 16, buckets (32, 64,
+    128), ``cache_len`` 168) with the observability bundle ``obs``."""
+    from repro_torch.configs import default_cache_len
+    from repro_torch.serving import EngineConfig, ServingEngine
+    return ServingEngine(cfg, params, EngineConfig(
+        n_slots=4, page_size=16, prefill_buckets=(32, 64, 128),
+        cache_len=default_cache_len(128, 32), cache_mode="paged"), device="cuda", obs=obs)
+
+
+def _obs_serve(cfg, params, arrivals, label, obs=None):
+    """Phase 4's traffic through ``_counted``; (streams by request, wall s,
+    engine)."""
+    engine = _obs_engine(cfg, params, obs)
+    t0 = time.perf_counter()
+    metrics, _ = _counted(engine, label, lambda e: e.run(arrivals))
+    wall = time.perf_counter() - t0
+    return _check_finished(metrics, arrivals, cfg.vocab_size, label), wall, engine
+
+
+def _obs_busy(cfg, params, label, obs=None):
+    """``_busy_engine``'s 4 lanes of 64-token prompts (4 admissions, then 2
+    decode steps), set up under ``_counted``."""
+    engine = _obs_engine(cfg, params, obs)
+    rng = np.random.default_rng(ENGINE_SEED + 2)
+
+    def drive(e):
+        for _ in range(4):
+            e.add_request(rng.integers(0, cfg.vocab_size, 64).tolist(), 32)
+        for _ in range(6):
+            e.step()
+        return e.metrics
+
+    _counted(engine, f"{label} set-up", drive)
+    return engine
+
+
+def _obs_step_costs(cfg, params, label, obs=None, steps=5):
+    """(device ms a decode step, wall ms a step, device kernels a step, the
+    engine) of 4 busy lanes: ``steps`` decode steps timed without the
+    profiler, then ``steps`` more profiled (CUDA activity only: the device
+    time of every kernel); ``obs`` is the engine's bundle."""
+    from torch.profiler import ProfilerActivity, profile
+    engine = _obs_busy(cfg, params, label, obs)
+    wall = _counted_steps(engine, steps, f"{label} timed")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _counted_steps(engine, steps, f"{label} profiled")
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    device = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    require(device > 0, f"{label}: the profiler recorded no device time")
+    return device, 1e3 * wall / steps, sum(e.count for e in kernels) // steps, engine
+
+
+def phase_obs(card):
+    """12. Observability on the main path: phase 4's full-width llama3.2-1b
+    weights and traffic, ``int8_spoga``, int8 paged KV, every run under
+    ``_counted``: (a) spans and events off against on (fenced, trace and
+    event sinks), streams bitwise equal, the fenced ``decode`` span against
+    the profiler's device time a step; (b) the numerics watchdog on against
+    off: streams bitwise, 112 GEMM launches a step still, the saturation
+    report, its device and wall cost a step; (c) ``/metrics`` scraped mid-run
+    and at the end, valid both times, stopped by ``close()``; (d) a
+    ``StepProfiler`` over 5 decode steps after its warm-up step, its trace
+    holding 5 x 112
+    ``spoga_gemm_dequant`` kernels; (e) the traffic recorded to a bundle and
+    replayed on the card by ``LLM.replay`` and by ``python -m
+    repro_torch.launch.replay``, bitwise, the replay's launches the
+    recording's."""
+    import os
+    import tempfile
+    import urllib.error
+    import urllib.request
+    from repro_torch.api import LLM, KVConfig, ObsConfig, QuantRuntime, RuntimeConfig
+    from repro_torch.api import SchedulerConfig
+    from repro_torch.configs import get_config
+    from repro_torch.obs import split_labels, validate_exposition, watchdog
+    t0 = time.perf_counter()
+    params = full_width_params()
+    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
+    per_step = _gemm_launches(cfg)[0]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as d:
+        # (a) spans and events
+        off, off_s, _ = _obs_serve(cfg, params, arrivals, "(a) obs off")
+        obs = ObsConfig(fence_spans=True, trace=f"{d}/trace.json",
+                        events=f"{d}/events.jsonl").build()
+        on, on_s, engine = _obs_serve(cfg, params, arrivals, "(a) obs on, fenced", obs)
+        require(on == off, "(a) streams with observability on differ from off")
+        kinds = obs.events.kinds()
+        require({"queued", "admitted", "first_token", "finished"} <= set(kinds),
+                f"(a) event kinds {kinds}")
+        written = obs.save()
+        obs.close()
+        require(len(written) == 2 and all(Path(p).stat().st_size > 0 for p in written),
+                f"(a) sinks written: {written}")
+        spans = {}
+        for e in obs.tracer.events:
+            if e["tid"] == 1:
+                spans.setdefault(e["name"], []).append(e["dur"] / 1e3)
+        device, wall, _, busy = _obs_step_costs(cfg, params, "(a) fenced spans",
+                                                ObsConfig(fence_spans=True).build())
+        # the timed steps' decode spans (the profiled ones follow them)
+        fenced = [e["dur"] / 1e3 for e in busy.obs.tracer.events
+                  if e["name"] == "decode" and e["tid"] == 1][-10:-5]
+        span_ms = sum(fenced) / len(fenced)
+        require(span_ms >= device, f"(a) fenced decode span {span_ms:.3f} ms is shorter than "
+                                   f"the device time a step {device:.3f} ms")
+        print(f"[obs] (a) obs off {off_s:.2f} s, on (fenced, trace + events) {on_s:.2f} s for "
+              f"8 requests, streams bitwise equal; {len(obs.events)} events {kinds}; spans "
+              + ", ".join(f"{k} {len(v)} x {sum(v) / len(v):.3f} ms" for k, v in spans.items())
+              + f"; 4 busy lanes: fenced decode span {span_ms:.3f} ms a step against "
+              f"{device:.3f} ms of device time (profiler) and {wall:.3f} ms wall [{card}]",
+              flush=True)
+        out["spans"] = {"decode_span_ms": span_ms, "device_ms": device, "wall_ms": wall,
+                        "off_s": off_s, "on_s": on_s, "events": len(obs.events)}
+
+        parts = {"a": time.perf_counter() - t0}
+
+        # (b) the numerics watchdog
+        watchdog.reset()
+        wcfg = cfg.with_(numerics_watchdog=True)
+        watched, wd_s, _ = _obs_serve(wcfg, params, arrivals, "(b) watchdog on")
+        require(watched == off, "(b) streams with the watchdog on differ from off")
+        report = watchdog.saturation_report()
+        require(report, "(b) the watchdog recorded nothing")
+        bad = [k for k in report if not k.startswith(('layer="prefill.', 'layer="decode.'))]
+        require(not bad, f"(b) labels outside prefill/decode: {bad[:3]}")
+        layers = {split_labels("x{" + k + "}")[1]["layer"] for k in report}
+        dev_off, wall_off, n_off, _ = _obs_step_costs(cfg, params, "(b) watchdog off")
+        dev_on, wall_on, n_on, _ = _obs_step_costs(wcfg, params, "(b) watchdog on")
+        sat = max(report.values())
+        print(f"[obs] (b) watchdog: 8 requests {wd_s:.2f} s (off {off_s:.2f} s), streams "
+              f"bitwise equal, {per_step} GEMM launches a step; {len(layers)} labels, largest "
+              f"activation rail share {sat:.4f}; a decode step of 4 busy lanes: device "
+              f"{dev_off:.3f} -> {dev_on:.3f} ms (+{dev_on - dev_off:.3f}), wall "
+              f"{wall_off:.3f} -> {wall_on:.3f} ms (+{wall_on - wall_off:.3f}), device "
+              f"kernels {n_off} -> {n_on} a step [{card}]", flush=True)
+        out["watchdog"] = {"device_ms": [dev_off, dev_on], "wall_ms": [wall_off, wall_on],
+                           "kernels": [n_off, n_on],
+                           "labels": len(layers), "max_rail_share": sat}
+        watchdog.reset()
+        parts["b"] = time.perf_counter() - t0
+
+        # (c) /metrics, scraped mid-run and at the end
+        rt = RuntimeConfig(quant=QuantRuntime(mode="int8_spoga"),
+                           kv=KVConfig(mode="paged", dtype="int8", page_size=16),
+                           scheduler=SchedulerConfig(n_slots=4, prefill_buckets=(32, 64, 128)),
+                           obs=ObsConfig(metrics_port=0))
+        llm = LLM("llama3.2-1b", runtime=rt, params=params, device="cuda")
+        engine = llm.build_engine(128, 32)
+        url = llm.metrics_server.url
+        scrapes = []
+
+        def drive(e):
+            for _, prompt, gen in arrivals:
+                e.add_request(prompt, gen)
+            while e.has_work:
+                e.step()
+                if not scrapes:
+                    scrapes.append(urllib.request.urlopen(url + "/metrics", timeout=10).read())
+            return e.metrics
+
+        _counted(engine, "(c) /metrics", drive)
+        scrapes.append(urllib.request.urlopen(url + "/metrics", timeout=10).read())
+        for i, body in enumerate(scrapes):
+            errors = validate_exposition(body.decode())
+            require(errors == [], f"(c) scrape {i}: {errors[:3]}")
+        require(b"repro_steps_total" in scrapes[0] and b"repro_ttft_s_bucket" in scrapes[1],
+                "(c) series missing")
+        llm.close()
+        try:
+            urllib.request.urlopen(url + "/healthz", timeout=2)
+            fail("(c) the metrics server still answers after close()")
+        except urllib.error.URLError:
+            pass
+        print(f"[obs] (c) /metrics: 2 scrapes valid ({len(scrapes[0])} and {len(scrapes[1])} "
+              f"bytes), the server stopped by close() [{card}]", flush=True)
+        del llm, engine
+        parts["c"] = time.perf_counter() - t0
+
+        # (d) the step profiler: its warm-up step, then 5 decode steps recorded
+        engine = _obs_busy(cfg, params, "(d) step profiler")
+        engine.obs = ObsConfig(profile_dir=f"{d}/profile", profile_steps=5).build()
+        _counted_steps(engine, 6, "(d) step profiler")
+        prof = engine.obs.profiler
+        require(prof.done and prof.trace_path, "(d) the step profiler wrote no trace")
+        with open(prof.trace_path) as f:
+            trace = json.load(f)["traceEvents"]
+        n_gemm = sum(1 for e in trace if e.get("cat") == "kernel"
+                     and "spoga_gemm_dequant_kernel" in e.get("name", ""))
+        n_kernels = sum(1 for e in trace if e.get("cat") == "kernel")
+        require(n_gemm == 5 * per_step, f"(d) {n_gemm} spoga_gemm_dequant kernels in the "
+                                        f"trace ({n_kernels} kernels in all), want "
+                                        f"{5 * per_step}")
+        print(f"[obs] (d) StepProfiler: a warm-up step, then 5 decode steps: {n_gemm} "
+              f"spoga_gemm_dequant kernels of {n_kernels} "
+              f"in {Path(prof.trace_path).stat().st_size / 2**20:.1f} MiB of trace [{card}]",
+              flush=True)
+        del engine
+        parts["d"] = time.perf_counter() - t0
+
+        # (e) record, then replay twice on the card
+        bundle = f"{d}/bundle"
+        llm = LLM("llama3.2-1b", runtime=dataclasses.replace(
+            rt, obs=ObsConfig(record_path=bundle)), params=params, device="cuda")
+        engine = llm.build_engine(128, 32)
+        t1 = time.perf_counter()
+        metrics, rec_launches = _counted(engine, "(e) record", lambda e: e.run(arrivals))
+        rec_s = time.perf_counter() - t1
+        recorded = _check_finished(metrics, arrivals, cfg.vocab_size, "(e) record")
+        require(recorded == off, "(e) the recorded streams differ from (a)'s")
+        llm.close()
+        del llm, engine
+        torch.cuda.empty_cache()
+        reset_counts()
+        t1 = time.perf_counter()
+        res = LLM.replay(bundle, device="cuda")
+        replay_s = time.perf_counter() - t1
+        launches, plain = read_counts()
+        check_counts(launches, plain, ("spoga_gemm_dequant", "paged_attention"), "(e) replay")
+        require(res.ok and res.divergence is None and not res.token_mismatches,
+                "(e) LLM.replay:\n" + res.summary())
+        require(launches == rec_launches, f"(e) replay launches {launches} != the "
+                                          f"recording's {rec_launches}")
+        t1 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.replay", bundle],
+                             cwd=Path(__file__).resolve().parent, capture_output=True,
+                             text=True, timeout=600,
+                             env={**os.environ, "PYTHONPATH": str(
+                                 Path(__file__).resolve().parent / "src")})
+        cli_s = time.perf_counter() - t1
+        require(cli.returncode == 0, f"(e) launch.replay exited {cli.returncode}:\n"
+                                     f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
+        size = sum(p.stat().st_size for p in Path(bundle).iterdir())
+        print(f"[obs] (e) recorded 8 requests in {rec_s:.2f} s ((a) off {off_s:.2f} s: "
+              f"{1e3 * (rec_s - off_s) / 8:.1f} ms a request), bundle {size} bytes; "
+              f"LLM.replay bitwise ({res.n_replayed_events} events, {replay_s:.1f} s, "
+              f"launches equal the recording's), launch.replay exit 0 ({cli_s:.1f} s) "
+              f"[{card}]", flush=True)
+        out["record"] = {"record_s": rec_s, "off_s": off_s, "bundle_bytes": size,
+                         "replay_s": replay_s, "cli_s": cli_s}
+        out["launches"] = rec_launches
+    del params
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    ends = [0.0] + list(parts.values()) + [out["wall_s"]]
+    print(f"[obs] phase 12 in {out['wall_s']:.1f} s (budget 120 s): " + ", ".join(
+        f"({k}) {b - a:.1f} s" for k, a, b in zip("abcde", ends, ends[1:])), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3514,16 +3788,19 @@ def main() -> int:
 
     t0 = time.perf_counter()
     card = phase_card()
+    print(f"[time] phase 1 done at {time.perf_counter() - t0:.1f} s", flush=True)
     gemm, gemm_err = phase_gemm()
     int_gemm, int_err = phase_int_gemm()
     deas, nibble, deas_err, combine_err, combine_long = phase_deas(int_gemm)
     attn = phase_attention(card)
+    print(f"[time] phases 2-3 done at {time.perf_counter() - t0:.1f} s", flush=True)
     params = full_width_params()
     launches, launches16, attn_profile, paged_rep = phase_main(card, params)
     slot_launches, slot_profile = phase_slot(card, params, paged_rep)
     phase_slot_vs_paged(card, params)
     facade = phase_dataflows(card, params)
     long_prefill = phase_long_prefill(card, params)
+    print(f"[time] phases 4-5b done at {time.perf_counter() - t0:.1f} s", flush=True)
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
         features = phase_features(card, params, ckpt_dir)
@@ -3533,9 +3810,14 @@ def main() -> int:
     phase_default_llm(card)
     phase_cpu_parity()
     phase_cpu_long_decode(card)
+    print(f"[time] phases 7, 8, 6 done at {time.perf_counter() - t0:.1f} s", flush=True)
     archs = phase_archs(card)
+    print(f"[time] phase 9 done at {time.perf_counter() - t0:.1f} s", flush=True)
     recurrent = phase_recurrent(card)
+    print(f"[time] phase 10 done at {time.perf_counter() - t0:.1f} s", flush=True)
     encdec = phase_encdec(card)
+    print(f"[time] phase 11 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    observed = phase_obs(card)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -3617,6 +3899,8 @@ def main() -> int:
                             for (m, k, n), t in recurrent["gemm"].items()},
                         recurrentgemma_decode_split_ms=recurrent["recurrentgemma"]["split_ms"],
                         launches_encdec_frontends=encdec_launches("spoga_gemm_dequant"),
+                        launches_observability_record=observed["launches"][
+                            "spoga_gemm_dequant"],
                         encdec_frontend_shapes={f"W8A8 M={m} K={k} N={n}": {
                             **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
                             for (m, k, n), t in encdec["gemm"].items()})]
@@ -3639,6 +3923,8 @@ def main() -> int:
                         "launches_archs": arch_launches("paged_attention"),
                         "launches_recurrent": recurrent_launches("paged_attention"),
                         "launches_encdec_frontends": encdec_launches("paged_attention"),
+                        **({"launches_observability_record":
+                            observed["launches"]["paged_attention"]} if kind == "int8" else {}),
                         "arch_shapes": {name: attn[(kind, name)]
                                         for name in ("deepseek", "granite")},
                         "card": card})

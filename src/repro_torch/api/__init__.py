@@ -18,6 +18,9 @@ or from JSON: ``LLM("llama3.2-1b", runtime=load_runtime("int8-byte-serving"))``
 (``list_presets()`` names them).  Entry points run on the card; pass
 ``device="cpu"`` to run the plain versions on the CPU.  ``serve_batch`` is
 the static-batch lockstep baseline the engine is held against.
+``RuntimeConfig(obs=ObsConfig(...))`` turns on spans, the event log, the
+step profiler, ``/metrics``, the numerics watchdog and the flight
+recorder (``LLM.replay``).
 """
 
 from repro_torch.api.baseline import serve_batch
@@ -35,12 +38,15 @@ from repro_torch.api.config import (
 )
 from repro_torch.api.llm import LLM
 from repro_torch.api.outputs import RequestOutput
+from repro_torch.obs import ObsConfig, Observability
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.spec.config import SpecConfig
 
 __all__ = [
     "KVConfig",
     "LLM",
+    "ObsConfig",
+    "Observability",
     "QuantRuntime",
     "RequestOutput",
     "RuntimeConfig",

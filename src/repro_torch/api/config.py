@@ -9,6 +9,10 @@ fields, defaults and validation messages.
 * ``SchedulerConfig``  — admission: slots, buckets, chunking, stacked
                          admission, defrag threshold.
 * ``SamplingDefaults`` — the default per-request sampling policy.
+* ``ObsConfig``        — observability (``repro_torch/obs/``): spans, the
+                         event log, the step profiler, ``/metrics``, the
+                         numerics watchdog and the flight recorder; all
+                         off by default.
 
 ``resolve()`` derives the ``ModelConfig`` overrides (``ModelConfig.with_``)
 and the ``EngineConfig`` the port's engine consumes.
@@ -20,10 +24,10 @@ reuse).  ``to_dict``/``from_dict`` round-trip through plain JSON dicts
 ``get_preset``, ``list_presets``, the five built-in ones) and
 ``load_runtime`` (a JSON file or a preset name) are the reference's.
 
-The ``mesh`` and ``obs`` sub-configs are not ported: ``None`` stands for
-the reference's disabled defaults, ``to_dict`` writes those defaults, and
-``from_dict`` accepts them (or any part of them).  Any other value raises
-``NotImplementedError`` naming its ROADMAP item (items 10 and 8), from
+The ``mesh`` sub-config is not ported: ``None`` stands for the
+reference's disabled default, ``to_dict`` writes that default, and
+``from_dict`` accepts it (or any part of it).  Any other value raises
+``NotImplementedError`` naming ROADMAP queue 1, item 10, from
 :meth:`RuntimeConfig.check_served` (called by ``resolve_engine`` and by
 ``LLM``) or from ``from_dict``.
 """
@@ -39,6 +43,7 @@ from typing import Optional, Tuple, Union
 from repro_torch.backends.spec import QUANT_MODES, parse_quant_mode
 from repro_torch.configs.base import DEFAULT_PAGE_SIZE, ModelConfig, default_cache_len
 from repro_torch.models.transformer import RECURRENT_KINDS
+from repro_torch.obs.config import ObsConfig
 from repro_torch.serving.engine import EngineConfig
 from repro_torch.serving.policies import (
     BucketBatchedAdmission,
@@ -60,32 +65,27 @@ from repro_torch.spec.config import SpecConfig
 _PAGED_ATTN_IMPLS = (None, "gather")
 
 
-# what the reference's ``to_dict`` writes for its disabled MeshConfig and
-# ObsConfig; the port writes the same, so its JSON loads in the reference
+# what the reference's ``to_dict`` writes for its disabled MeshConfig; the
+# port writes the same, so its JSON loads in the reference
 _MESH_OFF = {"tp": 1, "dp": 1, "enable": None, "axes": ["data", "model"]}
-_OBS_OFF = {"enabled": None, "trace": None, "events": None, "fence_spans": False,
-            "profile_dir": None, "profile_steps": 20, "debug_invariants": False,
-            "metrics_port": None, "events_max_mb": 64.0, "watchdog": False,
-            "record_path": None}
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+def _mesh_not_ported() -> NotImplementedError:
+    return NotImplementedError("RuntimeConfig.mesh (sharded serving) is not ported yet "
+                               "(ROADMAP queue 1, item 10)")
 
 
-def _check_off(name: str, sub: Optional[dict]) -> None:
-    """Accept the ``mesh`` / ``obs`` sub-dict that ``to_dict`` writes, or any
-    part of it; any other value turns on a subsystem that is not ported and
+def _check_mesh_off(sub: Optional[dict]) -> None:
+    """Accept the ``mesh`` sub-dict that ``to_dict`` writes, or any part of
+    it; any other value turns on sharded serving, which is not ported, and
     raises ``NotImplementedError``."""
     if sub is None:
         return
-    off = _MESH_OFF if name == "mesh" else _OBS_OFF
-    unknown = sorted(set(sub) - set(off))
+    unknown = sorted(set(sub) - set(_MESH_OFF))
     if unknown:
-        raise TypeError(f"RuntimeConfig.{name}: unexpected keys {unknown}")
-    if {**off, **sub} != off:
-        raise (_not_ported("RuntimeConfig.mesh (sharded serving)", "10") if name == "mesh"
-               else _not_ported("RuntimeConfig.obs (observability)", "8"))
+        raise TypeError(f"RuntimeConfig.mesh: unexpected keys {unknown}")
+    if {**_MESH_OFF, **sub} != _MESH_OFF:
+        raise _mesh_not_ported()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,9 +255,10 @@ class RuntimeConfig:
     # speculative decoding (repro_torch/spec/): draft-verify greedy decode,
     # off by default (SpecConfig.enabled=False)
     spec: SpecConfig = dataclasses.field(default_factory=SpecConfig)
-    # observability: the reference's ObsConfig is not ported yet (item 8);
-    # None is its disabled default
-    obs: Optional[object] = None
+    # observability (repro_torch/obs/): spans, the scheduler event log, the
+    # step profiler, /metrics, the numerics watchdog, the flight recorder.
+    # All off by default: the engine's hot path sees only null sinks
+    obs: ObsConfig = dataclasses.field(default_factory=ObsConfig)
     # default generation budget for requests that don't specify one
     max_new_tokens: int = 16
     eos_token: Optional[int] = None
@@ -282,58 +283,57 @@ class RuntimeConfig:
 
     def check_served(self) -> None:
         """Raise ``NotImplementedError`` for a setting the port's engine
-        does not serve yet, naming its ROADMAP item: a ``mesh`` (item 10)
-        or an ``obs`` (item 8) sub-config."""
+        does not serve yet, naming its ROADMAP item: a ``mesh`` sub-config
+        (item 10)."""
         if self.mesh is not None:
-            raise _not_ported("RuntimeConfig.mesh (sharded serving)", "10")
-        if self.obs is not None:
-            raise _not_ported("RuntimeConfig.obs (observability)", "8")
+            raise _mesh_not_ported()
 
     # -- serialization -----------------------------------------------------
     def to_dict(self) -> dict:
         """Plain JSON-serializable nested dict (tuples become lists); the
-        unported ``mesh`` and ``obs`` appear as the reference's disabled
-        defaults."""
+        unported ``mesh`` appears as the reference's disabled default."""
         self.check_served()
         d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
-        for name in ("quant", "kv", "scheduler", "sampling", "spec"):
+        for name in ("quant", "kv", "scheduler", "sampling", "spec", "obs"):
             d[name] = dataclasses.asdict(d[name])
         b = d["scheduler"]["prefill_buckets"]
         if isinstance(b, tuple):
             d["scheduler"]["prefill_buckets"] = list(b)
-        d["mesh"], d["obs"] = copy.deepcopy(_MESH_OFF), dict(_OBS_OFF)
+        d["mesh"] = copy.deepcopy(_MESH_OFF)
         return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "RuntimeConfig":
         """Inverse of ``to_dict``; also accepts partial dicts (missing keys
         take their defaults) and the reference's ``to_dict`` output.  A
-        ``mesh`` or ``obs`` sub-dict other than (part of) the disabled
-        defaults raises ``NotImplementedError``."""
+        ``mesh`` sub-dict other than (part of) the disabled default raises
+        ``NotImplementedError``."""
         d = copy.deepcopy(dict(d))
         sched = dict(d.pop("scheduler", {}))
         b = sched.get("prefill_buckets")
         if b is not None and not isinstance(b, str):
             sched["prefill_buckets"] = tuple(b)
-        _check_off("mesh", d.pop("mesh", None))
-        _check_off("obs", d.pop("obs", None))
+        _check_mesh_off(d.pop("mesh", None))
         return cls(
             quant=QuantRuntime(**d.pop("quant", {})),
             kv=KVConfig(**d.pop("kv", {})),
             scheduler=SchedulerConfig(**sched),
             sampling=SamplingDefaults(**d.pop("sampling", {})),
             spec=SpecConfig(**d.pop("spec", {})),
+            obs=ObsConfig(**d.pop("obs", {})),
             **d,
         )
 
     # -- resolution --------------------------------------------------------
     def resolve_model(self, cfg: ModelConfig) -> ModelConfig:
-        """Apply the runtime's model-side overrides."""
+        """Apply the runtime's model-side overrides (the numerics watchdog
+        included: it is a ``ModelConfig`` field, as in the reference)."""
         return cfg.with_(
             quant_mode=self.quant.mode,
             gemm_backend=self.quant.gemm_backend,
             kv_cache_dtype=self.kv.dtype,
             paged_attn_impl=self.kv.paged_attn_impl,
+            numerics_watchdog=self.obs.watchdog,
         )
 
     def resolve_engine(self, cfg: ModelConfig,

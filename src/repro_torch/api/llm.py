@@ -45,10 +45,17 @@ recurrent stack refuses prefill buckets, the prefix cache and speculation
 (``seamless-m4t-large-v2``, ``llava-next-mistral-7b``) build their
 parameters, but the engine refuses them with the reference's
 ``ValueError`` at ``generate``: they serve through ``api.serve_batch``
-with a batch dict.  Not ported yet, and refused with
-``NotImplementedError``: ``replay`` and the metrics server (the
-observability stack, item 8), and the ``mesh`` and ``obs`` settings that
-``RuntimeConfig.check_served`` names.
+with a batch dict.
+
+``RuntimeConfig.obs`` (an ``ObsConfig``) turns observability on: one
+``Observability`` bundle per ``LLM`` (``llm.obs``; it outlives engine
+rebuilds, and ``llm.obs.save()`` writes the trace and event sinks),
+per-request timelines on the outputs, a live ``/metrics`` server
+(``metrics_port``; ``llm.metrics_server``), the numerics watchdog
+(``watchdog``) and the flight recorder (``record_path``), whose bundles
+``LLM.replay`` reproduces bitwise.  ``close()`` stops the server and
+closes the sinks.  Not ported yet, and refused with
+``NotImplementedError``: the ``mesh`` setting (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -103,12 +110,70 @@ class LLM:
                        else init_params(self.config, seed=seed, device=self.device))
         self.tokenizer = tokenizer or default_detokenizer
         self._policies = policies if policies is not None else self.runtime.build_policies()
+        # one observability bundle per LLM: it outlives engine rebuilds
+        # (spans and events accumulate across them, like metrics)
+        self.obs = self.runtime.obs.build()
+        if self.obs.recorder is not None:
+            # flight recorder armed: stamp what replay needs to rebuild the model
+            self.obs.recorder.set_run_info(arch=arch, runtime=self.runtime, seed=seed,
+                                           checkpoint_dir=checkpoint_dir)
         self._engine: Optional[ServingEngine] = None
+        # live telemetry: a stdlib HTTP server polling the engine's registry
+        # (and the watchdog's) on each scrape; nothing on the dispatch path
+        # knows about it
+        self.metrics_server = None
+        if self.runtime.obs.metrics_port is not None:
+            from repro_torch.obs.server import MetricsServer
+
+            self.metrics_server = MetricsServer(
+                self._collect_metrics, port=self.runtime.obs.metrics_port,
+                events=lambda: self.obs.events).start()
+
+    def _collect_metrics(self):
+        """Scrape-time collector: registries + cheap derived gauges.  The
+        derived values read host-side counters only (no ``report()``, no
+        device sync), so a scrape never perturbs the run."""
+        from repro_torch.obs import watchdog
+
+        regs, derived = [], {}
+        m = self._engine.metrics if self._engine is not None else None
+        if m is not None:
+            regs.append(m.registry)
+            wall = m.wall_s
+            toks = m.generated_tokens
+            derived["wall_seconds"] = wall
+            derived["generated_tokens"] = float(toks)
+            derived["tokens_per_second"] = toks / max(wall, 1e-9)
+            derived["goodput_tokens_per_second"] = m.goodput_tokens / max(wall, 1e-9)
+            derived["requests_finished"] = float(len(m.finished))
+        wreg = watchdog.peek_registry()
+        if wreg is not None:
+            regs.append(wreg)
+        return regs, derived
+
+    def close(self) -> None:
+        """Stop the metrics server (if any) and close the event, trace and
+        recorder sinks.  Idempotent; the LLM stays usable for generate /
+        stream afterwards, minus the closed sinks."""
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+            self.metrics_server = None
+        self.obs.close()
 
     @staticmethod
-    def replay(bundle_path: str, runtime_transform=None, max_steps: int = 100_000):
-        raise NotImplementedError("flight-recorder replay is not ported yet "
-                                  "(ROADMAP queue 1, item 8)")
+    def replay(bundle_path: str, runtime_transform=None, max_steps: int = 100_000,
+               device=None):
+        """Replay a flight-recorder bundle (``ObsConfig.record_path``): rebuild
+        the recorded engine, re-feed the recorded arrivals on their step
+        schedule, and compare token streams and the decision journal
+        bitwise.  Returns an ``obs.replay.ReplayResult``;
+        ``runtime_transform`` perturbs the rebuilt ``RuntimeConfig`` on
+        purpose so the differ names the first decision that changes.
+        ``device``: where the replay runs (default the card)."""
+        from repro_torch.obs.replay import replay_bundle
+
+        return replay_bundle(bundle_path, runtime_transform=runtime_transform,
+                             max_steps=max_steps, device=device)
 
     # -- engine lifecycle --------------------------------------------------
     def _ensure_engine(self, prompt_len: int, gen_tokens: int) -> ServingEngine:
@@ -130,7 +195,7 @@ class LLM:
             ecfg = dataclasses.replace(
                 ecfg, cache_len=max(ecfg.cache_len, old.engine_cfg.cache_len))
         self._engine = ServingEngine(self.config, self.params, ecfg, device=self.device,
-                                     policies=self._policies)
+                                     policies=self._policies, obs=self.obs)
         if old is not None:
             # metrics accumulate across rebuilds, with the new pool geometry
             carried = old.metrics
@@ -194,7 +259,9 @@ class LLM:
         while engine.has_work:
             engine.step()
         detok = self.tokenizer if detokenize else None
-        return [RequestOutput.from_request(r, detok) for r in reqs]
+        # with observability on, each output carries its scheduler timeline
+        return [RequestOutput.from_request(
+            r, detok, timeline=self.obs.events.timeline(r.req_id) or None) for r in reqs]
 
     def stream(self, prompt: Prompt,
                sampling: Optional[SamplingParams] = None,

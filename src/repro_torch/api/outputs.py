@@ -1,7 +1,7 @@
 """Result objects returned by the ``repro_torch.api`` facade (port of
-``repro/api/outputs.py``).  The scheduler timeline stays ``None``: it is
-the observability stack's event log (ROADMAP queue 1, item 8), so the
-queue wait comes from the request itself."""
+``repro/api/outputs.py``).  With observability on, each output carries
+its request's scheduler timeline from the event log, and the queue wait
+is read off it (``None`` without one), as in the reference."""
 
 from __future__ import annotations
 
@@ -23,19 +23,28 @@ class RequestOutput:
     finish_reason: str          # "stop" (EOS) | "length" (budget)
     ttft_s: Optional[float]     # submit -> first token
     latency_s: Optional[float]  # submit -> finished
+    # the request's scheduler event timeline (queued -> admitted -> chunks
+    # -> first_token -> finished dicts from ``obs.EventLog``); None when
+    # observability is disabled
     timeline: Optional[list[dict]] = None
     # SLO outcome: finished within the deadline?  None = no deadline
     deadline_hit: Optional[bool] = None
     # per-request resource attribution (``RequestCost.as_dict()``); None
     # when the engine recorded no dispatch for the request
     cost: Optional[dict] = None
-    # submit -> admitted into a lane (None: never admitted)
-    queue_wait_s: Optional[float] = None
+
+    @property
+    def queue_wait_s(self) -> Optional[float]:
+        """Submit -> admitted, read off the timeline (None without one)."""
+        for ev in self.timeline or ():
+            if ev["kind"] == "admitted":
+                return ev.get("queue_wait_s")
+        return None
 
     @classmethod
     def from_request(cls, req: Request,
-                     detokenizer: Optional[Callable[[Sequence[int]], str]] = None
-                     ) -> "RequestOutput":
+                     detokenizer: Optional[Callable[[Sequence[int]], str]] = None,
+                     timeline: Optional[list[dict]] = None) -> "RequestOutput":
         stopped = (req.eos_token is not None and req.output_tokens
                    and req.output_tokens[-1] == req.eos_token)
         return cls(
@@ -46,7 +55,7 @@ class RequestOutput:
             finish_reason="stop" if stopped else "length",
             ttft_s=req.ttft_s,
             latency_s=req.latency_s,
+            timeline=timeline,
             deadline_hit=req.deadline_hit,
             cost=req.cost.as_dict() if req.cost.dispatches else None,
-            queue_wait_s=req.queue_wait_s,
         )

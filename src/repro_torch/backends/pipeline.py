@@ -5,7 +5,10 @@ weights per output channel — on every call, as in the reference — to the
 spec's (accumulator-aware) widths; leading dims flatten into the (M, K)
 layout the kernels take; the resolved backend runs its fused
 ``gemm_dequant`` when it has one, else ``gemm`` plus the same f32
-epilogue.  (The reference's numerics watchdog hook is not ported yet.)
+epilogue.  With the numerics watchdog on (``watch=True``, or inside a
+model entry point of a ``ModelConfig(numerics_watchdog=True)``), each GEMM
+also stages its operand stats on the device (``_stage_watchdog_stats``);
+off, nothing is computed.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 from repro_torch.backends import impls  # noqa: F401  (populates the registry)
 from repro_torch.backends.registry import resolve_backend
 from repro_torch.backends.spec import parse_quant_mode
-from repro_torch.quant.qtensor import quantize
+from repro_torch.obs import watchdog as _watchdog
+from repro_torch.quant.qtensor import quantize, rail_hits
 
 __all__ = ["ACC_BITS", "dynamic_quant", "effective_bits", "gemm_int",
            "quant_mode_summary", "quantized_linear"]
@@ -45,16 +49,66 @@ def effective_bits(spec, k: int) -> tuple[int, int]:
     return a, w
 
 
+def _stage_watchdog_stats(ctx, label: str, quant_mode: str, x, xq, xs, wq,
+                          a_bits: int, w_bits: int, nominal: int) -> None:
+    """Stage this GEMM's numerics stats into the watchdog context ``ctx``.
+
+    The reference's 8-vector (``repro/backends/pipeline.py``): at-rail
+    occupancy of both quantized operands (``rail_hits`` on the integer
+    data, so the weight passes read 1 byte an element), their element
+    counts, activation ``amax``, mean relative quantization error, an
+    accumulator-magnitude bound in bits (``max_row sum_k |xq|`` times
+    ``max |wq|`` is the largest int32 any output can reach; the fused
+    kernel never writes the accumulator, so the bound is the only runtime
+    view of it) and the bits the accumulator clamp took off the nominal
+    widths.  The five data-dependent ones stay on the device, stacked in
+    one f32 tensor; the watchdog copies them to the host once per entry
+    point.  Nothing here feeds the GEMM."""
+    xf = x.float()
+    # |q| <= qmax: the integer passes are exact, as the reference's f32 are
+    w_amax = torch.maximum(wq.amax(), wq.amin().neg())
+    # xf - xq * xs rounded once, as the reference's compiled graph fuses it
+    # (a multiply-add; the f32 product is exact in f64)
+    err = (xf.double() - xq.double() * xs.double()).float()
+    dev = torch.stack([
+        rail_hits(xq, a_bits).float(),
+        rail_hits(wq, w_bits).float(),
+        xf.abs().max(),
+        err.abs().mean() / (xf.abs().mean() + 1e-12),
+        torch.log2(1.0 + xq.abs().float().sum(dim=-1).max() * w_amax.float()),
+    ])
+    _watchdog.stage(ctx, label, quant_mode, dev,
+                    (xq.numel(), wq.numel(), nominal - (a_bits + w_bits)))
+
+
 def quantized_linear(x: torch.Tensor, w: torch.Tensor, quant_mode: str, *,
                      backend: Optional[str] = None,
-                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                     out_dtype: Optional[torch.dtype] = None,
+                     watch: Optional[bool] = None,
+                     layer: Optional[str] = None) -> torch.Tensor:
     """x (..., K) fp @ w (K, N) fp -> (..., N) fp via the quantized pipeline,
     on ``backend`` (a registry name) or, by default, the backend that
-    serves ``x``'s device."""
+    serves ``x``'s device.
+
+    ``watch``/``layer`` drive the numerics watchdog explicitly; by default
+    the context that the model entry points open
+    (``watchdog.watching``, keyed off ``ModelConfig.numerics_watchdog``)
+    decides.  An explicit ``watch=True`` outside any context records
+    straight away (one host copy for this GEMM)."""
     b, spec = resolve_backend(quant_mode, x.device.type, backend)
     a_bits, w_bits = effective_bits(spec, x.shape[-1])
     xq, xs = dynamic_quant(x, dim=-1, bits=a_bits)
     wq, ws = dynamic_quant(w, dim=0, bits=w_bits)
+
+    ctx = _watchdog.trace_ctx()
+    if watch if watch is not None else ctx is not None:
+        label = layer or _watchdog.next_label(ctx, x.shape[-1], w.shape[-1])
+        sink = ctx if ctx is not None else _watchdog.standalone()
+        _stage_watchdog_stats(sink, label, quant_mode, x, xq, xs, wq, a_bits, w_bits,
+                              spec.a_bits + spec.w_bits)
+        if ctx is None:
+            _watchdog.flush(sink)
+
     xq = xq.to(spec.a_dtype)
     wq = wq.to(spec.w_dtype)
 

@@ -5,9 +5,8 @@ The port's own copy of what it needs from ``repro/configs/base.py``: the
 ``MLAConfig``) plus the cache sizing helpers the serving engine shares
 with the reference, so both packages agree on cache shapes for the same
 workload.  Every one of the reference's architectures builds.  The
-training-only fields (``scan_layers``,
-``remat``, ``remat_policy``, ``scan_unroll``) and ``numerics_watchdog``
-come with ROADMAP queue 1, items 9 and 8.
+training-only fields (``scan_layers``, ``remat``, ``remat_policy``,
+``scan_unroll``) come with ROADMAP queue 1, item 9.
 """
 
 from __future__ import annotations
@@ -106,6 +105,10 @@ class ModelConfig:
     # on CUDA tensors, the gather twin on CPU tensors.  "gather" names the
     # twin and is refused on CUDA tensors (models/attention.py)
     paged_attn_impl: Optional[str] = None
+    # numerics watchdog (obs/watchdog.py): every quantized GEMM inside a
+    # model entry point stages per-layer saturation / amax / quant-error
+    # stats.  Part of the frozen config (and its hash), as in the reference
+    numerics_watchdog: bool = False
 
     def __post_init__(self):
         if self.quant_mode not in QUANT_MODES:

@@ -29,9 +29,16 @@ period into ``cache["cross_kv"]``, which :func:`decode_step` reads.
 The reference's ``lax.scan`` over periods is a Python loop here.  Decode
 runs over a contiguous (slot) cache or a paged one; its writes land in the
 cache in place.
+
+``forward``, ``prefill``, ``decode_step`` and ``verify_step`` run inside
+the numerics watchdog's context when ``cfg.numerics_watchdog`` is set
+(:func:`_watched`); each period of a stack reuses the first period's
+GEMM labels, as the reference's scanned body does.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -53,6 +60,22 @@ from repro_torch.models.layers import (
     truncated_normal,
     unembed,
 )
+from repro_torch.obs import watchdog as _watchdog
+
+
+def _watched(tag: str):
+    """Run a ``(params, cfg, ...)`` entry point inside the numerics
+    watchdog's context when ``cfg.numerics_watchdog`` asks for it: every
+    quantized GEMM below labels itself (``<tag>.<site>.k<K>n<N>``) and
+    stages its stats on the device, and the context copies them to the
+    host once, when the entry point returns."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(params, cfg, *args, **kw):
+            with _watchdog.watching(tag if cfg.numerics_watchdog else None):
+                return fn(params, cfg, *args, **kw)
+        return wrapper
+    return deco
 
 
 def _ones(shape, dev):
@@ -121,9 +144,12 @@ def _plan(cfg: ModelConfig, carry_out: bool = False):
     encoder-decoder's last slot of a period, after which the period's
     cross-attention step runs.  That slot's output then stays f32 into
     ``norm_x`` (it is not the scan's carry: the cross add ends the period,
-    rounded)."""
+    rounded).  Each period of ``blocks`` starts at the watchdog's period
+    mark, so all periods share the first one's GEMM labels."""
     last = len(cfg.block_pattern) - 1
     for group, idx, period, kind, carry in tfm.layer_plan(cfg, carry_out):
+        if group == "blocks" and idx == 0:
+            _watchdog.period_start(period == 0)
         cross = cfg.is_encoder_decoder and group == "blocks" and idx == last
         yield group, idx, period, kind, carry or cross, cross
 
@@ -195,6 +221,7 @@ def backbone(params, cfg: ModelConfig, batch):
     return rmsnorm(x, params["final_norm"], cfg.norm_eps, dtype=COMPUTE_DTYPE), total
 
 
+@_watched("forward")
 def forward(params, cfg: ModelConfig, batch):
     """Full logits (B, S, V) f32 of ``batch`` -- for small configs and
     tests: prefill and decode are held against it."""
@@ -263,6 +290,7 @@ def paged_cache_shapes(cfg: ModelConfig, n_lanes: int, cache_len: int,
 # Prefill / decode
 # ---------------------------------------------------------------------------
 
+@_watched("prefill")
 def prefill(params, cfg: ModelConfig, batch, cache_len: int, lengths=None):
     """Process the prompts of ``batch`` (``{"tokens": (B, S)}``,
     ``{"embeds": (B, S, d)}``, or ``{"src_embeds", "tgt_tokens"}`` for an
@@ -278,7 +306,10 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, lengths=None):
     cross_kv = None
     if cfg.is_encoder_decoder:
         enc_out = _run_encoder(batch["src_embeds"], params, cfg)
-        cross_kv = [_cross_kv(enc_out, params, cfg, i) for i in range(n_periods)]
+        cross_kv = []
+        for i in range(n_periods):
+            _watchdog.period_start(i == 0)
+            cross_kv.append(_cross_kv(enc_out, params, cfg, i))
         x, positions = _embed_input(params, cfg, {"tokens": batch["tgt_tokens"]})
     else:
         x, positions = _embed_input(params, cfg, batch)
@@ -312,6 +343,7 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, lengths=None):
     return unembed(h, _head_table(params, cfg))[:, 0, :], cache
 
 
+@_watched("decode")
 def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
     """One token for every lane.  tokens: (B,) int, or (B, d) embeddings.
 
@@ -343,6 +375,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
     return unembed(h, _head_table(params, cfg))[:, 0, :], cache
 
 
+@_watched("verify")
 def verify_step(params, cfg: ModelConfig, tokens, cache, active=None):
     """W tokens for every lane in one dispatch (speculative verify).
 
@@ -360,7 +393,7 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, active=None):
     pos = cache["pos"]
     tables = cache.get("block_tables")
     x = embed(tokens, params["embed"])
-    for group, idx, period, kind, carry in tfm.layer_plan(cfg):
+    for group, idx, period, kind, carry, _ in _plan(cfg):
         x, _ = tfm.apply_block_verify(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
                                       tfm.plan_entry(cache, group, idx, period), pos,
                                       tables=tables, active=active, carry=carry)

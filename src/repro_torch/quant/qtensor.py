@@ -35,3 +35,16 @@ def quantize(x: torch.Tensor, dim=None, bits: int = 8):
     scale = torch.clamp_min(absmax, 1e-8) * (1.0 / qmax)
     data = torch.round(xf / scale).clamp_(-qmax, qmax)
     return data.to(storage_dtype(bits)), scale
+
+
+def rail_hits(data: torch.Tensor, bits: int) -> torch.Tensor:
+    """Count of quantized values sitting on the ±qmax rail (a 0-d int64
+    tensor on ``data``'s device).  Integer ``data`` is compared as it is
+    stored (exact, and a quarter of the bytes of an f32 copy).
+
+    With dynamic absmax scaling the largest-magnitude element maps exactly
+    onto ±qmax, so true clipping never occurs; at-rail occupancy is the
+    saturation signal all the same: a distribution crowding the rail is
+    one re-quantization (or one calibrated static scale) away from
+    clipping.  Used by the numerics watchdog."""
+    return (data.abs() >= qmax_for_bits(bits)).sum()

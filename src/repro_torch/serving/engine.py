@@ -57,9 +57,19 @@ tokens a lane, one ``verify_step`` scores the window, the accepted prefix
 plus one token is emitted, and rejected rows roll back by length.  A batch
 with a stochastic lane decodes plainly that step.
 
-Not ported yet, and refused with ``NotImplementedError``: observability
-and the flight recorder (ROADMAP queue 1, item 8) and device meshes
-(item 10).
+Observability (``obs=``, an ``obs.Observability``; ``DISABLED`` by
+default) sees every dispatch and decision, in the reference's order and
+with its fields: spans (``step``, ``prefill``, ``prefill_stacked``,
+``chunk``, ``decode``, ``verify``, ``defrag``; fenced with
+``fence_spans``), the scheduler event log (queued, admitted, rejected,
+chunk, first_token, cow_fork, prefix_evict, spec_fallback, spec_verify,
+defrag, evicted, finished), the step profiler, page-pool invariant
+checks every step (``debug_invariants``), and the flight recorder's
+hooks (the decision clock's tape, arrivals, outputs).  Disabled, every
+hook is a null object's no-op.
+
+Not ported yet, and refused with ``NotImplementedError``: device meshes
+(ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -82,6 +92,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
 from repro_torch.models.kvcache import is_paged_kind
 from repro_torch.models.transformer import RECURRENT_KINDS
+from repro_torch.obs import DISABLED, Observability
 from repro_torch.paging import (
     PagedCache,
     chunkable,
@@ -147,8 +158,8 @@ class EngineConfig:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, params, engine_cfg: EngineConfig,
-                 device=None, policies: Optional[EnginePolicies] = None, obs=None,
-                 mesh=None):
+                 device=None, policies: Optional[EnginePolicies] = None,
+                 obs: Optional[Observability] = None, mesh=None):
         ecfg = engine_cfg
         if cfg.is_encoder_decoder or cfg.frontend is not None:
             raise ValueError(
@@ -157,11 +168,9 @@ class ServingEngine:
         if ecfg.cache_mode not in ("slot", "paged"):
             raise ValueError(f"cache_mode must be 'slot' or 'paged', got "
                              f"{ecfg.cache_mode!r}")
-        for hit, what, item in ((obs is not None, "obs (observability)", "8"),
-                                (mesh is not None, "mesh (sharded serving)", "10")):
-            if hit:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP queue 1, item {item})")
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh (sharded serving) is not ported yet (ROADMAP queue 1, item 10)")
         buckets = tuple(sorted(ecfg.prefill_buckets or ()))
         recurrent = sorted(RECURRENT_KINDS & set(cfg.block_pattern))
         if buckets and recurrent:
@@ -181,11 +190,21 @@ class ServingEngine:
         self.buckets = buckets
         self.paged = ecfg.cache_mode == "paged"
         self.policies = policies if policies is not None else EnginePolicies()
+        # observability: the DISABLED bundle's null sinks make every
+        # tracer / event / profiler call below a no-op
+        self.obs = obs if obs is not None else DISABLED
         n = ecfg.n_slots
         self.scheduler = Scheduler(n, ecfg.max_prefills_per_step,
                                    admission=self.policies.admission)
         self.metrics = EngineMetrics()
-        self.set_clock(time.perf_counter)
+        # flight recorder: None when disarmed.  Armed, the decision clock
+        # tapes every reading so a replay can script time-dependent
+        # decisions (deadline sheds and preemptions) back
+        self._recorder = getattr(self.obs, "recorder", None)
+        self.set_clock(self._recorder.wrap_clock()
+                       if self._recorder is not None else time.perf_counter)
+        if self._recorder is not None:
+            self._recorder.record_engine(ecfg)
         # whole-stack effective kinds: the local-attention rings and the
         # recurrent states stay per lane in both cache modes, so a stack of
         # only those reserves no pages
@@ -285,9 +304,10 @@ class ServingEngine:
     def set_clock(self, clock) -> None:
         """Install the decision clock: every time reading that can change
         a scheduling decision (submit stamps, admission lateness, deadline
-        shedding and preemption) goes through it, so a test can script
-        it.  Metric timestamps (TTFT, latency, dispatch timers) stay on
-        ``time.perf_counter``."""
+        shedding and preemption) goes through it.  Recording wraps
+        ``time.perf_counter`` to tape each reading; replay installs a
+        ``ReplayClock`` that scripts the tape back.  Metric timestamps
+        (TTFT, latency, dispatch timers) stay on ``time.perf_counter``."""
         self._clock = clock
         self.scheduler.clock = clock
         if hasattr(self.policies.eviction, "bind"):
@@ -324,16 +344,21 @@ class ServingEngine:
                 raise ValueError(f"request reserves {pages} pages but the pool only "
                                  f"has {usable} usable pages; raise n_pages")
         sampling = sampling or SamplingParams()
+        if deadline_s is None:
+            deadline_s = sampling.deadline_s
         req = Request(
             req_id=self._next_id, prompt=prompt, max_new_tokens=max_new_tokens,
             sampling=sampling,
             eos_token=self.engine_cfg.eos_token if eos_token is None else eos_token,
             on_token=on_token, on_text=on_text, detokenizer=detokenizer,
-            priority=priority,
-            deadline_s=sampling.deadline_s if deadline_s is None else deadline_s,
-            submit_time=self._clock())
+            priority=priority, deadline_s=deadline_s, submit_time=self._clock())
         self._next_id += 1
         self.scheduler.submit(req)
+        self.obs.events.emit("queued", req.req_id, prompt_len=req.prompt_len,
+                             max_new_tokens=max_new_tokens, priority=priority,
+                             **({"deadline_s": deadline_s} if deadline_s is not None else {}))
+        if self._recorder is not None:
+            self._recorder.record_arrival(req, self._step_idx)
         return req
 
     def _bucket_len(self, prompt_len: int) -> int:
@@ -456,9 +481,13 @@ class ServingEngine:
                 if freed:
                     self.metrics.inc("prefix_evicted_pages", freed)
                     self.metrics.set_gauge("prefix_tree_pages", self.prefix.cached_pages)
+                    self.obs.events.emit("prefix_evict", pages=freed, deficit=int(deficit))
             if need <= mgr.available - tally[0]:
                 tally[0] += need
                 return True
+            self.obs.events.emit("rejected", req.req_id, reason="page_capacity",
+                                 need_pages=int(need),
+                                 available=int(mgr.available - tally[0]))
             return False
 
         return gate
@@ -496,6 +525,7 @@ class ServingEngine:
         self._plan_cache.pop(req.req_id, None)   # admitted: the plan is consumed
         req.append_token(tok)   # stamps TTFT
         self.metrics.inc("prefills")
+        self.obs.events.emit("first_token", req.req_id, slot=slot, ttft_s=req.ttft_s)
         if self._drafter is not None:
             self._drafter.admit(slot, req.prompt)
         self._tokens[slot] = tok
@@ -517,10 +547,13 @@ class ServingEngine:
         self.prefix.publish(req.prompt, self.store.manager.lane_pages[slot])
         self.metrics.set_gauge("prefix_tree_pages", self.prefix.cached_pages)
 
-    def _cow(self, move) -> None:
+    def _cow(self, slot: int, move) -> None:
         """Apply a copy-on-write fork on the device (``move`` = (src, dst))."""
         self.store.copy_pages([move[0]], [move[1]])
         self.metrics.inc("prefix_cow_forks")
+        req = self.scheduler.request_in(slot)
+        self.obs.events.emit("cow_fork", req.req_id if req is not None else None,
+                             slot=slot, src=int(move[0]), dst=int(move[1]))
 
     def _paged_reserve(self, req: Request, slot: int, single_len: int) -> list[int]:
         """Reserve a paged admission's worst case and take its prefill's
@@ -559,18 +592,33 @@ class ServingEngine:
         stacked row is the solo prefill's row."""
         reqs = [req for req, _ in group]
         slots = [slot for _, slot in group]
+        k = len(group)
         padded = self._bucket_len(reqs[0].prompt_len)
-        t0 = time.perf_counter()
+        page_ids = None
         if self.paged:
+            # reserve before the admitted events, so they journal the pages
             single_len = self._single_len(padded)
             page_ids = [self._paged_reserve(req, slot, single_len) for req, slot in group]
-            table_rows = [self.store.manager.block_tables[slot] for slot in slots]
-            toks, multi = self._prefill_rows(reqs, padded, single_len)
-            paged_insert_many(self.store.cache, multi, slots, page_ids, table_rows,
-                              [r.prompt_len for r in reqs])
-        else:
-            toks, multi = self._prefill_rows(reqs, padded, self.engine_cfg.cache_len)
-            scatter_lanes(self.store.cache, multi, slots, self.store._axes)
+        for i, (req, slot) in enumerate(group):
+            self.obs.events.emit(
+                "admitted", req.req_id, slot=slot,
+                **({"mode": "cold"} if k == 1 else {"mode": "stacked", "group": k}),
+                **({"pages": [int(p) for p in page_ids[i]]} if self.paged else {}),
+                queue_wait_s=req.queue_wait_s)
+        span = (self.obs.tracer.span("prefill", lane=slots[0], req=reqs[0].req_id,
+                                     slot=slots[0], tokens=padded) if k == 1 else
+                self.obs.tracer.span("prefill_stacked", lanes=slots, k=k, tokens=padded))
+        t0 = time.perf_counter()
+        with span as sp:
+            if self.paged:
+                table_rows = [self.store.manager.block_tables[slot] for slot in slots]
+                toks, multi = self._prefill_rows(reqs, padded, single_len)
+                paged_insert_many(self.store.cache, multi, slots, page_ids, table_rows,
+                                  [r.prompt_len for r in reqs])
+            else:
+                toks, multi = self._prefill_rows(reqs, padded, self.engine_cfg.cache_len)
+                scatter_lanes(self.store.cache, multi, slots, self.store._axes)
+            sp.fence(toks)
         toks = toks.cpu().tolist()
         share = (time.perf_counter() - t0) / len(group)
         self.metrics.inc("prefill_dispatches")
@@ -588,8 +636,10 @@ class ServingEngine:
     def _begin_chunked(self, req: Request, slot: int, finished: list[Request]) -> None:
         # a stack that keeps all its state per lane reserves no pages, or
         # the pool gate would veto admissions that touch no pool rows
-        self.store.manager.admit(slot, self._reserve_tokens(req)
-                                 if self._has_paged_kinds else 0)
+        reserved = self._reserve_tokens(req) if self._has_paged_kinds else 0
+        self.store.manager.admit(slot, reserved)
+        self.obs.events.emit("admitted", req.req_id, slot=slot, mode="chunked",
+                             reserved=int(reserved), queue_wait_s=req.queue_wait_s)
         self.scheduler.begin_chunked(slot)
         req.prefill_done = 0
         self._record_miss()
@@ -603,8 +653,13 @@ class ServingEngine:
         mgr = self.store.manager
         mgr.admit(slot, self._prefix_rows(req, plan), adopt_pages=plan.pages,
                   forks=0 if plan.fork_index is None else 1)
+        self.obs.events.emit("admitted", req.req_id, slot=slot, mode="prefix",
+                             cached_tokens=plan.resume, cached_pages=len(plan.pages),
+                             pages=[int(p) for p in plan.pages],
+                             fork=plan.fork_index is not None,
+                             fork_index=plan.fork_index, queue_wait_s=req.queue_wait_s)
         if plan.fork_index is not None:
-            self._cow(mgr.cow_fork(slot, plan.fork_index))
+            self._cow(slot, mgr.cow_fork(slot, plan.fork_index))
         self.prefix.tree.touch(plan.nodes)
         self.metrics.inc("prefix_hits")
         self.metrics.inc("prefix_hit_tokens", plan.resume)
@@ -627,15 +682,18 @@ class ServingEngine:
             # the invariant literal)
             move = mgr.ensure_writable(slot, start)
             if move is not None:
-                self._cow(move)
+                self._cow(slot, move)
         if self._has_paged_kinds:
             mgr.ensure(slot, start + c)   # the padded tail lands in pages too
         self.store.sync_tables()
         tokens = torch.zeros((1, c), dtype=torch.int32)
         tokens[0, :n] = torch.tensor(req.prompt[start:start + n], dtype=torch.int32)
         t0 = time.perf_counter()
-        logits = self._chunk_fn(self.params, self.store.cache, tokens.to(self.device), slot,
-                                start, n)
+        with self.obs.tracer.span("chunk", lane=slot, req=req.req_id, slot=slot,
+                                  start=start, n=n) as sp:
+            logits = self._chunk_fn(self.params, self.store.cache, tokens.to(self.device),
+                                    slot, start, n)
+            sp.fence(logits)
         req.prefill_done = start + n
         last = req.prefill_done >= req.prompt_len
         first = int(self._sample(logits, [req])[0]) if last else None   # host pull
@@ -643,6 +701,7 @@ class ServingEngine:
         req.cost.dispatches += 1
         self.metrics.inc("chunk_steps")
         self.metrics.inc("prefill_dispatches")
+        self.obs.events.emit("chunk", req.req_id, slot=slot, start=start, n=n, done=last)
         if not last:
             return
         mgr.set_length(slot, req.prompt_len)
@@ -659,6 +718,22 @@ class ServingEngine:
         """One scheduler iteration: admissions (or prompt chunks), then one
         batched decode over the running lanes, then defrag.  Returns the
         requests finished this step."""
+        obs = self.obs
+        obs.profiler.step_begin(self.device)
+        with obs.tracer.span("step", idx=self._step_idx + 1):
+            finished = self._step_inner()
+        obs.profiler.step_end()
+        if obs.debug_invariants and self.paged and self._has_paged_kinds:
+            bad = self.store.manager.invariant_violations()
+            if bad:
+                obs.events.emit("invariant_violation", step=self._step_idx,
+                                violations=bad)
+                raise AssertionError(f"page-pool invariants violated at step "
+                                     f"{self._step_idx}: " + "; ".join(bad))
+        self.metrics.touch()
+        return finished
+
+    def _step_inner(self) -> list[Request]:
         m = self.metrics
         m.begin()
         self._step_idx += 1
@@ -714,6 +789,11 @@ class ServingEngine:
                 req.cost.verify_s += dt / len(spec_reqs)
                 req.cost.dispatches += 1
         elif running:
+            if self._spec is not None:
+                # spec is configured but a non-greedy lane keeps this batch
+                # from speculating: the round decodes plainly
+                self.obs.events.emit("spec_fallback", reason="non_greedy_lane",
+                                     batch=len(running))
             t0 = time.perf_counter()
             if self.paged and self._has_paged_kinds:
                 mgr = self.store.manager
@@ -725,23 +805,26 @@ class ServingEngine:
                         # keeps the invariant unconditional)
                         move = mgr.ensure_writable(slot, row)
                         if move is not None:
-                            self._cow(move)
+                            self._cow(slot, move)
                     mgr.ensure(slot, row + 1)
                     req.cost.page_steps += len(mgr.lane_pages[slot])
                 self.store.sync_tables()
                 m.max_gauge("peak_pages_used", mgr.pages_in_use)
             active = np.zeros((self.engine_cfg.n_slots,), bool)
             active[list(running)] = True
-            logits, _ = model_lib.decode_step(
-                self.params, self.cfg, self._tokens, self.store.cache,
-                active=torch.from_numpy(active).to(self.device))
-            if self._greedy.all():
-                self._tokens = greedy_tokens(logits)
-            else:
-                keys = [self._lane_key(running[s]) if s in running else 0
-                        for s in range(self.engine_cfg.n_slots)]
-                self._tokens = sample_tokens(logits, self._temps, self._topk, self._greedy,
-                                             keys)
+            with self.obs.tracer.span("decode", lanes=list(running),
+                                      batch=len(running)) as sp:
+                logits, _ = model_lib.decode_step(
+                    self.params, self.cfg, self._tokens, self.store.cache,
+                    active=torch.from_numpy(active).to(self.device))
+                if self._greedy.all():
+                    self._tokens = greedy_tokens(logits)
+                else:
+                    keys = [self._lane_key(running[s]) if s in running else 0
+                            for s in range(self.engine_cfg.n_slots)]
+                    self._tokens = sample_tokens(logits, self._temps, self._topk,
+                                                 self._greedy, keys)
+                sp.fence(self._tokens)
             if self.paged:
                 self.store.manager.advance(running)
             toks = self._tokens.cpu().numpy()
@@ -762,11 +845,15 @@ class ServingEngine:
         # next admissions when the defrag policy says so
         if (self.paged and self._has_paged_kinds
                 and self.policies.defrag.should_defrag(self.store.manager)):
-            moves = self.store.defrag()
+            with self.obs.tracer.span("defrag") as sp:
+                moves = self.store.defrag()
+                sp.set(pages_moved=len(moves))
             if moves:
                 m.inc("defrag_count")
                 m.inc("defrag_pages_moved", len(moves))
-        m.touch()
+                self.obs.events.emit("defrag", pages_moved=len(moves),
+                                     moves=[[int(s), int(d)] for s, d in moves],
+                                     step=self._step_idx)
         return finished
 
     # ------------------------------------------------------------------
@@ -812,20 +899,26 @@ class ServingEngine:
                 if self.prefix is not None:
                     # the whole verify window must be privately writable
                     for move in mgr.ensure_writable_range(slot, row, w):
-                        self._cow(move)
+                        self._cow(slot, move)
                 mgr.ensure(slot, row + w)
                 running[slot].cost.page_steps += len(mgr.lane_pages[slot])
             self.store.sync_tables()
             self.metrics.max_gauge("peak_pages_used", mgr.pages_in_use)
 
         dev = self.device
-        _, targets, accepted = verify(
-            self.params, self.cfg, self.store.cache, torch.from_numpy(toks).to(dev),
-            torch.from_numpy(n_draft).to(dev), torch.from_numpy(active).to(dev))
+        with self.obs.tracer.span("verify", batch=len(slots), width=w, lanes=slots) as sp:
+            _, targets, accepted = verify(
+                self.params, self.cfg, self.store.cache, torch.from_numpy(toks).to(dev),
+                torch.from_numpy(n_draft).to(dev), torch.from_numpy(active).to(dev))
+            sp.fence(targets, accepted)
         self.metrics.inc("verify_dispatches")
         self.metrics.inc("decode_steps")
         targets = targets.cpu().numpy()
         accepted = accepted.cpu().numpy()
+        # journal the round's operands before the accept loop's evictions
+        self.obs.events.emit("spec_verify", lanes=[int(s) for s in slots],
+                             n_draft=[int(n_draft[s]) for s in slots],
+                             accepted=[int(accepted[s]) for s in slots])
 
         feed = self._tokens.cpu()
         for slot in slots:
@@ -846,10 +939,9 @@ class ServingEngine:
                 # reserved to the lane and are overwritten in place
                 self.store.manager.set_length(slot, base_row[slot] + emitted)
             feed[slot] = req.output_tokens[-1]
-        self._tokens = feed.to(dev)
-        for slot in slots:
-            if self._should_evict(running[slot]):
+            if self._should_evict(req):
                 self._evict(slot, finished)
+        self._tokens = feed.to(dev)
 
     def _shed_late(self, finished: list[Request]) -> None:
         """Deadline pre-pass: a waiting request already past its deadline
@@ -859,7 +951,8 @@ class ServingEngine:
         shed = getattr(self.policies.admission, "shed", None)
         if shed is None or not self.scheduler.waiting:
             return
-        idxs = shed(self.scheduler.waiting, self._clock())
+        now = self._clock()
+        idxs = shed(self.scheduler.waiting, now)
         if not idxs:
             return
         for req in self.scheduler.drop(idxs):
@@ -867,6 +960,10 @@ class ServingEngine:
             self._plan_cache.pop(req.req_id, None)
             self.metrics.inc("deadline_shed")
             self.metrics.record_finished(req)
+            self.obs.events.emit("rejected", req.req_id, reason="deadline",
+                                 waited_s=now - req.submit_time, deadline_s=req.deadline_s)
+            if self._recorder is not None:
+                self._recorder.record_finish(req)
             finished.append(req)
 
     def _should_evict(self, req: Request) -> bool:
@@ -879,12 +976,25 @@ class ServingEngine:
             self._drafter.release(slot)
         self._greedy[slot] = True   # free lanes sample nothing
         reason_of = getattr(self.policies.eviction, "evict_reason", None)
-        if reason_of is not None and reason_of(req) == "deadline" and not req.done:
+        reason = reason_of(req) if reason_of is not None else req.finish_reason
+        if reason == "deadline" and not req.done:
             # DeadlinePreemption took the lane back from a request that
             # already missed its deadline, for queued work that still can
             req.finish_reason_override = "deadline"
             self.metrics.inc("deadline_preempt")
+            self.obs.events.emit("evicted", req.req_id, slot=slot, reason="deadline",
+                                 n_tokens=len(req.output_tokens),
+                                 deadline_s=req.deadline_s)
         self.metrics.record_finished(req)
+        extra = {}
+        if req.deadline_s is not None:
+            extra["deadline_s"] = req.deadline_s
+            extra["deadline_hit"] = req.deadline_hit
+        self.obs.events.emit("finished", req.req_id, slot=slot,
+                             n_tokens=len(req.output_tokens), reason=reason,
+                             latency_s=req.latency_s, **extra)
+        if self._recorder is not None:
+            self._recorder.record_finish(req)
         finished.append(req)
 
     @property

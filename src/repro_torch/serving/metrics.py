@@ -13,7 +13,9 @@ p50/p95/p99 percentiles of TTFT, per-token decode latency and queue wait
 from the registry's histograms, deadline hits and misses, and goodput.
 Every counter and gauge reads as an attribute (``metrics.prefills``),
 the prefix-cache (``prefix_*``) and speculative-decoding (``spec_*``,
-``verify_dispatches``, ``accept_len``) ones included.
+``verify_dispatches``, ``accept_len``) ones included.  Assigning one
+(``metrics.prefills = 5``) still lands in the registry but warns with
+``DeprecationWarning``, as the reference's shim does.
 
 Wall time: ``begin()`` stamps the start once, every engine step
 ``touch()``-es the end, and ``record_finished`` advances it, so a run that
@@ -23,6 +25,7 @@ finishes nothing still reports its true wall time.
 from __future__ import annotations
 
 import time
+import warnings
 
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serving.request import Request
@@ -49,6 +52,7 @@ _TIMERS = ("prefill_s", "decode_s")
 # last-value / running-max gauges
 _GAUGES = ("peak_running", "pages_total", "page_size", "peak_pages_used",
            "prefix_tree_pages", "start_time", "end_time")
+_FIELDS = frozenset(_COUNTERS + _TIMERS + _GAUGES)
 
 # request-derived histograms (seconds unless noted)
 _HISTOGRAMS = (
@@ -90,6 +94,19 @@ class EngineMetrics:
         if name in _GAUGES:
             return reg.gauge(name).value
         raise AttributeError(f"EngineMetrics has no attribute {name!r}")
+
+    def __setattr__(self, name, value):
+        if name in _FIELDS:
+            warnings.warn(
+                f"direct assignment to EngineMetrics.{name} is deprecated; "
+                "use inc()/set_gauge()/max_gauge()/observe()",
+                DeprecationWarning, stacklevel=2)
+            if name in _GAUGES:
+                self.registry.gauge(name).set(value)
+            else:
+                self.registry.counter(name).value = value
+        else:
+            self.__dict__[name] = value
 
     # -- emission ------------------------------------------------------------
     def inc(self, name: str, n=1) -> None:

@@ -95,6 +95,10 @@ class Scheduler:
             req.state = RequestState.FINISHED
         return dropped
 
+    def request_in(self, slot: int) -> Optional[Request]:
+        """The request holding ``slot`` (decoding or mid-chunked-prefill)."""
+        return self.running.get(slot) or self.chunking.get(slot)
+
     def begin_chunked(self, slot: int) -> Request:
         """Move a just-admitted request into the chunked-prefill state."""
         req = self.running.pop(slot)

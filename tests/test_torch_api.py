@@ -3,9 +3,10 @@
 ``RuntimeConfig`` validates as the reference does (same errors, same
 messages for the fields both packages serve), resolves to the same model
 and engine settings, serializes to the reference's dicts and loads them,
-and has the reference's five presets; the ``mesh`` and ``obs`` settings,
-which the port's engine does not serve yet, raise ``NotImplementedError``
-naming their ROADMAP items.  ``LLM``
+and has the reference's five presets; the ``mesh`` setting, which the
+port's engine does not serve yet, raises ``NotImplementedError`` naming
+its ROADMAP item (``obs`` is served since observability was ported).
+``LLM``
 serves the reference's weights (the JAX ``init_params`` tree with its
 projection weights scaled up, so that greedy decoding does not collapse
 onto one repeated token, carried across with ``params_from_jax``) in paged
@@ -35,6 +36,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.api import (
     LLM,
     KVConfig,
+    ObsConfig,
     QuantRuntime,
     RequestOutput,
     RuntimeConfig,
@@ -142,7 +144,7 @@ def test_backend_and_impl_validation():
 
 def test_defaults_match_jax():
     """Same fields and defaults as the reference's sub-configs (the mesh
-    and obs sub-configs are not ported: None is their disabled default)."""
+    sub-config is not ported: None is its disabled default)."""
     from repro.api import SamplingDefaults as JaxSamplingDefaults
     from repro.api import SpecConfig as JaxSpecConfig
     pairs = [(QuantRuntime, JaxQuantRuntime), (KVConfig, JaxKVConfig),
@@ -155,7 +157,8 @@ def test_defaults_match_jax():
     rc, jrc = RuntimeConfig(), JaxRuntimeConfig()
     for name in ("max_new_tokens", "eos_token", "reduced"):
         assert getattr(rc, name) == getattr(jrc, name)
-    assert (rc.mesh, rc.obs) == (None, None) and rc.spec == SpecConfig()
+    assert rc.mesh is None and rc.spec == SpecConfig()
+    assert dataclasses.asdict(rc.obs) == dataclasses.asdict(jrc.obs)
     for n in (1, 8, 30, 64, 100):
         assert auto_buckets(n) == jax_auto_buckets(n)
 
@@ -194,7 +197,7 @@ def test_resolution_matches_jax():
 
 REFUSED = [
     dict(mesh=object()),
-    dict(obs=object()),
+    dict(mesh=object(), obs=ObsConfig(enabled=True)),   # obs is served; mesh still refused
 ]
 
 
@@ -300,9 +303,11 @@ def test_llm_generate_matches_jax_llm(mode, kv_dtype):
         assert isinstance(out, RequestOutput)
         assert out.finish_reason == "length" and out.prompt_token_ids == prompt
         assert out.ttft_s > 0 and out.latency_s > 0
-        # no timeline before the observability stack; the queue wait comes
-        # from the request, the cost counts as the reference's does
-        assert out.timeline is None and out.deadline_hit is None and out.queue_wait_s >= 0
+        # observability off: no timeline, so no queue wait (the reference's
+        # contract: it is read off the timeline); the cost counts as the
+        # reference's does
+        assert out.timeline is None and out.deadline_hit is None and out.queue_wait_s is None
+        assert ref.queue_wait_s is None
         for key in ("dispatches", "page_steps"):
             assert out.cost[key] == ref.cost[key], key
     assert [o.request_id for o in got] == [0, 1, 2]
@@ -354,8 +359,8 @@ def test_llm_refusals_and_device():
         LLM(runtime=rc, device="cpu")
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         LLM(arch="llama3.2-1b", runtime=rc, checkpoint_dir="no-such-dir", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLM.replay("bundle")
+    with pytest.raises(FileNotFoundError, match="not a flight-recorder bundle"):
+        LLM.replay("bundle", device="cpu")
     default = LLM(arch="llama3.2-1b", runtime=RuntimeConfig(reduced=True), device="cpu")
     assert default.runtime.kv.mode == "slot"     # served since slot mode was ported
     llm = LLM(arch="llama3.2-1b", runtime=rc, device="cpu")
@@ -363,8 +368,8 @@ def test_llm_refusals_and_device():
     with pytest.raises(RuntimeError, match="engine not built"):
         llm.engine
     assert llm.metrics is None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        LLM(arch="llama3.2-1b", runtime=dataclasses.replace(rc, obs=object()), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+        LLM(arch="llama3.2-1b", runtime=dataclasses.replace(rc, mesh=object()), device="cpu")
     out, = llm.generate([1, 2, 3], sampling=SamplingParams(greedy=False), max_new_tokens=2)
     assert len(out.token_ids) == 2               # stochastic sampling is served
     if not torch.cuda.is_available():
@@ -464,12 +469,19 @@ def test_partial_dicts_take_defaults():
     ({"obs": {"watchdog": True}}, "8"), ({"obs": {"metrics_port": 0}}, "8"),
     ({"obs": {"profile_steps": 5}}, "8")])
 def test_from_dict_refuses_mesh_and_obs_turned_on(sub, item):
-    """Only (part of) the disabled defaults that ``to_dict`` writes load."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-        RuntimeConfig.from_dict(sub)
+    """A ``mesh`` other than (part of) the disabled default that
+    ``to_dict`` writes is refused; an ``obs`` turned on loads into its
+    ``ObsConfig`` since observability was ported."""
+    if "mesh" in sub:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
+            RuntimeConfig.from_dict(sub)
+    else:
+        assert RuntimeConfig.from_dict(sub).obs == ObsConfig(**sub["obs"])
     assert RuntimeConfig.from_dict({"mesh": {"tp": 1, "enable": None},
                                     "obs": {"enabled": None, "trace": None}}) == RuntimeConfig()
     with pytest.raises(TypeError, match="unexpected keys"):
+        RuntimeConfig.from_dict({"mesh": {"no_such_knob": 1}})
+    with pytest.raises(TypeError):
         RuntimeConfig.from_dict({"obs": {"no_such_knob": 1}})
 
 

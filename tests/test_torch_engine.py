@@ -244,13 +244,16 @@ def test_engine_evicts_on_eos():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """Only observability (item 8) and device meshes (item 10) are refused;
-    the prefix cache, speculation and stochastic sampling are served."""
+    """Only device meshes (item 10) are refused; observability, the prefix
+    cache, speculation and stochastic sampling are served."""
     _, tcfg, tree = _setup("int8_spoga", "int8", 4)
     tparams = params_from_jax(tree, tcfg, "cpu")
-    for kw, item in (({"obs": object()}, "8"), ({"mesh": object()}, "10")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-            ServingEngine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+        ServingEngine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu", mesh=object())
+    from repro_torch.obs import ObsConfig
+    obs = ObsConfig(enabled=True).build()
+    assert ServingEngine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu",
+                         obs=obs).obs is obs
     from repro_torch.serving import SamplingParams
     from repro_torch.spec import SpecConfig
     assert not SamplingParams(greedy=False).greedy
@@ -271,7 +274,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     code = (
         "import sys\n"
         "import repro_torch.serving, repro_torch.models, repro_torch.paging, repro_torch.api\n"
-        "import repro_torch.checkpoint, repro_torch.obs\n"
+        "import repro_torch.checkpoint, repro_torch.obs, repro_torch.obs.replay\n"
+        "import repro_torch.launch.replay\n"
         "import repro_torch.kernels.spoga_gemm_dequant, repro_torch.kernels.paged_attention\n"
         "import repro_torch.kernels.spoga_gemm, repro_torch.kernels.deas_gemm\n"
         "import repro_torch.kernels.ops, repro_torch.core.spoga, repro_torch.backends\n"
@@ -306,8 +310,10 @@ def test_no_source_of_the_port_names_jax_or_repro():
     for new in ("api/llm.py", "api/config.py", "kernels/spoga_gemm.py",
                 "kernels/deas_gemm.py", "kernels/ops.py", "checkpoint/checkpoint.py",
                 "paging/prefill.py", "serving/policies.py", "serving/metrics.py",
-                "obs/metrics.py", "spec/config.py", "spec/verify.py", "spec/ngram.py",
-                "spec/draft_model.py", "prefix/tree.py", "prefix/cache.py", "models/moe.py",
+                "obs/metrics.py", "obs/trace.py", "obs/events.py", "obs/profile.py",
+                "obs/config.py", "obs/server.py", "obs/watchdog.py", "obs/recorder.py",
+                "obs/replay.py", "launch/replay.py", "spec/config.py", "spec/verify.py",
+                "spec/ngram.py", "spec/draft_model.py", "prefix/tree.py", "prefix/cache.py", "models/moe.py",
                 "configs/minicpm3_4b.py", "configs/deepseek_moe_16b.py"):
         assert ROOT / "src" / "repro_torch" / new in files, new
     for f in files:

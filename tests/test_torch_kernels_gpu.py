@@ -665,3 +665,48 @@ def test_rglru_and_ring_decode_step_on_card_match_cpu():
         got, card_cache = decode_step(card, cfg, tok.cuda(), card_cache)
     # 8 projections of the RG-LRU layer, 7 of the local-attention layer
     assert gemm_mod.LAUNCHES - launches == 3 * 15
+
+
+# ---------------------------------------------------------------------------
+# The numerics watchdog on the card
+# ---------------------------------------------------------------------------
+
+def test_watchdog_on_card_is_bitwise_and_copies_once_per_entry_point():
+    """With the watchdog on, ``quantized_linear`` through
+    ``spoga_gemm_dequant`` gives the watchdog-off output bitwise with the
+    same kernel launches, and a watched ``decode_step`` (2 layers, 14
+    GEMMs) moves its stats to the host in one device-to-host copy."""
+    _card()
+    from repro_torch.backends.pipeline import quantized_linear
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.obs import watchdog
+    watchdog.reset()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((4, 2048)).astype(np.float32)).cuda().bfloat16()
+    w = torch.from_numpy(rng.standard_normal((2048, 512)).astype(np.float32) * 0.02).cuda()
+    gemm_mod.reset_counts()
+    off = quantized_linear(x, w, "int8_spoga")
+    with watchdog.watching("decode"):
+        on = quantized_linear(x, w, "int8_spoga")
+    assert gemm_mod.LAUNCHES == 2 and torch.equal(off, on)
+    assert watchdog.peek_registry().counters[
+        'watchdog_calls{layer="decode.00.k2048n512",mode="int8_spoga"}'].value == 1
+
+    cfg = get_config("llama3.2-1b").with_(n_layers=2, quant_mode="int8_spoga")
+    params = init_params(cfg, seed=0, device="cuda")
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)).cuda()
+    tok = torch.zeros((4,), dtype=torch.int32, device="cuda")
+    outs = []
+    for watch in (False, True):
+        c = cfg.with_(numerics_watchdog=watch)
+        _, cache = prefill(params, c, {"tokens": prompt}, 32)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            logits, _ = decode_step(params, c, tok, cache)
+            torch.cuda.synchronize()
+        d2h = [e for e in prof.events() if "Memcpy DtoH" in e.name]
+        outs.append((logits, len(d2h)))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert outs[1][1] == outs[0][1] + 1, (outs[0][1], outs[1][1])
+    watchdog.reset()
