@@ -91,19 +91,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    kernel launches counted exactly, a verify dispatch as one decode step;
 9. the attention-family archs at full width (runs last), random weights
    from ``init_params(seed=0)``, phase 4's traffic, 4 lanes, pages of 16:
-   (a) minicpm3-4b (MLA) at ``int8_spoga`` paged (496 ``spoga_gemm_dequant``
-   launches a decode or verify step, 620 a prefill dispatch or chunk step,
+   (a) minicpm3-4b (MLA), 4 of its 62 layers at full width (since PR 23),
+   at ``int8_spoga`` paged (32 ``spoga_gemm_dequant``
+   launches a decode or verify step, 40 a prefill dispatch or chunk step,
    no ``paged_attention``: paged MLA attends the gathered latent pages in
    torch), ``LLM("minicpm3-4b")`` with the default runtime (no kernel),
    512-token chunks against one-shot on phase 7 (b)'s two long prompts,
    the prefix cache on against off on phase 8 (b)'s traffic (bitwise),
-   n-gram speculation against off; (b) deepseek-moe-16b, 8 of its 28
-   layers at full width (1 dense + 7 MoE), over int8 paged KV (56 GEMM
-   launches and 8 ``paged_attention`` a decode step), the
+   n-gram speculation against off; (b) deepseek-moe-16b, 4 of its 28
+   layers at full width (1 dense + 3 MoE; 8 in PRs 20-22), over int8 paged
+   KV (28 GEMM launches and 4 ``paged_attention`` a decode step), the
    engine's ``ValueError`` for chunking, the prefix cache and speculation,
    peak memory and a decode-step profile split into kernels, the grouped
-   expert product, routing and attention; (c) granite-moe-3b-a800m over
-   bf16 paged KV on 4 requests (128 and 32 a step); (d) 2 layers of each
+   expert product, routing and attention; (c) granite-moe-3b-a800m, 8 of
+   its 32 layers (since PR 23), over bf16 paged KV on 4 requests (32 and 8
+   a step); (d) 2 layers of each
    on the card against the CPU, bf16 GEMMs and ``int8_spoga``, and the
    grouped expert product's int32 accumulators bitwise; (e)
    ``spoga_gemm_dequant`` bitwise against its plain version at every
@@ -112,10 +114,11 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 10. the recurrent archs at full width (after phase 9), random weights from
    ``init_params(seed=0)``, ``int8_spoga``, 4 lanes, pages of 16, exact-length
    prefill: (a) recurrentgemma-9b (RG-LRU cells and local attention over
-   2,048-row rings) on phase 4's traffic, paged over int8 KV and again slot
+   2,048-row rings), 8 of its 38 layers (2 periods and the 2-layer tail,
+   since PR 23), on phase 4's traffic, paged over int8 KV and again slot
    (streams equal), then two prompts of 2,100 and 3,000 tokens with 32 new
    tokens each (the rings wrap in the prefill's roll and in decode); every
-   run's launches exact (292 ``spoga_gemm_dequant`` a decode step, no
+   run's launches exact (62 ``spoga_gemm_dequant`` a decode step at 8 layers, no
    ``paged_attention``: the rings are per lane and attended in torch), peak
    memory and tok/s, a decode-step profile split into GEMM kernels, weight
    quantization, ring attention and scan/elementwise work, the engine's
@@ -130,15 +133,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``spoga_gemm_dequant`` bitwise against its plain version at every
    (M, K, N) that (a)-(c) gave it (N=4 included) and at M=4, 20, 128, 512,
    timed at M=4 and M=128;
-11. the encoder-decoder and frontend archs at full width, depth not cut
-   (after phase 10), random weights from ``init_params(seed=0)``, through
+11. the encoder-decoder and frontend archs at full width, depth cut since
+   PR 23 (after phase 10), random weights from ``init_params(seed=0)``, through
    ``api.serve_batch`` at ``int8_spoga`` (the engine refuses them, as the
    reference's does), 4 rows, 32 new tokens: (a) seamless-m4t-large-v2
-   (24 + 24 layers) from 128 ``fake_audio_frames`` and 8 target tokens,
-   432 ``spoga_gemm_dequant`` launches a prefill (the encoder's 7 a layer,
+   (8 + 8 of its 24 + 24 layers) from 128 ``fake_audio_frames`` and 8 target
+   tokens, 144 ``spoga_gemm_dequant`` launches a prefill (the encoder's 7 a layer,
    each decoder layer's cross K/V once, its 7 and the cross q and o) and
-   216 a decode step; (b) llava-next-mistral-7b from 576
-   ``fake_vision_embeds`` (one 336-px anyres tile), 224 a prefill and a
+   72 a decode step; (b) llava-next-mistral-7b (8 of its 32 layers) from 576
+   ``fake_vision_embeds`` (one 336-px anyres tile), 56 a prefill and a
    decode step; every count exact, read around a prefill alone and the
    whole ``serve_batch``, no plain version; wall time, peak memory and a
    decode-step split per model; (c) 2 layers of llava and 2 + 2 of
@@ -169,7 +172,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``LLM.replay`` (bitwise, the replay's launches the recording's) and by
    ``python -m repro_torch.launch.replay`` in a subprocess (exit 0); the
    phase's time printed (budget 120 s);
-13. the ``kernels`` JSON line, then the ``ok`` line last.
+13. training (after phase 12), every run under the launch counters:
+   (a) full-width llama3.2-1b (16 layers, ``init_params(seed=0)``),
+   ``int8_spoga``, remat on, ``launch.train.train_loop`` for 8 steps of
+   4 x 1,024 tokens: every loss and grad norm finite, the first 3 batches'
+   mean loss under the trained params below their training losses (fresh
+   batches' losses stay flat at full width, printed), exactly 224 ``spoga_gemm_dequant``
+   launches a step (7 x 16 in the forward, as many in the remat
+   recompute; the straight-through backward is f32 products) and no plain
+   version; step time, peak memory, and one profiled step's device time
+   and busy share, split into the forward and recompute GEMM kernels,
+   weight quantization, the straight-through backward products, the loss
+   chunks and AdamW; (b) 2 layers at full width: 4 steps straight against
+   2 + an async ``CheckpointManager`` save + restore + 2, losses and every
+   param bitwise equal; (c) 2 layers, 4 steps each in ``int8_spoga``,
+   ``int8_spoga`` + ``cuda_spoga``, ``int8_deas`` and ``int8_direct``:
+   loss curves bitwise equal, each kernel's launches exact ((b) and (c)
+   under ``torch.use_deterministic_algorithms(True)``); (d) 2 layers, bf16
+   and ``int8_spoga``, a 2 x 64 batch: the loss, every gradient leaf and
+   the params after one AdamW step, card against CPU within the CPU
+   tests' tolerances; (e) ``spoga_gemm_dequant`` at M = 4,096 for llama's
+   four (K, N), bitwise against its plain version, timed against its
+   bound and ``torch._int_mm``;
+14. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -179,6 +204,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import time
@@ -231,12 +258,15 @@ def time_ms(fn, n_bufs: int, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, n_bufs: int, iters: int, warmup: int = 3) -> float:
+def device_ms(fn, n_bufs: int, iters: int, warmup: int = 3, kernel: str | None = None) -> float:
     """Mean device time of ``fn(i)``: the profiler's kernel time summed over
     ``iters`` calls (every kernel the call launches, gaps between them not
     counted), cycling ``i`` over ``n_bufs`` input copies.  The profiler
-    now and then records no kernel in a session: after three such sessions
-    the calls are timed as one CUDA-graph replay."""
+    now and then records no kernel in a session, or loses some of its
+    records; with ``kernel`` (a kernel name that ``fn`` launches once a
+    call) a session counts only if it holds exactly ``iters`` of them.
+    After three sessions that miss, the calls are timed as one CUDA-graph
+    replay."""
     from torch.profiler import ProfilerActivity, profile
     for i in range(warmup):
         fn(i % n_bufs)
@@ -246,12 +276,13 @@ def device_ms(fn, n_bufs: int, iters: int, warmup: int = 3) -> float:
             for i in range(iters):
                 fn(i % n_bufs)
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if str(e.device_type).endswith("CUDA"))
-        if total > 0:
+        events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+        total = sum(e.self_device_time_total for e in events)
+        whole = kernel is None or sum(e.count for e in events if kernel in e.key) == iters
+        if total > 0 and whole:
             return total / 1e3 / iters
-    print("[timing] the profiler recorded no kernel in three sessions: timed by a CUDA-graph "
-          "replay instead", flush=True)
+    print("[timing] the profiler recorded no kernel, or lost some, in three sessions: "
+          "timed by a CUDA-graph replay instead", flush=True)
     return graph_ms(fn, n_bufs, iters)
 
 
@@ -312,9 +343,9 @@ def device_ms_by_kernel(fns: dict, n_bufs: int, iters: int, warmup: int = 3) -> 
     return {name: graph_ms(fn, n_bufs, iters) for name, fn in fns.items()}
 
 
-def kernel_times(fn, n_bufs: int, iters: int) -> tuple[float, float]:
+def kernel_times(fn, n_bufs: int, iters: int, kernel: str | None = None) -> tuple[float, float]:
     """(device time by the profiler, event time of back-to-back calls)."""
-    return device_ms(fn, n_bufs, iters), time_ms(fn, n_bufs, iters)
+    return device_ms(fn, n_bufs, iters, kernel=kernel), time_ms(fn, n_bufs, iters)
 
 
 def copies_for(nbytes: int, cap: int = 16) -> int:
@@ -414,7 +445,8 @@ def _gemm_timing(name, mode, m, k, n, gen, tag="gemm"):
     kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
               slice_bits=spec.slice_bits)
     t_kernel, t_event = kernel_times(
-        lambda i: spoga_gemm_dequant(x, ws_copies[i], xs, ws, **kw), nb, iters=40)
+        lambda i: spoga_gemm_dequant(x, ws_copies[i], xs, ws, **kw), nb, iters=40,
+        kernel="spoga_gemm_dequant_kernel")
     t_plain = time_ms(lambda i: spoga_gemm_dequant_plain(x, ws_copies[i], xs, ws),
                       nb, iters=5, warmup=1)
     t_lib = _lib_int_mm(x, ws_copies, m, k, n)
@@ -1082,6 +1114,22 @@ def _timed_steps(engine, steps):
     return time.perf_counter() - t0
 
 
+def _profiled(fn):
+    """``fn()`` in a CPU + CUDA profiler window whose ends the card spends
+    idle for ``StepProfiler``'s margin (``obs.profile.WINDOW_MARGIN_S``), so
+    that no kernel lies near an end: for the windows whose kernel counts are
+    gated exactly.  (``fn()``'s result, the profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs.profile import WINDOW_MARGIN_S
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(WINDOW_MARGIN_S)
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(WINDOW_MARGIN_S)
+    return out, prof
+
+
 def phase_profile(cfg, params, card, label, steps=5, prompt_len=64, cache_mode="paged"):
     """Device time by kernel over ``steps`` decode steps with 4 busy lanes of
     ``prompt_len``-token prompts; returns {"attn_ms": ``paged_attention``'s
@@ -1093,12 +1141,9 @@ def phase_profile(cfg, params, card, label, steps=5, prompt_len=64, cache_mode="
     Two engines fed the same requests do the same steps: the first is
     timed without the profiler (wall), the second under it (device time
     per kernel), so the busy share divides like by like."""
-    from torch.profiler import ProfilerActivity, profile
-
     wall_plain = _timed_steps(_busy_engine(cfg, params, prompt_len, cache_mode), steps)
     engine = _busy_engine(cfg, params, prompt_len, cache_mode)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = _timed_steps(engine, steps)
+    wall, prof = _profiled(lambda: _timed_steps(engine, steps))
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps   # ms per step
     label = f"{label}, {cache_mode} KV, {prompt_len}-token prompts"
@@ -2376,7 +2421,6 @@ def phase_verify_profile(card, params):
     N=8192) and ``paged_attention`` at 20 lanes whose tables repeat in
     groups of 5 (split count chosen for 4 lanes), each against the plain
     version, its bound and the library call."""
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import paged_attention, paged_attention_plain
     from repro_torch.kernels.spoga_gemm_dequant import (
@@ -2388,8 +2432,7 @@ def phase_verify_profile(card, params):
     wall_plain = _counted_steps(_verify_busy_engine(cfg, params), steps, "verify steps")
     engine = _verify_busy_engine(cfg, params)
     v0 = engine.metrics.verify_dispatches
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = _counted_steps(engine, steps, "verify steps, profiled")
+    wall, prof = _profiled(lambda: _counted_steps(engine, steps, "verify steps, profiled"))
     require(engine.metrics.verify_dispatches - v0 == steps, "verify profile: not all verify steps")
     kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     total = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
@@ -2424,7 +2467,7 @@ def phase_verify_profile(card, params):
     nb = copies_for(w.numel())
     w_copies = [w.clone() for _ in range(nb)]
     t_kernel, t_event = kernel_times(lambda i: spoga_gemm_dequant(x, w_copies[i], xs, ws, **kw),
-                                     nb, iters=40)
+                                     nb, iters=40, kernel="spoga_gemm_dequant_kernel")
     t_plain = time_ms(lambda i: spoga_gemm_dequant_plain(x, w_copies[i], xs, ws), nb, iters=5,
                       warmup=1)
     t_lib = _lib_int_mm(x, w_copies, m, k, n)
@@ -2576,12 +2619,24 @@ ARCH_KN = {
 }
 
 
-def _arch_params(arch, n_layers=None):
+# Depth cuts (never width) that make room for phase 13 within the script's
+# time budget: each arch keeps its full width, block pattern and layer
+# kinds (recurrentgemma keeps its two-layer tail after whole periods);
+# every launch gate is computed from the cut config
+MLA_LAYERS = 4            # of minicpm3-4b's 62
+DEEPSEEK_LAYERS = 4       # of deepseek-moe-16b's 28: 1 dense + 3 MoE (8 in PRs 20-22)
+GRANITE_LAYERS = 8        # of granite-moe-3b-a800m's 32
+RECURRENTGEMMA_LAYERS = 8  # of recurrentgemma-9b's 38: 2 periods + the 2-layer tail
+LLAVA_LAYERS = 8          # of llava-next-mistral-7b's 32
+SEAMLESS_LAYERS = 8       # of seamless-m4t-large-v2's 24 encoder and 24 decoder layers
+
+
+def _arch_params(arch, n_layers=None, config=None):
     """Full-width ``arch`` weights from ``init_params(seed=0)`` on the card,
-    at ``n_layers`` (default: the config's depth)."""
+    at ``n_layers`` (default: the config's depth), or of ``config``."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    cfg = get_config(arch)
+    cfg = config if config is not None else get_config(arch)
     cfg = cfg if n_layers is None else cfg.with_(n_layers=n_layers)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=ENGINE_SEED, device="cuda")
@@ -2613,8 +2668,8 @@ def _arch_run(card, engine, arrivals, label):
 
 
 def phase_mla(card):
-    """(a) minicpm3-4b at full width, ``int8_spoga`` paged (the latent pages
-    are bf16): phase 4's traffic; ``LLM("minicpm3-4b")`` with the default
+    """(a) minicpm3-4b at full width, MLA_LAYERS of its 62 layers,
+    ``int8_spoga`` paged (the latent pages are bf16): phase 4's traffic; ``LLM("minicpm3-4b")`` with the default
     runtime; 512-token chunks against one-shot on phase 7 (b)'s long
     prompts; the prefix cache on and off on phase 8 (b)'s traffic; n-gram
     speculation (k=4) against off.  Greedy streams equal (a flip only on a
@@ -2624,10 +2679,11 @@ def phase_mla(card):
     from repro_torch.spec import SpecConfig
     from repro_torch.configs import get_config
     arch = "minicpm3-4b"
-    params = _arch_params(arch)
-    vocab = get_config(arch).vocab_size
+    config = get_config(arch).with_(n_layers=MLA_LAYERS)
+    params = _arch_params(arch, MLA_LAYERS)
+    vocab = config.vocab_size
     arrivals = _traffic(8, vocab, ENGINE_SEED)
-    kw = dict(arch=arch, kv_dtype="bf16")
+    kw = dict(arch=arch, config=config, kv_dtype="bf16")
     out = {}
     engine = _spec_engine(params, default_cache_len(128, 32), **kw)
     engine_cfg = engine.cfg
@@ -2636,7 +2692,7 @@ def phase_mla(card):
     del engine
 
     prompts = [p for _, p, _ in arrivals]
-    llm = LLM(arch, params=params, device="cuda")
+    llm = LLM(config=config, params=params, device="cuda")
     require(llm.runtime.kv.mode == "slot" and llm.config.quant_mode == "bf16",
             "the default runtime is not slot KV with bf16 GEMMs")
     reset_counts()
@@ -2913,14 +2969,14 @@ def phase_arch_gemms(card, seen, table=None, tag="archs", phase="9", part="(e)",
 
 def phase_archs(card):
     """9. minicpm3-4b, deepseek-moe-16b and granite-moe-3b-a800m at full
-    width, then 2-layer card-against-CPU parity and the GEMM at their
-    shapes."""
+    width (depth cut to MLA_LAYERS, DEEPSEEK_LAYERS, GRANITE_LAYERS), then
+    2-layer card-against-CPU parity and the GEMM at their shapes."""
     with GemmShapes() as shapes:
         out = {"mla": phase_mla(card),
-               # 8 of deepseek's 28 layers (1 dense + 7 MoE, full width): phase 10's
-               # recurrent archs take the time its other 20 layers took
-               "deepseek": phase_moe(card, "deepseek-moe-16b", 8, "int8", n_layers=8),
-               "granite": phase_moe(card, "granite-moe-3b-a800m", 4, "bf16")}
+               "deepseek": phase_moe(card, "deepseek-moe-16b", 8, "int8",
+                                     n_layers=DEEPSEEK_LAYERS),
+               "granite": phase_moe(card, "granite-moe-3b-a800m", 4, "bf16",
+                                    n_layers=GRANITE_LAYERS)}
     out["cpu"] = {f"{arch} {qm}": _card_vs_cpu(arch, qm)
                   for arch in ARCH_KN for qm in ("bf16", "int8_spoga")}
     out["gemm"] = phase_arch_gemms(card, shapes.seen)
@@ -2941,16 +2997,18 @@ XLSTM_CHUNK = 256
 
 
 def _recurrent_engine(arch, params, cache_len, cache_mode="paged", kv_dtype="int8",
-                      chunk=None):
-    """A 4-lane ``int8_spoga`` engine of ``arch`` through ``LLM``: pages of
-    16, exact-length prefill (a recurrent state integrates padding)."""
+                      chunk=None, config=None):
+    """A 4-lane ``int8_spoga`` engine of ``arch`` (of ``config``, a cut
+    depth, when given) through ``LLM``: pages of 16, exact-length prefill
+    (a recurrent state integrates padding)."""
     from repro_torch.api import LLM, KVConfig, QuantRuntime, RuntimeConfig, SchedulerConfig
     rt = RuntimeConfig(quant=QuantRuntime(mode="int8_spoga"),
                        kv=KVConfig(mode=cache_mode, dtype=kv_dtype, page_size=16,
                                    cache_len=cache_len),
                        scheduler=SchedulerConfig(n_slots=4, prefill_buckets=None,
                                                  prefill_chunk=chunk))
-    return LLM(arch=arch, params=params, device="cuda", runtime=rt).engine
+    named = dict(config=config) if config is not None else dict(arch=arch)
+    return LLM(**named, params=params, device="cuda", runtime=rt).engine
 
 
 def _recurrent_run(card, engine, arrivals, label):
@@ -3017,7 +3075,7 @@ def _recurrentgemma_split(cfg, params, card, prof):
     total = prof["device_ms"] if prof is not None else float("nan")
     gemm = groups.get("spoga_gemm_dequant kernel", float("nan"))
     lib = sum(ms for name, ms in groups.items() if name.startswith("library"))
-    split = {"spoga_gemm_dequant kernels (292 a step)": gemm,
+    split = {f"spoga_gemm_dequant kernels ({_gemm_launches(cfg)[0]} a step)": gemm,
              "weight quantization (dynamic_quant of every projection, every call)":
                  n_rg * wq_rg + n_at * wq_at,
              f"ring attention ({n_at} layers, {rows}-row int8 rings)": n_at * ring_ms,
@@ -3031,10 +3089,11 @@ def _recurrentgemma_split(cfg, params, card, prof):
 
 
 def phase_recurrentgemma(card):
-    """(a) recurrentgemma-9b at full width, ``int8_spoga``: phase 4's traffic
+    """(a) recurrentgemma-9b at full width, RECURRENTGEMMA_LAYERS of its 38
+    layers, ``int8_spoga``: phase 4's traffic
     paged over int8 KV, then slot; two prompts of 2,100-3,000 tokens with 32
     new tokens each, paged (the 2,048-row rings wrap in the prefill's roll
-    and again while decoding); every run's launches exact (292 GEMMs a
+    and again while decoding); every run's launches exact (62 GEMMs a
     decode step, no ``paged_attention``: the rings are per lane and attended
     in torch); peak memory and tok/s; a decode-step profile split into
     GEMM kernels, weight quantization, scan and elementwise work and ring
@@ -3042,14 +3101,14 @@ def phase_recurrentgemma(card):
     from repro_torch.configs import default_cache_len, get_config
     from repro_torch.spec import SpecConfig
     arch = "recurrentgemma-9b"
-    cfg = get_config(arch)
-    params = _arch_params(arch)
+    cfg = get_config(arch).with_(n_layers=RECURRENTGEMMA_LAYERS)
+    params = _arch_params(arch, RECURRENTGEMMA_LAYERS)
     arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
     cache_len = _roundup(default_cache_len(128, 32), 16)
     out = {"params_gib": sum(t.numel() * t.element_size() for _, t in _leaves(params)) / 2**30}
     runs = {}
     for mode in ("paged", "slot"):
-        engine = _recurrent_engine(arch, params, cache_len, mode)
+        engine = _recurrent_engine(arch, params, cache_len, mode, config=cfg)
         ecfg = engine.cfg
         runs[mode] = _recurrent_run(card, engine, arrivals, f"{arch} {mode} int8 KV")
         out[mode] = {"report": runs[mode][1], "launches": runs[mode][2],
@@ -3061,7 +3120,7 @@ def phase_recurrentgemma(card):
     rng = np.random.default_rng(ENGINE_SEED + 10)
     long = [(0, rng.integers(0, cfg.vocab_size, n).tolist(), 32) for n in RECURRENT_LONG]
     long_len = _roundup(max(RECURRENT_LONG) + 32 + 8, 16)
-    engine = _recurrent_engine(arch, params, long_len)
+    engine = _recurrent_engine(arch, params, long_len, config=cfg)
     require(engine.store.cache["blocks"][2]["k"].shape[2] == cfg.sliding_window,
             "the ring is not the window")
     _, rep, launches = _recurrent_run(card, engine, long, f"{arch} long prompts "
@@ -3199,7 +3258,8 @@ def phase_xlstm(card):
 
 
 def phase_recurrent(card):
-    """10. recurrentgemma-9b and xlstm-125m at full width, then 3- and
+    """10. recurrentgemma-9b (depth cut to RECURRENTGEMMA_LAYERS) and
+    xlstm-125m at full width, then 3- and
     4-layer card-against-CPU parity and the GEMM at their shapes."""
     with GemmShapes() as shapes:
         out = {"recurrentgemma": phase_recurrentgemma(card), "xlstm": phase_xlstm(card)}
@@ -3348,13 +3408,18 @@ def _decode_split(cfg, params, batch, cache_len, card, label, steps=3):
 
 
 def _encdec_arch(card, arch, label):
-    """(a) / (b): ``arch`` at full width, depth not cut, through
-    ``serve_batch`` at ``int8_spoga``; the phase's wall time and peak
-    memory; a decode-step split."""
+    """(a) / (b): ``arch`` at full width, depth cut (LLAVA_LAYERS;
+    SEAMLESS_LAYERS encoder and decoder layers), through ``serve_batch`` at
+    ``int8_spoga``; the phase's wall time and peak memory; a decode-step
+    split."""
     from repro_torch.configs import default_cache_len, get_config
     t0 = time.perf_counter()
     cfg = get_config(arch).with_(quant_mode="int8_spoga")
-    params = _arch_params(arch)
+    if cfg.is_encoder_decoder:
+        cfg = cfg.with_(n_layers=SEAMLESS_LAYERS, n_encoder_layers=SEAMLESS_LAYERS)
+    else:
+        cfg = cfg.with_(n_layers=LLAVA_LAYERS)
+    params = _arch_params(arch, config=cfg)
     batch = _encdec_batch(cfg, "cuda")
     prompt = SEAMLESS_SRC if cfg.is_encoder_decoder else LLAVA_PATCHES
     cache_len = default_cache_len(prompt, ENCDEC_NEW_TOKENS)
@@ -3712,12 +3777,19 @@ def phase_obs(card):
             trace = json.load(f)["traceEvents"]
         n_gemm = sum(1 for e in trace if e.get("cat") == "kernel"
                      and "spoga_gemm_dequant_kernel" in e.get("name", ""))
-        n_kernels = sum(1 for e in trace if e.get("cat") == "kernel")
+        recorded = {e["args"].get("correlation") for e in trace if e.get("cat") == "kernel"}
+        calls = [e for e in trace if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "aunchKernel" in e.get("name", "")]
+        unmatched = [i for i, e in enumerate(calls) if e["args"].get("correlation") not in recorded]
         require(n_gemm == 5 * per_step, f"(d) {n_gemm} spoga_gemm_dequant kernels in the "
-                                        f"trace ({n_kernels} kernels in all), want "
-                                        f"{5 * per_step}")
+                                        f"trace ({len(recorded)} kernels in all), want "
+                                        f"{5 * per_step}; {len(unmatched)} of {len(calls)} "
+                                        f"launch calls have no kernel record (first at "
+                                        f"{unmatched[:3]}, last at {unmatched[-3:]})")
         print(f"[obs] (d) StepProfiler: a warm-up step, then 5 decode steps: {n_gemm} "
-              f"spoga_gemm_dequant kernels of {n_kernels} "
+              f"spoga_gemm_dequant kernels of {len(recorded)}, "
+              f"{len(calls) - len(unmatched)} of {len(calls)} launch calls with a kernel "
+              f"record, "
               f"in {Path(prof.trace_path).stat().st_size / 2**20:.1f} MiB of trace [{card}]",
               flush=True)
         del engine
@@ -3773,10 +3845,351 @@ def phase_obs(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+TRAIN_LR = dict(learning_rate=1e-3, warmup_steps=2, total_steps=8)
+TRAIN_SMALL_LAYERS = 2
+# card against CPU, as tests/test_torch_train.py holds the port to the
+# reference: the loss within 1e-4, every gradient leaf within 2% of its
+# largest magnitude (bf16 leaves behind bf16 activations: a one-ulp f32
+# difference in a sum flips a bf16 rounding), params after one AdamW step
+# within 2 lr (a sign-like first step)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 2e-2
+# train_loop's log line (the reference's format)
+_TRAIN_LOG = re.compile(r"\[train\] step\s+(\d+) loss (\S+) gnorm (\S+) lr (\S+) \((\S+)s\)")
+
+
+def _train_log_rows(text):
+    """(step, loss, grad norm, lr, seconds) of each ``[train] step`` line."""
+    return [(int(s), float(l), float(g), float(r), float(t))
+            for s, l, g, r, t in _TRAIN_LOG.findall(text)]
+
+
+def _train_counted(label, expect, drive):
+    """``drive()`` (a ``train_loop`` call) with every kernel count at 0 just
+    before and read just after; its log is captured (and printed) and
+    parsed.  Returns (params, losses, log rows, launches)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(buf):
+        params, losses = drive()
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    print(buf.getvalue(), end="", flush=True)
+    check_counts(launches, plain, tuple(expect), label)
+    for name, n in expect.items():
+        require(launches[name] == n, f"{label}: {name} launched {launches[name]} times, "
+                                     f"want {n}")
+    rows = _train_log_rows(buf.getvalue())
+    require(len(rows) == len(losses), f"{label}: {len(rows)} log lines for {len(losses)} steps")
+    return params, losses, rows, launches
+
+
+def _train_cfg(quant_mode="int8_spoga", n_layers=None, **kw):
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3.2-1b").with_(quant_mode=quant_mode, **kw)
+    return cfg if n_layers is None else cfg.with_(n_layers=n_layers)
+
+
+def _train_step_split(cfg, tcfg, card, launches_per_step):
+    """One full-width training step's device time (the profiler, after a
+    warm-up step) beside its wall time without the profiler, and its split:
+    the ``spoga_gemm_dequant`` kernels (half in the forward, half in the
+    recompute: the same calls), per-call weight quantization (every
+    projection's ``dynamic_quant``, forward and recompute), the
+    straight-through backward's f32 products (``dx`` and ``dw`` of every
+    projection at M = B * S), the loss chunks (``_chunked_ce`` forward and
+    backward over the tied table) and the AdamW update, each timed alone by
+    ``device_ms``; the rest (attention, norms, RoPE, activation
+    quantization, the embedding's backward) is what remains."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.backends.pipeline import dynamic_quant
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.transformer import period_params
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import tree_map
+    params = init_params(cfg, seed=ENGINE_SEED, device="cuda")
+    state = adamw_init(params)
+    step = make_train_step(cfg, tcfg)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                                     generator=gen, device="cuda", dtype=torch.int32)}
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state, _ = step(params, state, batch)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not kernels or total <= 0:
+        print("[train] (a) the profiler recorded no device time: the step's split is not "
+              "measured", flush=True)
+        return None
+    # the launch counters gate the count; the profiler now and then drops
+    # a few of a step's ~10^4 kernel records, so its count is printed only
+    n_gemm = sum(e.count for e in kernels if "spoga_gemm_dequant_kernel" in e.key)
+    gemm_ms = sum(e.self_device_time_total for e in kernels
+                  if "spoga_gemm_dequant_kernel" in e.key) / 1e3
+    layer = period_params(params["blocks"][0], 0)
+    ws = [layer["attn"][k] for k in ("wq", "wk", "wv", "wo")] + \
+        [layer["mlp"][k] for k in ("w_gate", "w_up", "w_down")]
+    wq_ms = device_ms(lambda i: [dynamic_quant(w, dim=0, bits=8) for w in ws], 1, iters=3,
+                      warmup=1)
+    mrows = TRAIN_BATCH * TRAIN_SEQ
+    xs = [torch.randn((mrows, w.shape[0]), generator=gen, device="cuda").bfloat16()
+          for w in ws]
+    gs = [torch.randn((mrows, w.shape[1]), generator=gen, device="cuda").bfloat16()
+          for w in ws]
+
+    def ste_bwd(i):
+        for x, g, w in zip(xs, gs, ws):
+            gf = g.float()
+            torch.matmul(gf, w.float().t()).bfloat16()
+            torch.matmul(x.float().t(), gf).bfloat16()
+
+    bwd_ms = device_ms(ste_bwd, 1, iters=3, warmup=1)
+    hidden = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), generator=gen,
+                         device="cuda").bfloat16().requires_grad_(True)
+    table = params["embed"].detach().clone().requires_grad_(True)
+    labels = batch["tokens"].long()
+    mask = torch.ones(labels.shape, device="cuda")
+
+    def loss_chunks(i):
+        loss = model_lib._chunked_ce(hidden, labels, mask, table, cfg)
+        torch.autograd.grad(loss, (hidden, table))
+
+    loss_ms = device_ms(loss_chunks, 1, iters=2, warmup=1)
+    zeros = tree_map(torch.zeros_like, params)
+    adam_ms = device_ms(lambda i: adamw_update(params, zeros, state, tcfg), 1, iters=2,
+                        warmup=1)
+    n = cfg.n_layers
+    split = {"spoga_gemm_dequant kernels, forward": gemm_ms / 2,
+             "spoga_gemm_dequant kernels, remat recompute": gemm_ms / 2,
+             "weight quantization (every projection's dynamic_quant, forward and recompute)":
+                 2 * n * wq_ms,
+             "straight-through backward (f32 dx and dw products of every projection)":
+                 n * bwd_ms,
+             "loss chunks (_chunked_ce forward, recompute and backward)": loss_ms,
+             "AdamW update (f32 master, moments, bf16 cast)": adam_ms}
+    split["rest (attention, norms, RoPE, activation quantization, embedding backward)"] = \
+        total - sum(split.values())
+    print(f"[train] (a) one step, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: {total:.1f} ms device "
+          f"time, {wall:.1f} ms wall without the profiler (device busy {100 * total / wall:.1f}%)"
+          f"; the profiler recorded {n_gemm} of the step's {launches_per_step} "
+          f"spoga_gemm_dequant kernels [{card}]", flush=True)
+    for what, ms in split.items():
+        print(f"[train] (a)   {ms:.2f} ms ({100 * ms / total:.1f}%) {what}", flush=True)
+    del params, state, zeros, table
+    torch.cuda.empty_cache()
+    return {"device_ms": total, "wall_ms": wall, "busy": total / wall, "split_ms": split,
+            "loss": float(m["loss"])}
+
+
+def _train_full_width(card):
+    """(a) full-width llama3.2-1b (16 layers), ``int8_spoga``, remat on,
+    ``train_loop`` for TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import train_loop
+    cfg = _train_cfg()
+    require(cfg.remat, "full-width training runs with remat on")
+    tcfg = TrainConfig(**TRAIN_LR)
+    per_step = 2 * 7 * cfg.n_layers       # every projection, forward and recompute
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, losses, rows, launches = _train_counted(
+        "(a) full-width train_loop", {"spoga_gemm_dequant": per_step * TRAIN_STEPS},
+        lambda: train_loop(cfg, tcfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    require(all(math.isfinite(v) for v in losses), f"(a) a loss is not finite: {losses}")
+    require(all(math.isfinite(r[2]) for r in rows), "(a) a grad norm is not finite")
+    # the loss falling: the first 3 batches again under the trained params,
+    # against their losses when they were first trained on.  Each step's
+    # batch is fresh random token ids, and at full width a model cannot
+    # learn to predict unseen ids in a few steps: the training losses of
+    # fresh batches stay flat in this port and in the reference (PERF.md
+    # section 6, PR 23), so their first-3 / last-3 means are printed only
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models import lm_loss
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    with torch.no_grad():
+        again = [float(lm_loss(params, cfg, {"tokens": pipe.global_batch_at(i)}))
+                 for i in range(3)]
+    first, seen = float(np.mean(losses[:3])), float(np.mean(again))
+    require(seen < first, f"(a) the first 3 batches' loss did not fall: {first:.4f} -> {seen:.4f}")
+    last = float(np.mean(losses[-3:]))
+    step_s = [r[4] for r in rows[1:]]
+    print(f"[train] (a) llama3.2-1b full width, int8_spoga, remat on, {TRAIN_STEPS} steps of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens: the first 3 batches' loss {first:.4f} -> "
+          f"{seen:.4f} after training (fresh batches: first 3 {first:.4f}, last 3 {last:.4f}), "
+          f"step {1e3 * float(np.mean(step_s)):.1f} ms mean after step 1 "
+          f"({1e3 * min(step_s):.1f}-{1e3 * max(step_s):.1f}), {per_step} spoga_gemm_dequant "
+          f"launches a step, peak memory {peak:.2f} GiB, train_loop {wall:.1f} s [{card}]",
+          flush=True)
+    del params
+    torch.cuda.empty_cache()
+    prof = _train_step_split(cfg, tcfg, card, per_step)
+    return {"losses": losses, "grad_norms": [r[2] for r in rows], "seen_again": again,
+            "step_ms": 1e3 * float(np.mean(step_s)), "peak_gib": peak,
+            "launches": launches, "per_step": per_step, "profile": prof}
+
+
+def _train_small(card, d):
+    """(b) resume and (c) the dataflows, TRAIN_SMALL_LAYERS layers at full
+    width, TRAIN_BATCH x TRAIN_SEQ tokens, both under
+    ``torch.use_deterministic_algorithms(True)``."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.train import train_loop
+    tcfg = TrainConfig(**TRAIN_LR)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    cfg = _train_cfg(n_layers=TRAIN_SMALL_LAYERS)
+    per_step = 2 * 7 * cfg.n_layers
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        straight, losses4, _, l4 = _train_counted(
+            "(b) 4 steps straight", {"spoga_gemm_dequant": 4 * per_step},
+            lambda: train_loop(cfg, tcfg, steps=4, **kw))
+        _, first2, _, _ = _train_counted(
+            "(b) 2 steps, async checkpoint", {"spoga_gemm_dequant": 2 * per_step},
+            lambda: train_loop(cfg, tcfg, steps=2, ckpt_dir=d, checkpoint_every=100, **kw))
+        t0 = time.perf_counter()
+        resumed, last2, _, _ = _train_counted(
+            "(b) restore + 2 steps", {"spoga_gemm_dequant": 2 * per_step},
+            lambda: train_loop(cfg, tcfg, steps=4, ckpt_dir=d, checkpoint_every=100, **kw))
+        resume_s = time.perf_counter() - t0
+        require(first2 + last2 == losses4, f"(b) losses {first2 + last2} != {losses4}")
+        for (name, a), (_, b) in zip(_leaves(straight), _leaves(resumed)):
+            require(a.dtype == b.dtype and torch.equal(a, b),
+                    f"(b) param {name} differs after resume")
+        print(f"[train] (b) {TRAIN_SMALL_LAYERS} layers at full width: 4 steps straight against "
+              f"2 + async CheckpointManager save + restore + 2 (restore and 2 steps "
+              f"{resume_s:.1f} s): losses and every param bitwise equal, under "
+              f"torch.use_deterministic_algorithms(True) [{card}]", flush=True)
+        out["resume"] = {"losses": losses4, "launches": l4}
+        del straight, resumed
+        curves = {}
+        flows = [("int8_spoga", None, {"spoga_gemm_dequant": 4 * per_step}),
+                 ("int8_spoga", "cuda_spoga", {"spoga_gemm": 4 * per_step}),
+                 ("int8_deas", None, {"nibble_gemm": 16 * per_step,
+                                      "deas_combine": 4 * per_step}),
+                 ("int8_direct", None, {"torch._int_mm": 4 * per_step})]
+        for mode, backend, expect in flows:
+            label = mode + (f" + {backend}" if backend else "")
+            c = _train_cfg(mode, n_layers=TRAIN_SMALL_LAYERS, gemm_backend=backend)
+            _, curves[label], _, launches = _train_counted(
+                f"(c) {label}", expect, lambda: train_loop(c, tcfg, steps=4, **kw))
+            out.setdefault("dataflows", {})[label] = {"losses": curves[label],
+                                                      "launches": launches}
+        ref = curves["int8_spoga"]
+        for label, curve in curves.items():
+            require(curve == ref, f"(c) {label} loss curve {curve} != int8_spoga {ref}")
+        print(f"[train] (c) {TRAIN_SMALL_LAYERS} layers, 4 steps in {', '.join(curves)}: loss "
+              f"curves bitwise equal {ref}, every kernel's launches exact [{card}]", flush=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return out
+
+
+def _train_card_vs_cpu(card):
+    """(d) TRAIN_SMALL_LAYERS layers at full width, bf16 and ``int8_spoga``,
+    a 2 x 64 batch: the loss, every gradient leaf and the params after one
+    AdamW step, card against CPU within the tests' tolerances."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import init_params, lm_loss
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import leaves, rebuild
+    tcfg = TrainConfig(**TRAIN_LR)
+    out = {}
+    for mode in ("bf16", "int8_spoga"):
+        cfg = _train_cfg(mode, n_layers=TRAIN_SMALL_LAYERS)
+        gen = torch.Generator().manual_seed(5)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen, dtype=torch.int32)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            params = init_params(cfg, seed=3, device="cuda")
+            params = params if dev == "cuda" else _to_cpu(params)
+            flat = leaves(params)
+            for t in flat:
+                t.requires_grad_(True)
+            loss = lm_loss(params, cfg, {"tokens": tokens.to(dev)})
+            grads = torch.autograd.grad(loss, flat)
+            for t in flat:
+                t.requires_grad_(False)
+            # the train step's update, from these gradients
+            new, _, _ = adamw_update(params, rebuild(params, iter(grads)),
+                                     adamw_init(params, device=dev), tcfg)
+            res[dev] = (float(loss.detach()), [g.cpu() for g in grads],
+                        [t.cpu() for t in leaves(new)])
+            del params, new, grads, flat
+        (lc, gc, pc), (lh, gh, ph) = res["cuda"], res["cpu"]
+        require(abs(lc - lh) <= TRAIN_LOSS_RTOL * abs(lh), f"(d) {mode}: loss {lc} vs {lh}")
+        worst = 0.0
+        for (name, _), a, b in zip(_leaves(init_params(cfg, device="meta")), gc, gh):
+            scale = b.float().abs().max().item()
+            err = (a.float() - b.float()).abs().max().item()
+            worst = max(worst, err / max(scale, 1e-30))
+            require(a.dtype == b.dtype and err <= TRAIN_GRAD_TOL * scale,
+                    f"(d) {mode}: gradient {name} off the CPU's by {err} of {scale}")
+        step_err = max((a.float() - b.float()).abs().max().item() for a, b in zip(pc, ph))
+        require(step_err <= 2 * TRAIN_LR["learning_rate"],
+                f"(d) {mode}: params after one AdamW step off the CPU's by {step_err}")
+        print(f"[train] (d) {TRAIN_SMALL_LAYERS} layers at full width, {mode}, 2 x 64 tokens: "
+              f"loss card {lc:.6f} cpu {lh:.6f}, worst gradient leaf {100 * worst:.3f}% of its "
+              f"largest magnitude, params after one AdamW step within {step_err:.3g} (bound "
+              f"{2 * TRAIN_LR['learning_rate']:g}) [{card}]", flush=True)
+        out[mode] = {"loss_card": lc, "loss_cpu": lh, "worst_grad": worst, "step_err": step_err}
+    return out
+
+
+def phase_train(card):
+    """13. Training, with every run under the launch counters: (a)-(d) above,
+    then (e) ``spoga_gemm_dequant`` at a training step's M = 4,096 for
+    llama's four (K, N), held to its plain version and timed."""
+    import tempfile
+    t0 = time.perf_counter()
+    out = {"full": _train_full_width(card)}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        out.update(_train_small(card, d))
+    out["cpu"] = _train_card_vs_cpu(card)
+    from repro_torch.kernels.spoga_gemm_dequant import (
+        spoga_gemm_dequant,
+        spoga_gemm_dequant_plain,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    m = TRAIN_BATCH * TRAIN_SEQ
+    out["gemm"] = {}
+    for k, n in GEMM_KN:
+        spec, x, w, xs, ws = _gemm_operands(m, k, n, "int8_spoga", gen)
+        got = spoga_gemm_dequant(x, w, xs, ws, n_x_slices=spec.n_a_slices,
+                                 n_w_slices=spec.n_w_slices, slice_bits=spec.slice_bits)
+        require(torch.equal(got, spoga_gemm_dequant_plain(x, w, xs, ws)),
+                f"(e) spoga_gemm_dequant M={m} K={k} N={n} differs from its plain version")
+        out["gemm"][(m, k, n)] = _gemm_timing("w8a8", "int8_spoga", m, k, n, gen, tag="train")
+    print(f"[train] phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
+    # cuBLAS's deterministic workspace, read when its first handle is made:
+    # phase 13 (b)-(c) run under torch.use_deterministic_algorithms(True)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: the port's package is missing ({src / 'repro_torch'})",
@@ -3818,6 +4231,9 @@ def main() -> int:
     encdec = phase_encdec(card)
     print(f"[time] phase 11 done at {time.perf_counter() - t0:.1f} s", flush=True)
     observed = phase_obs(card)
+    print(f"[time] phase 12 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    train = phase_train(card)
+    print(f"[time] phase 13 done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -3876,6 +4292,18 @@ def main() -> int:
                 "llava-next-mistral-7b serve_batch": encdec["llava"]["launches"][name],
                 "llama3.2-1b ServingEngine.stream": encdec["stream"]["launches"][name]}
 
+    def train_launches(name):
+        """A kernel's launches in each of phase 13's counted training runs."""
+        runs = {"(a) llama3.2-1b full width, 8 steps": train["full"]["launches"],
+                "(b) 2 layers, 4 steps": train["resume"]["launches"],
+                **{f"(c) 2 layers, 4 steps, {label}": run["launches"]
+                   for label, run in train["dataflows"].items()}}
+        return {label: launches[name] for label, launches in runs.items()}
+
+    def train_shapes():
+        return {f"W8A8 M={m} K={k} N={n}": {**t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
+                for (m, k, n), t in train["gemm"].items()}
+
     chunk = gemm[("w8a8", CHUNK_M, 2048, 8192)]
     kernels = [gemm_row("spoga_gemm_dequant", "src/repro_torch/csrc/spoga_gemm_dequant.cu",
                         "src/repro/kernels/spoga_gemm_dequant.py:62",
@@ -3903,7 +4331,11 @@ def main() -> int:
                             "spoga_gemm_dequant"],
                         encdec_frontend_shapes={f"W8A8 M={m} K={k} N={n}": {
                             **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
-                            for (m, k, n), t in encdec["gemm"].items()})]
+                            for (m, k, n), t in encdec["gemm"].items()},
+                        launches_training=train_launches("spoga_gemm_dequant"),
+                        launches_per_training_step=train["full"]["per_step"],
+                        training_shapes=train_shapes(),
+                        training_step=train["full"]["profile"])]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
         a, long, short = (dict(attn[(kind, name)]) for name in ("main", "long", "short"))
@@ -3923,6 +4355,7 @@ def main() -> int:
                         "launches_archs": arch_launches("paged_attention"),
                         "launches_recurrent": recurrent_launches("paged_attention"),
                         "launches_encdec_frontends": encdec_launches("paged_attention"),
+                        "launches_training": train_launches("paged_attention"),
                         **({"launches_observability_record":
                             observed["launches"]["paged_attention"]} if kind == "int8" else {}),
                         "arch_shapes": {name: attn[(kind, name)]
@@ -3932,12 +4365,14 @@ def main() -> int:
     kernels.append(gemm_row("spoga_gemm", "src/repro_torch/csrc/spoga_gemm.cu",
                             "src/repro/kernels/spoga_gemm.py:116", unfused["spoga_gemm"], 1,
                             int_err, at(int_gemm, lambda m: ("w8a8", m, 2048, 8192)),
-                            launches_recurrent=recurrent_launches("spoga_gemm")))
+                            launches_recurrent=recurrent_launches("spoga_gemm"),
+                            launches_training=train_launches("spoga_gemm")))
     kernels.append(gemm_row("nibble_gemm", "src/repro_torch/csrc/deas_gemm.cu",
                             "src/repro/kernels/deas_gemm.py:50", deas_run["nibble_gemm"], 4,
                             deas_err, at(nibble, lambda m: (m, 2048, 8192)),
                             library_operands="the int8 nibble planes of this call",
-                            launches_recurrent=recurrent_launches("nibble_gemm")))
+                            launches_recurrent=recurrent_launches("nibble_gemm"),
+                            launches_training=train_launches("nibble_gemm")))
     kernels.append(gemm_row("deas_gemm", "src/repro_torch/csrc/deas_gemm.cu",
                             "src/repro/kernels/deas_gemm.py:95",
                             deas_run["nibble_gemm"] + deas_run["deas_combine"], 5, deas_err,
@@ -3946,7 +4381,9 @@ def main() -> int:
                                             "deas_combine": "src/repro/kernels/deas_gemm.py:79"},
                             nibble_gemm_launches=deas_run["nibble_gemm"],
                             deas_combine_launches=deas_run["deas_combine"],
-                            launches_recurrent=recurrent_launches("deas_combine")))
+                            launches_recurrent=recurrent_launches("deas_combine"),
+                            launches_training={"nibble_gemm": train_launches("nibble_gemm"),
+                                               "deas_combine": train_launches("deas_combine")}))
 
     def combine_at(m):
         t = deas[(m, 2048, 8192)]
@@ -3965,6 +4402,7 @@ def main() -> int:
                     "max_abs_err": combine_err, **combine_at(4), "prefill": combine_at(128),
                     "sustained": combine_long,
                     "launches_recurrent": recurrent_launches("deas_combine"),
+                    "launches_training": train_launches("deas_combine"),
                     "library": "none: no one PyTorch call computes the shift-add", "card": card})
     print(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -70,7 +70,7 @@ from repro_torch.api.outputs import RequestOutput
 from repro_torch.checkpoint import restore_checkpoint
 from repro_torch.configs import get_config, reduced as reduce_config
 from repro_torch.device import resolve_device
-from repro_torch.models import init_params
+from repro_torch.models import init_params, params_from_jax
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.policies import EnginePolicies
 from repro_torch.serving.request import default_detokenizer
@@ -104,8 +104,9 @@ class LLM:
         self.config = self.runtime.resolve_model(base)
         self.device = resolve_device(device)
         if checkpoint_dir is not None:
-            _, params, _ = restore_checkpoint(checkpoint_dir, None, self.config,
-                                              device=self.device)
+            _, tree, _ = restore_checkpoint(
+                checkpoint_dir, None, init_params(self.config, device="meta"), device=self.device)
+            params = params_from_jax(tree, self.config, self.device)
         self.params = (params if params is not None
                        else init_params(self.config, seed=seed, device=self.device))
         self.tokenizer = tokenizer or default_detokenizer

@@ -31,7 +31,8 @@ ACC_BITS = 32  # the kernels accumulate in int32
 
 def dynamic_quant(x: torch.Tensor, dim, bits: int = 8):
     """Symmetric dynamic quantization to ``bits`` -> ``(q, scale)``."""
-    return quantize(x, dim=dim, bits=bits)
+    q = quantize(x, dim=dim, bits=bits)
+    return q.data, q.scale
 
 
 def effective_bits(spec, k: int) -> tuple[int, int]:

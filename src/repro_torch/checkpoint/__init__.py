@@ -1,5 +1,10 @@
 """Checkpoints of the port in the reference's on-disk format."""
 
-from repro_torch.checkpoint.checkpoint import latest_step, restore_checkpoint, save_checkpoint
+from repro_torch.checkpoint.checkpoint import (
+    CheckpointManager,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
 
-__all__ = ["latest_step", "restore_checkpoint", "save_checkpoint"]
+__all__ = ["CheckpointManager", "latest_step", "restore_checkpoint", "save_checkpoint"]

@@ -5,8 +5,10 @@ The port's own copy of what it needs from ``repro/configs/base.py``: the
 ``MLAConfig``) plus the cache sizing helpers the serving engine shares
 with the reference, so both packages agree on cache shapes for the same
 workload.  Every one of the reference's architectures builds.  The
-training-only fields (``scan_layers``, ``remat``, ``remat_policy``,
-``scan_unroll``) come with ROADMAP queue 1, item 9.
+training fields (``remat``, ``remat_policy``, plus ``scan_layers`` and
+``scan_unroll``, which the port's Python loop over periods reads as the
+reference's fully unrolled scan) and ``TrainConfig``.  ``ShapeConfig``
+belongs to the dry-run (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -105,6 +107,16 @@ class ModelConfig:
     # on CUDA tensors, the gather twin on CPU tensors.  "gather" names the
     # twin and is refused on CUDA tensors (models/attention.py)
     paged_attn_impl: Optional[str] = None
+    # scan/remat.  The port walks the periods in a Python loop, so
+    # ``scan_layers`` and ``scan_unroll`` change nothing here; they are kept
+    # so that configs round-trip with the reference's.  ``remat``: each
+    # period is recomputed in the backward (only when grad is enabled).
+    scan_layers: bool = True
+    remat: bool = True
+    # "nothing" -- recompute the whole period in the backward (min memory)
+    # "dots"    -- save matmul outputs, recompute the rest
+    remat_policy: str = "nothing"
+    scan_unroll: bool = False
     # numerics watchdog (obs/watchdog.py): every quantized GEMM inside a
     # model entry point stages per-layer saturation / amax / quant-error
     # stats.  Part of the frozen config (and its hash), as in the reference
@@ -129,6 +141,9 @@ class ModelConfig:
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError("kv_cache_dtype must be 'bf16' or 'int8', got "
                              f"{self.kv_cache_dtype!r}")
+        if self.remat_policy not in ("nothing", "dots"):
+            raise ValueError("remat_policy must be 'nothing' or 'dots', got "
+                             f"{self.remat_policy!r}")
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         if self.family == "moe" and self.moe is None:
@@ -150,3 +165,23 @@ class ModelConfig:
     def with_(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    schedule: str = "cosine"      # cosine | linear | constant
+    zero1: bool = True            # shard optimizer state over the data axis (item 10)
+    fsdp: bool = True             # ZeRO-3 weight sharding over the data axis (item 10)
+    microbatches: int = 1         # gradient accumulation steps per update
+    grad_compression: bool = False  # int8 compressed gradient all-reduce (item 10)
+    # dtype the gradients are cast to before the update: "f32" (exact) or
+    # "bf16" (the reference's halved reduce-scatter payload; AdamW still
+    # updates the f32 master copy)
+    grad_reduce_dtype: str = "f32"

@@ -1,8 +1,10 @@
 """Base layers: norms, embeddings, the MLPs and the quantized linear.
 
-Port of ``repro/models/layers.py`` (forward only).  Compute dtype is bf16;
-weights are stored bf16 and norm scales f32.  Integer modes route through
-the :mod:`repro_torch.backends` pipeline; ``"bf16"`` is a bf16 matmul.
+Port of ``repro/models/layers.py``.  Compute dtype is bf16; weights are
+stored bf16 and norm scales f32.  Integer modes route through the
+:mod:`repro_torch.backends` pipeline (on the card, the hand-written GEMM
+kernels) with a straight-through backward (:class:`_QuantizedLinearSTE`);
+``"bf16"`` is a bf16 matmul.
 """
 
 from __future__ import annotations
@@ -31,6 +33,40 @@ def init_linear(gen, device, shape, scale=0.02):
     return truncated_normal(gen, device, shape, scale)
 
 
+class _QuantizedLinearSTE(torch.autograd.Function):
+    """The reference's ``_qmatmul_ste``: the quantized GEMM forward, and a
+    straight-through backward, as if the matmul were full precision
+    (``_qmatmul_bwd``): ``g`` in f32, ``dx = g @ w^T`` and ``dw = x^T @ g``
+    (leading dims flattened) as f32 products, ``dw`` cast to ``w``'s dtype.
+
+    The reference calls its STE on ``x.astype(bf16)``.  Its compiled graph
+    quantizes an f32 ``x`` unrounded in the forward (see :func:`linear`),
+    but the residual it keeps for the backward is the bf16 one, and ``dx``
+    leaves the STE as bf16 before the cast back to ``x``'s dtype: both
+    roundings are mirrored here (held against the jitted ``jax.vjp`` in
+    ``tests/test_torch_train.py``).  The forward is ``quantized_linear``
+    itself, so on the card it launches the GEMM kernel; the backward
+    launches none and stages nothing for the numerics watchdog."""
+
+    @staticmethod
+    def forward(ctx, x, w, quant_mode, backend):
+        ctx.save_for_backward(x.to(COMPUTE_DTYPE), w)
+        ctx.x_dtype = x.dtype
+        return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE)
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, w = ctx.saved_tensors
+        gf = g.float()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(gf, w.float().t()).to(COMPUTE_DTYPE).to(ctx.x_dtype)
+        if ctx.needs_input_grad[1]:
+            x2 = xb.reshape(-1, xb.shape[-1]).float()
+            dw = torch.matmul(x2.t(), gf.reshape(-1, gf.shape[-1])).to(w.dtype)
+        return dx, dw, None, None
+
+
 def linear(x, w, quant_mode: str = "bf16", backend=None):
     """The single matmul entry point for every model layer; bf16 out.
 
@@ -38,9 +74,12 @@ def linear(x, w, quant_mode: str = "bf16", backend=None):
     ``ModelConfig.gemm_backend``); ``None`` defers to the registry's
     resolution order.  A quantized mode quantizes ``x`` as given: an f32
     input is not rounded to bf16 first (the reference's compiled graph
-    drops that rounding too, see :func:`glu_mlp`)."""
+    drops that rounding too, see :func:`glu_mlp`).  Its gradients are the
+    straight-through ones (:class:`_QuantizedLinearSTE`)."""
     if quant_mode == "bf16":
         return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _QuantizedLinearSTE.apply(x, w, quant_mode, backend)
     return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE)
 
 
@@ -82,11 +121,27 @@ def layernorm(x, p, eps=1e-6):
     return ((xf - mu) * torch.rsqrt(var + eps) * p["gamma"] + p["beta"]).to(x.dtype)
 
 
-def _silu(x):
+class _Silu(torch.autograd.Function):
     """x * sigmoid(x) with sigmoid written out as 1 / (1 + exp(-x)), each op
-    rounding to x's dtype — the reference's logistic expansion, so bf16
-    activations round at the same places."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    rounding to x's dtype -- the reference's logistic expansion, so bf16
+    activations round at the same places.  The backward is JAX's rule for
+    ``x * logistic(x)``, op for op in x's dtype: ``g * s + (x * g) * (s *
+    (1 - s))``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (x * g) * (s * (1 - s))
+
+
+def _silu(x):
+    return _Silu.apply(x)
 
 
 _ACTS = {"silu": _silu, "gelu": functools.partial(torch.nn.functional.gelu, approximate="tanh"),

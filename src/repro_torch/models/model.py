@@ -1,4 +1,4 @@
-"""Model entry points: init / forward / caches / prefill / decode / verify
+"""Model entry points: init / forward / loss / caches / prefill / decode / verify
 for every architecture of the reference (decoder-only, encoder-decoder,
 frontend-fed).
 
@@ -30,7 +30,11 @@ The reference's ``lax.scan`` over periods is a Python loop here.  Decode
 runs over a contiguous (slot) cache or a paged one; its writes land in the
 cache in place.
 
-``forward``, ``prefill``, ``decode_step`` and ``verify_step`` run inside
+:func:`lm_loss` is the training loss: the chunked cross-entropy of
+:func:`_chunked_ce` plus the MoE load-balance loss; with ``cfg.remat``
+each period recomputes in the backward (:func:`_remat_period`).
+
+``forward``, ``lm_loss``, ``prefill``, ``decode_step`` and ``verify_step`` run inside
 the numerics watchdog's context when ``cfg.numerics_watchdog`` is set
 (:func:`_watched`); each period of a stack reuses the first period's
 GEMM labels, as the reference's scanned body does.
@@ -41,6 +45,11 @@ from __future__ import annotations
 import functools
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig, pages_for
 from repro_torch.device import resolve_device
@@ -181,16 +190,72 @@ def _embed_input(params, cfg: ModelConfig, batch):
     return x, positions
 
 
+def _layer(x, params, cfg: ModelConfig, positions, entry, causal: bool, enc_out, aux_out):
+    """One entry of :func:`_plan`: the block, then (``cross``) the period's
+    cross-attention step against ``enc_out``."""
+    group, idx, period, kind, carry, cross = entry
+    x, _ = tfm.apply_block(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
+                           positions, carry=carry, causal=causal, aux_out=aux_out)
+    if cross:
+        x = _cross_step(x, params, cfg, period, _cross_kv(enc_out, params, cfg, period))
+    return x
+
+
+# outputs the "dots" remat policy keeps (the reference's checkpoint_dots)
+_DOT_OPS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                      torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default,
+                      torch.ops.aten._int_mm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_period(x, entries, params, cfg: ModelConfig, positions, causal: bool, enc_out,
+                  aux_out):
+    """One period's layers under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint`` of the scanned period): the backward recomputes the
+    period from its bf16 input carry, so only the carry is kept.
+    ``remat_policy="dots"`` keeps the matmul outputs and recomputes the
+    rest.  The recompute runs the same ops on the same inputs, so the loss
+    and gradients equal those without remat bit for bit."""
+    def period(h):
+        auxes = []
+        for entry in entries:
+            h = _layer(h, params, cfg, positions, entry, causal, enc_out, auxes)
+        return (h, *auxes)
+
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
+    h, *auxes = checkpoint(period, x, use_reentrant=False, **kw)
+    if aux_out is not None:
+        aux_out.extend(auxes)
+    return h
+
+
 def _run_stack(x, params, cfg: ModelConfig, positions, *, causal: bool = True,
                enc_out=None, carry_out: bool = False, aux_out=None):
     """The stack's layers over the full sequence (the cross-attention steps
     against ``enc_out`` for an encoder-decoder).  ``carry_out``: leave a
-    last tail layer's output f32 for the final norm."""
-    for group, idx, period, kind, carry, cross in _plan(cfg, carry_out):
-        x, _ = tfm.apply_block(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
-                               positions, carry=carry, causal=causal, aux_out=aux_out)
-        if cross:
-            x = _cross_step(x, params, cfg, period, _cross_kv(enc_out, params, cfg, period))
+    last tail layer's output f32 for the final norm.  With ``cfg.remat``
+    and grad enabled each period of ``blocks`` runs under
+    :func:`_remat_period`; the lead and tail layers do not, as in the
+    reference."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    last = len(cfg.block_pattern) - 1
+    pending = []
+    for entry in _plan(cfg, carry_out):
+        if remat and entry[0] == "blocks":
+            pending.append(entry)
+            if entry[1] == last:
+                x = _remat_period(x, pending, params, cfg, positions, causal, enc_out,
+                                  aux_out)
+                pending = []
+            continue
+        x = _layer(x, params, cfg, positions, entry, causal, enc_out, aux_out)
     return x
 
 
@@ -227,6 +292,72 @@ def forward(params, cfg: ModelConfig, batch):
     tests: prefill and decode are held against it."""
     h, _ = backbone(params, cfg, batch)
     return unembed(h, _head_table(params, cfg))
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+LOSS_CHUNK = 512
+AUX_LOSS_WEIGHT = 0.01
+
+
+def _ce_chunk(hc, lc, mc, table):
+    """One chunk's masked NLL sum and mask count (f32 0-d tensors)."""
+    logits = unembed(hc, table)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
+    nll = (logz - gold) * mc
+    return nll.sum(), mc.sum()
+
+
+def _chunked_ce(hidden, labels, mask, table, cfg: ModelConfig):
+    """Cross-entropy over sequence chunks of ``LOSS_CHUNK`` rows (one chunk
+    unless that divides ``S`` into more than one), so no (B, S, V) logits
+    buffer exists: with grad enabled each chunk runs under
+    ``torch.utils.checkpoint``, and its logits are recomputed in the
+    backward instead of kept (the reference's ``jax.checkpoint`` of its
+    scan body).  Returns the masked mean, f32."""
+    s = hidden.shape[1]
+    c = LOSS_CHUNK if s % LOSS_CHUNK == 0 and s > LOSS_CHUNK else s
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, c):
+        args = (hidden[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c], table)
+        nll, n = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
+                  else _ce_chunk(*args))
+        tot = tot + nll
+        cnt = cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _next_token_labels(tokens):
+    """Labels ``tokens[:, 1:]`` padded with 0 and their mask (1, the pad 0)."""
+    labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    mask = torch.nn.functional.pad(
+        torch.ones(tokens[:, 1:].shape, dtype=torch.float32, device=tokens.device), (0, 1))
+    return labels, mask
+
+
+@_watched("loss")
+def lm_loss(params, cfg: ModelConfig, batch):
+    """Next-token (or label) cross-entropy + the MoE load-balance loss
+    (weight ``AUX_LOSS_WEIGHT``); a 0-d f32 tensor.  Labels are the next
+    tokens of ``batch["tokens"]`` (of ``"tgt_tokens"`` for an
+    encoder-decoder), or ``batch["labels"]`` with -1 masked (frontend
+    archs)."""
+    h, aux = backbone(params, cfg, batch)
+    if cfg.is_encoder_decoder:
+        labels, mask = _next_token_labels(batch["tgt_tokens"])
+    elif "labels" in batch:
+        labels = batch["labels"]
+        mask = (labels >= 0).float()
+        labels = torch.clamp_min(labels, 0)
+    else:
+        labels, mask = _next_token_labels(batch["tokens"])
+    ce = _chunked_ce(h, labels, mask, _head_table(params, cfg), cfg)
+    return ce + AUX_LOSS_WEIGHT * aux
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ encoder-decoder's tree also carries ``enc_blocks`` (stacked over its
 ``n_encoder_layers``), ``enc_tail_blocks``, ``enc_final_norm`` and
 ``cross_blocks`` (``xattn`` and ``norm_x``, stacked over periods).
 Leaves that are already tensors (``checkpoint.restore_checkpoint``) are
-moved as they are.
+moved as they are.  ``opt_state_from_jax`` carries the reference's AdamW
+state across the same way.
 """
 
 from __future__ import annotations
@@ -82,4 +83,16 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None):
         if lead_axis.shape[0] != want:
             raise ValueError(f"{name} are stacked over {lead_axis.shape[0]} "
                              f"periods, cfg has {want}")
+    return out
+
+
+def opt_state_from_jax(np_state, cfg: ModelConfig, device=None):
+    """The reference's AdamW state (``adamw_init`` / ``adamw_update``'s
+    ``{"step", "m", "v", "master"}``, as numpy) -> the port's, on
+    ``device``: each of ``m``, ``v`` and ``master`` carried across as
+    :func:`params_from_jax` carries the weights (f32 leaves stay f32),
+    ``step`` a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    out = {k: params_from_jax(np_state[k], cfg, dev) for k in ("m", "v", "master")}
+    out["step"] = torch.tensor(int(np.asarray(np_state["step"])), dtype=torch.int32, device=dev)
     return out

@@ -11,7 +11,16 @@ profiler's own ``schedule`` warm-up: the collection is running before
 the window opens, so the window's first kernels are not lost); the next
 ``n_steps`` steps are recorded, then the profile stops, its Chrome trace
 is written under ``log_dir`` (``trace_path``) and the profiler goes
-inert — so a profiled run captures a bounded window.  The trace loads in
+inert — so a profiled run captures a bounded window.
+
+On a CUDA engine the card is idle at both ends of the window (each step
+is synchronized), and the host waits ``WINDOW_MARGIN_S`` after the window
+opens and again before it closes.  The profiler keeps only the kernels
+whose device timestamps, mapped onto the host's clock, fall inside the
+window; without the margin the window's first launch comes under a
+millisecond after it opens and its last kernel ends as close to its end,
+so an error of that mapping of a millisecond could drop the first or
+last few dozen kernels of the window.  The trace loads in
 https://ui.perfetto.dev; ``prof`` keeps the finished
 ``torch.profiler.profile`` for ``key_averages()``.
 
@@ -25,9 +34,12 @@ engine calls them unconditionally at zero cost.
 from __future__ import annotations
 
 import os
+import time
 from typing import Optional
 
 import torch
+
+WINDOW_MARGIN_S = 0.05      # the host's idle wait at each end of a CUDA window
 
 
 class StepProfiler:
@@ -66,15 +78,24 @@ class StepProfiler:
         if not self.active:
             return
         self._steps_seen += 1
-        self._sync()
-        self.prof.step()
         if self._steps_seen > self.n_steps:      # the warm-up step, then n_steps
             self.close()
+            return
+        self._sync()
+        self.prof.step()
+        if self._steps_seen == 1:               # the window has just opened
+            self._margin()
 
     def _sync(self) -> None:
         """Let the step's kernels finish inside the window they belong to."""
         if self._cuda is not None:
             torch.cuda.synchronize(self._cuda)
+
+    def _margin(self) -> None:
+        """Keep the card idle for ``WINDOW_MARGIN_S`` at an end of a CUDA
+        window, so that no kernel lies near that end."""
+        if self._cuda is not None:
+            time.sleep(WINDOW_MARGIN_S)
 
     def _write(self, prof) -> None:
         os.makedirs(self.log_dir, exist_ok=True)
@@ -88,6 +109,7 @@ class StepProfiler:
         a partial window)."""
         if self.active:
             self._sync()
+            self._margin()
             self.prof.stop()
             self.active = False
             self.done = True

@@ -1,4 +1,5 @@
-"""Symmetric integer quantization (the port of ``repro/quant/qtensor.py``).
+"""Quantized tensor container and symmetric integer quantization (the
+port of ``repro/quant/qtensor.py``).
 
 ``x ~= data * scale`` with ``scale = max(absmax, 1e-8) / qmax`` and
 ``qmax = 2^(bits-1) - 1``; values round half to even (``torch.round``, as
@@ -10,7 +11,12 @@ to; the scales, and so the quantized values, then match bit for bit.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
+
+INT8_MAX = 127.0
+
 
 def qmax_for_bits(bits: int) -> float:
     return float(2 ** (bits - 1) - 1)
@@ -20,21 +26,52 @@ def storage_dtype(bits: int) -> torch.dtype:
     return torch.int8 if bits <= 8 else torch.int16
 
 
-def quantize(x: torch.Tensor, dim=None, bits: int = 8):
-    """Symmetric integer quantization -> ``(data, scale)``.
+@dataclasses.dataclass
+class QTensor:
+    """Signed-int data + broadcastable f32 scale (``x ~= data * scale``)."""
+
+    data: torch.Tensor   # int8 (bits <= 8) or int16
+    scale: torch.Tensor  # f32, broadcastable against ``data``
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    def dequantize(self, dtype=torch.float32) -> torch.Tensor:
+        return (self.data.float() * self.scale).to(dtype)
+
+
+def _absmax_scale(x: torch.Tensor, dim, qmax: float = INT8_MAX) -> torch.Tensor:
+    absmax = x.float().abs().amax(dim=dim, keepdim=True)
+    return torch.clamp_min(absmax, 1e-8) * (1.0 / qmax)
+
+
+def quantize(x: torch.Tensor, dim=None, scale: torch.Tensor | None = None,
+             bits: int = 8) -> QTensor:
+    """Symmetric integer quantization -> :class:`QTensor`.
 
     ``dim``: reduction dim(s) for the absmax (``0`` for per-output-channel
     weights ``(K, N)``; ``-1`` for per-row activations); ``None`` means
-    per-tensor.  ``scale`` keeps the reduced dims with size 1.
+    per-tensor.  A precomputed calibration ``scale`` wins.  ``bits``:
+    operand width; values clip to ±(2^(bits-1)-1).  The scale keeps the
+    reduced dims with size 1.
     """
     qmax = qmax_for_bits(bits)
     xf = x.float()
-    if dim is None:
-        dim = tuple(range(x.ndim))
-    absmax = xf.abs().amax(dim=dim, keepdim=True)
-    scale = torch.clamp_min(absmax, 1e-8) * (1.0 / qmax)
+    if scale is None:
+        if dim is None:
+            dim = tuple(range(x.ndim))
+        scale = _absmax_scale(xf, dim, qmax)
     data = torch.round(xf / scale).clamp_(-qmax, qmax)
-    return data.to(storage_dtype(bits)), scale
+    return QTensor(data.to(storage_dtype(bits)), scale)
+
+
+def dequantize(q: QTensor, dtype=torch.float32) -> torch.Tensor:
+    return q.dequantize(dtype)
 
 
 def rail_hits(data: torch.Tensor, bits: int) -> torch.Tensor:

@@ -31,7 +31,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.api import LLM, KVConfig, QuantRuntime, RuntimeConfig
 from repro_torch.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.checkpoint.checkpoint import _named_leaves
-from repro_torch.models import params_from_jax
+from repro_torch.models import init_params, params_from_jax
 
 WEIGHT_SCALE = 8.0
 
@@ -63,6 +63,13 @@ def _scaled_tree(jcfg, seed=0):
     return jax.tree_util.tree_map_with_path(scale, tree)
 
 
+def _restore(directory, step, tcfg):
+    """The port's ``restore_checkpoint`` into ``tcfg``'s layout on the CPU
+    (a ``like_tree`` of ``"meta"`` tensors, as ``LLM(checkpoint_dir=)``
+    passes it)."""
+    return restore_checkpoint(directory, step, init_params(tcfg, device="meta"), device="cpu")
+
+
 def _bits(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     return t.view(torch.int16).numpy() if t.dtype == torch.bfloat16 else t.numpy()
@@ -84,7 +91,7 @@ def test_reference_checkpoint_loads_into_port(tmp_path):
     tree = _scaled_tree(jcfg)
     jax_save_checkpoint(str(tmp_path), 3, jax.tree_util.tree_map(jnp.asarray, tree),
                         metadata={"arch": "llama3.2-1b"})
-    step, params, meta = restore_checkpoint(str(tmp_path), None, tcfg, device="cpu")
+    step, params, meta = _restore(str(tmp_path), None, tcfg)
     assert step == 3 and meta == {"arch": "llama3.2-1b"}
     _assert_port_trees_equal(params, params_from_jax(tree, tcfg, "cpu"))
     assert params["blocks"][0]["attn"]["wq"].dtype == torch.bfloat16
@@ -108,7 +115,7 @@ def test_save_restore_bit_identical(tmp_path):
         assert x.dtype == y.dtype and x.shape == y.shape
         np.testing.assert_array_equal(np.asarray(x).view(np.uint8),
                                       np.asarray(y).view(np.uint8))
-    _assert_port_trees_equal(restore_checkpoint(str(tmp_path), 7, tcfg, "cpu")[1], params)
+    _assert_port_trees_equal(_restore(str(tmp_path), 7, tcfg)[1], params)
 
 
 @pytest.mark.parametrize("arch", ["minicpm3-4b", "granite-moe-3b-a800m",
@@ -124,7 +131,7 @@ def test_new_arch_checkpoints_round_trip(tmp_path, arch):
     jcfg, tcfg = _configs(arch)
     tree = _scaled_tree(jcfg)
     jax_save_checkpoint(str(tmp_path / "ref"), 1, jax.tree_util.tree_map(jnp.asarray, tree))
-    _, params, _ = restore_checkpoint(str(tmp_path / "ref"), None, tcfg, device="cpu")
+    _, params, _ = _restore(str(tmp_path / "ref"), None, tcfg)
     _assert_port_trees_equal(params, params_from_jax(tree, tcfg, "cpu"))
     own = init_params(tcfg, seed=3, device="cpu")
     save_checkpoint(str(tmp_path / "port"), 2, own)
@@ -135,7 +142,7 @@ def test_new_arch_checkpoints_round_trip(tmp_path, arch):
     for (_, x), (name, t) in zip(flat, _named_leaves(own)):
         np.testing.assert_array_equal(np.asarray(x).view(np.uint8),
                                       _bits(t).view(np.uint8), err_msg=name)
-    _assert_port_trees_equal(restore_checkpoint(str(tmp_path / "port"), 2, tcfg, "cpu")[1],
+    _assert_port_trees_equal(_restore(str(tmp_path / "port"), 2, tcfg)[1],
                              own)
     if tcfg.moe is not None:
         assert own["blocks"][0]["moe"]["router"].dtype == torch.float32
@@ -153,12 +160,12 @@ def test_latest_step_and_overwrite(tmp_path):
     save_checkpoint(str(tmp_path), 5, first)
     assert latest_step(str(tmp_path)) == jax_latest_step(str(tmp_path)) == 5
     save_checkpoint(str(tmp_path), 5, second)
-    step, got, _ = restore_checkpoint(str(tmp_path), None, tcfg, "cpu")
+    step, got, _ = _restore(str(tmp_path), None, tcfg)
     assert step == 5
     _assert_port_trees_equal(got, second)
-    _assert_port_trees_equal(restore_checkpoint(str(tmp_path), 1, tcfg, "cpu")[1], first)
+    _assert_port_trees_equal(_restore(str(tmp_path), 1, tcfg)[1], first)
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
-        restore_checkpoint(str(tmp_path / "none"), None, tcfg, "cpu")
+        _restore(str(tmp_path / "none"), None, tcfg)
 
 
 def test_structure_mismatch_rejected(tmp_path):
@@ -169,16 +176,16 @@ def test_structure_mismatch_rejected(tmp_path):
     jcfg, tcfg = _configs()
     save_checkpoint(str(tmp_path / "ok"), 1, params_from_jax(_scaled_tree(jcfg), tcfg, "cpu"))
     with pytest.raises(ValueError, match="needs"):
-        restore_checkpoint(str(tmp_path / "ok"), 1, tcfg.with_(n_layers=3), "cpu")
+        _restore(str(tmp_path / "ok"), 1, tcfg.with_(n_layers=3))
     with pytest.raises(ValueError, match="structure mismatch"):
-        restore_checkpoint(str(tmp_path / "ok"), 1, tcfg.with_(tie_embeddings=False), "cpu")
+        _restore(str(tmp_path / "ok"), 1, tcfg.with_(tie_embeddings=False))
     with pytest.raises(ValueError, match="needs"):
-        restore_checkpoint(str(tmp_path / "ok"), 1, tcfg.with_(d_ff=2 * tcfg.d_ff), "cpu")
+        _restore(str(tmp_path / "ok"), 1, tcfg.with_(d_ff=2 * tcfg.d_ff))
     tree = _scaled_tree(jcfg)
     del tree["blocks"][0]["attn"]["wq"]
     jax_save_checkpoint(str(tmp_path / "bad"), 1, jax.tree_util.tree_map(jnp.asarray, tree))
     with pytest.raises(ValueError, match="missing"):
-        restore_checkpoint(str(tmp_path / "bad"), 1, tcfg, "cpu")
+        _restore(str(tmp_path / "bad"), 1, tcfg)
 
 
 def test_no_partial_checkpoint_on_disk(tmp_path):

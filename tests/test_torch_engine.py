@@ -280,6 +280,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.kernels.spoga_gemm, repro_torch.kernels.deas_gemm\n"
         "import repro_torch.kernels.ops, repro_torch.core.spoga, repro_torch.backends\n"
         "import repro_torch.spec, repro_torch.spec.draft_model, repro_torch.prefix\n"
+        "import repro_torch.quant, repro_torch.optim, repro_torch.data, repro_torch.runtime\n"
+        "import repro_torch.launch.steps, repro_torch.launch.train, repro_torch.tree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                                      'ml_dtypes'))\n"
         "print(','.join(bad))\n"

@@ -66,6 +66,10 @@ SHAPES += [(m, k, n) for k, n in [(1024, 1024), (1024, 8192), (8192, 1024)]
            for m in (4, 32, 128, 512)]
 SHAPES += [(m, k, n) for k, n in [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
            for m in (4, 128, 2304)]
+# llama3.2-1b's four projection shapes at a training step's M = B * S =
+# 4 x 1,024 rows
+LLAMA_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
+SHAPES += [(4096, k, n) for k, n in LLAMA_KN]
 MODES = ["int8_spoga", "w4a8", "w4a4", "w16a16", "w8a8_s2", "w8a8_s3", "w6a6_s1"]
 
 
@@ -710,3 +714,71 @@ def test_watchdog_on_card_is_bitwise_and_copies_once_per_entry_point():
     assert torch.equal(outs[0][0], outs[1][0])
     assert outs[1][1] == outs[0][1] + 1, (outs[0][1], outs[1][1])
     watchdog.reset()
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_straight_through_linear_on_card(x_dtype):
+    """``layers.linear`` at ``int8_spoga`` with grad on the card: the
+    forward is ``quantized_linear``'s output bitwise (one
+    ``spoga_gemm_dequant`` launch, no plain version), the backward launches
+    no GEMM kernel and is the straight-through f32 formula bitwise: ``dx =
+    (g @ w^T)`` rounded to bf16 then cast to ``x``'s dtype, ``dw = x_bf16^T
+    @ g`` cast to bf16, at llama's (K, N) and a training step's M."""
+    _card()
+    from repro_torch.backends.pipeline import quantized_linear
+    from repro_torch.models.layers import linear
+    rng = np.random.default_rng(3)
+    for k, n in LLAMA_KN:
+        x = torch.from_numpy(rng.standard_normal((4, 1024, k)).astype(np.float32)).cuda()
+        x = x.to(x_dtype).requires_grad_(True)
+        w = (torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)) * 0.02)
+        w = w.cuda().bfloat16().requires_grad_(True)
+        g = torch.from_numpy(rng.standard_normal((4, 1024, n)).astype(np.float32)).cuda()
+        g = g.bfloat16()
+        gemm_mod.reset_counts()
+        y = linear(x, w, "int8_spoga")
+        assert gemm_mod.LAUNCHES == 1 and gemm_mod.PLAIN_CALLS == 0
+        with torch.no_grad():
+            assert torch.equal(y, quantized_linear(x, w, "int8_spoga",
+                                                   out_dtype=torch.bfloat16))
+        gemm_mod.reset_counts()
+        dx, dw = torch.autograd.grad(y, (x, w), g)
+        assert gemm_mod.LAUNCHES == 0 and gemm_mod.PLAIN_CALLS == 0
+        gf = g.float()
+        want_dx = torch.matmul(gf, w.detach().float().t()).bfloat16().to(x_dtype)
+        xb = x.detach().bfloat16().reshape(-1, k).float()
+        want_dw = torch.matmul(xb.t(), gf.reshape(-1, n)).bfloat16()
+        assert dx.dtype == x_dtype and torch.equal(dx, want_dx), (k, n)
+        assert torch.equal(dw, want_dw), (k, n)
+        assert (dw != 0).float().mean() > 0.99
+
+
+def test_step_profiler_trace_holds_every_kernel_of_its_window(tmp_path):
+    """``StepProfiler`` on the card: a warm-up step, then 3 recorded steps of
+    200 ``spoga_gemm_dequant`` launches each; the trace holds exactly the
+    recorded steps' 600 kernels (none of the warm-up's, none lost at an end
+    of the window) and a kernel record for every launch call in it."""
+    import json
+
+    from repro_torch.backends.pipeline import quantized_linear
+    from repro_torch.obs.profile import StepProfiler
+    _card()
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((4, 2048)).astype(np.float32)).cuda().bfloat16()
+    w = torch.from_numpy(rng.standard_normal((2048, 512)).astype(np.float32) * 0.02).cuda()
+    prof = StepProfiler(str(tmp_path), n_steps=3)
+    gemm_mod.reset_counts()
+    for _ in range(4):
+        prof.step_begin("cuda")
+        for _ in range(200):
+            quantized_linear(x, w, "int8_spoga")
+        prof.step_end()
+    assert prof.done and gemm_mod.LAUNCHES == 800 and gemm_mod.PLAIN_CALLS == 0
+    with open(prof.trace_path) as f:
+        trace = json.load(f)["traceEvents"]
+    kernels = [e for e in trace if e.get("cat") == "kernel"]
+    assert sum("spoga_gemm_dequant_kernel" in e["name"] for e in kernels) == 600
+    recorded = {e["args"].get("correlation") for e in kernels}
+    calls = [e for e in trace if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "aunchKernel" in e.get("name", "")]
+    assert calls and all(e["args"].get("correlation") in recorded for e in calls)
