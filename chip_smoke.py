@@ -55,8 +55,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    one prefill: the first greedy token equal, the logits within tolerance;
    then a 1,000-token paged decode over int8 KV, 4 steps fed the CPU's
    tokens, the logits within tolerance at every step;
-7. engine features, full-width ``int8_spoga`` over int8 paged KV (runs
-   between phases 5b and 6): (a) phase 4's weights saved with
+7. engine features, full-width ``int8_spoga`` over int8 paged KV, the
+   first ``FEATURE_LAYERS`` (8) of llama's 16 layers (runs
+   between phases 5b and 6): (a) phase 4's weights (those layers) saved with
    ``save_checkpoint`` and loaded by ``LLM(checkpoint_dir=)``, every tensor
    equal; (b) 2 prompts of 2,048-4,096 tokens then 8 short ones, chunked
    at 512 tokens and again unchunked (every request finished, the chunk
@@ -69,8 +70,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    margin is at most ``NEAR_TIE_ULPS`` bf16 ulps) and at full width
    (printed);
 8. presets, the prefix cache, speculative decoding and stochastic sampling,
-   full-width ``int8_spoga`` over int8 paged KV, phase 4's weights, 4
-   lanes, pages of 16 (runs after phase 7): (a) ``int8-byte-serving``
+   full-width ``int8_spoga`` over int8 paged KV, phase 7's model and
+   weights (``FEATURE_LAYERS`` layers), 4 lanes, pages of 16 (runs after
+   phase 7): (a) ``int8-byte-serving``
    written with ``to_dict`` to JSON and loaded back with ``load_runtime``,
    then ``LLM(runtime=load_runtime(...), checkpoint_dir=)`` on phase 7
    (a)'s checkpoint serves phase 4's prompts; (b) 9 requests over a
@@ -82,7 +84,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the adversary none), then (b)'s traffic with the prefix cache and the
    n-gram drafter, and slot-mode speculation (printed); (d) a stochastic
    request alone and beside neighbours (the same stream), ``top_k=1`` the
-   greedy stream, a mixed batch never speculating; (e) a verify step's
+   greedy stream up to the first row with an exact top-2 tie (where it
+   may draw either; the margin printed), a mixed batch never
+   speculating; (e) a verify step's
    device time by kernel group beside a decode step's, ``spoga_gemm_dequant``
    at the window's M=20 and ``paged_attention`` at 20 lanes of 4 repeated
    tables (rows bitwise equal to the decode calls); (b') chunked prefill
@@ -91,9 +95,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    kernel launches counted exactly, a verify dispatch as one decode step;
 9. the attention-family archs at full width (runs last), random weights
    from ``init_params(seed=0)``, phase 4's traffic, 4 lanes, pages of 16:
-   (a) minicpm3-4b (MLA), 4 of its 62 layers at full width (since PR 23),
-   at ``int8_spoga`` paged (32 ``spoga_gemm_dequant``
-   launches a decode or verify step, 40 a prefill dispatch or chunk step,
+   (a) minicpm3-4b (MLA), 2 of its 62 layers at full width,
+   at ``int8_spoga`` paged (16 ``spoga_gemm_dequant``
+   launches a decode or verify step, 20 a prefill dispatch or chunk step,
    no ``paged_attention``: paged MLA attends the gathered latent pages in
    torch), ``LLM("minicpm3-4b")`` with the default runtime (no kernel),
    512-token chunks against one-shot on phase 7 (b)'s two long prompts,
@@ -103,8 +107,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    KV (28 GEMM launches and 4 ``paged_attention`` a decode step), the
    engine's ``ValueError`` for chunking, the prefix cache and speculation,
    peak memory and a decode-step profile split into kernels, the grouped
-   expert product, routing and attention; (c) granite-moe-3b-a800m, 8 of
-   its 32 layers (since PR 23), over bf16 paged KV on 4 requests (32 and 8
+   expert product, routing and attention; (c) granite-moe-3b-a800m, 4 of
+   its 32 layers, over bf16 paged KV on 4 requests (16 and 4
    a step); (d) 2 layers of each
    on the card against the CPU, bf16 GEMMs and ``int8_spoga``, and the
    grouped expert product's int32 accumulators bitwise; (e)
@@ -137,12 +141,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    PR 23 (after phase 10), random weights from ``init_params(seed=0)``, through
    ``api.serve_batch`` at ``int8_spoga`` (the engine refuses them, as the
    reference's does), 4 rows, 32 new tokens: (a) seamless-m4t-large-v2
-   (8 + 8 of its 24 + 24 layers) from 128 ``fake_audio_frames`` and 8 target
-   tokens, 144 ``spoga_gemm_dequant`` launches a prefill (the encoder's 7 a layer,
-   each decoder layer's cross K/V once, its 7 and the cross q and o) and
-   72 a decode step; (b) llava-next-mistral-7b (8 of its 32 layers) from 576
-   ``fake_vision_embeds`` (one 336-px anyres tile), 56 a prefill and a
-   decode step; every count exact, read around a prefill alone and the
+   (4 + 4 of its 24 + 24 layers) from 128 ``fake_audio_frames``
+   and 8 target tokens, 72 ``spoga_gemm_dequant`` launches a prefill (the
+   encoder's 7 a layer, each decoder layer's cross K/V once, its 7 and the
+   cross q and o) and 36 a decode step; (b) llava-next-mistral-7b (4 of its
+   32 layers) from 576 ``fake_vision_embeds`` (one 336-px
+   anyres tile), 28 a prefill and a decode step; every count exact, read around a prefill alone and the
    whole ``serve_batch``, no plain version; wall time, peak memory and a
    decode-step split per model; (c) 2 layers of llava and 2 + 2 of
    seamless on the card against the CPU, the same weights and embeddings,
@@ -194,7 +198,32 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    tests' tolerances; (e) ``spoga_gemm_dequant`` at M = 4,096 for llama's
    four (K, N), bitwise against its plain version, timed against its
    bound and ``torch._int_mm``;
-14. the ``kernels`` JSON line, then the ``ok`` line last.
+14. distribution (after phase 13), ``int8_spoga`` over int8 paged KV,
+   phase 4's traffic, every serving run through ``LLM(runtime=
+   RuntimeConfig(mesh=...))`` with weights from ``init_params(seed=0)``
+   and its launches gated exactly per rank (at tp=2 each layer's 5
+   column-parallel projections on ``spoga_gemm_dequant``, its 2
+   row-parallel ones on ``spoga_gemm``; ``paged_attention`` once a layer a
+   decode step; no plain version): nvidia-smi's compute mode printed (an
+   exclusive mode fails here: (b)-(e) share the card); (a) full-width
+   llama3.2-1b unsharded and with ``MeshConfig(enable=True)`` on one NCCL
+   rank, streams bitwise equal; mistral-large-123b at full width
+   (``TP_MISTRAL_LAYERS`` of its 88 layers) and deepseek-moe-16b
+   (``TP_DEEPSEEK_LAYERS`` of 28) unsharded on the first ``TP_REQUESTS``
+   (4) of phase 4's requests; then two gloo ranks spawned
+   on ``cuda:0``: (b) llama at tp=2, the streams (a)'s, and the sharded
+   projections at llama's and mistral's shapes bitwise their unsharded
+   products; (c) mistral-large at tp=2, the streams tp=1's, each rank's
+   param bytes equal to ``tree_device_bytes``; (d) deepseek expert-parallel
+   at tp=2, the streams tp=1's; (e) dp=2 training of 2-layer full-width
+   llama, compression off and on, the params bitwise equal across ranks
+   (sha256), 14 ``spoga_gemm_dequant`` launches a step a rank, and
+   ``compressed_psum_mean`` of the layers' CUDA gradients bitwise the
+   host's; each
+   rank's ``max_memory_allocated``; then both GEMM kernels at a tp=2 rank's
+   projection shapes (M=4) bitwise against their plain versions, timed
+   against the bound and ``torch._int_mm``;
+15. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -258,13 +287,15 @@ def time_ms(fn, n_bufs: int, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, n_bufs: int, iters: int, warmup: int = 3, kernel: str | None = None) -> float:
+def device_ms(fn, n_bufs: int, iters: int, warmup: int = 3, kernel: str | None = None,
+              floor_ms: float = 0.0) -> float:
     """Mean device time of ``fn(i)``: the profiler's kernel time summed over
     ``iters`` calls (every kernel the call launches, gaps between them not
     counted), cycling ``i`` over ``n_bufs`` input copies.  The profiler
     now and then records no kernel in a session, or loses some of its
     records; with ``kernel`` (a kernel name that ``fn`` launches once a
-    call) a session counts only if it holds exactly ``iters`` of them.
+    call) a session counts only if it holds exactly ``iters`` of them, and
+    with ``floor_ms`` (the work's bound) only if its mean is not below it.
     After three sessions that miss, the calls are timed as one CUDA-graph
     replay."""
     from torch.profiler import ProfilerActivity, profile
@@ -279,7 +310,7 @@ def device_ms(fn, n_bufs: int, iters: int, warmup: int = 3, kernel: str | None =
         events = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
         total = sum(e.self_device_time_total for e in events)
         whole = kernel is None or sum(e.count for e in events if kernel in e.key) == iters
-        if total > 0 and whole:
+        if total > 0 and whole and total / 1e3 / iters >= floor_ms:
             return total / 1e3 / iters
     print("[timing] the profiler recorded no kernel, or lost some, in three sessions: "
           "timed by a CUDA-graph replay instead", flush=True)
@@ -343,9 +374,18 @@ def device_ms_by_kernel(fns: dict, n_bufs: int, iters: int, warmup: int = 3) -> 
     return {name: graph_ms(fn, n_bufs, iters) for name, fn in fns.items()}
 
 
-def kernel_times(fn, n_bufs: int, iters: int, kernel: str | None = None) -> tuple[float, float]:
+def kernel_times(fn, n_bufs: int, iters: int, kernel: str | None = None,
+                 floor_ms: float = 0.0) -> tuple[float, float]:
     """(device time by the profiler, event time of back-to-back calls)."""
-    return device_ms(fn, n_bufs, iters, kernel=kernel), time_ms(fn, n_bufs, iters)
+    return (device_ms(fn, n_bufs, iters, kernel=kernel, floor_ms=floor_ms),
+            time_ms(fn, n_bufs, iters))
+
+
+def require_bound(t_ms: float, bound_ms: float, label: str) -> None:
+    """A device time below the least time the card could take is a lost
+    profiler record, not a fast kernel."""
+    require(t_ms >= bound_ms, f"{label}: device time {t_ms:.4f} ms is below its bound "
+                              f"{bound_ms:.4f} ms")
 
 
 def copies_for(nbytes: int, cap: int = 16) -> int:
@@ -444,15 +484,16 @@ def _gemm_timing(name, mode, m, k, n, gen, tag="gemm"):
     ws_copies = [w.clone() for _ in range(nb)]
     kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
               slice_bits=spec.slice_bits)
-    t_kernel, t_event = kernel_times(
-        lambda i: spoga_gemm_dequant(x, ws_copies[i], xs, ws, **kw), nb, iters=40,
-        kernel="spoga_gemm_dequant_kernel")
-    t_plain = time_ms(lambda i: spoga_gemm_dequant_plain(x, ws_copies[i], xs, ws),
-                      nb, iters=5, warmup=1)
-    t_lib = _lib_int_mm(x, ws_copies, m, k, n)
     nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
               + 4 * (m + n) + 4 * m * n)
     b_ms, b_by = bound(nbytes, _int_product_ops(m, k, n), INT8_OPS_PER_S)
+    t_kernel, t_event = kernel_times(
+        lambda i: spoga_gemm_dequant(x, ws_copies[i], xs, ws, **kw), nb, iters=40,
+        kernel="spoga_gemm_dequant_kernel", floor_ms=b_ms)
+    require_bound(t_kernel, b_ms, f"{tag} {name} M={m} K={k} N={n}")
+    t_plain = time_ms(lambda i: spoga_gemm_dequant_plain(x, ws_copies[i], xs, ws),
+                      nb, iters=5, warmup=1)
+    t_lib = _lib_int_mm(x, ws_copies, m, k, n)
     lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
     lib += " (padded)" if m <= 16 and t_lib is not None else ""
     print(f"[{tag}] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms device "
@@ -521,30 +562,34 @@ def phase_int_gemm():
     for name, mode in GEMM_SPECS.items():
         for m in (4, 128):
             for k, n in GEMM_KN:
-                spec, x, w, _, _ = _gemm_operands(m, k, n, mode, gen)
-                nb = copies_for(w.numel() * w.element_size())
-                w_copies = [w.clone() for _ in range(nb)]
-                kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
-                          slice_bits=spec.slice_bits)
-                t_kernel, t_event = kernel_times(lambda i: spoga_gemm(x, w_copies[i], **kw), nb,
-                                                 iters=40)
-                t_plain = time_ms(lambda i: spoga_gemm_plain(x, w_copies[i]), nb, iters=5,
-                                  warmup=1)
-                t_lib = _lib_int_mm(x, w_copies, m, k, n)
-                nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
-                          + 4 * m * n)
-                ops = _int_product_ops(m, k, n)
-                b_ms, b_by = bound(nbytes, ops, INT8_OPS_PER_S)
-                timings[(name, m, k, n)] = dict(ms=t_kernel, event_ms=t_event,
-                                                plain_ms=t_plain, library_ms=t_lib,
-                                                bound_ms=b_ms, bound_by=b_by)
-                lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
-                lib += " (padded)" if m <= 16 and t_lib is not None else ""
-                print(f"[spoga_gemm] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms device "
-                      f"({t_event:.4f} ms by events), plain {t_plain:.4f} ms, _int_mm {lib}, "
-                      f"bound {b_ms:.4f} ms ({b_by}, {b_ms / t_kernel:.1%} of it)", flush=True)
-                del w_copies
+                timings[(name, m, k, n)] = _int_gemm_timing(name, mode, m, k, n, gen)
     return timings, max_err
+
+
+def _int_gemm_timing(name, mode, m, k, n, gen, tag="spoga_gemm"):
+    """``spoga_gemm`` at (M, K, N): device time (event time beside it), the
+    plain version's, ``torch._int_mm``'s and the bound, with weight copies
+    enough to keep L2 cold."""
+    from repro_torch.kernels.spoga_gemm import spoga_gemm, spoga_gemm_plain
+    spec, x, w, _, _ = _gemm_operands(m, k, n, mode, gen)
+    nb = copies_for(w.numel() * w.element_size())
+    w_copies = [w.clone() for _ in range(nb)]
+    kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
+              slice_bits=spec.slice_bits)
+    nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() + 4 * m * n
+    b_ms, b_by = bound(nbytes, _int_product_ops(m, k, n), INT8_OPS_PER_S)
+    t_kernel, t_event = kernel_times(lambda i: spoga_gemm(x, w_copies[i], **kw), nb, iters=40,
+                                     kernel="spoga_gemm_kernel", floor_ms=b_ms)
+    require_bound(t_kernel, b_ms, f"{tag} {name} M={m} K={k} N={n}")
+    t_plain = time_ms(lambda i: spoga_gemm_plain(x, w_copies[i]), nb, iters=5, warmup=1)
+    t_lib = _lib_int_mm(x, w_copies, m, k, n)
+    lib = f"{t_lib:.4f} ms" if t_lib is not None else "n/a"
+    lib += " (padded)" if m <= 16 and t_lib is not None else ""
+    print(f"[{tag}] {name} M={m} K={k} N={n}: kernel {t_kernel:.4f} ms device "
+          f"({t_event:.4f} ms by events), plain {t_plain:.4f} ms, _int_mm {lib}, "
+          f"bound {b_ms:.4f} ms ({b_by}, {b_ms / t_kernel:.1%} of it)", flush=True)
+    return dict(ms=t_kernel, event_ms=t_event, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def combine_times(m, n, parts):
@@ -734,15 +779,24 @@ ATTN_SHAPES = {
     # phase 9's MoE decode layouts at the main path's lengths
     "deepseek": dict(b=4, hkv=16, g=1, d=128, ps=16, n_tbl=11),
     "granite": dict(b=4, hkv=8, g=3, d=64, ps=16, n_tbl=11),
+    # phase 14's layouts: mistral-large at tp=1 and a tp=2 rank's (G=12, on
+    # the CUDA-core kernel), llama's and deepseek's tp=2 ranks; a rank splits
+    # as B x tp lanes would (``split_lanes``)
+    "mistral": dict(b=4, hkv=8, g=12, d=128, ps=16, n_tbl=11),
+    "mistral_tp2": dict(b=4, hkv=4, g=12, d=128, ps=16, n_tbl=11, split_lanes=8),
+    "llama_tp2": dict(b=4, hkv=4, g=4, d=64, ps=16, n_tbl=11, split_lanes=8),
+    "deepseek_tp2": dict(b=4, hkv=8, g=1, d=128, ps=16, n_tbl=11, split_lanes=8),
 }
+ATTN_ARCH_SHAPES = ("deepseek", "granite", "mistral", "mistral_tp2", "llama_tp2",
+                    "deepseek_tp2")
 ATTN_MAIN_LENGTHS = [1, 17, 100, 165]
 ATTN_LONG_SEED = 7
 
 
 def attn_lengths(name, shape):
-    if name in ("main", "deepseek", "granite"):
-        return ATTN_MAIN_LENGTHS
-    return [1] * shape["b"] if name == "short" else long_lengths(shape)
+    if name == "long":
+        return long_lengths(shape)
+    return [1] * shape["b"] if name == "short" else ATTN_MAIN_LENGTHS
 
 
 def long_lengths(shape):
@@ -844,10 +898,11 @@ def phase_attention(card):
     out = {}
     for name, shape in ATTN_SHAPES.items():
         lengths = attn_lengths(name, shape)
+        split = shape.get("split_lanes")
         for kind in ("bf16", "int8"):
             q, kp, vp, tables, lengths_t, scales, (kc, vc) = _attn_case(kind, gen, shape, lengths)
-            got = paged_attention(q, kp, vp, tables, lengths_t, **scales)
-            again = paged_attention(q, kp, vp, tables, lengths_t, **scales)
+            got = paged_attention(q, kp, vp, tables, lengths_t, split_lanes=split, **scales)
+            again = paged_attention(q, kp, vp, tables, lengths_t, split_lanes=split, **scales)
             want = paged_attention_plain(q, kc, vc, tables, lengths_t, **scales)
             want_p = paged_attention_plain(q, kp, vp, tables, lengths_t, **scales)
             torch.cuda.synchronize()
@@ -864,14 +919,16 @@ def phase_attention(card):
                                            {k: v.clone() for k, v in scales.items()})
                                           for _ in range(nb - 1)]
             iters = 50 if name == "long" else 200
+            b_ms, b_by = _attn_bound(q, kp, tables, lengths_t, scales)
             t_kernel, t_event = kernel_times(
                 lambda i: paged_attention(q, pools[i][0], pools[i][1], tables, lengths_t,
-                                          **pools[i][2]), nb, iters=iters)
+                                          split_lanes=split, **pools[i][2]), nb, iters=iters,
+                kernel="paged_attention_kernel", floor_ms=b_ms)
+            require_bound(t_kernel, b_ms, label)
             t_plain = time_ms(lambda i: paged_attention_plain(q, pools[i][0], pools[i][1], tables,
                                                               lengths_t, **pools[i][2]),
                               nb, iters=20 if name == "main" else 5, warmup=1)
             t_lib = _sdpa_ms(q, kp, vp, tables, lengths_t) if kind == "bf16" else None
-            b_ms, b_by = _attn_bound(q, kp, tables, lengths_t, scales)
             b, hkv, g, d = q.shape
             out[(kind, name)] = dict(
                 ms=t_kernel, event_ms=t_event, plain_ms=t_plain, library_ms=t_lib,
@@ -1634,6 +1691,23 @@ def _leaves(tree):
     return [("", tree)]
 
 
+FEATURE_LAYERS = 8         # of llama3.2-1b's 16 in phases 7-8
+
+
+def _feature_config():
+    """Phases 7-8's model: llama3.2-1b at full width, ``FEATURE_LAYERS``
+    layers (phase 4's weights cut to that depth, ``_first_layers``)."""
+    from repro_torch.configs import get_config
+    return get_config("llama3.2-1b").with_(n_layers=FEATURE_LAYERS)
+
+
+def _first_layers(params, n):
+    """The first ``n`` layers of a llama-layout tree (one block slot stacked
+    over the periods, no lead or tail layers)."""
+    from repro_torch.tree import tree_map
+    return {**params, "blocks": tree_map(lambda t: t[:n], params["blocks"])}
+
+
 def _feature_runtime(cache_len, page_size=16, prefix_cache=False, spec=None, kv_dtype="int8",
                      **sched):
     """``int8_spoga`` over paged KV (int8 unless ``kv_dtype`` says
@@ -1662,7 +1736,7 @@ def phase_checkpoint(card, params, d):
     save_s = time.perf_counter() - t0
     nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
     t0 = time.perf_counter()
-    llm = LLM(arch="llama3.2-1b", runtime=_feature_runtime(512), checkpoint_dir=d)
+    llm = LLM(config=_feature_config(), runtime=_feature_runtime(512), checkpoint_dir=d)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     got, want = _leaves(llm.params), _leaves(params)
@@ -1686,7 +1760,7 @@ def _features_run(params, runtime, arrivals, label):
     attend the gathered pages in plain torch).  Returns (engine, metrics,
     streams, launches)."""
     from repro_torch.api import LLM
-    engine = LLM(arch="llama3.2-1b", params=params, runtime=runtime).engine
+    engine = LLM(config=_feature_config(), params=params, runtime=runtime).engine
     reset_counts()
     metrics = engine.run(arrivals)
     torch.cuda.synchronize()
@@ -1884,7 +1958,7 @@ def phase_feature_parity(card, params):
     queue 3); every flip is printed with its margin."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
-    full = get_config("llama3.2-1b").with_(quant_mode="int8_spoga")
+    full = _feature_config().with_(quant_mode="int8_spoga")
     small = full.with_(quant_mode="bf16", n_layers=2)
     small_params = init_params(small, seed=3, device="cuda")
     rng = np.random.default_rng(8)
@@ -2020,11 +2094,11 @@ def _counted(engine, label, drive):
     return metrics, launches
 
 
-def _spec_engine(params, cache_len, spec=None, arch="llama3.2-1b", config=None, **kw):
-    """An ``int8_spoga`` paged engine through ``LLM``: of ``arch``, or of
-    ``config`` (a cut-down depth) when given."""
+def _spec_engine(params, cache_len, spec=None, config=None, **kw):
+    """An ``int8_spoga`` paged engine through ``LLM`` of ``config`` (default:
+    phases 7-8's llama, ``_feature_config``)."""
     from repro_torch.api import LLM
-    named = dict(config=config) if config is not None else dict(arch=arch)
+    named = dict(config=config if config is not None else _feature_config())
     return LLM(**named, params=params, device="cuda",
                runtime=_feature_runtime(cache_len, spec=spec, **kw)).engine
 
@@ -2150,7 +2224,7 @@ def phase_presets(card, ckpt_dir):
         path = Path(d) / "int8-byte-serving.json"
         path.write_text(json.dumps(preset.to_dict()))
         require(load_runtime(str(path)) == preset, "preset: the JSON round trip differs")
-    llm = LLM(arch="llama3.2-1b", runtime=load_runtime("int8-byte-serving"),
+    llm = LLM(config=_feature_config(), runtime=load_runtime("int8-byte-serving"),
               checkpoint_dir=ckpt_dir)
     engine = llm.build_engine(128, 32)
     arrivals = _traffic(8, engine.cfg.vocab_size, ENGINE_SEED)
@@ -2231,7 +2305,7 @@ def phase_spec(card, params, prefix):
     spec-off streams, and slot-mode speculation (printed, not gated)."""
     from repro_torch.configs import default_cache_len, get_config
     from repro_torch.spec import SpecConfig
-    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    cfg = _feature_config().with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
     arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
     cache_len = default_cache_len(128, 32)
     off_engine = _spec_engine(params, cache_len)
@@ -2325,15 +2399,21 @@ def phase_spec(card, params, prefix):
 
 
 def phase_sampling(card, params):
-    """(d) A stochastic request (temperature 0.8, top_k 20, seed 5) served
-    alone and again, submitted first, beside three neighbours (two greedy,
-    one stochastic with seed 9) that share its prefills and decode steps.
-    Gated: the two streams identical, the same seed twice the same stream,
-    ``top_k=1`` the greedy stream; under speculation the mixed batch
-    decodes plainly (no verify dispatch) and its streams equal spec off."""
+    """(d) On phase 7's model a stochastic request (temperature 0.8, top_k
+    20, seed 5) served alone and again, submitted first, beside three
+    neighbours (two greedy, one stochastic with seed 9) that share its
+    prefills and decode steps.  Gated: the two streams identical, the same
+    seed twice the same stream, ``top_k=1`` the greedy stream up to the
+    first row whose top two logits are equal (``top_k`` keeps every value
+    at or above the k-th largest, as the reference does, so there it may
+    draw either: the rows the sampler saw are kept, and the margin of the
+    row where the streams part is printed); under speculation the mixed
+    batch decodes plainly (no verify dispatch) and its streams equal spec
+    off."""
     import dataclasses
     from repro_torch.configs import default_cache_len
     from repro_torch.serving import SamplingParams
+    from repro_torch.serving import engine as engine_mod
     from repro_torch.spec import SpecConfig
     sto = SamplingParams(**STOCHASTIC)
     rng = np.random.default_rng(ENGINE_SEED + 5)
@@ -2364,15 +2444,39 @@ def phase_sampling(card, params):
     greedy = solo(None)
     require(mixed[0] == alone, "sampling: the stream changed beside neighbours")
     require(solo(sto) == alone, "sampling: the same seed gave another stream")
-    require(solo(dataclasses.replace(sto, top_k=1)) == greedy,
-            "sampling: top_k=1 is not the greedy stream")
+    rows = []     # the logits row the sampler saw for each token of the top_k=1 stream
+    draw = engine_mod.sample_tokens
+
+    def spy(logits, temperature, top_k, greedy_, keys):
+        lane = next(i for i, (k, g) in enumerate(zip(top_k, greedy_)) if k == 1 and not g)
+        rows.append(logits[lane].float().cpu())
+        return draw(logits, temperature, top_k, greedy_, keys)
+
+    engine_mod.sample_tokens = spy
+    try:
+        top1 = solo(dataclasses.replace(sto, top_k=1))
+    finally:
+        engine_mod.sample_tokens = draw
+    require(len(rows) == len(top1), f"sampling: {len(rows)} rows seen for {len(top1)} tokens")
+    tie = "no tie"
+    if top1 != greedy:
+        idx = next(i for i, (a, b) in enumerate(zip(top1, greedy)) if a != b)
+        row = rows[idx]
+        _, ulps = _top2(row)
+        both = bool(row[top1[idx]] == row.max() and row[greedy[idx]] == row.max())
+        tie = (f"parts from greedy at token {idx} ({top1[idx]} vs {greedy[idx]}), on a row "
+               f"whose top-2 margin is {ulps:.3g} bf16 ulps, both tokens "
+               f"{'at' if both else 'not both at'} its maximum")
+        print(f"[spec] (d) top_k=1 {tie}", flush=True)
+        require(ulps == 0 and both, f"sampling: top_k=1 is not the greedy stream: it {tie}")
     require(alone != greedy, "sampling: the stochastic stream is the greedy one")
     spec_mixed, m = serve(mixed_reqs, spec=SpecConfig(enabled=True, k=SPEC_K))
     require(m.verify_dispatches == 0, f"sampling: {m.verify_dispatches} verify dispatches "
                                       f"in a batch with stochastic lanes")
     require(spec_mixed == mixed, "sampling: spec on changed a mixed batch's streams")
     print(f"[spec] (d) stochastic sampling (T 0.8, top_k 20, seed 5, 24 tokens): alone == beside "
-          f"3 neighbours == again; top_k=1 == greedy; {len(set(alone))} distinct tokens; under "
+          f"3 neighbours == again; top_k=1 == greedy ({tie}); {len(set(alone))} distinct tokens; "
+          f"under "
           f"spec the mixed batch ran {m.decode_steps} plain decode steps, 0 verify dispatches, "
           f"streams equal [{card}]", flush=True)
     return {"distinct_tokens": len(set(alone))}
@@ -2427,7 +2531,7 @@ def phase_verify_profile(card, params):
         spoga_gemm_dequant,
         spoga_gemm_dequant_plain,
     )
-    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    cfg = _feature_config().with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
     steps = 4
     wall_plain = _counted_steps(_verify_busy_engine(cfg, params), steps, "verify steps")
     engine = _verify_busy_engine(cfg, params)
@@ -2590,9 +2694,9 @@ def phase_busy_chunking(card, params):
 
 
 def phase_spec_serving(card, params, ckpt_dir):
-    """Phase 8: (a) presets, (b) the prefix cache, (c) speculation, (d)
-    stochastic sampling, (e) the verify step's time profile; then (b')
-    chunked prefill under busy decode."""
+    """Phase 8 on phase 7's model (``params``): (a) presets, (b) the prefix
+    cache, (c) speculation, (d) stochastic sampling, (e) the verify step's
+    time profile; then (b') chunked prefill under busy decode."""
     out = {"presets": phase_presets(card, ckpt_dir),
            "prefix": phase_prefix(card, params)}
     out["spec"] = phase_spec(card, params, out["prefix"])
@@ -2623,12 +2727,12 @@ ARCH_KN = {
 # time budget: each arch keeps its full width, block pattern and layer
 # kinds (recurrentgemma keeps its two-layer tail after whole periods);
 # every launch gate is computed from the cut config
-MLA_LAYERS = 4            # of minicpm3-4b's 62
+MLA_LAYERS = 2            # of minicpm3-4b's 62
 DEEPSEEK_LAYERS = 4       # of deepseek-moe-16b's 28: 1 dense + 3 MoE (8 in PRs 20-22)
-GRANITE_LAYERS = 8        # of granite-moe-3b-a800m's 32
+GRANITE_LAYERS = 4        # of granite-moe-3b-a800m's 32
 RECURRENTGEMMA_LAYERS = 8  # of recurrentgemma-9b's 38: 2 periods + the 2-layer tail
-LLAVA_LAYERS = 8          # of llava-next-mistral-7b's 32
-SEAMLESS_LAYERS = 8       # of seamless-m4t-large-v2's 24 encoder and 24 decoder layers
+LLAVA_LAYERS = 4          # of llava-next-mistral-7b's 32
+SEAMLESS_LAYERS = 4       # of seamless-m4t-large-v2's 24 encoder and 24 decoder layers
 
 
 def _arch_params(arch, n_layers=None, config=None):
@@ -2683,7 +2787,7 @@ def phase_mla(card):
     params = _arch_params(arch, MLA_LAYERS)
     vocab = config.vocab_size
     arrivals = _traffic(8, vocab, ENGINE_SEED)
-    kw = dict(arch=arch, config=config, kv_dtype="bf16")
+    kw = dict(config=config, kv_dtype="bf16")
     out = {}
     engine = _spec_engine(params, default_cache_len(128, 32), **kw)
     engine_cfg = engine.cfg
@@ -2833,9 +2937,8 @@ def phase_moe(card, arch, n_requests, kv_dtype, n_layers=None):
     from repro_torch.spec import SpecConfig
     from repro_torch.configs import get_config
     params = _arch_params(arch, n_layers)
-    config = None if n_layers is None else get_config(arch).with_(n_layers=n_layers)
-    engine = _spec_engine(params, default_cache_len(128, 32), arch=arch, config=config,
-                          kv_dtype=kv_dtype)
+    config = get_config(arch) if n_layers is None else get_config(arch).with_(n_layers=n_layers)
+    engine = _spec_engine(params, default_cache_len(128, 32), config=config, kv_dtype=kv_dtype)
     cfg = engine.cfg
     arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)[:n_requests]
     _, rep, launches = _arch_run(card, engine, arrivals, f"{arch} paged {kv_dtype} KV")
@@ -4183,6 +4286,333 @@ def phase_train(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. distribution
+# ---------------------------------------------------------------------------
+
+TP_MISTRAL_LAYERS = 4      # of mistral-large-123b's 88
+TP_DEEPSEEK_LAYERS = 4     # of deepseek-moe-16b's 28: 1 dense + 3 MoE
+TP_REQUESTS = 4            # of phase 4's 8 requests in (c) and (d)
+TP_TRAIN_LAYERS = 2
+TP_TRAIN = dict(batch=4, seq=256, steps=2)
+# the projections of a tp=2 rank at M=4: (kernel, K, N) -- q, k/v, gate/up
+# column-parallel on spoga_gemm_dequant, o and down row-parallel on spoga_gemm
+TP_KN = {
+    "llama3.2-1b": [("spoga_gemm_dequant", 2048, 1024), ("spoga_gemm_dequant", 2048, 256),
+                    ("spoga_gemm_dequant", 2048, 4096), ("spoga_gemm", 1024, 2048),
+                    ("spoga_gemm", 4096, 2048)],
+    "mistral-large-123b": [("spoga_gemm_dequant", 12288, 6144),
+                           ("spoga_gemm_dequant", 12288, 512),
+                           ("spoga_gemm_dequant", 12288, 14336),
+                           ("spoga_gemm", 6144, 12288), ("spoga_gemm", 14336, 12288)],
+}
+
+
+def _tp_config(arch, n_layers=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if n_layers is None else cfg.with_(n_layers=n_layers)
+
+
+def _tp_runtime(mesh):
+    """Phase 4's serving setup: ``int8_spoga``, int8 paged KV, pages of 16,
+    4 lanes, buckets of 32/64/128."""
+    from repro_torch.api import KVConfig, QuantRuntime, RuntimeConfig, SchedulerConfig
+    return RuntimeConfig(quant=QuantRuntime(mode="int8_spoga"),
+                         kv=KVConfig(mode="paged", dtype="int8", page_size=16),
+                         scheduler=SchedulerConfig(n_slots=4, prefill_buckets=(32, 64, 128)),
+                         mesh=mesh)
+
+
+def _tp_serve(cfg, arrivals, mesh, label, device="cuda"):
+    """``LLM(config=cfg, runtime=_tp_runtime(mesh))`` with weights from
+    ``init_params(seed=0)`` (sliced to the rank's part on a mesh) serving
+    ``arrivals``, every kernel count at 0 just before and read just after,
+    gated exactly per rank: at tp>1 each layer runs its 5 column-parallel
+    projections on ``spoga_gemm_dequant`` and its 2 row-parallel ones (o,
+    down) on ``spoga_gemm``, at tp=1 all 7 on ``spoga_gemm_dequant``, for
+    every decode step and prefill dispatch; ``paged_attention`` once a
+    layer a decode step; no plain version.  Returns a dict of the streams,
+    the report, the launches, the rank's param bytes and its peak memory."""
+    from repro_torch.api import LLM
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    llm = LLM(config=cfg, runtime=_tp_runtime(mesh), seed=ENGINE_SEED, device=device)
+    engine = llm.build_engine(128, 32)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    reset_counts()
+    metrics = engine.run(arrivals)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    tp = mesh.tp if mesh.enabled else 1
+    expect = ("spoga_gemm_dequant", "spoga_gemm", "paged_attention") if tp > 1 else \
+        ("spoga_gemm_dequant", "paged_attention")
+    check_counts(launches, plain, expect, label)
+    rep = metrics.report()
+    calls = rep["decode_steps"] + rep["prefill_dispatches"]
+    layers = cfg.n_layers
+    want = {"spoga_gemm_dequant": (5 if tp > 1 else 7) * layers * calls,
+            "spoga_gemm": (2 * layers * calls if tp > 1 else 0),
+            "paged_attention": layers * rep["decode_steps"]}
+    for name, n in want.items():
+        require(launches[name] == n, f"{label}: {name} launched {launches[name]} times, want {n}")
+    streams = _check_finished(metrics, arrivals, cfg.vocab_size, label)
+    mgr = engine.store.manager
+    mgr.check_invariants()
+    require(mgr.pages_in_use == 0, f"{label}: pages leaked after the run")
+    param_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(llm.params))
+    out = dict(streams=streams, report={k: rep[k] for k in (
+        "tokens_per_s", "decode_step_mean_s", "ttft_mean_s", "decode_steps",
+        "prefill_dispatches", "generated_tokens", "wall_s")},
+        launches={k: launches[k] for k in want}, per_step={k: v // max(calls, 1) for k, v in
+                                                           want.items()},
+        param_bytes=param_bytes, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        init_s=t_init, kv_heads=tuple(engine.store.cache["blocks"][0]["kp"].shape)[-2])
+    del llm, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_line(label, res, card):
+    r = res["report"]
+    print(f"[tp] {label}: {r['generated_tokens']} tokens, {r['tokens_per_s']:.2f} tok/s, decode "
+          f"step mean {1e3 * r['decode_step_mean_s']:.2f} ms ({r['decode_steps']} steps, "
+          f"{r['prefill_dispatches']} prefill dispatches), TTFT mean "
+          f"{1e3 * r['ttft_mean_s']:.1f} ms; launches {res['launches']}; params "
+          f"{res['param_bytes'] / 2**30:.3f} GiB, KV heads {res['kv_heads']}, peak memory "
+          f"{res['peak_gib']:.2f} GiB [{card}]", flush=True)
+
+
+def _digest(tree) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for _, t in _leaves(tree):
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _tp_gemm_check(rank, tp):
+    """The row- and column-parallel ``linear`` at llama's and mistral's
+    projection shapes (M=4, bf16 activations) against the unsharded call on
+    the same card: bitwise.  Launches here are outside any counted run."""
+    from repro_torch.models.layers import linear
+    from repro_torch.runtime import collectives as col
+    ax = col.model_axis()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    checked = 0
+    for arch, shapes in TP_KN.items():
+        for kernel, k, n in shapes:
+            # the unsharded projection: (K*tp, N) for a row-parallel one,
+            # (K, N*tp) for a column-parallel one
+            kk, nn = (k * tp, n) if kernel == "spoga_gemm" else (k, n * tp)
+            x = torch.randn((4, kk), generator=gen, device="cuda").to(torch.bfloat16)
+            w = (torch.randn((kk, nn), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+            with col.model_parallel(None):
+                full = linear(x, w, "int8_spoga")
+            if kernel == "spoga_gemm":
+                got = linear(x[:, rank * k:(rank + 1) * k], w[rank * k:(rank + 1) * k],
+                             "int8_spoga", row=True)
+                want = full
+            else:
+                got = linear(x, w[:, rank * n:(rank + 1) * n], "int8_spoga")
+                want = full[:, rank * n:(rank + 1) * n]
+            require(torch.equal(got, want), f"{arch} {kernel} K={k} N={n}: the sharded "
+                    f"projection differs from the unsharded one by "
+                    f"{(got.float() - want.float()).abs().max().item()}")
+            checked += 1
+    require(ax is not None and ax.size == tp, "the model axis is not active")
+    return checked
+
+
+def _tp_rank(rank, dev):
+    """Phase 14 (b)-(e) in one of two gloo ranks that share ``cuda:0``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.api import MeshConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import _loss_and_grads, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim.optimizers import adamw_init
+    from repro_torch.runtime import collectives as col
+    from repro_torch.runtime.sharding import param_specs
+    from repro_torch.shard import tree_device_bytes
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    out = {}
+    tp2 = MeshConfig(tp=2)
+    t0 = time.perf_counter()
+    # (b) full-width llama3.2-1b, phase 4's traffic
+    cfg = _tp_config("llama3.2-1b")
+    out["llama"] = _tp_serve(cfg, _traffic(8, cfg.vocab_size, ENGINE_SEED), tp2,
+                             f"(b) rank {rank} llama3.2-1b tp=2")
+    mesh = make_host_mesh(1, 2, backend="gloo", device=dev)
+    with col.model_parallel(mesh):
+        out["gemm_checked"] = _tp_gemm_check(rank, 2)
+    out["t_b"] = time.perf_counter() - t0
+    # (c) mistral-large-123b at full width, TP_MISTRAL_LAYERS layers
+    cfg = _tp_config("mistral-large-123b", TP_MISTRAL_LAYERS)
+    res = _tp_serve(cfg, _traffic(TP_REQUESTS, cfg.vocab_size, ENGINE_SEED), tp2,
+                    f"(c) rank {rank} mistral-large-123b tp=2")
+    meta = init_params(cfg, device="meta")
+    res["tree_device_bytes"] = tree_device_bytes(meta, param_specs(meta, mesh, cfg, fsdp=False),
+                                                 mesh)
+    out["mistral"] = res
+    out["t_c"] = time.perf_counter() - t0
+    # (d) deepseek-moe-16b, TP_DEEPSEEK_LAYERS layers, expert-parallel
+    cfg = _tp_config("deepseek-moe-16b", TP_DEEPSEEK_LAYERS)
+    out["deepseek"] = _tp_serve(cfg, _traffic(TP_REQUESTS, cfg.vocab_size, ENGINE_SEED), tp2,
+                                f"(d) rank {rank} deepseek-moe-16b tp=2")
+    out["t_d"] = time.perf_counter() - t0
+    # (e) dp=2 training, compression off and on
+    dmesh = make_host_mesh(2, 1, backend="gloo", device=dev)
+    data = col.axis(dmesh, "data")
+    cfg = _train_cfg(n_layers=TP_TRAIN_LAYERS, remat=False)
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, TP_TRAIN["seq"], TP_TRAIN["batch"],
+                                  seed=ENGINE_SEED, device=str(dev))
+    out["train"] = {}
+    for compress in (False, True):
+        tcfg = TrainConfig(**TRAIN_LR, fsdp=False, zero1=False, grad_compression=compress)
+        params = init_params(cfg, seed=ENGINE_SEED, device=dev)
+        opt = adamw_init(params, device=dev)
+        step = make_train_step(cfg, tcfg, mesh=dmesh)
+        reset_counts()
+        losses = []
+        for i in range(TP_TRAIN["steps"]):
+            params, opt, m = step(params, opt, {"tokens": pipe.global_batch_at(i)})
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        launches, plain = read_counts()
+        check_counts(launches, plain, ("spoga_gemm_dequant",),
+                     f"(e) rank {rank} dp=2 compression {compress}")
+        want = 7 * cfg.n_layers * TP_TRAIN["steps"]
+        require(launches["spoga_gemm_dequant"] == want,
+                f"(e) rank {rank}: {launches['spoga_gemm_dequant']} GEMM launches, want {want}")
+        out["train"][compress] = dict(losses=losses, digest=_digest(params),
+                                      launches=launches["spoga_gemm_dequant"])
+        del params, opt
+    # the compressed all-reduce of CUDA gradients against the same on the
+    # host, over the layers' gradient leaves (the 263 M-entry embedding's
+    # would take the host longer than the rest of (e))
+    params = init_params(cfg, seed=ENGINE_SEED, device=dev)
+    batch = pipe.global_batch_at(0).chunk(2)[rank]
+    _, grads = _loss_and_grads(params, cfg, TrainConfig(), {"tokens": batch})
+    grads = grads["blocks"]
+    on_card = col.compressed_psum_mean(grads, data)
+    on_host = col.compressed_psum_mean(_to_cpu(grads), data)
+    diff = [name for (name, a), (_, b) in zip(_leaves(on_card), _leaves(on_host))
+            if not torch.equal(a.cpu(), b)]
+    out["compressed_card_vs_cpu"] = dict(leaves=len(_leaves(on_card)), differ=diff)
+    out["t_e"] = time.perf_counter() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def phase_distribution(card):
+    """14. (a) ``MeshConfig(enable=True)`` on one NCCL rank against the
+    unsharded engine; (b)-(e) in two gloo ranks sharing the card."""
+    import torch.distributed as dist
+    from repro_torch.api import MeshConfig
+    from repro_torch.launch.mesh import spawn
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60)
+    compute_mode = mode.stdout.strip() if mode.returncode == 0 else "unknown"
+    print(f"[tp] compute mode {compute_mode!r}; (a) one NCCL rank, (b)-(e) two gloo ranks on "
+          f"cuda:0 (gloo stages every collective on a CUDA tensor through host memory)",
+          flush=True)
+    require("exclusive" not in compute_mode.lower(),
+            f"the card's compute mode is {compute_mode!r}: two ranks cannot share it")
+    t0 = time.perf_counter()
+    out = {"compute_mode": compute_mode}
+    # (a) and the tp=1 references
+    cfg = _tp_config("llama3.2-1b")
+    arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
+    ref = _tp_serve(cfg, arrivals, MeshConfig(), "(a) llama3.2-1b unsharded")
+    _tp_line("(a) llama3.2-1b unsharded", ref, card)
+    one = _tp_serve(cfg, arrivals, MeshConfig(enable=True), "(a) llama3.2-1b one NCCL rank")
+    _tp_line("(a) llama3.2-1b MeshConfig(enable=True), one NCCL rank", one, card)
+    require(dist.is_initialized() and dist.get_backend() == "nccl",
+            "(a) did not run on an NCCL process group")
+    require(one["streams"] == ref["streams"], "(a) the one-rank mesh changed the streams")
+    dist.destroy_process_group()
+    out["a"] = dict(unsharded=ref, one_rank=one)
+    mcfg = _tp_config("mistral-large-123b", TP_MISTRAL_LAYERS)
+    mref = _tp_serve(mcfg, _traffic(TP_REQUESTS, mcfg.vocab_size, ENGINE_SEED), MeshConfig(),
+                     "(c) mistral-large-123b tp=1")
+    _tp_line(f"(c) mistral-large-123b ({TP_MISTRAL_LAYERS} layers) tp=1", mref, card)
+    dcfg = _tp_config("deepseek-moe-16b", TP_DEEPSEEK_LAYERS)
+    dref = _tp_serve(dcfg, _traffic(TP_REQUESTS, dcfg.vocab_size, ENGINE_SEED),
+                     MeshConfig(), "(d) deepseek-moe-16b tp=1")
+    _tp_line(f"(d) deepseek-moe-16b ({TP_DEEPSEEK_LAYERS} layers) tp=1", dref, card)
+    print(f"[tp] (a) and the tp=1 references in {time.perf_counter() - t0:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    ranks = spawn(_tp_rank, 2, "gloo", device="shared")
+    print(f"[tp] (b)-(e): two ranks in {time.perf_counter() - t1:.1f} s", flush=True)
+    for rank, res in enumerate(ranks):
+        for key, want, label in (("llama", ref, "(b) llama3.2-1b"),
+                                 ("mistral", mref, "(c) mistral-large-123b"),
+                                 ("deepseek", dref, "(d) deepseek-moe-16b")):
+            _tp_line(f"{label} tp=2 rank {rank}", res[key], card)
+            require(res[key]["streams"] == want["streams"],
+                    f"{label}: rank {rank}'s tp=2 streams differ from tp=1")
+        m = res["mistral"]
+        print(f"[tp] (c) rank {rank}: params {m['param_bytes']} bytes, tree_device_bytes "
+              f"{m['tree_device_bytes']} ({m['param_bytes'] / 1e9:.3f} GB of "
+              f"{mref['param_bytes'] / 1e9:.3f} GB unsharded)", flush=True)
+        require(m["param_bytes"] == m["tree_device_bytes"],
+                f"(c) rank {rank}: param bytes differ from tree_device_bytes")
+        print(f"[tp] rank {rank}: {res['gemm_checked']} sharded projections bitwise their "
+              f"unsharded products; max_memory_allocated {res['peak_gib']:.2f} GiB; (b) done "
+              f"at {res['t_b']:.1f} s, (c) {res['t_c']:.1f} s, (d) {res['t_d']:.1f} s, (e) "
+              f"{res['t_e']:.1f} s", flush=True)
+        cc = res["compressed_card_vs_cpu"]
+        require(not cc["differ"], f"(e) rank {rank}: compressed_psum_mean on the card differs "
+                f"from the host in {cc['differ'][:4]}")
+        print(f"[tp] (e) rank {rank}: compressed_psum_mean over {cc['leaves']} gradient "
+              f"leaves bitwise equal on the card and the host", flush=True)
+    for compress in (False, True):
+        a, b = (r["train"][compress] for r in ranks)
+        require(a["digest"] == b["digest"], f"(e) compression {compress}: the ranks' params "
+                "differ after training")
+        require(a["losses"] == b["losses"], f"(e) compression {compress}: the ranks' losses "
+                "differ")
+        require(all(math.isfinite(x) for x in a["losses"]), "(e) a loss is not finite")
+        print(f"[tp] (e) dp=2, compression {compress}: losses {a['losses']}, params bitwise "
+              f"equal across ranks (sha256 {a['digest'][:16]}), {a['launches']} "
+              f"spoga_gemm_dequant launches a rank", flush=True)
+    out["ranks"] = ranks
+    out["references"] = dict(mistral=mref, deepseek=dref)
+    out["gemm"] = phase_tp_gemms(card)
+    print(f"[tp] phase 14 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def phase_tp_gemms(card):
+    """The two GEMM kernels at a tp=2 rank's projection shapes (M=4):
+    bitwise against their plain versions, timed against the bound and
+    ``torch._int_mm``."""
+    from repro_torch.kernels.spoga_gemm import spoga_gemm, spoga_gemm_plain
+    from repro_torch.kernels.spoga_gemm_dequant import (
+        spoga_gemm_dequant,
+        spoga_gemm_dequant_plain,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    table = {}
+    for arch, shapes in TP_KN.items():
+        for kernel, k, n in shapes:
+            spec, x, w, xs, ws = _gemm_operands(4, k, n, "int8_spoga", gen)
+            if kernel == "spoga_gemm_dequant":
+                require(torch.equal(spoga_gemm_dequant(x, w, xs, ws),
+                                    spoga_gemm_dequant_plain(x, w, xs, ws)),
+                        f"{kernel} K={k} N={n} differs from its plain version")
+                t = _gemm_timing(f"tp=2 {arch}", "int8_spoga", 4, k, n, gen, tag="tp")
+            else:
+                require(torch.equal(spoga_gemm(x, w), spoga_gemm_plain(x, w)),
+                        f"{kernel} K={k} N={n} differs from its plain version")
+                t = _int_gemm_timing(f"tp=2 {arch}", "int8_spoga", 4, k, n, gen, tag="tp")
+            table[(kernel, arch, k, n)] = t
+    return table
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -4215,9 +4645,11 @@ def main() -> int:
     long_prefill = phase_long_prefill(card, params)
     print(f"[time] phases 4-5b done at {time.perf_counter() - t0:.1f} s", flush=True)
     import tempfile
+    feature_params = _first_layers(params, FEATURE_LAYERS)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt_dir:
-        features = phase_features(card, params, ckpt_dir)
-        serving = phase_spec_serving(card, params, ckpt_dir)
+        features = phase_features(card, feature_params, ckpt_dir)
+        serving = phase_spec_serving(card, feature_params, ckpt_dir)
+    del feature_params
     del params
     torch.cuda.empty_cache()
     phase_default_llm(card)
@@ -4234,6 +4666,8 @@ def main() -> int:
     print(f"[time] phase 12 done at {time.perf_counter() - t0:.1f} s", flush=True)
     train = phase_train(card)
     print(f"[time] phase 13 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    dist = phase_distribution(card)
+    print(f"[time] phase 14 done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -4300,6 +4734,24 @@ def main() -> int:
                    for label, run in train["dataflows"].items()}}
         return {label: launches[name] for label, launches in runs.items()}
 
+    def dist_launches(name):
+        """A kernel's launches in each of phase 14's counted serving runs (per
+        rank for the tp=2 ranks)."""
+        runs = {"(a) llama3.2-1b tp=1": dist["a"]["unsharded"],
+                "(a) llama3.2-1b one NCCL rank": dist["a"]["one_rank"],
+                "(c) mistral-large-123b tp=1": dist["references"]["mistral"],
+                "(d) deepseek-moe-16b tp=1": dist["references"]["deepseek"],
+                **{f"{part} {arch} tp=2 rank {r}": res[arch]
+                   for r, res in enumerate(dist["ranks"])
+                   for part, arch in (("(b)", "llama"), ("(c)", "mistral"),
+                                      ("(d)", "deepseek"))}}
+        return {label: run["launches"][name] for label, run in runs.items()}
+
+    def dist_shapes(kernel):
+        return {f"{arch} tp=2 W8A8 M=4 K={k} N={n}": {
+            **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
+            for (kname, arch, k, n), t in dist["gemm"].items() if kname == kernel}
+
     def train_shapes():
         return {f"W8A8 M={m} K={k} N={n}": {**t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
                 for (m, k, n), t in train["gemm"].items()}
@@ -4335,17 +4787,20 @@ def main() -> int:
                         launches_training=train_launches("spoga_gemm_dequant"),
                         launches_per_training_step=train["full"]["per_step"],
                         training_shapes=train_shapes(),
-                        training_step=train["full"]["profile"])]
+                        training_step=train["full"]["profile"],
+                        launches_distribution=dist_launches("spoga_gemm_dequant"),
+                        distribution_shapes=dist_shapes("spoga_gemm_dequant"))]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
         a, long, short = (dict(attn[(kind, name)]) for name in ("main", "long", "short"))
         kernels.append({"name": f"paged_attention/{kind}", "route": "cuda",
                         "source": "src/repro_torch/csrc/paged_attention.cu",
                         "replaces": "src/repro/kernels/paged_attention.py:91",
-                        "launches": count, "max_abs_err": max(a.pop("max_abs_err"),
-                                                              long["max_abs_err"],
-                                                              short["max_abs_err"]),
-                        **a, "long_context": long, "long_table_short_lanes": short,
+                        "launches": count,
+                        "max_abs_err": max(attn[(kind, name)]["max_abs_err"]
+                                           for name in ATTN_SHAPES),
+                        **{k: v for k, v in a.items() if k != "max_abs_err"},
+                        "long_context": long, "long_table_short_lanes": short,
                         "decode_profile_ms_per_step": {
                             k: v and v["attn_ms"] for k, v in attn_profile.items()},
                         **({"launches_engine_features": feature_launches("paged_attention"),
@@ -4356,17 +4811,21 @@ def main() -> int:
                         "launches_recurrent": recurrent_launches("paged_attention"),
                         "launches_encdec_frontends": encdec_launches("paged_attention"),
                         "launches_training": train_launches("paged_attention"),
+                        **({"launches_distribution": dist_launches("paged_attention")}
+                           if kind == "int8" else {}),
                         **({"launches_observability_record":
                             observed["launches"]["paged_attention"]} if kind == "int8" else {}),
                         "arch_shapes": {name: attn[(kind, name)]
-                                        for name in ("deepseek", "granite")},
+                                        for name in ATTN_ARCH_SHAPES},
                         "card": card})
     unfused, deas_run = facade["spoga unfused"], facade["deas"]
     kernels.append(gemm_row("spoga_gemm", "src/repro_torch/csrc/spoga_gemm.cu",
                             "src/repro/kernels/spoga_gemm.py:116", unfused["spoga_gemm"], 1,
                             int_err, at(int_gemm, lambda m: ("w8a8", m, 2048, 8192)),
                             launches_recurrent=recurrent_launches("spoga_gemm"),
-                            launches_training=train_launches("spoga_gemm")))
+                            launches_training=train_launches("spoga_gemm"),
+                            launches_distribution=dist_launches("spoga_gemm"),
+                            distribution_shapes=dist_shapes("spoga_gemm")))
     kernels.append(gemm_row("nibble_gemm", "src/repro_torch/csrc/deas_gemm.cu",
                             "src/repro/kernels/deas_gemm.py:50", deas_run["nibble_gemm"], 4,
                             deas_err, at(nibble, lambda m: (m, 2048, 8192)),

@@ -20,12 +20,14 @@ or from JSON: ``LLM("llama3.2-1b", runtime=load_runtime("int8-byte-serving"))``
 the static-batch lockstep baseline the engine is held against.
 ``RuntimeConfig(obs=ObsConfig(...))`` turns on spans, the event log, the
 step profiler, ``/metrics``, the numerics watchdog and the flight
-recorder (``LLM.replay``).
+recorder (``LLM.replay``).  ``RuntimeConfig(mesh=MeshConfig(tp=2))`` serves
+tensor-parallel over two launched ranks (``repro_torch.launch.mesh``).
 """
 
 from repro_torch.api.baseline import serve_batch
 from repro_torch.api.config import (
     KVConfig,
+    MeshConfig,
     QuantRuntime,
     RuntimeConfig,
     SamplingDefaults,
@@ -45,6 +47,7 @@ from repro_torch.spec.config import SpecConfig
 __all__ = [
     "KVConfig",
     "LLM",
+    "MeshConfig",
     "ObsConfig",
     "Observability",
     "QuantRuntime",

@@ -13,6 +13,8 @@ fields, defaults and validation messages.
                          event log, the step profiler, ``/metrics``, the
                          numerics watchdog and the flight recorder; all
                          off by default.
+* ``MeshConfig``       — the (data, model) mesh of sharded serving
+                         (``repro_torch/shard/``); off by default.
 
 ``resolve()`` derives the ``ModelConfig`` overrides (``ModelConfig.with_``)
 and the ``EngineConfig`` the port's engine consumes.
@@ -24,12 +26,9 @@ reuse).  ``to_dict``/``from_dict`` round-trip through plain JSON dicts
 ``get_preset``, ``list_presets``, the five built-in ones) and
 ``load_runtime`` (a JSON file or a preset name) are the reference's.
 
-The ``mesh`` sub-config is not ported: ``None`` stands for the
-reference's disabled default, ``to_dict`` writes that default, and
-``from_dict`` accepts it (or any part of it).  Any other value raises
-``NotImplementedError`` naming ROADMAP queue 1, item 10, from
-:meth:`RuntimeConfig.check_served` (called by ``resolve_engine`` and by
-``LLM``) or from ``from_dict``.
+A ``mesh`` that is not a ``MeshConfig`` is refused with ``TypeError`` by
+:meth:`RuntimeConfig.check_served` (called by ``resolve_engine``,
+``build_policies``, ``to_dict`` and ``LLM``).
 """
 
 from __future__ import annotations
@@ -63,29 +62,6 @@ from repro_torch.spec.config import SpecConfig
 
 # None = auto (the kernel on CUDA tensors, the gather twin on CPU tensors)
 _PAGED_ATTN_IMPLS = (None, "gather")
-
-
-# what the reference's ``to_dict`` writes for its disabled MeshConfig; the
-# port writes the same, so its JSON loads in the reference
-_MESH_OFF = {"tp": 1, "dp": 1, "enable": None, "axes": ["data", "model"]}
-
-
-def _mesh_not_ported() -> NotImplementedError:
-    return NotImplementedError("RuntimeConfig.mesh (sharded serving) is not ported yet "
-                               "(ROADMAP queue 1, item 10)")
-
-
-def _check_mesh_off(sub: Optional[dict]) -> None:
-    """Accept the ``mesh`` sub-dict that ``to_dict`` writes, or any part of
-    it; any other value turns on sharded serving, which is not ported, and
-    raises ``NotImplementedError``."""
-    if sub is None:
-        return
-    unknown = sorted(set(sub) - set(_MESH_OFF))
-    if unknown:
-        raise TypeError(f"RuntimeConfig.mesh: unexpected keys {unknown}")
-    if {**_MESH_OFF, **sub} != _MESH_OFF:
-        raise _mesh_not_ported()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,6 +138,41 @@ class KVConfig:
                              "(shared pages live in the page pool)")
         if self.prefix_min_pages < 1:
             raise ValueError("KVConfig.prefix_min_pages must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Mesh of sharded serving (``repro_torch/shard/``).
+
+    ``tp`` shards attention heads, MoE experts and GEMM operands over the
+    "model" axis; ``dp`` is data parallelism (engine replicas in serving,
+    batch slices in training).  ``enable=True`` at ``tp=1`` builds a
+    genuine one-rank mesh -- the bitwise-vs-unsharded test configuration;
+    the default ``enable=None`` turns the mesh on iff an axis exceeds 1.
+    Axis names stay ``("data", "model")`` to match the sharding rules in
+    ``runtime/sharding.py``; they are configurable only so that the JSON
+    form is explicit about what the mesh means.  A mesh of ``dp * tp > 1``
+    runs in that many ranks (``torchrun`` or ``launch.mesh.spawn``)."""
+
+    tp: int = 1
+    dp: int = 1
+    enable: Optional[bool] = None
+    axes: Tuple[str, str] = ("data", "model")
+
+    def __post_init__(self):
+        if self.tp < 1:
+            raise ValueError("MeshConfig.tp must be >= 1")
+        if self.dp < 1:
+            raise ValueError("MeshConfig.dp must be >= 1")
+        object.__setattr__(self, "axes", tuple(str(a) for a in self.axes))
+        if len(self.axes) != 2 or len(set(self.axes)) != 2:
+            raise ValueError(f"MeshConfig.axes must be two distinct axis "
+                             f"names, got {self.axes!r}")
+
+    @property
+    def enabled(self) -> bool:
+        return self.enable if self.enable is not None else (
+            self.tp > 1 or self.dp > 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,9 +260,11 @@ class RuntimeConfig:
     kv: KVConfig = dataclasses.field(default_factory=KVConfig)
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     sampling: SamplingDefaults = dataclasses.field(default_factory=SamplingDefaults)
-    # sharded serving: the reference's MeshConfig is not ported yet (ROADMAP
-    # queue 1, item 10); None is its disabled default
-    mesh: Optional[object] = None
+    # sharded serving (repro_torch/shard/): the (data, model) mesh.  The
+    # default 1x1 config is disabled -- the engine runs exactly the
+    # unsharded path; tp>1 (or enable=True) shards params, pools and every
+    # engine dispatch over the launched ranks
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     # speculative decoding (repro_torch/spec/): draft-verify greedy decode,
     # off by default (SpecConfig.enabled=False)
     spec: SpecConfig = dataclasses.field(default_factory=SpecConfig)
@@ -282,43 +295,38 @@ class RuntimeConfig:
             raise ValueError("largest prefill bucket exceeds kv.cache_len")
 
     def check_served(self) -> None:
-        """Raise ``NotImplementedError`` for a setting the port's engine
-        does not serve yet, naming its ROADMAP item: a ``mesh`` sub-config
-        (item 10)."""
-        if self.mesh is not None:
-            raise _mesh_not_ported()
+        """Raise for a setting the port cannot serve: a ``mesh`` that is not
+        a ``MeshConfig`` (``TypeError``)."""
+        if not isinstance(self.mesh, MeshConfig):
+            raise TypeError(f"RuntimeConfig.mesh must be a MeshConfig, got "
+                            f"{type(self.mesh).__name__}")
 
     # -- serialization -----------------------------------------------------
     def to_dict(self) -> dict:
-        """Plain JSON-serializable nested dict (tuples become lists); the
-        unported ``mesh`` appears as the reference's disabled default."""
+        """Plain JSON-serializable nested dict (tuples become lists)."""
         self.check_served()
-        d = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
-        for name in ("quant", "kv", "scheduler", "sampling", "spec", "obs"):
-            d[name] = dataclasses.asdict(d[name])
+        d = dataclasses.asdict(self)
         b = d["scheduler"]["prefill_buckets"]
         if isinstance(b, tuple):
             d["scheduler"]["prefill_buckets"] = list(b)
-        d["mesh"] = copy.deepcopy(_MESH_OFF)
+        d["mesh"]["axes"] = list(d["mesh"]["axes"])
         return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "RuntimeConfig":
         """Inverse of ``to_dict``; also accepts partial dicts (missing keys
-        take their defaults) and the reference's ``to_dict`` output.  A
-        ``mesh`` sub-dict other than (part of) the disabled default raises
-        ``NotImplementedError``."""
+        take their defaults) and the reference's ``to_dict`` output."""
         d = copy.deepcopy(dict(d))
         sched = dict(d.pop("scheduler", {}))
         b = sched.get("prefill_buckets")
         if b is not None and not isinstance(b, str):
             sched["prefill_buckets"] = tuple(b)
-        _check_mesh_off(d.pop("mesh", None))
         return cls(
             quant=QuantRuntime(**d.pop("quant", {})),
             kv=KVConfig(**d.pop("kv", {})),
             scheduler=SchedulerConfig(**sched),
             sampling=SamplingDefaults(**d.pop("sampling", {})),
+            mesh=MeshConfig(**d.pop("mesh", {})),
             spec=SpecConfig(**d.pop("spec", {})),
             obs=ObsConfig(**d.pop("obs", {})),
             **d,

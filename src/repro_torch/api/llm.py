@@ -30,10 +30,14 @@ Every decoder-only arch serves: ``llama3.2-1b``, ``mistral-nemo-12b``
 (GQA), ``minicpm3-4b`` (MLA), ``deepseek-moe-16b`` and
 ``granite-moe-3b-a800m`` (routed experts), ``xlstm-125m`` (mLSTM and
 sLSTM cells) and ``recurrentgemma-9b`` (RG-LRU cells and local attention
-over a window ring).  ``mistral-large-123b`` builds
-(GQA, reduced or at full width on a host that holds it) but at full width
-its 229 GiB of bf16 weights do not fit one card; serving it waits for
-sharding (ROADMAP queue 1, item 10).  Every runtime the
+over a window ring).  ``mistral-large-123b`` (229 GiB of bf16 weights)
+serves tensor-parallel: ``RuntimeConfig(mesh=MeshConfig(tp=N))`` in N
+launched ranks (``torchrun --nproc-per-node N`` or
+``launch.mesh.spawn``), each rank building the same ``LLM``; the weights
+are made (or loaded) whole and sliced to the rank's part
+(``shard.shard_params``), so a rank must hold the whole tree once.  GQA
+and routed-expert archs run at tp>1; MLA, the recurrent archs and the
+numerics watchdog are refused there (ROADMAP queue 1, item 10.2).  Every runtime the
 reference can build for them serves, the five presets included
 (``load_runtime("int8-byte-serving")``): the prefix cache with
 prefix-aware admission, speculative decoding (``RuntimeConfig(spec=
@@ -54,8 +58,7 @@ per-request timelines on the outputs, a live ``/metrics`` server
 (``metrics_port``; ``llm.metrics_server``), the numerics watchdog
 (``watchdog``) and the flight recorder (``record_path``), whose bundles
 ``LLM.replay`` reproduces bitwise.  ``close()`` stops the server and
-closes the sinks.  Not ported yet, and refused with
-``NotImplementedError``: the ``mesh`` setting (ROADMAP queue 1, item 10).
+closes the sinks.
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.policies import EnginePolicies
 from repro_torch.serving.request import default_detokenizer
 from repro_torch.serving.sampling import SamplingParams
+from repro_torch.shard import build_mesh, local_config, shard_params
 
 Prompt = Sequence[int]
 
@@ -103,12 +107,18 @@ class LLM:
             base = reduce_config(base)
         self.config = self.runtime.resolve_model(base)
         self.device = resolve_device(device)
+        self.mesh = build_mesh(self.runtime.mesh, device=self.device)
+        if self.mesh is not None:
+            local_config(self.config, self.mesh.shape["model"])   # refuses early
         if checkpoint_dir is not None:
             _, tree, _ = restore_checkpoint(
                 checkpoint_dir, None, init_params(self.config, device="meta"), device=self.device)
             params = params_from_jax(tree, self.config, self.device)
         self.params = (params if params is not None
                        else init_params(self.config, seed=seed, device=self.device))
+        if self.mesh is not None:
+            # the rank's part of the weights (pure TP, as the reference serves)
+            self.params = shard_params(self.params, self.mesh, self.config)
         self.tokenizer = tokenizer or default_detokenizer
         self._policies = policies if policies is not None else self.runtime.build_policies()
         # one observability bundle per LLM: it outlives engine rebuilds
@@ -196,7 +206,7 @@ class LLM:
             ecfg = dataclasses.replace(
                 ecfg, cache_len=max(ecfg.cache_len, old.engine_cfg.cache_len))
         self._engine = ServingEngine(self.config, self.params, ecfg, device=self.device,
-                                     policies=self._policies, obs=self.obs)
+                                     policies=self._policies, obs=self.obs, mesh=self.mesh)
         if old is not None:
             # metrics accumulate across rebuilds, with the new pool geometry
             carried = old.metrics

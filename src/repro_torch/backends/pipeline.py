@@ -9,6 +9,15 @@ epilogue.  With the numerics watchdog on (``watch=True``, or inside a
 model entry point of a ``ModelConfig(numerics_watchdog=True)``), each GEMM
 also stages its operand stats on the device (``_stage_watchdog_stats``);
 off, nothing is computed.
+
+A row-parallel call (``row_axis``, a ``runtime.collectives.Axis``: the
+activation and the weight each hold K/tp of the contraction) quantizes
+against globally exact scales -- the per-row activation and per-column
+weight absmax through one MAX all-reduce, the accumulator clamp from the
+global K -- runs the backend's int32 ``gemm`` on its K slice, sums the
+accumulators with a SUM all-reduce (exact) and applies the f32 epilogue
+``(acc * x_scale) * w_scale`` after it, so the output equals the unsharded
+call's bit for bit.
 """
 
 from __future__ import annotations
@@ -21,7 +30,8 @@ from repro_torch.backends import impls  # noqa: F401  (populates the registry)
 from repro_torch.backends.registry import resolve_backend
 from repro_torch.backends.spec import parse_quant_mode
 from repro_torch.obs import watchdog as _watchdog
-from repro_torch.quant.qtensor import quantize, rail_hits
+from repro_torch.quant.qtensor import quantize, rail_hits, scale_of_absmax
+from repro_torch.runtime.collectives import all_reduce
 
 __all__ = ["ACC_BITS", "dynamic_quant", "effective_bits", "gemm_int",
            "quant_mode_summary", "quantized_linear"]
@@ -48,6 +58,20 @@ def effective_bits(spec, k: int) -> tuple[int, int]:
         else:
             w -= 1
     return a, w
+
+
+def _global_quant(x: torch.Tensor, w: torch.Tensor, a_bits: int, w_bits: int, row_axis):
+    """``dynamic_quant`` of the K slices of ``x`` (per row) and ``w`` (per
+    column) against the absmax of the whole K: both absmax vectors travel
+    in one MAX all-reduce over ``row_axis``.  Returns (xq, xs, wq, ws)."""
+    xa = x.float().abs().amax(dim=-1, keepdim=True)
+    wa = w.float().abs().amax(dim=0, keepdim=True)
+    both = all_reduce(torch.cat([xa.reshape(-1), wa.reshape(-1)]), row_axis, "max")
+    xq = quantize(x, scale=scale_of_absmax(both[:xa.numel()].reshape(xa.shape), a_bits),
+                  bits=a_bits)
+    wq = quantize(w, scale=scale_of_absmax(both[xa.numel():].reshape(wa.shape), w_bits),
+                  bits=w_bits)
+    return xq.data, xq.scale, wq.data, wq.scale
 
 
 def _stage_watchdog_stats(ctx, label: str, quant_mode: str, x, xq, xs, wq,
@@ -86,7 +110,7 @@ def quantized_linear(x: torch.Tensor, w: torch.Tensor, quant_mode: str, *,
                      backend: Optional[str] = None,
                      out_dtype: Optional[torch.dtype] = None,
                      watch: Optional[bool] = None,
-                     layer: Optional[str] = None) -> torch.Tensor:
+                     layer: Optional[str] = None, row_axis=None) -> torch.Tensor:
     """x (..., K) fp @ w (K, N) fp -> (..., N) fp via the quantized pipeline,
     on ``backend`` (a registry name) or, by default, the backend that
     serves ``x``'s device.
@@ -95,14 +119,24 @@ def quantized_linear(x: torch.Tensor, w: torch.Tensor, quant_mode: str, *,
     the context that the model entry points open
     (``watchdog.watching``, keyed off ``ModelConfig.numerics_watchdog``)
     decides.  An explicit ``watch=True`` outside any context records
-    straight away (one host copy for this GEMM)."""
+    straight away (one host copy for this GEMM).
+
+    ``row_axis``: the row-parallel form (see the module docstring); it
+    launches the backend's int32 ``gemm``, never the fused one."""
     b, spec = resolve_backend(quant_mode, x.device.type, backend)
-    a_bits, w_bits = effective_bits(spec, x.shape[-1])
-    xq, xs = dynamic_quant(x, dim=-1, bits=a_bits)
-    wq, ws = dynamic_quant(w, dim=0, bits=w_bits)
+    k_all = x.shape[-1] * (row_axis.size if row_axis is not None else 1)
+    a_bits, w_bits = effective_bits(spec, k_all)
+    if row_axis is None:
+        xq, xs = dynamic_quant(x, dim=-1, bits=a_bits)
+        wq, ws = dynamic_quant(w, dim=0, bits=w_bits)
+    else:
+        xq, xs, wq, ws = _global_quant(x, w, a_bits, w_bits, row_axis)
 
     ctx = _watchdog.trace_ctx()
     if watch if watch is not None else ctx is not None:
+        if row_axis is not None:
+            raise NotImplementedError("the numerics watchdog at tp>1 is not ported yet "
+                                      "(ROADMAP queue 1, item 10.2)")
         label = layer or _watchdog.next_label(ctx, x.shape[-1], w.shape[-1])
         sink = ctx if ctx is not None else _watchdog.standalone()
         _stage_watchdog_stats(sink, label, quant_mode, x, xq, xs, wq, a_bits, w_bits,
@@ -120,7 +154,9 @@ def quantized_linear(x: torch.Tensor, w: torch.Tensor, quant_mode: str, *,
     x2 = xq.reshape(-1, k).contiguous()
     xs2 = xs.reshape(-1, 1)
     ws2 = ws.reshape(1, n)
-    if b.gemm_dequant is not None:
+    if row_axis is not None:
+        out = all_reduce(b.gemm(x2, wq, spec), row_axis, "sum").float() * xs2 * ws2
+    elif b.gemm_dequant is not None:
         out = b.gemm_dequant(x2, wq, xs2, ws2, spec)
     else:
         out = b.gemm(x2, wq, spec).float() * xs2 * ws2

@@ -20,8 +20,9 @@ Either package reads what the other writes, a training state
 :func:`restore_checkpoint` restores into the structure of a ``like_tree``
 (the reference's argument), leaf by leaf checked for name, shape and
 dtype; :class:`CheckpointManager` keeps the last ``keep_n`` steps and can
-save on a background thread.  Resharding on restore belongs to
-distribution (ROADMAP queue 1, item 10).
+save on a background thread.  Sharded checkpoints and resharding on
+restore (elastic restore) are not ported yet (ROADMAP queue 1, item 10.2):
+a sharded run restores the whole tree and slices it (``shard.shard_params``).
 """
 
 from __future__ import annotations

@@ -7,10 +7,20 @@ accumulated over microbatches) and one AdamW update.  Gradients come from
 ``torch.autograd.grad`` on the param leaves, so each has its leaf's dtype
 (bf16 weights get bf16 gradients, the f32 norm scales f32 ones), as
 ``jax.value_and_grad`` gives them.  The update runs in place
-(``optim.adamw_update``).  The sharded step specs (``grad_specs``,
-``cell_program``, ``lower_cell``) belong to distribution (ROADMAP queue 1,
-item 10); like the reference's step, this one reads no
-``grad_compression``.
+(``optim.adamw_update``).
+
+On a mesh (``make_train_step(..., mesh=)``) whose "data" axis has more
+than one rank, the step is the reference's ``shard_map`` data-parallel
+step (``tests/test_training_integration.py::test_grad_compression_trains``):
+every rank holds the whole params and optimizer state, takes its slice of
+the global batch, and the gradients are averaged over "data" by
+``collectives.psum_mean`` -- or ``compressed_psum_mean`` (the int8
+all-reduce) when ``TrainConfig.grad_compression`` is set -- before AdamW,
+so the params stay bitwise equal across ranks; the loss is averaged too.
+FSDP / ZeRO-1 execution (``TrainConfig.fsdp`` / ``zero1`` on a mesh),
+tensor-parallel training, ``grad_specs``, ``ShapeConfig`` and
+``cell_program`` / ``lower_cell`` are not ported yet (ROADMAP queue 1,
+item 10.2).
 """
 
 from __future__ import annotations
@@ -20,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models import model as model_lib
 from repro_torch.optim.optimizers import adamw_update
+from repro_torch.runtime import collectives
 from repro_torch.tree import leaves, rebuild, tree_map
 
 
@@ -37,16 +48,39 @@ def _loss_and_grads(params, cfg: ModelConfig, tcfg: TrainConfig, batch):
     return loss.detach(), rebuild(params, iter(grads))
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def _data_axis(mesh, tcfg: TrainConfig):
+    """The mesh's "data" axis for a data-parallel step, or None."""
+    if mesh is None:
+        return None
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError("tensor-parallel training is not ported yet "
+                                  "(ROADMAP queue 1, item 10.2)")
+    if mesh.shape.get("data", 1) == 1:
+        return None
+    if tcfg.fsdp or tcfg.zero1:
+        raise NotImplementedError(
+            "FSDP / ZeRO-1 execution is not ported yet (ROADMAP queue 1, item 10.2); "
+            "pass TrainConfig(fsdp=False, zero1=False) for the replicated "
+            "data-parallel step")
+    return collectives.axis(mesh, "data")
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """fwd + bwd (+ gradient accumulation over ``tcfg.microbatches``) +
     AdamW.
 
     Microbatching splits the batch's leading axis into k equal slices and
     accumulates their gradients in f32, then takes the mean (the mean of
     per-microbatch gradients equals the full-batch gradient for a mean
-    loss over equal slices); the loss is the mean of the slices' losses."""
+    loss over equal slices); the loss is the mean of the slices' losses.
+
+    ``mesh``: data parallelism over its "data" axis (see the module
+    docstring); the step takes the global batch and slices it."""
+    data = _data_axis(mesh, tcfg)
 
     def train_step(params, opt_state, batch):
+        if data is not None:
+            batch = {name: v.chunk(data.size)[data.rank] for name, v in batch.items()}
         k = tcfg.microbatches
         if k > 1:
             dev = next(iter(batch.values())).device
@@ -64,6 +98,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
             grads = rebuild(params, iter([a / k for a in acc]))
         else:
             loss, grads = _loss_and_grads(params, cfg, tcfg, batch)
+        if data is not None:
+            grads = (collectives.compressed_psum_mean(grads, data)
+                     if tcfg.grad_compression else collectives.psum_mean(grads, data))
+            loss = collectives.all_reduce(loss, data, "sum") / data.size
         params, opt_state, metrics = adamw_update(params, grads, opt_state, tcfg)
         metrics["loss"] = loss
         return params, opt_state, metrics

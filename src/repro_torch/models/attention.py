@@ -55,6 +55,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_columns,
 )
+from repro_torch.runtime.collectives import model_axis
 
 NEG_INF = -1e30
 
@@ -156,7 +157,7 @@ def attention_block(x, p, cfg: ModelConfig, positions, window=None, causal: bool
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = multihead_attention(q, k, v, causal=causal, window=window)
-    return linear(out.reshape(b, s, hq * hd), p["wo"], qm, be), (k, v)
+    return linear(out.reshape(b, s, hq * hd), p["wo"], qm, be, row=True), (k, v)
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +178,7 @@ def cross_attention_block(x, enc_kv, p, cfg: ModelConfig):
     q = linear(x, p["wq"], qm, be).reshape(b, s, hq, hd)
     k, v = enc_kv
     out = multihead_attention(q, k, v, causal=False)
-    return linear(out.reshape(b, s, hq * hd), p["wo"], qm, be)
+    return linear(out.reshape(b, s, hq * hd), p["wo"], qm, be, row=True)
 
 
 def encode_cross_kv(enc_out, p, cfg: ModelConfig):
@@ -303,7 +304,7 @@ def attention_decode(x_t, p, cfg: ModelConfig, cache, pos, *, window=None):
         valid = valid | (pos[:, None] >= smax)
     out = _decode_attend(qg, k_cache, v_cache, k_scale, v_scale, valid)
     out = out.to(x_t.dtype).reshape(b, 1, hq * hd)
-    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache
 
 
 def attention_verify(x, p, cfg: ModelConfig, cache, pos):
@@ -343,7 +344,7 @@ def attention_verify(x, p, cfg: ModelConfig, cache, pos):
     qg = q.reshape(b, w, hq // hkv, hkv, hd)
     out = _decode_attend(qg, k_cache, v_cache, k_scale, v_scale, _verify_valid(pos, w, smax))
     out = out.to(x.dtype).reshape(b, w, hq * hd)
-    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache
 
 
 def _resolve_paged_impl(cfg: ModelConfig, device: torch.device) -> str:
@@ -355,6 +356,16 @@ def _resolve_paged_impl(cfg: ModelConfig, device: torch.device) -> str:
         raise ValueError("paged_attn_impl='gather' is the CPU twin; CUDA tensors "
                          "run the paged_attention kernel")
     return "kernel"
+
+
+def _split_lanes(b: int) -> int:
+    """The lane count the ``paged_attention`` kernel picks its split from:
+    ``b``, times the model axis's size on a tensor-parallel mesh -- a rank
+    launches 1/tp of the KV heads, and the kernel sizes its split by lanes
+    x KV heads, so each lane and head splits as in the unsharded run and
+    its result is the same bits."""
+    ax = model_axis()
+    return b * (ax.size if ax is not None else 1)
 
 
 def _write_page(tables, pos, page_size, active):
@@ -422,10 +433,11 @@ def paged_attention_decode(x_t, p, cfg: ModelConfig, cache, pos, tables, *,
         qk = q[:, 0].reshape(b, g, hkv, hd).permute(0, 2, 1, 3).contiguous()
         out = paged_attention(
             qk, kp, vp, tables, (pos + 1).to(torch.int32),
-            k_scale=cache.get("kp_scale"), v_scale=cache.get("vp_scale"))
+            k_scale=cache.get("kp_scale"), v_scale=cache.get("vp_scale"),
+            split_lanes=_split_lanes(b))
         out = out.permute(0, 2, 1, 3)[:, None]          # (B, 1, G, Hkv, D)
     out = out.to(x_t.dtype).reshape(b, 1, hq * hd)
-    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache
 
 
 def _write_pages(tables, pos, w: int, page_size: int, active):
@@ -491,10 +503,10 @@ def paged_attention_verify(x, p, cfg: ModelConfig, cache, pos, tables, *, active
             qk, kp, vp, tables.repeat_interleave(w, dim=0).contiguous(),
             lengths.reshape(b * w).to(torch.int32),
             k_scale=cache.get("kp_scale"), v_scale=cache.get("vp_scale"),
-            split_lanes=b)
+            split_lanes=_split_lanes(b))
         out = out.permute(0, 2, 1, 3).reshape(b, w, g, hkv, hd)
     out = out.to(x.dtype).reshape(b, w, hq * hd)
-    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache
 
 
 def _chunk_pages(tables_row, start: int, chunk: int, page_size: int):
@@ -550,7 +562,7 @@ def attention_chunk(x, p, cfg: ModelConfig, cache, tables_row, start: int, *, po
     qg = q.reshape(b, cs, hq // hkv, hkv, hd)
     out = _attend_chunk(qg, k_all.float(), v_all.float(), start, v_all.dtype)
     out = out.reshape(b, cs, hq * hd)
-    return linear(out, p["wo"], qm, be), cache
+    return linear(out, p["wo"], qm, be, row=True), cache
 
 
 # ---------------------------------------------------------------------------
@@ -616,7 +628,7 @@ def mla_block(x, p, cfg: ModelConfig, positions):
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = multihead_attention(q, k, v)
     out = linear(out.reshape(b, s, h * m.v_head_dim), p["wo"], cfg.quant_mode,
-                 cfg.gemm_backend)
+                 cfg.gemm_backend, row=True)
     return out, (c_kv, k_rope.reshape(b, s, m.qk_rope_head_dim))
 
 
@@ -688,7 +700,7 @@ def mla_verify(x, p, cfg: ModelConfig, ckv_cache, krope_cache, pos, norm=None):
     ckv_cache[lanes, rows] = c_kv.to(ckv_cache.dtype)
     krope_cache[lanes, rows] = k_rope.reshape(b, w, m.qk_rope_head_dim).to(krope_cache.dtype)
     out = _mla_attend(q_nope, q_rope, ckv_cache, krope_cache, pos, p, cfg).to(x.dtype)
-    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), (ckv_cache, krope_cache)
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), (ckv_cache, krope_cache)
 
 
 def mla_paged_decode(x_t, p, cfg: ModelConfig, cache, pos, tables, *, active=None):
@@ -720,7 +732,7 @@ def _mla_paged(x, p, cfg: ModelConfig, cache, pos, tables, active, norm):
     krp[pg, off] = k_rope.reshape(b, w, m.qk_rope_head_dim).to(krp.dtype)
     out = _mla_attend(q_nope, q_rope, _gather_pages(ckvp, tables), _gather_pages(krp, tables),
                       pos, p, cfg).to(x.dtype)
-    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache
 
 
 def mla_chunk(x, p, cfg: ModelConfig, cache, tables_row, start: int, *, positions):
@@ -745,4 +757,4 @@ def mla_chunk(x, p, cfg: ModelConfig, cache, tables_row, start: int, *, position
     qg = q.reshape(b, cs, 1, h, q.shape[-1])
     out = _attend_chunk(qg, k_all.float(), v_all.float(), start, v_all.dtype)
     out = out.to(x.dtype).reshape(b, cs, h * m.v_head_dim)
-    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend), cache
+    return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache

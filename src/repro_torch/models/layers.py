@@ -5,6 +5,13 @@ stored bf16 and norm scales f32.  Integer modes route through the
 :mod:`repro_torch.backends` pipeline (on the card, the hand-written GEMM
 kernels) with a straight-through backward (:class:`_QuantizedLinearSTE`);
 ``"bf16"`` is a bf16 matmul.
+
+Inside ``runtime.collectives.model_parallel`` (a tensor-parallel mesh)
+the layers hold their rank's part of the weights: column-parallel
+projections need nothing more (the activation is whole, each output
+column's scale local), row-parallel ones (``linear(..., row=True)``: wo,
+w_down, w_out) sum across ranks, and the vocab-parallel ``embed`` and
+``unembed`` finish with a SUM all-reduce and an all-gather.
 """
 
 from __future__ import annotations
@@ -14,6 +21,7 @@ import functools
 import torch
 
 from repro_torch.backends import quantized_linear
+from repro_torch.runtime.collectives import all_gather, all_reduce, model_axis
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.bfloat16
@@ -67,7 +75,7 @@ class _QuantizedLinearSTE(torch.autograd.Function):
         return dx, dw, None, None
 
 
-def linear(x, w, quant_mode: str = "bf16", backend=None):
+def linear(x, w, quant_mode: str = "bf16", backend=None, row: bool = False):
     """The single matmul entry point for every model layer; bf16 out.
 
     ``backend`` is an optional GEMM-backend registry name (from
@@ -75,7 +83,23 @@ def linear(x, w, quant_mode: str = "bf16", backend=None):
     resolution order.  A quantized mode quantizes ``x`` as given: an f32
     input is not rounded to bf16 first (the reference's compiled graph
     drops that rounding too, see :func:`glu_mlp`).  Its gradients are the
-    straight-through ones (:class:`_QuantizedLinearSTE`)."""
+    straight-through ones (:class:`_QuantizedLinearSTE`).
+
+    ``row``: the projection is row-parallel on a tensor-parallel mesh
+    (``x`` and ``w`` hold this rank's K slice).  Integer modes then run
+    ``quantized_linear``'s row-parallel form, bitwise the unsharded
+    product; bf16 sums the ranks' f32 partial products and rounds once,
+    which is allclose to the unsharded bf16 product, not bitwise."""
+    ax = model_axis() if row else None
+    if ax is not None:
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            raise NotImplementedError("tensor-parallel training is not ported yet "
+                                      "(ROADMAP queue 1, item 10.2)")
+        if quant_mode == "bf16":
+            part = torch.matmul(x.to(COMPUTE_DTYPE).float(), w.to(COMPUTE_DTYPE).float())
+            return all_reduce(part, ax, "sum").to(COMPUTE_DTYPE)
+        return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE,
+                                row_axis=ax)
     if quant_mode == "bf16":
         return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
@@ -163,7 +187,7 @@ def glu_mlp(x, p, act="silu", quant_mode="bf16", backend=None):
     either way."""
     g = _ACTS[act](linear(x, p["w_gate"], quant_mode, backend))
     u = linear(x, p["w_up"], quant_mode, backend)
-    return linear(g.float() * u.float(), p["w_down"], quant_mode, backend)
+    return linear(g.float() * u.float(), p["w_down"], quant_mode, backend, row=True)
 
 
 def init_mlp(gen, device, d_model: int, d_ff: int, stack=()):
@@ -174,17 +198,44 @@ def init_mlp(gen, device, d_model: int, d_ff: int, stack=()):
 def mlp(x, p, act="gelu", quant_mode="bf16", backend=None):
     """The non-GLU MLP, ``out(act(in(x)))``."""
     return linear(_ACTS[act](linear(x, p["w_in"], quant_mode, backend)),
-                  p["w_out"], quant_mode, backend)
+                  p["w_out"], quant_mode, backend, row=True)
 
 
-def embed(tokens, table):
-    return table[tokens.long()].to(COMPUTE_DTYPE)
+def embed(tokens, table, shape=None):
+    """Rows of ``table`` for ``tokens``, bf16.  ``shape``: the full table's
+    (vocab, d_model); on a tensor-parallel mesh a vocab-sharded ``table``
+    looks up the tokens it holds (zeros elsewhere) and the ranks' rows are
+    summed (exact: one rank holds each token), a width-sharded one gathers
+    its columns."""
+    ax = model_axis()
+    if ax is None or shape is None or tuple(table.shape) == tuple(shape):
+        return table[tokens.long()].to(COMPUTE_DTYPE)
+    if table.shape[0] != shape[0]:
+        rows = table.shape[0]
+        local = tokens.long() - ax.rank * rows
+        held = (local >= 0) & (local < rows)
+        part = torch.where(held[..., None], table[local.clamp(0, rows - 1)].float(), 0.0)
+        return all_reduce(part, ax, "sum").to(COMPUTE_DTYPE)
+    return all_gather(table[tokens.long()].to(COMPUTE_DTYPE), ax, dim=-1)
 
 
-def unembed(x, table):
+def unembed(x, table, shape=None):
     """Output head kept in bf16 even in quantized modes (logits need full
-    range); returns f32 logits of the bf16 product."""
-    return torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).float()
+    range); returns f32 logits of the bf16 product.  ``shape`` as in
+    :func:`embed`: a vocab-sharded head gathers the ranks' logits (bitwise
+    the unsharded product where the GEMM sums each column alike), a
+    width-sharded one sums the ranks' f32 partial logits and rounds them to
+    bf16 once, as the unsharded bf16 product does."""
+    ax = model_axis()
+    if ax is None or shape is None or tuple(table.shape) == tuple(shape):
+        return torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).float()
+    if table.shape[0] != shape[0]:
+        local = torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).float()
+        return all_gather(local, ax, dim=-1)
+    cols = table.shape[1]
+    xs = x.to(COMPUTE_DTYPE)[..., ax.rank * cols:(ax.rank + 1) * cols]
+    part = torch.matmul(xs.float(), table.to(COMPUTE_DTYPE).float().t())
+    return all_reduce(part, ax, "sum").to(COMPUTE_DTYPE).float()
 
 
 def rope_frequencies(head_dim, theta, device=None):

@@ -38,6 +38,14 @@ each period recomputes in the backward (:func:`_remat_period`).
 the numerics watchdog's context when ``cfg.numerics_watchdog`` is set
 (:func:`_watched`); each period of a stack reuses the first period's
 GEMM labels, as the reference's scanned body does.
+
+Each of them also takes ``mesh=`` (a ``launch.mesh.Mesh``): the call then
+runs inside ``runtime.collectives.model_parallel(mesh)`` on the rank's
+part of the weights (``shard.shard_params``) and of the cache, with the
+full config turned into the rank's (``shard.local_config``: its own query
+and KV heads).  A caller that keeps the rank's config itself (the serving
+engine) enters the context once and passes that config, without
+``mesh=``.
 """
 
 from __future__ import annotations
@@ -70,6 +78,8 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.obs import watchdog as _watchdog
+from repro_torch.runtime.collectives import model_parallel
+from repro_torch.shard.core import local_config
 
 
 def _watched(tag: str):
@@ -80,7 +90,11 @@ def _watched(tag: str):
     host once, when the entry point returns."""
     def deco(fn):
         @functools.wraps(fn)
-        def wrapper(params, cfg, *args, **kw):
+        def wrapper(params, cfg, *args, mesh=None, **kw):
+            if mesh is not None:
+                with model_parallel(mesh):
+                    return wrapper(params, local_config(cfg, mesh.shape.get("model", 1)),
+                                   *args, **kw)
             with _watchdog.watching(tag if cfg.numerics_watchdog else None):
                 return fn(params, cfg, *args, **kw)
         return wrapper
@@ -140,6 +154,17 @@ def _head_table(params, cfg: ModelConfig):
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
+def embed_tokens(tokens, params, cfg: ModelConfig):
+    """The token embedding (vocab-parallel on a tensor-parallel mesh)."""
+    return embed(tokens, params["embed"], (cfg.vocab_size, cfg.d_model))
+
+
+def head_logits(h, params, cfg: ModelConfig):
+    """f32 logits of the final-normed ``h`` (gathered over a tensor-parallel
+    mesh's ranks)."""
+    return unembed(h, _head_table(params, cfg), (cfg.vocab_size, cfg.d_model))
+
+
 def _stack(trees):
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
@@ -182,7 +207,7 @@ def _embed_input(params, cfg: ModelConfig, batch):
     if "embeds" in batch:
         x = batch["embeds"].to(COMPUTE_DTYPE)
     else:
-        x = embed(batch["tokens"], params["embed"])
+        x = embed_tokens(batch["tokens"], params, cfg)
     b, s = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
@@ -291,7 +316,7 @@ def forward(params, cfg: ModelConfig, batch):
     """Full logits (B, S, V) f32 of ``batch`` -- for small configs and
     tests: prefill and decode are held against it."""
     h, _ = backbone(params, cfg, batch)
-    return unembed(h, _head_table(params, cfg))
+    return head_logits(h, params, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -471,7 +496,7 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, lengths=None):
         idx = torch.clamp(lengths.long() - 1, 0, s - 1)
         x_last = x[torch.arange(b, device=x.device), idx][:, None, :]
     h = rmsnorm(x_last, params["final_norm"], cfg.norm_eps)
-    return unembed(h, _head_table(params, cfg))[:, 0, :], cache
+    return head_logits(h, params, cfg)[:, 0, :], cache
 
 
 @_watched("decode")
@@ -490,7 +515,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
     pos = cache["pos"]
     tables = cache.get("block_tables")
     if tokens.ndim == 1:
-        x = embed(tokens[:, None], params["embed"])
+        x = embed_tokens(tokens[:, None], params, cfg)
     else:
         x = tokens[:, None, :].to(COMPUTE_DTYPE)
     for group, idx, period, kind, carry, cross in _plan(cfg, carry_out=True):
@@ -503,7 +528,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
     cache["pos"] = (pos + 1 if active is None
                     else torch.where(active, pos + 1, torch.zeros_like(pos)))
     h = rmsnorm(x, params["final_norm"], cfg.norm_eps, dtype=COMPUTE_DTYPE)
-    return unembed(h, _head_table(params, cfg))[:, 0, :], cache
+    return head_logits(h, params, cfg)[:, 0, :], cache
 
 
 @_watched("verify")
@@ -523,10 +548,10 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, active=None):
     Returns (logits (B, W, V), cache)."""
     pos = cache["pos"]
     tables = cache.get("block_tables")
-    x = embed(tokens, params["embed"])
+    x = embed_tokens(tokens, params, cfg)
     for group, idx, period, kind, carry, _ in _plan(cfg):
         x, _ = tfm.apply_block_verify(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
                                       tfm.plan_entry(cache, group, idx, period), pos,
                                       tables=tables, active=active, carry=carry)
     h = rmsnorm_columns(x, params["final_norm"], cfg.norm_eps)
-    return unembed(h, _head_table(params, cfg)), cache
+    return head_logits(h, params, cfg), cache

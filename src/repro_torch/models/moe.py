@@ -18,8 +18,16 @@ runs as a float64 batched product (exact, since every partial sum stays
 far below 2^53; PyTorch has no int32 batched product on CUDA) and the
 radix combine is :func:`core.spoga.sliced_dot_planes`, so the int32
 accumulators equal the reference's bit for bit in every dataflow.  The
-router stays f32.  Expert-parallel sharding comes with ROADMAP queue 1,
-item 10.
+router stays f32.
+
+On a tensor-parallel mesh whose model axis divides the expert count
+(the reference's rule, ``sharding._param_rule``) the experts are
+expert-parallel: a rank holds E/tp experts (``shard.shard_params``), runs
+them on their rows of the dispatch buffer, and the ranks' outputs are
+gathered along the expert axis before the weighted top-k combine, which
+then adds in the unsharded order.  The router is replicated; the shared
+experts follow their ``w_gate`` / ``w_up`` / ``w_down`` specs (column- and
+row-parallel, bitwise the unsharded GLU).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from repro_torch.models.layers import (
     init_glu_mlp,
     truncated_normal,
 )
+from repro_torch.runtime.collectives import all_gather, model_axis
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, device, stack=()):
@@ -150,8 +159,15 @@ def moe_ffn(x, p, cfg: ModelConfig):
     x_sorted = x[rows, sort_idx // k]                                # (B, S*k, d)
     buf = torch.zeros((b, e * cap + 1, d), dtype=x.dtype, device=x.device)
     buf[rows, dest] = x_sorted
-    y = _grouped_glu(buf[:, :e * cap].reshape(b, e, cap, d), p, cfg.act, cfg.quant_mode,
-                     cfg.gemm_backend)                               # (B, E, C, d)
+    grouped = buf[:, :e * cap].reshape(b, e, cap, d)
+    held = p["experts_gate"].shape[0]
+    if held == e:
+        y = _grouped_glu(grouped, p, cfg.act, cfg.quant_mode, cfg.gemm_backend)  # (B, E, C, d)
+    else:                                                            # expert-parallel
+        ax = model_axis()
+        mine = grouped[:, ax.rank * held:(ax.rank + 1) * held]
+        y = all_gather(_grouped_glu(mine, p, cfg.act, cfg.quant_mode, cfg.gemm_backend),
+                       ax, dim=1)
 
     y_flat = torch.cat([y.reshape(b, e * cap, d),
                         torch.zeros((b, 1, d), dtype=y.dtype, device=y.device)], dim=1)

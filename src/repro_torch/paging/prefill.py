@@ -127,7 +127,8 @@ def make_chunk_step(cfg: ModelConfig, chunk_len: int):
     plan = tfm.layer_plan(cfg)
 
     def chunk_step(params, cache, tokens, lane: int, start: int, true_len: int):
-        x = embed(tokens, params["embed"])
+        full = (cfg.vocab_size, cfg.d_model)
+        x = embed(tokens, params["embed"], full)
         positions = (start + torch.arange(chunk_len, dtype=torch.int32,
                                           device=tokens.device))[None, :]
         table_row = cache["block_tables"][lane:lane + 1]
@@ -140,6 +141,6 @@ def make_chunk_step(cfg: ModelConfig, chunk_len: int):
         last = min(max(true_len - 1, 0), chunk_len - 1)
         h = rmsnorm(x[:, last:last + 1], params["final_norm"], cfg.norm_eps)
         table = params["embed"] if cfg.tie_embeddings else params["head"]
-        return unembed(h, table)[:, 0, :]
+        return unembed(h, table, full)[:, 0, :]
 
     return chunk_step

@@ -45,9 +45,15 @@ class QTensor:
         return (self.data.float() * self.scale).to(dtype)
 
 
-def _absmax_scale(x: torch.Tensor, dim, qmax: float = INT8_MAX) -> torch.Tensor:
-    absmax = x.float().abs().amax(dim=dim, keepdim=True)
-    return torch.clamp_min(absmax, 1e-8) * (1.0 / qmax)
+def scale_of_absmax(absmax: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """The symmetric scale of an f32 ``absmax``: ``max(absmax, 1e-8) /
+    qmax``.  A row-parallel GEMM feeds it the absmax its ranks agreed on
+    (a MAX all-reduce), so the scale is the unsharded one bit for bit."""
+    return torch.clamp_min(absmax, 1e-8) * (1.0 / qmax_for_bits(bits))
+
+
+def _absmax_scale(x: torch.Tensor, dim, bits: int = 8) -> torch.Tensor:
+    return scale_of_absmax(x.float().abs().amax(dim=dim, keepdim=True), bits)
 
 
 def quantize(x: torch.Tensor, dim=None, scale: torch.Tensor | None = None,
@@ -65,7 +71,7 @@ def quantize(x: torch.Tensor, dim=None, scale: torch.Tensor | None = None,
     if scale is None:
         if dim is None:
             dim = tuple(range(x.ndim))
-        scale = _absmax_scale(xf, dim, qmax)
+        scale = _absmax_scale(xf, dim, bits)
     data = torch.round(xf / scale).clamp_(-qmax, qmax)
     return QTensor(data.to(storage_dtype(bits)), scale)
 

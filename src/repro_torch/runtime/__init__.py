@@ -1,5 +1,6 @@
-"""Fault tolerance of the port (sharding and collectives: ROADMAP queue 1,
-item 10)."""
+"""Runtime of the port: the sharding rules (``runtime.sharding``), the
+collectives over ``torch.distributed`` (``runtime.collectives``) and fault
+tolerance."""
 
 from repro_torch.runtime.fault_tolerance import (
     ElasticPlan,

@@ -68,8 +68,20 @@ checks every step (``debug_invariants``), and the flight recorder's
 hooks (the decision clock's tape, arrivals, outputs).  Disabled, every
 hook is a null object's no-op.
 
-Not ported yet, and refused with ``NotImplementedError``: device meshes
-(ROADMAP queue 1, item 10).
+Sharded serving (``mesh=``, a ``launch.mesh.Mesh``) is SPMD: every rank
+builds the same engine, takes the same requests and runs the same host
+scheduler and ``PageManager``; it holds its part of the params
+(``shard.shard_params``) and of the KV (its KV heads of every page, as
+``shard.pool_shardings`` gives them), and runs the rank's config
+(``shard.local_config``) inside ``runtime.collectives.model_parallel``.
+Block tables stay on the host, the same on every rank.  The logits every
+rank samples are gathered, so they are the same bytes on every rank, and
+every rank samples the same tokens (a verify round: the same targets and
+accept lengths) with no collective of its own; ``debug_invariants``
+checks every step that the ranks' next tokens are model-axis rank 0's.
+A draft model runs unsharded on every rank.
+Tensor-parallel execution of MLA, the recurrent cells and the ring is
+refused (ROADMAP queue 1, item 10.2).
 """
 
 from __future__ import annotations
@@ -89,6 +101,7 @@ from repro_torch.configs.base import (
     pages_for,
 )
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as model_lib
 from repro_torch.models.kvcache import is_paged_kind
 from repro_torch.models.transformer import RECURRENT_KINDS
@@ -102,12 +115,15 @@ from repro_torch.paging import (
     stack_kinds,
 )
 from repro_torch.prefix import PrefixCache
+from repro_torch.runtime.collectives import axis as mesh_axis
+from repro_torch.runtime.collectives import broadcast, model_parallel
 from repro_torch.serving.metrics import EngineMetrics
 from repro_torch.serving.policies import EnginePolicies
 from repro_torch.serving.request import Request, RequestState
 from repro_torch.serving.sampling import SamplingParams, greedy_tokens, request_key, sample_tokens
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.slots import SlotCache, scatter_lanes
+from repro_torch.shard.core import local_config
 from repro_torch.spec import make_drafter, verify
 from repro_torch.spec.config import SpecConfig
 
@@ -168,9 +184,15 @@ class ServingEngine:
         if ecfg.cache_mode not in ("slot", "paged"):
             raise ValueError(f"cache_mode must be 'slot' or 'paged', got "
                              f"{ecfg.cache_mode!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh (sharded serving) is not ported yet (ROADMAP queue 1, item 10)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a repro_torch.launch.mesh.Mesh (see "
+                            f"shard.build_mesh), got {type(mesh).__name__}")
+        self.mesh = mesh
+        tp = mesh.shape.get("model", 1) if mesh is not None else 1
+        # the model axis the sampled tokens are agreed over (None: unsharded)
+        self._axis = mesh_axis(mesh, "model") if tp > 1 else None
+        self.model_cfg = cfg
+        cfg = local_config(cfg, tp)
         buckets = tuple(sorted(ecfg.prefill_buckets or ()))
         recurrent = sorted(RECURRENT_KINDS & set(cfg.block_pattern))
         if buckets and recurrent:
@@ -278,7 +300,7 @@ class ServingEngine:
                     "window reuses the chunked-prefill contract; "
                     f"got {sorted(stack_kinds(cfg))}")
             self._drafter = make_drafter(
-                self._spec, cfg, n, ecfg.cache_len,
+                self._spec, self.model_cfg, n, ecfg.cache_len,
                 tree=self.prefix.tree if self.prefix is not None else None,
                 device=self.device)
 
@@ -527,7 +549,8 @@ class ServingEngine:
         self.metrics.inc("prefills")
         self.obs.events.emit("first_token", req.req_id, slot=slot, ttft_s=req.ttft_s)
         if self._drafter is not None:
-            self._drafter.admit(slot, req.prompt)
+            with model_parallel(None):      # the draft model is not sharded
+                self._drafter.admit(slot, req.prompt)
         self._tokens[slot] = tok
         self._temps[slot] = s.temperature
         self._topk[slot] = s.top_k
@@ -720,7 +743,7 @@ class ServingEngine:
         requests finished this step."""
         obs = self.obs
         obs.profiler.step_begin(self.device)
-        with obs.tracer.span("step", idx=self._step_idx + 1):
+        with obs.tracer.span("step", idx=self._step_idx + 1), model_parallel(self.mesh):
             finished = self._step_inner()
         obs.profiler.step_end()
         if obs.debug_invariants and self.paged and self._has_paged_kinds:
@@ -730,6 +753,10 @@ class ServingEngine:
                                 violations=bad)
                 raise AssertionError(f"page-pool invariants violated at step "
                                      f"{self._step_idx}: " + "; ".join(bad))
+        if obs.debug_invariants and self._axis is not None and \
+                not torch.equal(broadcast(self._tokens, self._axis, 0), self._tokens):
+            raise AssertionError(f"model-axis ranks sampled different tokens at step "
+                                 f"{self._step_idx}")
         self.metrics.touch()
         return finished
 
@@ -873,7 +900,8 @@ class ServingEngine:
         n, w = self.engine_cfg.n_slots, spec.width
         slots = sorted(running)
         histories = [running[s].prompt + running[s].output_tokens for s in slots]
-        proposals = self._drafter.propose(slots, histories)
+        with model_parallel(None):
+            proposals = self._drafter.propose(slots, histories)
 
         toks = np.zeros((n, w), np.int32)
         n_draft = np.zeros((n,), np.int32)
@@ -973,7 +1001,8 @@ class ServingEngine:
         req = self.scheduler.release(slot)
         self.store.free(slot)
         if self._drafter is not None:
-            self._drafter.release(slot)
+            with model_parallel(None):
+                self._drafter.release(slot)
         self._greedy[slot] = True   # free lanes sample nothing
         reason_of = getattr(self.policies.eviction, "evict_reason", None)
         reason = reason_of(req) if reason_of is not None else req.finish_reason

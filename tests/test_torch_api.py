@@ -3,9 +3,9 @@
 ``RuntimeConfig`` validates as the reference does (same errors, same
 messages for the fields both packages serve), resolves to the same model
 and engine settings, serializes to the reference's dicts and loads them,
-and has the reference's five presets; the ``mesh`` setting, which the
-port's engine does not serve yet, raises ``NotImplementedError`` naming
-its ROADMAP item (``obs`` is served since observability was ported).
+and has the reference's five presets; ``mesh`` is the reference's
+``MeshConfig`` (a value that is not one is refused with ``TypeError``;
+``obs`` is served since observability was ported).
 ``LLM``
 serves the reference's weights (the JAX ``init_params`` tree with its
 projection weights scaled up, so that greedy decoding does not collapse
@@ -36,6 +36,7 @@ from repro_torch import configs as tconfigs
 from repro_torch.api import (
     LLM,
     KVConfig,
+    MeshConfig,
     ObsConfig,
     QuantRuntime,
     RequestOutput,
@@ -143,13 +144,14 @@ def test_backend_and_impl_validation():
 
 
 def test_defaults_match_jax():
-    """Same fields and defaults as the reference's sub-configs (the mesh
-    sub-config is not ported: None is its disabled default)."""
+    """Same fields and defaults as the reference's sub-configs, the mesh's
+    included."""
+    from repro.api import MeshConfig as JaxMeshConfig
     from repro.api import SamplingDefaults as JaxSamplingDefaults
     from repro.api import SpecConfig as JaxSpecConfig
     pairs = [(QuantRuntime, JaxQuantRuntime), (KVConfig, JaxKVConfig),
              (SchedulerConfig, JaxSchedulerConfig), (SamplingDefaults, JaxSamplingDefaults),
-             (SpecConfig, JaxSpecConfig)]
+             (SpecConfig, JaxSpecConfig), (MeshConfig, JaxMeshConfig)]
     for port_cls, jax_cls in pairs:
         assert dataclasses.asdict(port_cls()) == dataclasses.asdict(jax_cls()), port_cls
     port_fields = [f.name for f in dataclasses.fields(RuntimeConfig)]
@@ -157,7 +159,7 @@ def test_defaults_match_jax():
     rc, jrc = RuntimeConfig(), JaxRuntimeConfig()
     for name in ("max_new_tokens", "eos_token", "reduced"):
         assert getattr(rc, name) == getattr(jrc, name)
-    assert rc.mesh is None and rc.spec == SpecConfig()
+    assert rc.mesh == MeshConfig() and not rc.mesh.enabled and rc.spec == SpecConfig()
     assert dataclasses.asdict(rc.obs) == dataclasses.asdict(jrc.obs)
     for n in (1, 8, 30, 64, 100):
         assert auto_buckets(n) == jax_auto_buckets(n)
@@ -197,19 +199,21 @@ def test_resolution_matches_jax():
 
 REFUSED = [
     dict(mesh=object()),
-    dict(mesh=object(), obs=ObsConfig(enabled=True)),   # obs is served; mesh still refused
+    dict(mesh=object(), obs=ObsConfig(enabled=True)),   # obs is served; a non-MeshConfig is not
 ]
 
 
 @pytest.mark.parametrize("kw", REFUSED, ids=[str(sorted(k)) + str(i) for i, k in
                                             enumerate(REFUSED)])
 def test_unserved_settings_raise_not_implemented(kw):
+    """A ``mesh`` that is not a ``MeshConfig`` is refused where the runtime
+    is used (the mesh itself is served since distribution was ported)."""
     kw = {"kv": KVConfig(**PAGED), **kw}
-    rc = RuntimeConfig(**kw)          # a valid configuration ...
+    rc = RuntimeConfig(**kw)          # constructs ...
     tbase = tconfigs.reduced(tconfigs.get_config("llama3.2-1b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
+    with pytest.raises(TypeError, match="must be a MeshConfig"):
         rc.resolve_engine(tbase, prompt_len=8, gen_tokens=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
+    with pytest.raises(TypeError, match="must be a MeshConfig"):
         LLM(arch="llama3.2-1b", runtime=dataclasses.replace(rc, reduced=True), device="cpu")
 
 
@@ -368,8 +372,11 @@ def test_llm_refusals_and_device():
     with pytest.raises(RuntimeError, match="engine not built"):
         llm.engine
     assert llm.metrics is None
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+    with pytest.raises(TypeError, match="must be a MeshConfig"):
         LLM(arch="llama3.2-1b", runtime=dataclasses.replace(rc, mesh=object()), device="cpu")
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        LLM(arch="llama3.2-1b", runtime=dataclasses.replace(rc, mesh=MeshConfig(tp=2)),
+            device="cpu")
     out, = llm.generate([1, 2, 3], sampling=SamplingParams(greedy=False), max_new_tokens=2)
     assert len(out.token_ids) == 2               # stochastic sampling is served
     if not torch.cuda.is_available():
@@ -441,7 +448,8 @@ CUSTOM = RuntimeConfig(
                          ids=["default", "custom", "auto-buckets"])
 def test_to_dict_from_dict_round_trip(rc):
     """``to_dict`` is plain JSON (tuples as lists; ``mesh`` and ``obs`` as
-    the reference's disabled defaults) and ``from_dict`` inverts it."""
+    the reference writes their disabled defaults) and ``from_dict`` inverts
+    it."""
     import json
     d = rc.to_dict()
     assert json.loads(json.dumps(d)) == d
@@ -469,17 +477,23 @@ def test_partial_dicts_take_defaults():
     ({"obs": {"watchdog": True}}, "8"), ({"obs": {"metrics_port": 0}}, "8"),
     ({"obs": {"profile_steps": 5}}, "8")])
 def test_from_dict_refuses_mesh_and_obs_turned_on(sub, item):
-    """A ``mesh`` other than (part of) the disabled default that
-    ``to_dict`` writes is refused; an ``obs`` turned on loads into its
-    ``ObsConfig`` since observability was ported."""
+    """A ``mesh`` or an ``obs`` turned on loads into its ``MeshConfig`` /
+    ``ObsConfig`` (item 10, distribution, and item 8, observability, are
+    ported), as the reference's ``from_dict`` loads them; unknown keys are
+    refused."""
+    from repro.api import MeshConfig as JaxMeshConfig
     if "mesh" in sub:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}"):
-            RuntimeConfig.from_dict(sub)
+        got = RuntimeConfig.from_dict(sub)
+        assert got.mesh == MeshConfig(**sub["mesh"]) and got.mesh.enabled
+        want = JaxRuntimeConfig.from_dict(sub).mesh
+        assert dataclasses.asdict(got.mesh) == dataclasses.asdict(want) == \
+            dataclasses.asdict(JaxMeshConfig(**sub["mesh"]))
+        assert got.to_dict()["mesh"] == JaxRuntimeConfig.from_dict(sub).to_dict()["mesh"]
     else:
         assert RuntimeConfig.from_dict(sub).obs == ObsConfig(**sub["obs"])
     assert RuntimeConfig.from_dict({"mesh": {"tp": 1, "enable": None},
                                     "obs": {"enabled": None, "trace": None}}) == RuntimeConfig()
-    with pytest.raises(TypeError, match="unexpected keys"):
+    with pytest.raises(TypeError, match="unexpected keyword argument 'no_such_knob'"):
         RuntimeConfig.from_dict({"mesh": {"no_such_knob": 1}})
     with pytest.raises(TypeError):
         RuntimeConfig.from_dict({"obs": {"no_such_knob": 1}})

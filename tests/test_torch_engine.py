@@ -244,11 +244,12 @@ def test_engine_evicts_on_eos():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """Only device meshes (item 10) are refused; observability, the prefix
+    """A ``mesh`` that is not a ``launch.mesh.Mesh`` is refused (meshes are
+    served since distribution was ported); observability, the prefix
     cache, speculation and stochastic sampling are served."""
     _, tcfg, tree = _setup("int8_spoga", "int8", 4)
     tparams = params_from_jax(tree, tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+    with pytest.raises(TypeError, match="mesh must be a repro_torch.launch.mesh.Mesh"):
         ServingEngine(tcfg, tparams, EngineConfig(**ENGINE), device="cpu", mesh=object())
     from repro_torch.obs import ObsConfig
     obs = ObsConfig(enabled=True).build()

@@ -287,6 +287,12 @@ ATTN_CASES = {
     # the MoE archs' decode layouts: deepseek-moe-16b, granite-moe-3b-a800m
     "deepseek G1 D128": (4, 16, 1, 128, 16, 11, [1, 17, 100, 165]),
     "granite G3 D64": (4, 8, 3, 64, 16, 11, [1, 17, 100, 165]),
+    # mistral-large-123b's layout (G12 runs on the CUDA-core kernel), whole
+    # and on a rank of a tp=2 mesh
+    "mistral-large G12 D128": (4, 8, 12, 128, 16, 11, [1, 17, 100, 165]),
+    "mistral-large tp=2 G12 D128": (4, 4, 12, 128, 16, 11, [1, 17, 100, 165]),
+    "llama tp=2 G4 D64": (4, 4, 4, 64, 16, 11, [1, 17, 100, 165]),
+    "deepseek tp=2 G1 D128": (4, 8, 1, 128, 16, 11, [1, 17, 100, 165]),
 }
 ATTN_KINDS = [("bf16", torch.bfloat16), ("int8", torch.bfloat16), ("bf16", torch.float32),
               ("int8", torch.float32)]
@@ -369,7 +375,7 @@ def test_paged_attention_kernel_matches_plain(case, kind, q_dtype):
 
 
 @pytest.mark.parametrize("case", ["main", "edges", "long", "G3 D64 ps8", "D24 (element loads)",
-                                  "G1 D20 (element loads)"])
+                                  "G1 D20 (element loads)", "mistral-large tp=2 G12 D128"])
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 def test_paged_attention_kernel_never_reads_stale_rows(kind, case):
     """Rows at or past a lane's length, in its last page and in the pages
@@ -396,6 +402,25 @@ def test_paged_attention_kernel_is_deterministic(kind, case):
     torch.cuda.synchronize()
     assert attn_mod.LAUNCHES == launches + 2
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("case", ["llama tp=2 G4 D64", "deepseek tp=2 G1 D128",
+                                  "mistral-large tp=2 G12 D128"])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_paged_attention_tp_rank_split_matches_plain(kind, case):
+    """A rank of a tp=2 mesh launches half the KV heads and splits them as
+    2B lanes would (``split_lanes``): the plain version's result, and on
+    poisoned pools the same bits."""
+    _card()
+    (q, kp, vp, tables, lengths), scales = _pool_case(kind, seed=6, case=case)
+    split = 2 * q.shape[0]
+    got = paged_attention(q, kp, vp, tables, lengths, split_lanes=split, **scales)
+    want = paged_attention_plain(q, kp, vp, tables, lengths, **scales)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    _poison(kp, vp, tables, lengths, kind)
+    poisoned = paged_attention(q, kp, vp, tables, lengths, split_lanes=split, **scales)
+    torch.cuda.synchronize()
+    assert torch.equal(poisoned, got)
 
 
 def _verify_case(kind, b, n_tbl, w, seed, hkv=8, g=4, d=64, ps=16):
