@@ -223,7 +223,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    rank's ``max_memory_allocated``; then both GEMM kernels at a tp=2 rank's
    projection shapes (M=4) bitwise against their plain versions, timed
    against the bound and ``torch._int_mm``;
-15. the ``kernels`` JSON line, then the ``ok`` line last.
+15. the serving CLI (after phase 14): (a) ``launch.serve.main`` in this
+   process on full-width llama3.2-1b (``CLI_ARGV``: ``int8_spoga``, int8
+   paged KV, 8 requests of 64-128 tokens from ``synthetic_workload``, 16-32
+   new, 2 steps apart, 4 lanes), ``spoga_gemm_dequant`` (112 a decode step
+   or prefill) and ``paged_attention`` (16 a decode step) gated exactly,
+   every greedy stream equal to ``ServingEngine``'s on the same weights and
+   arrivals; (b) the same with ``set_default_backend("cuda_spoga")`` and
+   no flag: ``spoga_gemm`` instead, (a)'s streams, and each CPU twin as
+   the default raising ``ValueError`` on CUDA tensors; (c) ``python -m
+   repro_torch.launch.serve`` with (a)'s flags in a subprocess, exit 0 and
+   (a)'s sample line; (d) on CUDA tensors at M=4 K=2048 N=8192,
+   ``spoga_matmul`` / ``deas_matmul`` with ``encoding="tc"`` and ``"sm"``
+   bitwise ``direct_matmul``, ``kernels/ref.py``'s oracles against the
+   ``spoga_gemm`` kernel (bitwise) and the ``spoga_gemm_dequant`` kernel
+   (``DEQUANT_RTOL``); (e) ``examples/torch_quickstart.py`` and
+   ``examples/torch_photonic_sim.py`` as subprocesses, exit 0;
+16. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -4613,6 +4629,200 @@ def phase_tp_gemms(card):
     return table
 
 
+# ---------------------------------------------------------------------------
+# 15. the serving CLI, the default backend, sign-magnitude slicing, the
+#     oracles and the examples
+# ---------------------------------------------------------------------------
+
+CLI_ARGV = ["--arch", "llama3.2-1b", "--quant-mode", "int8_spoga", "--cache-mode", "paged",
+            "--kv-cache-dtype", "int8", "--requests", "8", "--slots", "4", "--prompt-len",
+            "128", "--gen", "32", "--stagger", "2"]
+ORACLE_MKN = (4, 2048, 8192)       # the decode step's gate/up projection
+DEQUANT_RTOL = 1e-6                # test_kernels.py's rtol against ref_spoga_gemm_dequant
+
+
+def _sample_line(text: str) -> str:
+    lines = [ln for ln in text.splitlines() if ln.startswith("[engine] sample (req ")]
+    require(len(lines) == 1, f"expected one sample line, got {lines}")
+    return lines[0]
+
+
+def _cli_run(argv, label, kernel, card):
+    """``launch.serve.main(argv)`` in this process, every count at 0 just
+    before and read just after; ``kernel`` (the GEMM kernel of the run) and
+    ``paged_attention`` gated exactly as phase 4 gates them."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        llm = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read_counts()
+    text = out.getvalue()
+    print(text, end="", flush=True)
+    check_counts(launches, plain, (kernel, "paged_attention"), label)
+    rep = llm.metrics.report()
+    layers = llm.config.n_layers
+    require(rep["prefills"] == rep["prefill_dispatches"], f"{label}: stacked prefills")
+    expect_gemm = 7 * layers * (rep["decode_steps"] + rep["prefills"])
+    expect_attn = layers * rep["decode_steps"]
+    require(launches[kernel] == expect_gemm,
+            f"{label}: {kernel} launches {launches[kernel]} != {expect_gemm}")
+    require(launches["paged_attention"] == expect_attn,
+            f"{label}: paged_attention launches {launches['paged_attention']} != {expect_attn}")
+    streams = {r.req_id: r.output_tokens for r in llm.metrics.finished}
+    require(len(streams) == 8, f"{label}: {len(streams)} of 8 requests finished")
+    print(f"[cli] {label}: {rep['requests']} requests, {rep['generated_tokens']} tokens, "
+          f"{rep['tokens_per_s']:.1f} tok/s, decode step mean "
+          f"{1e3 * rep['decode_step_mean_s']:.2f} ms ({rep['decode_steps']} steps, "
+          f"{rep['prefills']} prefills); {kernel} {launches[kernel]} launches "
+          f"({7 * layers} a step or prefill), paged_attention {launches['paged_attention']} "
+          f"({layers} a decode step), no plain version; main() {wall:.1f} s [{card}]",
+          flush=True)
+    return llm, streams, launches, _sample_line(text), rep
+
+
+def _engine_streams(llm, arrivals):
+    """The same weights and arrivals straight through ``ServingEngine``, the
+    engine configuration the CLI resolves written out."""
+    from repro_torch.api import auto_buckets
+    from repro_torch.configs import default_cache_len
+    from repro_torch.serving import EngineConfig, ServingEngine
+    ecfg = EngineConfig(n_slots=4, cache_len=default_cache_len(128, 32),
+                        prefill_buckets=auto_buckets(128), cache_mode="paged", page_size=16)
+    engine = ServingEngine(llm.config, llm.params, ecfg, device="cuda")
+    metrics = engine.run(arrivals)
+    torch.cuda.synchronize()
+    return {r.req_id: r.output_tokens for r in metrics.finished}
+
+
+def _encodings_and_oracles(card):
+    """(d): the ``encoding=`` dataflows and the ``kernels/ref.py`` oracles
+    on CUDA tensors at ``ORACLE_MKN``."""
+    from repro_torch.core.spoga import deas_matmul, direct_matmul, spoga_matmul
+    from repro_torch.kernels.ref import ref_int8_gemm, ref_spoga_gemm, ref_spoga_gemm_dequant
+    from repro_torch.kernels.spoga_gemm import spoga_gemm
+    from repro_torch.kernels.spoga_gemm_dequant import spoga_gemm_dequant
+    m, k, n = ORACLE_MKN
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    _, x, w, xs, ws = _gemm_operands(m, k, n, "int8_spoga", gen)
+    # the whole int8 range, -128 included, in the first rows of x
+    x[0, :256] = torch.arange(-128, 128, dtype=torch.int8, device="cuda")
+    direct = direct_matmul(x, w)
+    for enc in ("tc", "sm"):
+        for fn in (spoga_matmul, deas_matmul):
+            require(torch.equal(fn(x, w, encoding=enc), direct),
+                    f"(d) {fn.__name__}(encoding={enc!r}) != direct_matmul on the card")
+    oracle = ref_int8_gemm(x, w)
+    require(torch.equal(oracle, direct), "(d) ref_int8_gemm != direct_matmul")
+    require(torch.equal(ref_spoga_gemm(x, w), oracle), "(d) ref_spoga_gemm != ref_int8_gemm")
+    require(torch.equal(spoga_gemm(x, w), oracle), "(d) spoga_gemm kernel != ref_spoga_gemm")
+    got = spoga_gemm_dequant(x, w, xs, ws)
+    want = ref_spoga_gemm_dequant(x, w, xs, ws)
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    require(rel <= DEQUANT_RTOL, f"(d) spoga_gemm_dequant kernel vs ref_spoga_gemm_dequant: "
+                                 f"relative error {rel:.3g} > {DEQUANT_RTOL}")
+    torch.cuda.synchronize()
+    print(f"[cli] (d) M={m} K={k} N={n} on the card: spoga_matmul and deas_matmul with "
+          f"encoding 'tc' and 'sm' bitwise direct_matmul; ref_int8_gemm == ref_spoga_gemm == "
+          f"the spoga_gemm kernel (int32, bitwise); spoga_gemm_dequant kernel against "
+          f"ref_spoga_gemm_dequant max |diff| {err:.3g}, max relative {rel:.3g} "
+          f"({'bitwise' if torch.equal(got, want) else 'not bitwise'}) [{card}]", flush=True)
+    return {"dequant_max_abs_err": err, "dequant_bitwise": bool(torch.equal(got, want))}
+
+
+def _subprocess(args, label, timeout=600):
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, *args], cwd=root, capture_output=True, text=True,
+                         timeout=timeout, env={**os.environ, "PYTHONPATH": str(root / "src")})
+    secs = time.perf_counter() - t0
+    require(res.returncode == 0, f"{label} exited {res.returncode}:\n{res.stdout[-2000:]}\n"
+                                 f"{res.stderr[-2000:]}")
+    return res.stdout, secs
+
+
+def phase_serve_cli(card):
+    """(a) ``launch.serve.main`` on full-width llama3.2-1b at ``int8_spoga``
+    over int8 paged KV, launches gated, streams equal ``ServingEngine``'s on
+    the same weights and arrivals; (b) with ``set_default_backend
+    ("cuda_spoga")`` and no flag: ``spoga_gemm`` and no ``spoga_gemm_dequant``,
+    (a)'s streams, and a CPU twin as the default raising on the card; (c)
+    ``python -m repro_torch.launch.serve`` in a subprocess, (a)'s sample
+    line; (d) the ``encoding=`` dataflows and the oracles on CUDA tensors;
+    (e) two examples as subprocesses."""
+    from repro_torch.backends import quantized_linear, set_default_backend
+    from repro_torch.launch.serve import synthetic_workload
+    t0 = time.perf_counter()
+    out = {}
+    llm, streams, launches, sample, rep = _cli_run(CLI_ARGV, "(a) launch.serve.main",
+                                                   "spoga_gemm_dequant", card)
+    arrivals = synthetic_workload(llm.config, 8, 128, 32, 2, 0)
+    want = _engine_streams(llm, arrivals)
+    require(streams == want, "(a) the CLI's streams differ from ServingEngine's on the same "
+                             "weights and arrivals")
+    print(f"[cli] (a) every request's greedy stream == ServingEngine's ({len(want)} requests, "
+          f"prompts {min(len(p) for _, p, _ in arrivals)}-"
+          f"{max(len(p) for _, p, _ in arrivals)} tokens)", flush=True)
+    out["a"] = {"launches": launches, "report": rep}
+    del llm
+    torch.cuda.empty_cache()
+
+    set_default_backend("cuda_spoga")
+    try:
+        llm_b, streams_b, launches_b, _, rep_b = _cli_run(
+            CLI_ARGV, "(b) set_default_backend('cuda_spoga'), no flag", "spoga_gemm", card)
+    finally:
+        set_default_backend(None)
+    require(streams_b == streams, "(b) the cuda_spoga default's streams differ from (a)'s")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((4, 2048), generator=g, device="cuda")
+    w = torch.randn((2048, 256), generator=g, device="cuda")
+    for twin in ("torch_spoga", "torch_deas", "direct"):
+        set_default_backend(twin)
+        try:
+            quantized_linear(x, w, "int8_spoga")
+            fail(f"(b) the CPU twin {twin!r} as the default served CUDA tensors")
+        except ValueError as e:
+            require("not cuda" in str(e), f"(b) {twin}: unexpected error {e}")
+        finally:
+            set_default_backend(None)
+    print("[cli] (b) streams == (a)'s; torch_spoga, torch_deas and direct as the default "
+          "raise ValueError on CUDA tensors", flush=True)
+    out["b"] = {"launches": launches_b, "report": rep_b}
+    del llm_b
+    torch.cuda.empty_cache()
+
+    text, secs = _subprocess(["-m", "repro_torch.launch.serve", *CLI_ARGV],
+                             "(c) python -m repro_torch.launch.serve")
+    require(_sample_line(text) == sample, f"(c) sample line {_sample_line(text)!r} != (a)'s "
+                                          f"{sample!r}")
+    print(f"[cli] (c) python -m repro_torch.launch.serve: exit 0 in {secs:.1f} s, sample "
+          f"line == (a)'s: {sample}", flush=True)
+    out["c_s"] = secs
+
+    out["d"] = _encodings_and_oracles(card)
+
+    for example in ("torch_quickstart.py", "torch_photonic_sim.py"):
+        text, secs = _subprocess([f"examples/{example}"], f"(e) {example}")
+        last = text.strip().splitlines()[-1]
+        print(f"[cli] (e) examples/{example}: exit 0 in {secs:.1f} s; last line: {last}",
+              flush=True)
+        if example == "torch_quickstart.py":
+            require("3. spoga_gemm (the CUDA kernel on cuda)" in text,
+                    "(e) the quickstart did not launch the CUDA kernel")
+        else:
+            require("Table I reproduction: 15/15 cells exact" in text, "(e) Table I")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[cli] phase 15 in {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -4668,6 +4878,8 @@ def main() -> int:
     print(f"[time] phase 13 done at {time.perf_counter() - t0:.1f} s", flush=True)
     dist = phase_distribution(card)
     print(f"[time] phase 14 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    serve_cli = phase_serve_cli(card)
+    print(f"[time] phase 15 done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -4789,7 +5001,10 @@ def main() -> int:
                         training_shapes=train_shapes(),
                         training_step=train["full"]["profile"],
                         launches_distribution=dist_launches("spoga_gemm_dequant"),
-                        distribution_shapes=dist_shapes("spoga_gemm_dequant"))]
+                        distribution_shapes=dist_shapes("spoga_gemm_dequant"),
+                        launches_serve_cli={"(a) launch.serve.main": serve_cli["a"][
+                            "launches"]["spoga_gemm_dequant"]},
+                        oracle_max_abs_err=serve_cli["d"]["dequant_max_abs_err"])]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
         a, long, short = (dict(attn[(kind, name)]) for name in ("main", "long", "short"))
@@ -4811,7 +5026,10 @@ def main() -> int:
                         "launches_recurrent": recurrent_launches("paged_attention"),
                         "launches_encdec_frontends": encdec_launches("paged_attention"),
                         "launches_training": train_launches("paged_attention"),
-                        **({"launches_distribution": dist_launches("paged_attention")}
+                        **({"launches_distribution": dist_launches("paged_attention"),
+                            "launches_serve_cli": {
+                                f"({part}) launch.serve.main": serve_cli[part]["launches"][
+                                    "paged_attention"] for part in ("a", "b")}}
                            if kind == "int8" else {}),
                         **({"launches_observability_record":
                             observed["launches"]["paged_attention"]} if kind == "int8" else {}),
@@ -4825,7 +5043,10 @@ def main() -> int:
                             launches_recurrent=recurrent_launches("spoga_gemm"),
                             launches_training=train_launches("spoga_gemm"),
                             launches_distribution=dist_launches("spoga_gemm"),
-                            distribution_shapes=dist_shapes("spoga_gemm")))
+                            distribution_shapes=dist_shapes("spoga_gemm"),
+                            launches_serve_cli={
+                                "(b) launch.serve.main, set_default_backend('cuda_spoga')":
+                                    serve_cli["b"]["launches"]["spoga_gemm"]}))
     kernels.append(gemm_row("nibble_gemm", "src/repro_torch/csrc/deas_gemm.cu",
                             "src/repro/kernels/deas_gemm.py:50", deas_run["nibble_gemm"], 4,
                             deas_err, at(nibble, lambda m: (m, 2048, 8192)),

@@ -17,7 +17,9 @@ with ``KVConfig(mode="paged")``.  Named deployment profiles load by name
 or from JSON: ``LLM("llama3.2-1b", runtime=load_runtime("int8-byte-serving"))``
 (``list_presets()`` names them).  Entry points run on the card; pass
 ``device="cpu"`` to run the plain versions on the CPU.  ``serve_batch`` is
-the static-batch lockstep baseline the engine is held against.
+the static-batch lockstep baseline the engine is held against.  The engine's policy classes
+(``FIFOAdmission``, ``ThresholdDefrag``, ...) are re-exported for
+``LLM(policies=EnginePolicies(...))``.
 ``RuntimeConfig(obs=ObsConfig(...))`` turns on spans, the event log, the
 step profiler, ``/metrics``, the numerics watchdog and the flight
 recorder (``LLM.replay``).  ``RuntimeConfig(mesh=MeshConfig(tp=2))`` serves
@@ -41,22 +43,56 @@ from repro_torch.api.config import (
 from repro_torch.api.llm import LLM
 from repro_torch.api.outputs import RequestOutput
 from repro_torch.obs import ObsConfig, Observability
+from repro_torch.serving.policies import (
+    AdmissionPolicy,
+    BucketBatchedAdmission,
+    BudgetOrEOSEviction,
+    DeadlineAdmission,
+    DeadlinePreemption,
+    DefragPolicy,
+    EnginePolicies,
+    EvictionPolicy,
+    FIFOAdmission,
+    NeverDefrag,
+    NoPrefixReuse,
+    PrefixAwareAdmission,
+    PrefixPolicy,
+    PriorityAdmission,
+    SharedPrefix,
+    ThresholdDefrag,
+)
 from repro_torch.serving.sampling import SamplingParams
 from repro_torch.spec.config import SpecConfig
 
 __all__ = [
+    "AdmissionPolicy",
+    "BucketBatchedAdmission",
+    "BudgetOrEOSEviction",
+    "DeadlineAdmission",
+    "DeadlinePreemption",
+    "DefragPolicy",
+    "EnginePolicies",
+    "EvictionPolicy",
+    "FIFOAdmission",
     "KVConfig",
     "LLM",
     "MeshConfig",
+    "NeverDefrag",
+    "NoPrefixReuse",
     "ObsConfig",
     "Observability",
+    "PrefixAwareAdmission",
+    "PrefixPolicy",
+    "PriorityAdmission",
     "QuantRuntime",
     "RequestOutput",
     "RuntimeConfig",
     "SamplingDefaults",
     "SamplingParams",
     "SchedulerConfig",
+    "SharedPrefix",
     "SpecConfig",
+    "ThresholdDefrag",
     "auto_buckets",
     "get_preset",
     "list_presets",

@@ -10,11 +10,15 @@ from repro_torch.backends.pipeline import (
 from repro_torch.backends.registry import (
     GemmBackend,
     get_backend,
+    get_default_backend,
     list_backends,
+    register_backend,
     resolve_backend,
+    set_default_backend,
 )
 from repro_torch.backends.spec import (
     DEFAULT_SPEC,
+    FAMILIES,
     QUANT_MODES,
     QuantSpec,
     parse_quant_mode,
@@ -22,6 +26,7 @@ from repro_torch.backends.spec import (
 
 __all__ = [
     "DEFAULT_SPEC",
+    "FAMILIES",
     "GemmBackend",
     "QUANT_MODES",
     "QuantSpec",
@@ -29,9 +34,12 @@ __all__ = [
     "effective_bits",
     "gemm_int",
     "get_backend",
+    "get_default_backend",
     "list_backends",
     "parse_quant_mode",
     "quant_mode_summary",
     "quantized_linear",
+    "register_backend",
     "resolve_backend",
+    "set_default_backend",
 ]

@@ -6,17 +6,16 @@ whose tensors it serves.  A quantized linear resolves its backend so:
 
 1. an explicit ``backend=`` override (threaded from ``ModelConfig
    .gemm_backend`` / ``QuantRuntime.gemm_backend``),
-2. else auto-selection by dataflow family and the tensors' device type:
+2. the process-wide default set by :func:`set_default_backend`,
+3. else auto-selection by dataflow family and the tensors' device type:
    CUDA tensors run the CUDA kernels, CPU tensors the plain algebraic twins.
-
-The reference also has a process-wide default between the two, set by its
-launch scripts' ``--gemm-backend``; the port has no launch script yet, so
-it has none (ROADMAP queue 1).
 
 A ``cuda_*`` backend also serves CPU tensors: its kernel wrapper runs the
 kernel's plain version there (how the CPU tests reach it).  A CPU twin
 (``torch_*``, ``direct``) never serves CUDA tensors: asking for one there
-raises, so there is no fallback that could hide a missing kernel.
+raises, so there is no fallback that could hide a missing kernel.  That
+holds for a default as for an override: a CPU twin set as the default
+raises on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -24,14 +23,16 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-from repro_torch.backends.spec import QuantSpec, parse_quant_mode
+from repro_torch.backends.spec import FAMILIES, QuantSpec, parse_quant_mode
 
 __all__ = [
     "GemmBackend",
     "get_backend",
+    "get_default_backend",
     "list_backends",
     "register_backend",
     "resolve_backend",
+    "set_default_backend",
 ]
 
 
@@ -55,9 +56,13 @@ class GemmBackend:
 
 
 _REGISTRY: dict[str, GemmBackend] = {}
+_DEFAULT_BACKEND: Optional[str] = None
 
 
 def register_backend(backend: GemmBackend) -> GemmBackend:
+    if backend.family not in FAMILIES:
+        raise ValueError(f"backend {backend.name!r}: family must be one of {FAMILIES}, "
+                         f"got {backend.family!r}")
     if backend.name in _REGISTRY:
         raise ValueError(f"backend {backend.name!r} already registered")
     _REGISTRY[backend.name] = backend
@@ -77,6 +82,20 @@ def list_backends() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+def set_default_backend(name: Optional[str]) -> None:
+    """Process-wide backend, below an explicit override and above
+    auto-selection.  ``None`` restores auto-selection; an unknown name
+    raises here, not at the first GEMM."""
+    global _DEFAULT_BACKEND
+    if name is not None:
+        get_backend(name)
+    _DEFAULT_BACKEND = name
+
+
+def get_default_backend() -> Optional[str]:
+    return _DEFAULT_BACKEND
+
+
 # (family, device type) -> the backend that serves it
 _AUTO = {
     ("spoga", "cuda"): "cuda_spoga_dequant",
@@ -92,7 +111,7 @@ def resolve_backend(quant_mode: str, device_type: str,
                     backend: Optional[str] = None) -> tuple[GemmBackend, QuantSpec]:
     """(mode, tensor device type, optional override) -> (backend, spec)."""
     spec, family = parse_quant_mode(quant_mode)
-    name = backend or _AUTO.get((family, device_type))
+    name = backend or _DEFAULT_BACKEND or _AUTO.get((family, device_type))
     if name is None:
         raise NotImplementedError(
             f"no {device_type} backend for the {family!r} dataflow of {quant_mode!r}")

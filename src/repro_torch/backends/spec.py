@@ -12,6 +12,10 @@ import re
 
 import torch
 
+# Dataflow families (paper Fig. 2): fused radix accumulation, materialized
+# prior-work slices, or the plain int8 product.
+FAMILIES = ("spoga", "deas", "direct")
+
 QUANT_MODES = (
     "bf16",
     "int8_spoga",

@@ -3,6 +3,11 @@
 ``slice_tc`` splits an int8 tensor into the paper's most and least
 significant nibbles, ``x == 16 * msn + lsn``, in two's complement: a
 signed high nibble in [-8, 7], an unsigned low one in [0, 15].
+``slice_sm`` is the paper's sign-magnitude encoding (the + and - optical
+lanes): the sign folded into both magnitude nibbles, ``msn`` in [-8, 7]
+(-8 only for -128), ``lsn`` in [-15, 15], still ``x == 16 * msn + lsn``;
+``slice_nibbles(x, encoding)`` picks one, and ``reconstruct`` inverts
+either exactly for the whole int8 range, -128 included.
 ``slice_planes(x, n, b)`` splits a signed integer tensor into ``n`` planes
 of ``b`` bits, least significant first: the lower planes are the unsigned
 digits ``(x >> j*b) & (2^b - 1)``, the top plane is the arithmetically
@@ -26,6 +31,33 @@ def slice_tc(x: torch.Tensor) -> tuple:
     if x.dtype != torch.int8:
         raise TypeError(f"slice_tc expects int8, got {x.dtype}")
     return x >> RADIX_BITS, x & (RADIX - 1)
+
+
+def slice_sm(x: torch.Tensor) -> tuple:
+    """Sign-magnitude nibbles of an int8 tensor: ``sign(x) * (|x| >> 4)``
+    and ``sign(x) * (|x| & 15)``, int8.  The magnitude is taken in int32,
+    so ``|-128|`` does not overflow."""
+    if x.dtype != torch.int8:
+        raise TypeError(f"slice_sm expects int8, got {x.dtype}")
+    wide = x.to(torch.int32)
+    sign, mag = torch.sign(wide), wide.abs()
+    return ((sign * (mag >> RADIX_BITS)).to(torch.int8),
+            (sign * (mag & (RADIX - 1))).to(torch.int8))
+
+
+def slice_nibbles(x: torch.Tensor, encoding: str = "tc") -> tuple:
+    """``(msn, lsn)`` of an int8 tensor in ``encoding`` ``"tc"`` or ``"sm"``."""
+    if encoding == "tc":
+        return slice_tc(x)
+    if encoding == "sm":
+        return slice_sm(x)
+    raise ValueError(f"unknown slicing encoding {encoding!r}")
+
+
+def reconstruct(msn: torch.Tensor, lsn: torch.Tensor) -> torch.Tensor:
+    """Exact inverse of either nibble slicing: ``16 * msn + lsn`` in int32,
+    cast to int8."""
+    return (msn.to(torch.int32) * RADIX + lsn.to(torch.int32)).to(torch.int8)
 
 
 def _plane_dtype(slice_bits: int) -> torch.dtype:

@@ -8,8 +8,9 @@ The algebraic reference the CPU backends run, after the paper's Fig. 2:
   lane shifted once into one accumulator (SPOGA); ``materialize=True``
   keeps every partial as its own tensor before the combine (the DEAS
   prior-work baseline — eager execution materializes them anyway);
-  :func:`spoga_matmul` / :func:`deas_matmul` are its W8A8 nibble cases and
-  :func:`spoga_dot_slices` the combine of given nibbles;
+  :func:`spoga_matmul` / :func:`deas_matmul` are its W8A8 nibble cases
+  (``encoding="tc"`` two's-complement or ``"sm"`` sign-magnitude nibbles)
+  and :func:`spoga_dot_slices` the combine of given nibbles;
 * :func:`quantized_matmul` — the integer product through the backend
   registry (``backends.gemm_int``) plus the dequantizing epilogue.
 
@@ -23,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.slicing import RADIX_BITS, slice_planes
+from repro_torch.core.slicing import RADIX_BITS, slice_nibbles, slice_planes
 
 __all__ = ["deas_matmul", "direct_matmul", "int_matmul", "quantized_matmul",
            "sliced_dot_planes", "sliced_matmul", "spoga_dot_slices", "spoga_matmul",
@@ -92,15 +93,21 @@ def spoga_dot_slices(xm, xl, wm, wl) -> torch.Tensor:
     return sliced_dot_planes((xl, xm), (wl, wm), RADIX_BITS)
 
 
-def spoga_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Fused nibble-sliced int8 GEMM (the paper's SPOGA dataflow), int32 out."""
-    return sliced_matmul(x, w, slice_bits=RADIX_BITS)
+def spoga_matmul(x: torch.Tensor, w: torch.Tensor, *, encoding: str = "tc") -> torch.Tensor:
+    """Fused nibble-sliced int8 GEMM (the paper's SPOGA dataflow), int32 out.
+    ``encoding``: ``"tc"`` (two's-complement nibbles) or ``"sm"``
+    (sign-magnitude, the paper's + and - optical lanes)."""
+    xm, xl = slice_nibbles(x, encoding)
+    wm, wl = slice_nibbles(w, encoding)
+    return spoga_dot_slices(xm, xl, wm, wl)
 
 
-def deas_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def deas_matmul(x: torch.Tensor, w: torch.Tensor, *, encoding: str = "tc") -> torch.Tensor:
     """Prior-work baseline: four separate nibble GEMMs, each kept as its own
     tensor, then the shift-and-add over the stored partials."""
-    return sliced_matmul(x, w, slice_bits=RADIX_BITS, materialize=True)
+    xm, xl = slice_nibbles(x, encoding)
+    wm, wl = slice_nibbles(w, encoding)
+    return sliced_dot_planes((xl, xm), (wl, wm), RADIX_BITS, materialize=True)
 
 
 def quantized_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.slicing import slice_tc
+from repro_torch.core.slicing import RADIX_BITS, slice_tc
 from repro_torch.core.spoga import deas_matmul, direct_matmul, wrap_int32
 from repro_torch.kernels import _build
 from repro_torch.kernels.spoga_gemm import check_launchable
@@ -64,7 +64,8 @@ def deas_combine_plain(mm, ml, lm, ll):
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     wide = [t.to(torch.int64) for t in (mm, ml, lm, ll)]
-    return wrap_int32((wide[0] << 8) + ((wide[1] + wide[2]) << 4) + wide[3])
+    return wrap_int32((wide[0] << (2 * RADIX_BITS)) + ((wide[1] + wide[2]) << RADIX_BITS)
+                      + wide[3])
 
 
 def _stream(t):

@@ -39,10 +39,16 @@ def reset_counts() -> None:
 
 def paged_attention_plain(q, kp, vp, tables, lengths, *, k_scale=None,
                           v_scale=None):
-    """Gather twin with an exact f32 softmax —
-    ``repro/kernels/paged_attention.py:paged_attention_ref``."""
+    """The kernel's plain version: :func:`paged_attention_ref`, counted."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
+    return paged_attention_ref(q, kp, vp, tables, lengths, k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_attention_ref(q, kp, vp, tables, lengths, *, k_scale=None,
+                        v_scale=None):
+    """Gather twin with an exact f32 softmax (the reference's name): every
+    lane's pages gathered into one (B, S, Hkv, D) view."""
     b, hkv, g, d = q.shape
     page_size = kp.shape[1]
     smax = tables.shape[1] * page_size

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.slicing import RADIX_BITS
 from repro_torch.core.spoga import direct_matmul
 from repro_torch.kernels import _build
 
@@ -63,7 +64,7 @@ def spoga_gemm_plain(x, w):
 
 
 def spoga_gemm(x, w, *, n_x_slices: int = 2, n_w_slices: int = 2,
-               slice_bits: int = 4):
+               slice_bits: int = RADIX_BITS):
     """(M, K) @ (K, N) signed int -> (M, N) int32, SPOGA fused dataflow.
 
     Operands must honor their plane budget (``n * slice_bits`` bits), as

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.slicing import RADIX_BITS
 from repro_torch.core.spoga import direct_matmul
 from repro_torch.kernels import _build
 from repro_torch.kernels.spoga_gemm import check_launchable, check_operands
@@ -50,7 +51,7 @@ def _check(x, w, x_scale, w_scale, slice_bits):
 
 
 def spoga_gemm_dequant(x, w, x_scale, w_scale, *, n_x_slices: int = 2,
-                       n_w_slices: int = 2, slice_bits: int = 4):
+                       n_w_slices: int = 2, slice_bits: int = RADIX_BITS):
     """(M,K) @ (K,N) int * (M,1) f32 * (1,N) f32 -> (M,N) f32, one fused pass.
 
     Slice counts are per operand: (2, 2, 4) is W8A8, (2, 1, 4) serves

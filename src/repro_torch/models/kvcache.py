@@ -39,6 +39,8 @@ def _kv(shp, cfg: ModelConfig, names):
 
 
 _KV_KINDS = ("attn", "moe", "dense_ffn_layer")
+# kinds whose cache lives in the page pools (a windowless local_attn too)
+PAGED_KINDS = frozenset(_KV_KINDS + ("mla",))
 _F32 = torch.float32
 
 
@@ -75,8 +77,7 @@ def is_paged_kind(kind: str, cfg: ModelConfig) -> bool:
     """Does this (effective) kind's cache live in the page pools?  The
     attention family does; so does a windowless ``local_attn`` (it caches
     like full attention).  Recurrent state and window rings stay per lane."""
-    return kind in _KV_KINDS or kind == "mla" or (
-        kind == "local_attn" and cfg.sliding_window is None)
+    return kind in PAGED_KINDS or (kind == "local_attn" and cfg.sliding_window is None)
 
 
 def paged_block_cache_shape(kind: str, cfg: ModelConfig, batch: int, cache_len: int,

@@ -27,8 +27,8 @@ COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.bfloat16
 
 
-def truncated_normal(gen: torch.Generator, device, shape, scale=0.02,
-                     dtype=PARAM_DTYPE):
+def truncated_normal_init(gen: torch.Generator, device, shape, scale=0.02,
+                          dtype=PARAM_DTYPE):
     """Normal truncated to [-2, 2], times ``scale`` (the reference's init
     distribution; a ``torch.Generator`` gives other numbers than
     ``jax.random`` for the same seed)."""
@@ -38,7 +38,13 @@ def truncated_normal(gen: torch.Generator, device, shape, scale=0.02,
 
 
 def init_linear(gen, device, shape, scale=0.02):
-    return truncated_normal(gen, device, shape, scale)
+    return truncated_normal_init(gen, device, shape, scale)
+
+
+def init_embedding(gen, device, vocab: int, d_model: int):
+    """A (vocab, d_model) table, ``d_model ** -0.5`` times the truncated
+    normal, bf16."""
+    return truncated_normal_init(gen, device, (vocab, d_model), scale=1.0 / (d_model ** 0.5))
 
 
 class _QuantizedLinearSTE(torch.autograd.Function):
@@ -105,6 +111,10 @@ def linear(x, w, quant_mode: str = "bf16", backend=None, row: bool = False):
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _QuantizedLinearSTE.apply(x, w, quant_mode, backend)
     return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE)
+
+
+def init_rmsnorm(d: int, device=None):
+    return torch.ones((d,), dtype=torch.float32, device=device)
 
 
 def rmsnorm(x, gamma, eps=1e-6, dtype=None):
@@ -260,7 +270,7 @@ def apply_rope(x, positions, theta=10_000.0):
 # ---------------------------------------------------------------------------
 
 def init_conv1d(gen, device, d: int, width: int, stack=()):
-    return truncated_normal(gen, device, (*stack, width, d), scale=0.1)
+    return truncated_normal_init(gen, device, (*stack, width, d), scale=0.1)
 
 
 def causal_conv1d(x, w):

@@ -72,9 +72,10 @@ from repro_torch.models.kvcache import (
 from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     embed,
+    init_embedding,
+    init_rmsnorm,
     rmsnorm,
     rmsnorm_columns,
-    truncated_normal,
     unembed,
 )
 from repro_torch.obs import watchdog as _watchdog
@@ -99,10 +100,6 @@ def _watched(tag: str):
                 return fn(params, cfg, *args, **kw)
         return wrapper
     return deco
-
-
-def _ones(shape, dev):
-    return torch.ones(shape, dtype=torch.float32, device=dev)
 
 
 def _encoder_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -130,24 +127,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     layout (names, shapes, dtypes) without memory."""
     dev = resolve_device(device)
     gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
-    emb_scale = 1.0 / (cfg.d_model ** 0.5)
-    params = {"embed": truncated_normal(gen, dev, (cfg.vocab_size, cfg.d_model), emb_scale)}
+    params = {"embed": init_embedding(gen, dev, cfg.vocab_size, cfg.d_model)}
     params.update(_init_stack(cfg, gen, dev))
-    params["final_norm"] = _ones((cfg.d_model,), dev)
+    params["final_norm"] = init_rmsnorm(cfg.d_model, dev)
     if not cfg.tie_embeddings:
-        params["head"] = truncated_normal(gen, dev, (cfg.vocab_size, cfg.d_model),
-                                          emb_scale)
+        params["head"] = init_embedding(gen, dev, cfg.vocab_size, cfg.d_model)
     if cfg.is_encoder_decoder:
         enc = _init_stack(_encoder_cfg(cfg), gen, dev)
         params["enc_blocks"] = enc["blocks"]
         params["enc_tail_blocks"] = enc["tail_blocks"]
-        params["enc_final_norm"] = _ones((cfg.d_model,), dev)
+        params["enc_final_norm"] = init_rmsnorm(cfg.d_model, dev)
         _, n_periods, _ = layer_layout(cfg)
         params["cross_blocks"] = {
             "xattn": attn.init_cross_attention(cfg, gen, dev, stack=(n_periods,)),
-            "norm_x": _ones((n_periods, cfg.d_model), dev),
+            "norm_x": torch.ones((n_periods, cfg.d_model), dtype=torch.float32, device=dev),
         } if n_periods else ()
     return params
+
+
+def param_shapes(cfg: ModelConfig):
+    """The parameter tree's layout (names, shapes, dtypes) as ``meta``
+    tensors, no memory."""
+    return init_params(cfg, device="meta")
 
 
 def _head_table(params, cfg: ModelConfig):
@@ -389,11 +390,11 @@ def lm_loss(params, cfg: ModelConfig, batch):
 # Caches
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device, cross_len: int = 0):
-    """Zero contiguous cache (the layout :func:`prefill` returns).  The lead
-    layers' caches are keyed ``one("attn")`` as in the reference.  An
-    encoder-decoder's cache adds ``cross_kv``: the encoder's K/V for each
-    period, (n_periods, batch, cross_len, Hkv, D) bf16."""
+def cache_shapes(cfg: ModelConfig, batch: int, cache_len: int, cross_len: int = 0):
+    """(shape, dtype) tree of the contiguous cache (the layout :func:`prefill`
+    returns).  The lead layers' caches are keyed ``one("attn")`` as in the
+    reference.  An encoder-decoder's cache adds ``cross_kv``: the encoder's
+    K/V for each period, (n_periods, batch, cross_len, Hkv, D) bf16."""
     lead, n_periods, tail = layer_layout(cfg)
 
     def one(kind):
@@ -412,7 +413,12 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device, cross_len: 
         kv = ((n_periods, batch, cross_len, cfg.n_kv_heads, cfg.resolved_head_dim),
               COMPUTE_DTYPE)
         shapes["cross_kv"] = {"k": kv, "v": kv}
-    return zeros_like_shapes(shapes, device)
+    return shapes
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device, cross_len: int = 0):
+    """Zero contiguous cache of :func:`cache_shapes` on ``device``."""
+    return zeros_like_shapes(cache_shapes(cfg, batch, cache_len, cross_len), device)
 
 
 def paged_cache_shapes(cfg: ModelConfig, n_lanes: int, cache_len: int,

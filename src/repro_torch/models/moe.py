@@ -46,7 +46,7 @@ from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     glu_mlp,
     init_glu_mlp,
-    truncated_normal,
+    truncated_normal_init,
 )
 from repro_torch.runtime.collectives import all_gather, model_axis
 
@@ -56,10 +56,10 @@ def init_moe(cfg: ModelConfig, gen: torch.Generator, device, stack=()):
     d, e, de = cfg.d_model, m.num_experts, m.d_expert
     p = {
         # the router stays f32: routing logits are precision-sensitive
-        "router": truncated_normal(gen, device, (*stack, d, e), dtype=torch.float32),
-        "experts_gate": truncated_normal(gen, device, (*stack, e, d, de)),
-        "experts_up": truncated_normal(gen, device, (*stack, e, d, de)),
-        "experts_down": truncated_normal(gen, device, (*stack, e, de, d)),
+        "router": truncated_normal_init(gen, device, (*stack, d, e), dtype=torch.float32),
+        "experts_gate": truncated_normal_init(gen, device, (*stack, e, d, de)),
+        "experts_up": truncated_normal_init(gen, device, (*stack, e, d, de)),
+        "experts_down": truncated_normal_init(gen, device, (*stack, e, de, d)),
     }
     if m.num_shared_experts:
         p["shared"] = init_glu_mlp(gen, device, d, m.num_shared_experts * de, stack)

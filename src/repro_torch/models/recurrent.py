@@ -44,7 +44,7 @@ from repro_torch.models.layers import (
     init_conv1d,
     init_linear,
     linear,
-    truncated_normal,
+    truncated_normal_init,
 )
 
 
@@ -152,8 +152,8 @@ def init_rglru(cfg: ModelConfig, gen, device, stack=()):
         "w_rec_gate": init_linear(gen, device, (*stack, lru, lru)),
         "w_in_gate": init_linear(gen, device, (*stack, lru, lru)),
         # a = exp(-c softplus(lam)) lands in [0.9, 0.999]; f32
-        "lam": truncated_normal(gen, device, (*stack, lru), scale=0.1,
-                                dtype=torch.float32) - 4.0,
+        "lam": truncated_normal_init(gen, device, (*stack, lru), scale=0.1,
+                                     dtype=torch.float32) - 4.0,
         "w_out": init_linear(gen, device, (*stack, lru, d)),
     }
 
@@ -403,7 +403,7 @@ def init_slstm(cfg: ModelConfig, gen, device, stack=()):
     dh = d // h
     return {
         "w_zifo": init_linear(gen, device, (*stack, d, 4 * d)),
-        "r_zifo": truncated_normal(gen, device, (*stack, 4, h, dh, dh), scale=0.02),
+        "r_zifo": truncated_normal_init(gen, device, (*stack, 4, h, dh, dh), scale=0.02),
         "w_out": init_linear(gen, device, (*stack, d, d)),
     }
 

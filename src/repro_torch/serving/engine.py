@@ -87,6 +87,7 @@ refused (ROADMAP queue 1, item 10.2).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Iterator, Optional, Sequence
 
@@ -103,7 +104,7 @@ from repro_torch.configs.base import (
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import model as model_lib
-from repro_torch.models.kvcache import is_paged_kind
+from repro_torch.models.kvcache import PAGED_KINDS, is_paged_kind  # noqa: F401
 from repro_torch.models.transformer import RECURRENT_KINDS
 from repro_torch.obs import DISABLED, Observability
 from repro_torch.paging import (
@@ -1030,18 +1031,22 @@ class ServingEngine:
     def has_work(self) -> bool:
         return self.scheduler.has_work
 
-    def run(self, arrivals=None, max_steps: int = 100_000) -> EngineMetrics:
+    def run(self, arrivals=None, max_steps: int = 100_000,
+            on_token=None) -> EngineMetrics:
         """Drive steps until idle.  ``arrivals``: ``(step_idx, prompt,
         max_new_tokens[, SamplingParams])`` tuples injected when the engine
-        reaches that step."""
+        reaches that step.  ``on_token(req, tok)``, if given, streams every
+        arrival's tokens as they reach the host."""
         pending = sorted(arrivals or [], key=lambda a: a[0])
         i = 0
         steps = 0
         while (i < len(pending) or self.has_work) and steps < max_steps:
             while i < len(pending) and pending[i][0] <= self._step_idx:
                 arr = pending[i]
-                self.add_request(arr[1], arr[2],
-                                 sampling=arr[3] if len(arr) > 3 else None)
+                req = self.add_request(arr[1], arr[2],
+                                       sampling=arr[3] if len(arr) > 3 else None)
+                if on_token is not None:
+                    req.on_token = functools.partial(on_token, req)
                 i += 1
             if not self.has_work:
                 self._step_idx = pending[i][0]  # idle gap: jump to the arrival

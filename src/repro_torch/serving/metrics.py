@@ -242,3 +242,14 @@ class EngineMetrics:
             "cost_decode_p99_s": self._pct("cost_decode_s", 99),
             "cost_verify_p99_s": self._pct("cost_verify_s", 99),
         }
+
+    def format_report(self) -> str:
+        r = self.report()
+        return (
+            f"[engine] {r['requests']} requests, {r['generated_tokens']} tokens "
+            f"in {r['wall_s']:.2f}s = {r['tokens_per_s']:.1f} tok/s | "
+            f"{r['prefills']} prefills + {r['decode_steps']} decode steps | "
+            f"TTFT mean {r['ttft_mean_s']*1e3:.0f}ms "
+            f"p99 {r['ttft_p99_s']*1e3:.0f}ms max {r['ttft_max_s']*1e3:.0f}ms | "
+            f"latency mean {r['latency_mean_s']:.2f}s"
+        )

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import heapq
 import time
+import warnings
 from collections import deque
 from typing import Callable, Optional
 
@@ -128,3 +129,15 @@ class Scheduler:
     @property
     def has_work(self) -> bool:
         return bool(self.waiting or self.running or self.chunking)
+
+
+class FIFOScheduler(Scheduler):
+    """Deprecated name for ``Scheduler`` with the default FIFO admission
+    policy (the reference keeps it for callers from before ``api``)."""
+
+    def __init__(self, n_slots: int, max_prefills_per_step: int = 1):
+        warnings.warn(
+            "FIFOScheduler is deprecated; use Scheduler (optionally with an "
+            "explicit policies.AdmissionPolicy)", DeprecationWarning,
+            stacklevel=2)
+        super().__init__(n_slots, max_prefills_per_step, admission=FIFOAdmission())

@@ -283,6 +283,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.spec, repro_torch.spec.draft_model, repro_torch.prefix\n"
         "import repro_torch.quant, repro_torch.optim, repro_torch.data, repro_torch.runtime\n"
         "import repro_torch.launch.steps, repro_torch.launch.train, repro_torch.tree\n"
+        "import repro_torch.launch.serve, repro_torch.kernels.ref, repro_torch.core\n"
+        "import repro_torch.core.photonic_model, repro_torch.core.energy_model\n"
+        "import repro_torch.core.workloads, repro_torch.core.accelerator_sim\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
         "                                                      'ml_dtypes'))\n"
         "print(','.join(bad))\n"
@@ -305,10 +308,14 @@ def _imported_roots(path: Path):
 
 
 def test_no_source_of_the_port_names_jax_or_repro():
-    """Every module of the port, and the chip smoke script, by their
-    import statements (also the ones inside functions).  ``ml_dtypes`` is
-    out too: the card's machine does not have it."""
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """Every module of the port, the chip smoke script and the port's
+    examples (``examples/torch_*.py``), by their import statements (also
+    the ones inside functions).  ``ml_dtypes`` is out too: the card's
+    machine does not have it."""
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 6, examples
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + examples)
     assert len(files) > 20
     for new in ("api/llm.py", "api/config.py", "kernels/spoga_gemm.py",
                 "kernels/deas_gemm.py", "kernels/ops.py", "checkpoint/checkpoint.py",
@@ -317,7 +324,9 @@ def test_no_source_of_the_port_names_jax_or_repro():
                 "obs/config.py", "obs/server.py", "obs/watchdog.py", "obs/recorder.py",
                 "obs/replay.py", "launch/replay.py", "spec/config.py", "spec/verify.py",
                 "spec/ngram.py", "spec/draft_model.py", "prefix/tree.py", "prefix/cache.py", "models/moe.py",
-                "configs/minicpm3_4b.py", "configs/deepseek_moe_16b.py"):
+                "configs/minicpm3_4b.py", "configs/deepseek_moe_16b.py",
+                "launch/serve.py", "kernels/ref.py", "core/photonic_model.py",
+                "core/energy_model.py", "core/workloads.py", "core/accelerator_sim.py"):
         assert ROOT / "src" / "repro_torch" / new in files, new
     for f in files:
         assert not _imported_roots(f) & {"jax", "jaxlib", "repro", "ml_dtypes"}, f
