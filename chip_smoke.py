@@ -40,7 +40,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    int8 cache, on phase 6's 2-layer bf16-GEMM model the logits within
    tolerance at every step; at ``int8_spoga`` (2 layers, full depth) the
    difference printed;
-5. the paper's dataflows through the ``LLM`` facade: the same weights and
+5. the paper's dataflows through the ``LLM`` facade: the same weights (the
+   first ``DATAFLOW_LAYERS`` (4) of phase 4's 16 layers) and
    prompts served by ``int8_spoga`` fused, ``int8_spoga`` with
    ``gemm_backend="cuda_spoga"``, ``int8_deas`` and ``int8_direct``, in
    two rounds of opposite order, each run's kernel counts read around it;
@@ -56,7 +57,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    then a 1,000-token paged decode over int8 KV, 4 steps fed the CPU's
    tokens, the logits within tolerance at every step;
 7. engine features, full-width ``int8_spoga`` over int8 paged KV, the
-   first ``FEATURE_LAYERS`` (8) of llama's 16 layers (runs
+   first ``FEATURE_LAYERS`` (2) of llama's 16 layers (runs
    between phases 5b and 6): (a) phase 4's weights (those layers) saved with
    ``save_checkpoint`` and loaded by ``LLM(checkpoint_dir=)``, every tensor
    equal; (b) 2 prompts of 2,048-4,096 tokens then 8 short ones, chunked
@@ -126,11 +127,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``paged_attention``: the rings are per lane and attended in torch), peak
    memory and tok/s, a decode-step profile split into GEMM kernels, weight
    quantization, ring attention and scan/elementwise work, the engine's
-   ``ValueError``s; (b) xlstm-125m (mLSTM and sLSTM cells) paged and slot
-   (69 a step), a decode-step profile, 256-token chunks against one-shot on
+   ``ValueError``s; (b) xlstm-125m (mLSTM and sLSTM cells; ``XLSTM_LAYERS``,
+   4 of its 12 layers) paged and slot (23 a step), a
+   decode-step profile, 256-token chunks against one-shot on
    512- and 768-token prompts (agreement printed, completion and launches
    gated),
-   ``LLM("xlstm-125m")`` with the default runtime, its ``ValueError``s;
+   ``LLM(config=)`` with the default runtime, its ``ValueError``s;
    (c) xlstm-125m through the four dataflows via ``LLM``, greedy streams
    identical, each run's launches exact; (d) 3 layers of recurrentgemma and
    4 of xlstm on the card against the CPU, bf16 and ``int8_spoga``; (e)
@@ -206,8 +208,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    row-parallel ones on ``spoga_gemm``; ``paged_attention`` once a layer a
    decode step; no plain version): nvidia-smi's compute mode printed (an
    exclusive mode fails here: (b)-(e) share the card); (a) full-width
-   llama3.2-1b unsharded and with ``MeshConfig(enable=True)`` on one NCCL
-   rank, streams bitwise equal; mistral-large-123b at full width
+   llama3.2-1b (``TP_LLAMA_LAYERS``, 8 of its 16 layers)
+   unsharded and with ``MeshConfig(enable=True)`` on one NCCL rank,
+   streams bitwise equal; mistral-large-123b at full width
    (``TP_MISTRAL_LAYERS`` of its 88 layers) and deepseek-moe-16b
    (``TP_DEEPSEEK_LAYERS`` of 28) unsharded on the first ``TP_REQUESTS``
    (4) of phase 4's requests; then two gloo ranks spawned
@@ -239,7 +242,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``spoga_gemm`` kernel (bitwise) and the ``spoga_gemm_dequant`` kernel
    (``DEQUANT_RTOL``); (e) ``examples/torch_quickstart.py`` and
    ``examples/torch_photonic_sim.py`` as subprocesses, exit 0;
-16. the ``kernels`` JSON line, then the ``ok`` line last.
+16. sharded training (after phase 15): four gloo ranks spawned on
+   ``cuda:0``, full-width llama3.2-1b (``SHARDED_LAYERS`` of its 16
+   layers), ``int8_spoga``, ``init_params(seed=0)``, a global batch of
+   4 x 256 tokens, ``TrainConfig``'s FSDP and ZeRO-1 defaults: (a) two
+   steps on a 2x2 ("data", "model") mesh against the unsharded step on the
+   same card (each rank holds the unsharded run's blocks): the losses
+   within ``SHARDED_LOSS_TOL``, every gradient leaf of the first step
+   within ``SHARDED_GRAD_TOL`` of its largest magnitude, the AdamW update
+   of the first step held apart (``_update_errors``: each rank's m and v
+   blocks against the unsharded step's, its master moved by AdamW's rule
+   from its own m and v within ``SHARDED_UPDATE_TOL`` of the lr, its param
+   block the master cast), the params after the steps within the param
+   bounds; per-rank launches gated exactly (10
+   ``spoga_gemm_dequant`` and 4 ``spoga_gemm`` a step, none in the
+   backward, no plain version); ranks that hold the same block hold the
+   same bits (sha256); each rank's param and optimizer bytes equal to
+   ``tree_device_bytes``, its ``max_memory_allocated`` a step above the
+   step's start printed; (b) an
+   async ``CheckpointManager`` save on 2x2, restored onto 4x1 and onto 1x4:
+   every block bitwise the slice of the saved tree, one step on each held
+   to the unsharded resumed step (the loss, the AdamW update and the
+   params, bounds as in (a)), its launches gated; (c) both GEMM kernels at
+   every (M, K, N) that the counted runs of (a) and (b) launched them at
+   (recorded around those runs: a 2x2 rank's M=512 at tp=2 widths, a 4x1
+   rank's M=256 at full width, a 1x4 rank's M=1,024 at tp=4 widths) and at
+   a tp=4 rank's decode step (``TP4_KN`` at M=4), bitwise against their
+   plain versions, timed against the bound and ``torch._int_mm``;
+17. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -1497,6 +1527,7 @@ DATAFLOWS = [
     ("direct", ("int8_direct", None), ("torch._int_mm",)),
 ]
 FACADE_NEW_TOKENS = 24
+DATAFLOW_LAYERS = 4        # of llama3.2-1b's 16 in phase 5's dataflow runs
 
 
 def phase_dataflows(card, params):
@@ -1508,6 +1539,8 @@ def phase_dataflows(card, params):
     from repro_torch.api import LLM, KVConfig, QuantRuntime, RuntimeConfig, SchedulerConfig
     from repro_torch.configs import default_cache_len, get_config
     prompts = [p for _, p, _ in _traffic(8, 128_256, ENGINE_SEED)]
+    config = get_config("llama3.2-1b").with_(n_layers=DATAFLOW_LAYERS)
+    cut = _first_layers(params, DATAFLOW_LAYERS)
     kv = KVConfig(mode="paged", dtype="int8", page_size=16,
                   cache_len=default_cache_len(128, 32))
     sched = SchedulerConfig(n_slots=4, prefill_buckets=(32, 64, 128))
@@ -1517,7 +1550,7 @@ def phase_dataflows(card, params):
     reports: dict[str, list] = {label: [] for label, _, _ in DATAFLOWS}
     for rnd, order in enumerate((DATAFLOWS, DATAFLOWS[::-1])):
         for label, (mode, backend), route in order:
-            llm = LLM(arch="llama3.2-1b", params=params, runtime=RuntimeConfig(
+            llm = LLM(config=config, params=cut, runtime=RuntimeConfig(
                 quant=QuantRuntime(mode=mode, gemm_backend=backend), kv=kv, scheduler=sched))
             reset_counts()
             outs = llm.generate(prompts, max_new_tokens=FACADE_NEW_TOKENS)
@@ -1559,8 +1592,8 @@ def phase_dataflows(card, params):
         print(f"[facade] {label} against spoga fused, rounds 1 and 2: decode step "
               f"{', '.join(f'{d:.2f}x' for d, _ in ratios)}; tok/s "
               f"{', '.join(f'{t:.2f}x' for _, t in ratios)}", flush=True)
-    print(f"[facade] 4 dataflows x 2 rounds, 8 prompts x {FACADE_NEW_TOKENS} tokens: greedy "
-          f"streams identical", flush=True)
+    print(f"[facade] 4 dataflows x 2 rounds, 8 prompts x {FACADE_NEW_TOKENS} tokens, "
+          f"{DATAFLOW_LAYERS} of 16 layers: greedy streams identical", flush=True)
     for mode in ("int8_deas", "int8_direct"):
         phase_profile(get_config("llama3.2-1b").with_(quant_mode=mode, kv_cache_dtype="int8"),
                       params, card, mode)
@@ -1707,7 +1740,7 @@ def _leaves(tree):
     return [("", tree)]
 
 
-FEATURE_LAYERS = 8         # of llama3.2-1b's 16 in phases 7-8
+FEATURE_LAYERS = 2         # of llama3.2-1b's 16 in phases 7-8
 
 
 def _feature_config():
@@ -2749,6 +2782,7 @@ GRANITE_LAYERS = 4        # of granite-moe-3b-a800m's 32
 RECURRENTGEMMA_LAYERS = 8  # of recurrentgemma-9b's 38: 2 periods + the 2-layer tail
 LLAVA_LAYERS = 4          # of llava-next-mistral-7b's 32
 SEAMLESS_LAYERS = 4       # of seamless-m4t-large-v2's 24 encoder and 24 decoder layers
+XLSTM_LAYERS = 4          # of xlstm-125m's 12: one period, 3 mLSTM + 1 sLSTM
 
 
 def _arch_params(arch, n_layers=None, config=None):
@@ -3272,8 +3306,9 @@ def _xlstm_long_traffic(vocab):
 
 
 def phase_xlstm(card):
-    """(b) xlstm-125m at full width, ``int8_spoga``: phase 4's traffic
-    paged and slot (69 GEMMs a decode step), a decode-step profile by
+    """(b) xlstm-125m at full width (``XLSTM_LAYERS`` of its 12 layers),
+    ``int8_spoga``: phase 4's traffic paged and slot (23 GEMMs a decode
+    step at 4 layers, 69 at 12), a decode-step profile by
     kernel group; 256-token chunks against
     one-shot prefill on 512- and 768-token prompts (greedy agreement
     printed; completion and launch counts gated: ROADMAP queue 3);
@@ -3284,14 +3319,14 @@ def phase_xlstm(card):
     from repro_torch.configs import default_cache_len, get_config
     from repro_torch.spec import SpecConfig
     arch = "xlstm-125m"
-    cfg = get_config(arch)
-    params = _arch_params(arch)
+    cfg = get_config(arch).with_(n_layers=XLSTM_LAYERS)
+    params = _arch_params(arch, config=cfg)
     arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
     cache_len = _roundup(default_cache_len(128, 32), 16)
     out = {}
     streams = {}
     for mode in ("paged", "slot"):
-        engine = _recurrent_engine(arch, params, cache_len, mode)
+        engine = _recurrent_engine(arch, params, cache_len, mode, config=cfg)
         streams[mode], rep, launches = _recurrent_run(card, engine, arrivals,
                                                       f"{arch} {mode} int8 KV")
         out[mode] = {"report": rep, "launches": launches}
@@ -3304,7 +3339,7 @@ def phase_xlstm(card):
     long_len = _roundup(768 + 24 + 8, XLSTM_CHUNK)
     runs = {}
     for label, chunk in (("one-shot", None), ("chunked", XLSTM_CHUNK)):
-        engine = _recurrent_engine(arch, params, long_len, chunk=chunk)
+        engine = _recurrent_engine(arch, params, long_len, chunk=chunk, config=cfg)
         runs[label] = _recurrent_run(card, engine, long, f"{arch} {label}, prompts of "
                                      f"{[len(p) for _, p, _ in long]} tokens")
         del engine
@@ -3314,7 +3349,7 @@ def phase_xlstm(card):
     print(f"[recurrent] {arch} chunked at {XLSTM_CHUNK} against one-shot: {same} of {total} "
           f"greedy tokens agree (not gated: ROADMAP queue 3)", flush=True)
     out["chunked"] = {"report": runs["chunked"][1], "agree": [same, total]}
-    llm = LLM(arch, params=params, device="cuda")
+    llm = LLM(config=cfg, params=params, device="cuda")
     require(llm.runtime.kv.mode == "slot" and llm.config.quant_mode == "bf16",
             "the default runtime is not slot KV with bf16 GEMMs")
     reset_counts()
@@ -3343,7 +3378,7 @@ def phase_xlstm(card):
                 "deas_combine": 1, "torch._int_mm": 1}
     first, counts = None, {}
     for label, (mode, backend), route in DATAFLOWS:
-        llm = LLM(arch=arch, params=params, device="cuda", runtime=RuntimeConfig(
+        llm = LLM(config=cfg, params=params, device="cuda", runtime=RuntimeConfig(
             quant=QuantRuntime(mode=mode, gemm_backend=backend), kv=kv, scheduler=sched))
         reset_counts()
         outs = llm.generate(prompts, max_new_tokens=FACADE_NEW_TOKENS)
@@ -4306,6 +4341,7 @@ def phase_train(card):
 # 14. distribution
 # ---------------------------------------------------------------------------
 
+TP_LLAMA_LAYERS = 8        # of llama3.2-1b's 16 in (a) and (b)
 TP_MISTRAL_LAYERS = 4      # of mistral-large-123b's 88
 TP_DEEPSEEK_LAYERS = 4     # of deepseek-moe-16b's 28: 1 dense + 3 MoE
 TP_REQUESTS = 4            # of phase 4's 8 requests in (c) and (d)
@@ -4457,8 +4493,8 @@ def _tp_rank(rank, dev):
     out = {}
     tp2 = MeshConfig(tp=2)
     t0 = time.perf_counter()
-    # (b) full-width llama3.2-1b, phase 4's traffic
-    cfg = _tp_config("llama3.2-1b")
+    # (b) full-width llama3.2-1b (TP_LLAMA_LAYERS layers), phase 4's traffic
+    cfg = _tp_config("llama3.2-1b", TP_LLAMA_LAYERS)
     out["llama"] = _tp_serve(cfg, _traffic(8, cfg.vocab_size, ENGINE_SEED), tp2,
                              f"(b) rank {rank} llama3.2-1b tp=2")
     mesh = make_host_mesh(1, 2, backend="gloo", device=dev)
@@ -4540,7 +4576,7 @@ def phase_distribution(card):
     t0 = time.perf_counter()
     out = {"compute_mode": compute_mode}
     # (a) and the tp=1 references
-    cfg = _tp_config("llama3.2-1b")
+    cfg = _tp_config("llama3.2-1b", TP_LLAMA_LAYERS)
     arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
     ref = _tp_serve(cfg, arrivals, MeshConfig(), "(a) llama3.2-1b unsharded")
     _tp_line("(a) llama3.2-1b unsharded", ref, card)
@@ -4823,6 +4859,471 @@ def phase_serve_cli(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 16. sharded training: FSDP, ZeRO-1, tensor parallelism, elastic restore
+# ---------------------------------------------------------------------------
+
+SHARDED_LAYERS = 2          # of llama3.2-1b's 16
+SHARDED_TRAIN = dict(batch=4, seq=256, steps=2)
+SHARDED_MESH = (2, 2)       # (data, model) of (a)
+RESTORE_MESHES = ((4, 1), (1, 4))
+# the check bounds of tests/test_torch_sharded_train.py (the reference
+# test's): loss, params after the steps, gradient leaves (share of each
+# leaf's largest magnitude)
+SHARDED_LOSS_TOL = 2e-4
+SHARDED_PARAM_RTOL = 3e-2
+SHARDED_PARAM_ATOL = 3e-3
+SHARDED_GRAD_TOL = 2e-2
+# the AdamW update itself, which the param bounds cannot see (two steps at lr
+# 1e-3 move an element less than the param atol): m, a scaled gradient,
+# within SHARDED_GRAD_TOL of each leaf's largest magnitude; v, a scaled
+# square, within 2 tol + tol**2; the master moved by AdamW's rule from the
+# rank's own m and v within SHARDED_UPDATE_TOL of the lr
+SHARDED_V_TOL = 2 * SHARDED_GRAD_TOL + SHARDED_GRAD_TOL ** 2
+SHARDED_UPDATE_TOL = 1e-3
+# a tp=4 rank's projections of llama3.2-1b: (kernel, K, N) -- q, k/v, gate/up
+# column-parallel on spoga_gemm_dequant, o and down row-parallel on
+# spoga_gemm -- a 1x4 training rank's at M=1,024 (4 x 256), which (b)
+# must launch, and a decode step's at TP4_DECODE_M
+TP4_KN = [("spoga_gemm_dequant", 2048, 512), ("spoga_gemm_dequant", 2048, 128),
+          ("spoga_gemm_dequant", 2048, 2048), ("spoga_gemm", 512, 2048),
+          ("spoga_gemm", 2048, 2048)]
+TP4_TRAIN_M = 1024
+TP4_DECODE_M = 4
+
+
+def _sharded_launches(shape, layers, steps):
+    """Per-rank GEMM launches of ``steps`` training steps on a (data, model)
+    mesh without remat: the forward's 7 projections a layer, at tp>1 the 5
+    column-parallel ones on ``spoga_gemm_dequant`` and the row-parallel o
+    and down on ``spoga_gemm``; the straight-through backward launches
+    none."""
+    tp = shape[1] > 1
+    return {"spoga_gemm_dequant": (5 if tp else 7) * layers * steps,
+            "spoga_gemm": (2 * layers * steps if tp else 0)}
+
+
+def _sharded_counted(label, shape, layers, steps, drive, seen):
+    """``drive()`` with every kernel count at 0 just before and read just
+    after, gated exactly (no plain version).  Every (kernel, M, K, N) that
+    the GEMM backends hand the two wrappers in the run is added to
+    ``seen`` (for (c))."""
+    from repro_torch.backends import impls
+    wrapped = {}
+    for name in ("spoga_gemm", "spoga_gemm_dequant"):
+        fn = wrapped[name] = getattr(impls, name)
+
+        def recording(x, w, *args, _name=name, _fn=fn, **kw):
+            seen.add((_name, x.shape[0], x.shape[1], w.shape[1]))
+            return _fn(x, w, *args, **kw)
+
+        setattr(impls, name, recording)
+    reset_counts()
+    try:
+        out = drive()
+    finally:
+        for name, fn in wrapped.items():
+            setattr(impls, name, fn)
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    want = _sharded_launches(shape, layers, steps)
+    check_counts(launches, plain, tuple(k for k, v in want.items() if v), label)
+    for name, n in want.items():
+        require(launches[name] == n, f"{label}: {name} launched {launches[name]} times, "
+                                     f"want {n}")
+    return out, {k: launches[k] for k in want}
+
+
+def _leaf_digests(tree) -> list:
+    import hashlib
+    return [hashlib.sha256(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu()
+                           .numpy().tobytes()).hexdigest() for _, t in _leaves(tree)]
+
+
+def _block_errors(local, full, specs, mesh, cfg, label, grads=False):
+    """The worst error of this rank's blocks ``local`` against the same
+    blocks of the unsharded ``full``: gradients as a share of each leaf's
+    largest magnitude (``SHARDED_GRAD_TOL``), params within the param
+    bounds.  Returns the worst share (gradients) or absolute error."""
+    from repro_torch.runtime.sharding import spec_leaves
+    from repro_torch.shard.core import shard_leaf
+    from repro_torch.tree import leaf_paths
+    paths = list(leaf_paths(full))
+    worst = 0.0
+    for (name, a), (_, f), spec, path in zip(_leaves(local), _leaves(full),
+                                            spec_leaves(specs, full), paths):
+        b = shard_leaf(f, spec, mesh, cfg, path)
+        err = (a.float() - b.float()).abs()
+        if grads:
+            scale = max(f.float().abs().max().item(), 1e-30)
+            share = err.max().item() / scale
+            worst = max(worst, share)
+            require(share <= SHARDED_GRAD_TOL, f"{label}: gradient {name} off the unsharded "
+                    f"step's by {share:.4%} of its largest magnitude")
+        else:
+            over = err - (SHARDED_PARAM_ATOL + SHARDED_PARAM_RTOL * b.float().abs())
+            require(over.max().item() <= 0, f"{label}: param {name} off the unsharded "
+                    f"step's by {err.max().item():.4g}")
+            worst = max(worst, err.max().item())
+    return worst
+
+
+def _sharded_lr(tcfg, step: int) -> float:
+    """The schedule's learning rate at ``step`` in float64 (the reference's
+    warmup and decay formulas)."""
+    warm = min(step / max(tcfg.warmup_steps, 1), 1.0)
+    if tcfg.schedule == "constant":
+        return tcfg.learning_rate * warm
+    frac = min(max((step - tcfg.warmup_steps) / max(tcfg.total_steps - tcfg.warmup_steps, 1),
+                   0.0), 1.0)
+    decay = 1.0 - frac if tcfg.schedule == "linear" else 0.5 * (1.0 + math.cos(math.pi * frac))
+    return tcfg.learning_rate * warm * decay
+
+
+def _update_errors(opt, params, master0, ref, specs, mesh, cfg, tcfg, label):
+    """This rank's AdamW blocks ``opt`` and param blocks ``params`` after a
+    step, from the master blocks ``master0`` before it, against the
+    unsharded step's full moments ``ref`` (``{"m", "v"}``): m within
+    ``SHARDED_GRAD_TOL`` and v within ``SHARDED_V_TOL`` of each leaf's
+    largest magnitude; the master ``master0`` moved by AdamW's rule from the
+    rank's own m and v within ``SHARDED_UPDATE_TOL`` of the lr (a step that
+    did not update, or updated a block from another block's moments, fails);
+    each param block the master cast, bit for bit (where ZeRO-1 splits a dim
+    the param holds whole, the master's part of it).  Returns the worst m
+    and v shares and the worst master error over the lr."""
+    from repro_torch.runtime.sharding import spec_leaves
+    from repro_torch.shard.core import shard_leaf
+    from repro_torch.tree import leaf_paths
+    p_specs, o_specs = specs
+    step = int(opt["step"])
+    lr = _sharded_lr(tcfg, step)
+    bc1, bc2 = 1.0 - tcfg.beta1 ** step, 1.0 - tcfg.beta2 ** step
+    worst = {}
+    paths = list(leaf_paths(ref["m"]))
+    for key, tol in (("m", SHARDED_GRAD_TOL), ("v", SHARDED_V_TOL)):
+        worst[key] = 0.0
+        for (name, a), (_, f), spec, path in zip(_leaves(opt[key]), _leaves(ref[key]),
+                                                spec_leaves(o_specs[key], ref[key]), paths):
+            b = shard_leaf(f, spec, mesh, cfg, path)
+            share = (a - b).abs().max().item() / max(f.abs().max().item(), 1e-30)
+            worst[key] = max(worst[key], share)
+            require(share <= tol, f"{label}: {key} {name} off the unsharded step's by "
+                                  f"{share:.4%} of its largest magnitude")
+    worst["master"] = 0.0
+    data = mesh.axis_rank("data")
+    for (name, w1), (_, w0), (_, m), (_, v), (_, p), p_spec, o_spec in zip(
+            _leaves(opt["master"]), _leaves(master0), _leaves(opt["m"]), _leaves(opt["v"]),
+            _leaves(params), spec_leaves(p_specs, ref["m"]), spec_leaves(o_specs["master"],
+                                                                         ref["m"])):
+        w0, m, v = w0.double(), m.double(), v.double()
+        rule = w0 - lr * ((m / bc1) / ((v / bc2).sqrt() + 1e-8) + tcfg.weight_decay * w0)
+        err = (w1.double() - rule).abs().max().item() / lr
+        del w0, m, v, rule
+        worst["master"] = max(worst["master"], err)
+        require(err <= SHARDED_UPDATE_TOL, f"{label}: master {name} off AdamW's rule from its "
+                                           f"own m and v by {err:.3g} of the lr")
+        for dim, (a, b) in enumerate(zip(p_spec, o_spec)):
+            names_a = a if isinstance(a, tuple) else (a,)
+            names_b = b if isinstance(b, tuple) else (b,)
+            if "data" in names_b and "data" not in names_a:
+                part = p.shape[dim] // mesh.shape["data"]
+                p = p.narrow(dim, data * part, part)
+        require(torch.equal(p, w1.to(p.dtype)), f"{label}: param {name} is not its master cast")
+    return worst
+
+
+def _unsharded_steps(cfg, tcfg, params, opt, batches):
+    """The port's unsharded step on ``batches`` from ``params`` / ``opt`` (in
+    place): (the first step's gradients, the losses, the moments after the
+    first step)."""
+    from repro_torch.launch.steps import _loss_and_grads, make_train_step
+    from repro_torch.tree import tree_map
+    _, grads = _loss_and_grads(params, cfg, tcfg, {"tokens": batches[0]})
+    step = make_train_step(cfg, tcfg)
+    losses, first = [], None
+    for b in batches:
+        params, opt, m = step(params, opt, {"tokens": b})
+        losses.append(float(m["loss"]))
+        if first is None:
+            first = tree_map(torch.clone, {"m": opt["m"], "v": opt["v"]})
+    return grads, losses, first
+
+
+def _sharded_rank(rank, dev, root):
+    """Phase 16 (a)-(b) in one of four gloo ranks that share ``cuda:0``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.checkpoint import CheckpointManager, restore_checkpoint
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import SyntheticTokenPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (
+        _sharded_loss_and_grads,
+        make_train_step,
+        sharded_layout,
+    )
+    from repro_torch.models import init_params, param_shapes
+    from repro_torch.optim.optimizers import adamw_init
+    from repro_torch.runtime.sharding import opt_state_specs, param_specs
+    from repro_torch.shard import tree_device_bytes
+    from repro_torch.shard.core import shard_opt_state, shard_params, shard_tree
+    from repro_torch.tree import tree_map
+
+    out = {}
+    t0 = time.perf_counter()
+    cfg = _train_cfg(n_layers=SHARDED_LAYERS, remat=False)
+    tcfg = TrainConfig(**TRAIN_LR)
+    pipe = SyntheticTokenPipeline(cfg.vocab_size, SHARDED_TRAIN["seq"], SHARDED_TRAIN["batch"],
+                                  seed=ENGINE_SEED, device=str(dev))
+    steps = SHARDED_TRAIN["steps"]
+    batches = [pipe.global_batch_at(i) for i in range(steps + 1)]
+    meta = param_shapes(cfg)
+    opt_meta = adamw_init(meta, device="meta")
+    meshes = {SHARDED_MESH: make_host_mesh(*SHARDED_MESH, backend="gloo", device=dev)}
+    for shape in RESTORE_MESHES:
+        meshes[shape] = make_host_mesh(*shape, backend="gloo", device=dev)
+
+    def specs_on(mesh):
+        p = param_specs(meta, mesh, cfg, fsdp=tcfg.fsdp)
+        return p, opt_state_specs(opt_meta, p, mesh, tcfg.zero1)
+
+    # (a) the unsharded reference on the card, then 2x2
+    mesh = meshes[SHARDED_MESH]
+    p_specs, o_specs = specs_on(mesh)
+    full = init_params(cfg, seed=ENGINE_SEED, device=dev)
+    opt = shard_opt_state(adamw_init(full, device=dev), p_specs, mesh, tcfg.zero1, cfg=cfg)
+    # the blocks apart from ``full`` (a leaf held whole is ``full``'s own)
+    params = tree_map(torch.clone, shard_params(full, mesh, cfg, fsdp=tcfg.fsdp))
+    ref_grads, ref_losses, ref_first = _unsharded_steps(cfg, tcfg, full,
+                                                        adamw_init(full, device=dev),
+                                                        batches[:steps])
+    ref_params = full
+    torch.cuda.empty_cache()
+    layout = sharded_layout(cfg, tcfg, mesh)
+    local = batches[0].chunk(layout.dp)[layout.data.rank]
+    _, grads = _sharded_loss_and_grads(params, layout, tcfg, {"tokens": local})
+    out["grad_share"] = _block_errors(grads, ref_grads, layout.g_specs, mesh, cfg,
+                                      f"(a) rank {rank}", grads=True)
+    del grads, ref_grads
+    torch.cuda.synchronize()
+    step = make_train_step(cfg, tcfg, mesh=mesh)
+    master0 = tree_map(torch.clone, opt["master"])
+    first = {}
+    peaks = []
+
+    def run():
+        losses, times = [], []
+        nonlocal params, opt
+        for b in batches[:steps]:
+            # a step's peak above what it starts with (the rank's blocks, and
+            # this phase's references and copies, none of them the step's)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            params, opt, m = step(params, opt, {"tokens": b})
+            losses.append(float(m["loss"]))
+            times.append(time.perf_counter() - t)
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+            if not first:
+                # the next step updates these blocks in place (no kernel)
+                first.update(tree_map(torch.clone, {"opt": opt, "params": params}))
+        return losses, times
+
+    seen = {SHARDED_MESH: set()}
+    (losses, times), out["launches"] = _sharded_counted(
+        f"(a) rank {rank} {SHARDED_MESH[0]}x{SHARDED_MESH[1]}", SHARDED_MESH, cfg.n_layers,
+        steps, run, seen[SHARDED_MESH])
+    out["update"] = _update_errors(first["opt"], first["params"], master0, ref_first,
+                                   (p_specs, o_specs), mesh, cfg, tcfg, f"(a) rank {rank}")
+    del first, master0, ref_first
+    out["peak_gib"] = peaks
+    for a, b in zip(losses, ref_losses):
+        require(abs(a - b) <= SHARDED_LOSS_TOL * (1 + abs(b)),
+                f"(a) rank {rank}: loss {a} against the unsharded step's {b}")
+    out["param_err"] = _block_errors(params, ref_params, p_specs, mesh, cfg, f"(a) rank {rank}")
+    del ref_params
+    out.update(losses=losses, ref_losses=ref_losses, step_s=times,
+               coords={a: mesh.axis_rank(a) for a in mesh.axis_names},
+               digests={"params": _leaf_digests(params), "opt": _leaf_digests(opt)},
+               param_bytes=sum(t.numel() * t.element_size() for _, t in _leaves(params)),
+               opt_bytes=sum(t.numel() * t.element_size() for _, t in _leaves(opt)),
+               tree_device_bytes=(tree_device_bytes(meta, p_specs, mesh),
+                                  tree_device_bytes(opt_meta, o_specs, mesh)))
+    out["t_a"] = time.perf_counter() - t0
+    # (b) an async save on 2x2, restored onto 4x1 and 1x4
+    manager = CheckpointManager(root, keep_n=1, async_save=True, mesh=mesh, cfg=cfg)
+    t = time.perf_counter()
+    manager.save(steps, (params, opt), specs=(p_specs, o_specs))
+    out["save_call_s"] = time.perf_counter() - t
+    manager.wait()
+    out["save_s"] = time.perf_counter() - t
+    del params, opt
+    torch.cuda.empty_cache()
+    # the saved tree whole, each target's blocks of it, then the unsharded
+    # resumed step from it
+    t = time.perf_counter()
+    _, saved, _ = restore_checkpoint(root, None, (meta, opt_meta), device=dev)
+    out["restore_whole_s"] = time.perf_counter() - t
+    want_blocks = {shape: tree_map(torch.clone, shard_tree(saved, specs_on(meshes[shape]),
+                                                           meshes[shape], cfg))
+                   for shape in RESTORE_MESHES}
+    step = make_train_step(cfg, tcfg)
+    ref_loss = float(step(saved[0], saved[1], {"tokens": batches[steps]})[2]["loss"])
+    ref_params = saved[0]
+    ref_moments = {"m": saved[1]["m"], "v": saved[1]["v"]}
+    del saved
+    torch.cuda.empty_cache()
+    out["restored"] = {}
+    for shape in RESTORE_MESHES:
+        mesh = meshes[shape]
+        specs = specs_on(mesh)
+        label = f"(b) rank {rank} {shape[0]}x{shape[1]}"
+        t = time.perf_counter()
+        _, (params, opt), _ = restore_checkpoint(root, None, (meta, opt_meta), mesh=mesh,
+                                                 specs=specs, cfg=cfg)
+        res = {"restore_s": time.perf_counter() - t}
+        for (name, a), (_, b) in zip(_leaves((params, opt)), _leaves(want_blocks.pop(shape))):
+            require(a.dtype == b.dtype and torch.equal(a, b),
+                    f"{label}: restored block {name} is not the slice of the saved tree")
+        step = make_train_step(cfg, tcfg, mesh=mesh)
+        master0 = tree_map(torch.clone, opt["master"])
+        seen[shape] = set()
+
+        def one_step():
+            nonlocal params, opt
+            params, opt, m = step(params, opt, {"tokens": batches[steps]})
+            return float(m["loss"])
+
+        loss, res["launches"] = _sharded_counted(label, shape, cfg.n_layers, 1, one_step,
+                                                 seen[shape])
+        res["update"] = _update_errors(opt, params, master0, ref_moments, specs, mesh, cfg, tcfg,
+                                       label)
+        del master0
+        require(abs(loss - ref_loss) <= SHARDED_LOSS_TOL * (1 + abs(ref_loss)),
+                f"{label}: loss {loss} against the unsharded resumed step's {ref_loss}")
+        res["param_err"] = _block_errors(params, ref_params, specs[0], mesh, cfg, label)
+        res.update(loss=loss, ref_loss=ref_loss)
+        out["restored"][shape] = res
+        del params, opt
+        torch.cuda.empty_cache()
+    out["t_b"] = time.perf_counter() - t0
+    out["gemm_shapes"] = {shape: sorted(s) for shape, s in seen.items()}
+    return out
+
+
+def phase_sharded_gemms(card, launched):
+    """(c) Both GEMM kernels at every (kernel, M, K, N) in ``launched`` (the
+    shapes the counted runs of (a) and (b) gave them, by the meshes that
+    launched each) and at a tp=4 rank's decode step (``TP4_KN`` at
+    ``TP4_DECODE_M``): bitwise against their plain versions, timed against
+    the bound and ``torch._int_mm``."""
+    from repro_torch.kernels.spoga_gemm import spoga_gemm, spoga_gemm_plain
+    from repro_torch.kernels.spoga_gemm_dequant import (
+        spoga_gemm_dequant,
+        spoga_gemm_dequant_plain,
+    )
+    cases = {key: sorted(meshes) for key, meshes in launched.items()}
+    for kernel, k, n in TP4_KN:
+        require((kernel, TP4_TRAIN_M, k, n) in cases, f"(c) the 1x4 step never launched "
+                                                      f"{kernel} at M={TP4_TRAIN_M} K={k} N={n}")
+        cases.setdefault((kernel, TP4_DECODE_M, k, n), []).append("tp=4 decode")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    table = {}
+    for (kernel, m, k, n), runs in sorted(cases.items()):
+        spec, x, w, xs, ws = _gemm_operands(m, k, n, "int8_spoga", gen)
+        if kernel == "spoga_gemm_dequant":
+            got, want = spoga_gemm_dequant(x, w, xs, ws), spoga_gemm_dequant_plain(x, w, xs, ws)
+            timing = _gemm_timing
+        else:
+            got, want = spoga_gemm(x, w), spoga_gemm_plain(x, w)
+            timing = _int_gemm_timing
+        require(torch.equal(got, want), f"(c) {kernel} M={m} K={k} N={n} differs from its "
+                                        "plain version")
+        table[(kernel, m, k, n)] = dict(
+            timing(f"{kernel} ({', '.join(runs)}) llama3.2-1b", "int8_spoga", m, k, n, gen,
+                   tag="sharded"), launched_by=runs)
+    return table
+
+
+def phase_sharded_train(card):
+    """16. (a)-(b) in four gloo ranks sharing the card, then (c)."""
+    import tempfile
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    print(f"[sharded] four gloo ranks on cuda:0 (gloo stages every collective on a CUDA "
+          f"tensor through host memory): llama3.2-1b full width, {SHARDED_LAYERS} layers, "
+          f"int8_spoga, {SHARDED_TRAIN['batch']} x {SHARDED_TRAIN['seq']} tokens, "
+          f"TrainConfig(fsdp=True, zero1=True) [{card}]", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as root:
+        ranks = spawn(_sharded_rank, 4, "gloo", device="shared", args=(root,))
+    t_ranks = time.perf_counter() - t0
+    shape = f"{SHARDED_MESH[0]}x{SHARDED_MESH[1]}"
+    for rank, res in enumerate(ranks):
+        require(res["param_bytes"] == res["tree_device_bytes"][0] and
+                res["opt_bytes"] == res["tree_device_bytes"][1],
+                f"(a) rank {rank}: param / optimizer bytes {res['param_bytes']} / "
+                f"{res['opt_bytes']} differ from tree_device_bytes {res['tree_device_bytes']}")
+        print(f"[sharded] (a) rank {rank} {shape} {res['coords']}: losses {res['losses']} "
+              f"(unsharded {res['ref_losses']}), steps {[round(s, 3) for s in res['step_s']]} "
+              f"s, launches {res['launches']}, worst gradient leaf "
+              f"{100 * res['grad_share']:.3f}% of its largest magnitude, first update: m "
+              f"{100 * res['update']['m']:.3f}%, v {100 * res['update']['v']:.3f}%, master "
+              f"{res['update']['master']:.3g} lr off AdamW's rule, params within "
+              f"{res['param_err']:.3g}; params {res['param_bytes']} + optimizer "
+              f"{res['opt_bytes']} bytes = tree_device_bytes, max_memory_allocated a step "
+              f"above its start {', '.join(f'{g:.2f}' for g in res['peak_gib'])} GiB [{card}]",
+              flush=True)
+        for target, r in res["restored"].items():
+            print(f"[sharded] (b) rank {rank} {target[0]}x{target[1]}: restored in "
+                  f"{r['restore_s']:.2f} s (whole: {res['restore_whole_s']:.2f} s; blocks "
+                  f"bitwise the saved tree's), loss {r['loss']:.6f} (unsharded resumed "
+                  f"{r['ref_loss']:.6f}), launches {r['launches']}, update: m "
+                  f"{100 * r['update']['m']:.3f}%, v {100 * r['update']['v']:.3f}%, master "
+                  f"{r['update']['master']:.3g} lr off AdamW's rule, params within "
+                  f"{r['param_err']:.3g}", flush=True)
+    # ranks that hold the same block hold the same bits
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models import param_shapes
+    from repro_torch.optim.optimizers import adamw_init
+    from repro_torch.runtime.sharding import opt_state_specs, param_specs, spec_leaves
+    import types
+    cfg = _train_cfg(n_layers=SHARDED_LAYERS, remat=False)
+    tcfg = TrainConfig(**TRAIN_LR)
+    stub = types.SimpleNamespace(shape=dict(zip(("data", "model"), SHARDED_MESH)),
+                                 axis_names=("data", "model"))
+    meta = param_shapes(cfg)
+    p_specs = param_specs(meta, stub, cfg, fsdp=tcfg.fsdp)
+    o_specs = opt_state_specs(adamw_init(meta, device="meta"), p_specs, stub, tcfg.zero1)
+    pairs = 0
+    for key, specs, like in (("params", p_specs, meta),
+                             ("opt", o_specs, adamw_init(meta, device="meta"))):
+        for i, spec in enumerate(spec_leaves(specs, like)):
+            used = sorted({a for e in spec if e is not None
+                           for a in (e if isinstance(e, tuple) else (e,))})
+            groups = {}
+            for res in ranks:
+                groups.setdefault(tuple(res["coords"][a] for a in used), []).append(
+                    res["digests"][key][i])
+            for digests in groups.values():
+                require(len(set(digests)) == 1, f"(a) {key} leaf {i}: replicas differ")
+                pairs += len(digests) - 1
+    losses = ranks[0]["losses"]
+    require(all(r["losses"] == losses for r in ranks), "(a) the ranks' losses differ")
+    save = max(r["save_s"] for r in ranks)
+    print(f"[sharded] (a) {shape}: losses {losses} on every rank, {pairs} replica pairs "
+          f"bitwise equal (sha256); (b) async save {save:.2f} s (call "
+          f"{max(r['save_call_s'] for r in ranks):.2f} s), restores onto "
+          f"{', '.join(f'{a}x{b}' for a, b in RESTORE_MESHES)}; four ranks in {t_ranks:.1f} s "
+          f"[{card}]", flush=True)
+    launched = {}
+    for res in ranks:
+        for (dp, tp), shapes in res["gemm_shapes"].items():
+            for key in shapes:
+                launched.setdefault(tuple(key), set()).add(f"{dp}x{tp}")
+    out = {"ranks": ranks, "gemm": phase_sharded_gemms(card, launched)}
+    print(f"[sharded] phase 16 in {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -4880,6 +5381,8 @@ def main() -> int:
     print(f"[time] phase 14 done at {time.perf_counter() - t0:.1f} s", flush=True)
     serve_cli = phase_serve_cli(card)
     print(f"[time] phase 15 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    sharded = phase_sharded_train(card)
+    print(f"[time] phase 16 done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -4964,6 +5467,21 @@ def main() -> int:
             **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
             for (kname, arch, k, n), t in dist["gemm"].items() if kname == kernel}
 
+    def sharded_launches(name):
+        """A kernel's launches a rank in phase 16's counted training runs."""
+        runs = {**{f"(a) {SHARDED_MESH[0]}x{SHARDED_MESH[1]} rank {r}, "
+                   f"{SHARDED_TRAIN['steps']} steps": res["launches"]
+                   for r, res in enumerate(sharded["ranks"])},
+                **{f"(b) {a}x{b} rank {r}, 1 step after restore": res["restored"][(a, b)][
+                    "launches"] for r, res in enumerate(sharded["ranks"])
+                   for a, b in RESTORE_MESHES}}
+        return {label: launches[name] for label, launches in runs.items()}
+
+    def sharded_shapes(kernel):
+        return {f"{', '.join(t['launched_by'])} llama3.2-1b W8A8 M={m} K={k} N={n}": {
+            **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
+            for (kname, m, k, n), t in sharded["gemm"].items() if kname == kernel}
+
     def train_shapes():
         return {f"W8A8 M={m} K={k} N={n}": {**t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
                 for (m, k, n), t in train["gemm"].items()}
@@ -5004,6 +5522,8 @@ def main() -> int:
                         distribution_shapes=dist_shapes("spoga_gemm_dequant"),
                         launches_serve_cli={"(a) launch.serve.main": serve_cli["a"][
                             "launches"]["spoga_gemm_dequant"]},
+                        launches_sharded_training=sharded_launches("spoga_gemm_dequant"),
+                        sharded_training_shapes=sharded_shapes("spoga_gemm_dequant"),
                         oracle_max_abs_err=serve_cli["d"]["dequant_max_abs_err"])]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
@@ -5046,7 +5566,9 @@ def main() -> int:
                             distribution_shapes=dist_shapes("spoga_gemm"),
                             launches_serve_cli={
                                 "(b) launch.serve.main, set_default_backend('cuda_spoga')":
-                                    serve_cli["b"]["launches"]["spoga_gemm"]}))
+                                    serve_cli["b"]["launches"]["spoga_gemm"]},
+                            launches_sharded_training=sharded_launches("spoga_gemm"),
+                            sharded_training_shapes=sharded_shapes("spoga_gemm")))
     kernels.append(gemm_row("nibble_gemm", "src/repro_torch/csrc/deas_gemm.cu",
                             "src/repro/kernels/deas_gemm.py:50", deas_run["nibble_gemm"], 4,
                             deas_err, at(nibble, lambda m: (m, 2048, 8192)),

@@ -8,7 +8,7 @@ workload.  Every one of the reference's architectures builds.  The
 training fields (``remat``, ``remat_policy``, plus ``scan_layers`` and
 ``scan_unroll``, which the port's Python loop over periods reads as the
 reference's fully unrolled scan) and ``TrainConfig``.  ``ShapeConfig``
-belongs to the dry-run (ROADMAP queue 1, item 10.2).
+belongs to the dry-run (ROADMAP queue 1, item 10.2 (d)).
 """
 
 from __future__ import annotations
@@ -177,8 +177,8 @@ class TrainConfig:
     warmup_steps: int = 100
     total_steps: int = 1000
     schedule: str = "cosine"      # cosine | linear | constant
-    zero1: bool = True            # shard optimizer state over the data axis (item 10.2)
-    fsdp: bool = True             # ZeRO-3 weight sharding over the data axis (item 10.2)
+    zero1: bool = True            # shard optimizer state over the data axis (launch.steps)
+    fsdp: bool = True             # ZeRO-3 weight sharding over the data axis (launch.steps)
     microbatches: int = 1         # gradient accumulation steps per update
     grad_compression: bool = False  # int8 compressed gradient all-reduce (launch.steps)
     # dtype the gradients are cast to before the update: "f32" (exact) or

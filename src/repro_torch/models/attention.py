@@ -55,7 +55,7 @@ from repro_torch.models.layers import (
     rmsnorm,
     rmsnorm_columns,
 )
-from repro_torch.runtime.collectives import model_axis
+from repro_torch.runtime.collectives import model_axis, model_input
 
 NEG_INF = -1e30
 
@@ -151,6 +151,7 @@ def attention_block(x, p, cfg: ModelConfig, positions, window=None, causal: bool
     b, s, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     qm, be = cfg.quant_mode, cfg.gemm_backend
+    x = model_input(x)
     q = linear(x, p["wq"], qm, be).reshape(b, s, hq, hd)
     k = linear(x, p["wk"], qm, be).reshape(b, s, hkv, hd)
     v = linear(x, p["wv"], qm, be).reshape(b, s, hkv, hd)

@@ -11,7 +11,13 @@ the layers hold their rank's part of the weights: column-parallel
 projections need nothing more (the activation is whole, each output
 column's scale local), row-parallel ones (``linear(..., row=True)``: wo,
 w_down, w_out) sum across ranks, and the vocab-parallel ``embed`` and
-``unembed`` finish with a SUM all-reduce and an all-gather.
+``unembed`` finish with a SUM all-reduce and an all-gather.  In training
+the same layers run under autograd on the rank's slices: a replicated
+activation enters each column-parallel group through Megatron's *f*
+(``collectives.model_input``), whose backward sums the ranks' partial
+input gradients, and the row-parallel sum is *g* (``collectives.model_sum``
+or the int32 sum inside ``quantized_linear``), whose backward passes the
+gradient through.
 """
 
 from __future__ import annotations
@@ -21,7 +27,12 @@ import functools
 import torch
 
 from repro_torch.backends import quantized_linear
-from repro_torch.runtime.collectives import all_gather, all_reduce, model_axis
+from repro_torch.runtime.collectives import (
+    model_axis,
+    model_gather,
+    model_input,
+    model_sum,
+)
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.bfloat16
@@ -60,13 +71,20 @@ class _QuantizedLinearSTE(torch.autograd.Function):
     roundings are mirrored here (held against the jitted ``jax.vjp`` in
     ``tests/test_torch_train.py``).  The forward is ``quantized_linear``
     itself, so on the card it launches the GEMM kernel; the backward
-    launches none and stages nothing for the numerics watchdog."""
+    launches none and stages nothing for the numerics watchdog.
+
+    ``row_axis``: a row-parallel projection's rank (``x`` and ``w`` its K
+    slice); the forward is ``quantized_linear``'s row-parallel form (the
+    int32 sum over the axis, Megatron's *g*), the backward the same rule on
+    the slices: the whole output's gradient times the rank's rows of ``w``
+    gives its slice of ``dx``, and ``dw`` is its own rows'."""
 
     @staticmethod
-    def forward(ctx, x, w, quant_mode, backend):
+    def forward(ctx, x, w, quant_mode, backend, row_axis=None):
         ctx.save_for_backward(x.to(COMPUTE_DTYPE), w)
         ctx.x_dtype = x.dtype
-        return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE)
+        return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE,
+                                row_axis=row_axis)
 
     @staticmethod
     def backward(ctx, g):
@@ -78,7 +96,7 @@ class _QuantizedLinearSTE(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             x2 = xb.reshape(-1, xb.shape[-1]).float()
             dw = torch.matmul(x2.t(), gf.reshape(-1, gf.shape[-1])).to(w.dtype)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
 def linear(x, w, quant_mode: str = "bf16", backend=None, row: bool = False):
@@ -95,22 +113,20 @@ def linear(x, w, quant_mode: str = "bf16", backend=None, row: bool = False):
     (``x`` and ``w`` hold this rank's K slice).  Integer modes then run
     ``quantized_linear``'s row-parallel form, bitwise the unsharded
     product; bf16 sums the ranks' f32 partial products and rounds once,
-    which is allclose to the unsharded bf16 product, not bitwise."""
+    which is allclose to the unsharded bf16 product, not bitwise.  Under
+    autograd both forms have the straight-through gradients on the rank's
+    slices (see :class:`_QuantizedLinearSTE`)."""
     ax = model_axis() if row else None
-    if ax is not None:
-        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-            raise NotImplementedError("tensor-parallel training is not ported yet "
-                                      "(ROADMAP queue 1, item 10.2)")
-        if quant_mode == "bf16":
-            part = torch.matmul(x.to(COMPUTE_DTYPE).float(), w.to(COMPUTE_DTYPE).float())
-            return all_reduce(part, ax, "sum").to(COMPUTE_DTYPE)
-        return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE,
-                                row_axis=ax)
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
     if quant_mode == "bf16":
-        return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _QuantizedLinearSTE.apply(x, w, quant_mode, backend)
-    return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE)
+        if ax is None:
+            return torch.matmul(x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE))
+        part = torch.matmul(x.to(COMPUTE_DTYPE).float(), w.to(COMPUTE_DTYPE).float())
+        return model_sum(part, ax).to(COMPUTE_DTYPE)
+    if grad:
+        return _QuantizedLinearSTE.apply(x, w, quant_mode, backend, ax)
+    return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE,
+                            row_axis=ax)
 
 
 def init_rmsnorm(d: int, device=None):
@@ -195,6 +211,7 @@ def glu_mlp(x, p, act="silu", quant_mode="bf16", backend=None):
     quantized unrounded, as the reference's compiled graph does (XLA keeps
     the excess precision there); a bf16 matmul rounds it to the same bf16
     either way."""
+    x = model_input(x)
     g = _ACTS[act](linear(x, p["w_gate"], quant_mode, backend))
     u = linear(x, p["w_up"], quant_mode, backend)
     return linear(g.float() * u.float(), p["w_down"], quant_mode, backend, row=True)
@@ -207,7 +224,7 @@ def init_mlp(gen, device, d_model: int, d_ff: int, stack=()):
 
 def mlp(x, p, act="gelu", quant_mode="bf16", backend=None):
     """The non-GLU MLP, ``out(act(in(x)))``."""
-    return linear(_ACTS[act](linear(x, p["w_in"], quant_mode, backend)),
+    return linear(_ACTS[act](linear(model_input(x), p["w_in"], quant_mode, backend)),
                   p["w_out"], quant_mode, backend, row=True)
 
 
@@ -225,8 +242,8 @@ def embed(tokens, table, shape=None):
         local = tokens.long() - ax.rank * rows
         held = (local >= 0) & (local < rows)
         part = torch.where(held[..., None], table[local.clamp(0, rows - 1)].float(), 0.0)
-        return all_reduce(part, ax, "sum").to(COMPUTE_DTYPE)
-    return all_gather(table[tokens.long()].to(COMPUTE_DTYPE), ax, dim=-1)
+        return model_sum(part, ax).to(COMPUTE_DTYPE)
+    return model_gather(table[tokens.long()].to(COMPUTE_DTYPE), ax, -1)
 
 
 def unembed(x, table, shape=None):
@@ -239,13 +256,14 @@ def unembed(x, table, shape=None):
     ax = model_axis()
     if ax is None or shape is None or tuple(table.shape) == tuple(shape):
         return torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).float()
+    x = model_input(x)
     if table.shape[0] != shape[0]:
         local = torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).float()
-        return all_gather(local, ax, dim=-1)
+        return model_gather(local, ax, -1)
     cols = table.shape[1]
     xs = x.to(COMPUTE_DTYPE)[..., ax.rank * cols:(ax.rank + 1) * cols]
     part = torch.matmul(xs.float(), table.to(COMPUTE_DTYPE).float().t())
-    return all_reduce(part, ax, "sum").to(COMPUTE_DTYPE).float()
+    return model_sum(part, ax).to(COMPUTE_DTYPE).float()
 
 
 def rope_frequencies(head_dim, theta, device=None):

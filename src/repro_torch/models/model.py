@@ -32,7 +32,14 @@ cache in place.
 
 :func:`lm_loss` is the training loss: the chunked cross-entropy of
 :func:`_chunked_ce` plus the MoE load-balance loss; with ``cfg.remat``
-each period recomputes in the backward (:func:`_remat_period`).
+each period recomputes in the backward (:func:`_remat_period`).  Under
+FSDP (``runtime.collectives.data_sharded``, entered by the sharded train
+step) every layer's leaves are gathered over "data" just before the layer
+runs, one period's slice of a stacked leaf at a time
+(``collectives.gather_params``); a rematerialized period gathers again in
+its recompute instead of keeping the gathered weights alive.  On a
+tensor-parallel mesh the head's logits are vocab-parallel and gathered
+over "model" before the cross-entropy.
 
 ``forward``, ``lm_loss``, ``prefill``, ``decode_step`` and ``verify_step`` run inside
 the numerics watchdog's context when ``cfg.numerics_watchdog`` is set
@@ -63,7 +70,7 @@ from repro_torch.configs.base import ModelConfig, pages_for
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
-from repro_torch.models.transformer import layer_layout, period_params
+from repro_torch.models.transformer import layer_layout
 from repro_torch.models.kvcache import (
     block_cache_shape,
     paged_block_cache_shape,
@@ -79,7 +86,7 @@ from repro_torch.models.layers import (
     unembed,
 )
 from repro_torch.obs import watchdog as _watchdog
-from repro_torch.runtime.collectives import model_parallel
+from repro_torch.runtime.collectives import batch_total, gather_params, model_parallel
 from repro_torch.shard.core import local_config
 
 
@@ -155,15 +162,21 @@ def _head_table(params, cfg: ModelConfig):
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
-def embed_tokens(tokens, params, cfg: ModelConfig):
-    """The token embedding (vocab-parallel on a tensor-parallel mesh)."""
-    return embed(tokens, params["embed"], (cfg.vocab_size, cfg.d_model))
+def _vocab_shape(cfg: ModelConfig) -> tuple:
+    return (cfg.vocab_size, cfg.d_model)
+
+
+def embed_tokens(tokens, params, cfg: ModelConfig, table=None):
+    """The token embedding (vocab-parallel on a tensor-parallel mesh);
+    ``table``: the embedding already gathered over "data" (FSDP)."""
+    table = gather_params(params["embed"]) if table is None else table
+    return embed(tokens, table, _vocab_shape(cfg))
 
 
 def head_logits(h, params, cfg: ModelConfig):
     """f32 logits of the final-normed ``h`` (gathered over a tensor-parallel
     mesh's ranks)."""
-    return unembed(h, _head_table(params, cfg), (cfg.vocab_size, cfg.d_model))
+    return unembed(h, gather_params(_head_table(params, cfg)), _vocab_shape(cfg))
 
 
 def _stack(trees):
@@ -192,23 +205,23 @@ def _plan(cfg: ModelConfig, carry_out: bool = False):
 def _cross_step(x, params, cfg: ModelConfig, period: int, enc_kv):
     """Period ``period``'s cross-attention: ``x + xattn(rmsnorm(x, norm_x),
     enc_kv)``, the sum rounded to bf16."""
-    cross_p = period_params(params["cross_blocks"], period)
+    cross_p = gather_params(params["cross_blocks"], period)
     hx = rmsnorm(x, cross_p["norm_x"], cfg.norm_eps, dtype=COMPUTE_DTYPE)
     return x.to(COMPUTE_DTYPE) + attn.cross_attention_block(hx, enc_kv, cross_p["xattn"], cfg)
 
 
 def _cross_kv(enc_out, params, cfg: ModelConfig, period: int):
     return attn.encode_cross_kv(
-        enc_out, period_params(params["cross_blocks"]["xattn"], period), cfg)
+        enc_out, gather_params(params["cross_blocks"]["xattn"], period), cfg)
 
 
-def _embed_input(params, cfg: ModelConfig, batch):
+def _embed_input(params, cfg: ModelConfig, batch, table=None):
     """(x (B, S, d) bf16, positions (B, S)) of ``batch["embeds"]`` or of
     the tokens ``batch["tokens"]``; ``batch["positions"]`` when given."""
     if "embeds" in batch:
         x = batch["embeds"].to(COMPUTE_DTYPE)
     else:
-        x = embed_tokens(batch["tokens"], params, cfg)
+        x = embed_tokens(batch["tokens"], params, cfg, table)
     b, s = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:
@@ -220,7 +233,7 @@ def _layer(x, params, cfg: ModelConfig, positions, entry, causal: bool, enc_out,
     """One entry of :func:`_plan`: the block, then (``cross``) the period's
     cross-attention step against ``enc_out``."""
     group, idx, period, kind, carry, cross = entry
-    x, _ = tfm.apply_block(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
+    x, _ = tfm.apply_block(x, gather_params(params[group][idx], period), kind, cfg,
                            positions, carry=carry, causal=causal, aux_out=aux_out)
     if cross:
         x = _cross_step(x, params, cfg, period, _cross_kv(enc_out, params, cfg, period))
@@ -293,23 +306,25 @@ def _run_encoder(src, params, cfg: ModelConfig):
     enc = {"head_blocks": [], "blocks": params["enc_blocks"],
            "tail_blocks": params.get("enc_tail_blocks", [])}
     x = _run_stack(src.to(COMPUTE_DTYPE), enc, _encoder_cfg(cfg), positions)
-    return rmsnorm(x, params["enc_final_norm"], cfg.norm_eps)
+    return rmsnorm(x, gather_params(params["enc_final_norm"]), cfg.norm_eps)
 
 
-def backbone(params, cfg: ModelConfig, batch):
-    """-> (final-normed hidden (B, S, d) bf16, MoE load-balance loss f32)."""
+def backbone(params, cfg: ModelConfig, batch, table=None):
+    """-> (final-normed hidden (B, S, d) bf16, MoE load-balance loss f32).
+    ``table``: the token embedding already gathered (the tied head's)."""
     aux = []
     if cfg.is_encoder_decoder:
         enc_out = _run_encoder(batch["src_embeds"], params, cfg)
-        x, positions = _embed_input(params, cfg, {"tokens": batch["tgt_tokens"]})
+        x, positions = _embed_input(params, cfg, {"tokens": batch["tgt_tokens"]}, table)
     else:
         enc_out = None
-        x, positions = _embed_input(params, cfg, batch)
+        x, positions = _embed_input(params, cfg, batch, table)
     x = _run_stack(x, params, cfg, positions, enc_out=enc_out, carry_out=True, aux_out=aux)
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for a in aux:
         total = total + a
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps, dtype=COMPUTE_DTYPE), total
+    return rmsnorm(x, gather_params(params["final_norm"]), cfg.norm_eps,
+                   dtype=COMPUTE_DTYPE), total
 
 
 @_watched("forward")
@@ -328,9 +343,10 @@ LOSS_CHUNK = 512
 AUX_LOSS_WEIGHT = 0.01
 
 
-def _ce_chunk(hc, lc, mc, table):
-    """One chunk's masked NLL sum and mask count (f32 0-d tensors)."""
-    logits = unembed(hc, table)
+def _ce_chunk(hc, lc, mc, table, shape):
+    """One chunk's masked NLL sum and mask count (f32 0-d tensors); the
+    logits whole (gathered over a tensor-parallel mesh's ranks)."""
+    logits = unembed(hc, table, shape)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lc[..., None].long())[..., 0]
     nll = (logz - gold) * mc
@@ -343,19 +359,25 @@ def _chunked_ce(hidden, labels, mask, table, cfg: ModelConfig):
     buffer exists: with grad enabled each chunk runs under
     ``torch.utils.checkpoint``, and its logits are recomputed in the
     backward instead of kept (the reference's ``jax.checkpoint`` of its
-    scan body).  Returns the masked mean, f32."""
+    scan body).  ``table`` is the head (a vocab-parallel rank's rows on a
+    tensor-parallel mesh).  Returns the masked mean, f32; in a
+    data-parallel training step, this rank's share of the global batch's
+    masked mean (its NLL sum over the count of every rank's labelled
+    tokens, times the data ranks that the step's mean divides by)."""
     s = hidden.shape[1]
     c = LOSS_CHUNK if s % LOSS_CHUNK == 0 and s > LOSS_CHUNK else s
     remat = torch.is_grad_enabled()
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, c):
-        args = (hidden[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c], table)
+        args = (hidden[:, i:i + c], labels[:, i:i + c], mask[:, i:i + c], table,
+                _vocab_shape(cfg))
         nll, n = (checkpoint(_ce_chunk, *args, use_reentrant=False) if remat
                   else _ce_chunk(*args))
         tot = tot + nll
         cnt = cnt + n
-    return tot / torch.clamp_min(cnt, 1.0)
+    ranks, cnt = batch_total(cnt)
+    return tot * ranks / torch.clamp_min(cnt, 1.0)
 
 
 def _next_token_labels(tokens):
@@ -373,7 +395,9 @@ def lm_loss(params, cfg: ModelConfig, batch):
     tokens of ``batch["tokens"]`` (of ``"tgt_tokens"`` for an
     encoder-decoder), or ``batch["labels"]`` with -1 masked (frontend
     archs)."""
-    h, aux = backbone(params, cfg, batch)
+    # a tied table is gathered once for the lookup and the head
+    table = gather_params(_head_table(params, cfg))
+    h, aux = backbone(params, cfg, batch, table if cfg.tie_embeddings else None)
     if cfg.is_encoder_decoder:
         labels, mask = _next_token_labels(batch["tgt_tokens"])
     elif "labels" in batch:
@@ -382,7 +406,7 @@ def lm_loss(params, cfg: ModelConfig, batch):
         labels = torch.clamp_min(labels, 0)
     else:
         labels, mask = _next_token_labels(batch["tokens"])
-    ce = _chunked_ce(h, labels, mask, _head_table(params, cfg), cfg)
+    ce = _chunked_ce(h, labels, mask, table, cfg)
     return ce + AUX_LOSS_WEIGHT * aux
 
 

@@ -48,7 +48,7 @@ from repro_torch.models.layers import (
     init_glu_mlp,
     truncated_normal_init,
 )
-from repro_torch.runtime.collectives import all_gather, model_axis
+from repro_torch.runtime.collectives import all_gather, batch_mean, model_axis
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, device, stack=()):
@@ -178,9 +178,10 @@ def moe_ffn(x, p, cfg: ModelConfig):
     if m.num_shared_experts:
         out = out + glu_mlp(x, p["shared"], cfg.act, cfg.quant_mode, cfg.gemm_backend)
 
-    # Switch-style load-balance aux loss, over all B*S tokens
+    # Switch-style load-balance aux loss, over all B*S tokens (every data
+    # rank's in a data-parallel training step)
     dispatch_frac = torch.nn.functional.one_hot(topi.long(), e).float().sum(2).mean(dim=(0, 1))
-    aux = e * torch.sum(dispatch_frac * probs.mean(dim=(0, 1))) / k
+    aux = e * torch.sum(batch_mean(dispatch_frac) * batch_mean(probs.mean(dim=(0, 1)))) / k
     return out, aux
 
 

@@ -1,8 +1,9 @@
 """Collectives over ``torch.distributed`` (the port of
 ``repro/runtime/collectives.py``): the int8-compressed gradient
-all-reduce, its uncompressed reference, and the tensor-parallel
-primitives the sharded layers call.  This is the one module that issues
-``torch.distributed`` collectives.
+all-reduce, its uncompressed reference, the tensor-parallel primitives
+the sharded layers call, and the autograd-aware collectives of sharded
+training.  This is the one module that issues ``torch.distributed``
+collectives.
 
 ``compressed_psum_mean`` reuses the SPOGA quantization at the collective
 layer: each rank quantizes its local gradient to int8 against a globally
@@ -25,6 +26,20 @@ fallback.
 the model's layers see the mesh's ``"model"`` axis (:func:`model_axis`):
 the engine and the model entry points enter it around every dispatch.
 Outside it, or on a one-rank model axis, the layers run unsharded.
+
+**Training.**  Megatron's two operators carry the gradients of a
+tensor-parallel layer: *f* (:func:`model_input`: identity forward, SUM
+all-reduce backward) where a replicated activation enters a
+column-parallel group, *g* (:func:`model_sum`: SUM all-reduce forward,
+identity backward) for the row-parallel sum; :func:`model_gather`
+all-gathers the vocab-parallel logits and takes the rank's slice back.
+Inside a data-parallel training step (:func:`data_sharded`), the leaves
+that are sharded over "data" (FSDP) are all-gathered just before use
+(:func:`gather_params`) and the gather's backward reduce-scatters the
+gradient back to the rank's shard, averaged over the axis; a statistic
+of the whole batch (the MoE load-balance means, the count of labelled
+tokens) is taken over every data rank's rows (:func:`batch_mean`,
+:func:`batch_total`), so the step's loss is the global batch's.
 """
 
 from __future__ import annotations
@@ -57,6 +72,11 @@ def axis(mesh, name: str) -> Axis:
     return Axis(g, mesh.shape[name], mesh.axis_rank(name), str(dist.get_backend(g)))
 
 
+def world(mesh) -> Axis:
+    """Every rank of ``mesh`` (the default process group) as one axis."""
+    return Axis(dist.group.WORLD, mesh.size, dist.get_rank(), str(dist.get_backend()))
+
+
 def _staged(t: torch.Tensor, ax: Axis) -> bool:
     return ax.backend == "gloo" and t.is_cuda
 
@@ -72,19 +92,50 @@ def all_reduce(t: torch.Tensor, ax: Axis, op: str = "sum") -> torch.Tensor:
     return buf.to(t.device)
 
 
-def all_gather(t: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim`` in axis order.  The
+def gather_blocks(t: torch.Tensor, ax: Axis, dst: Optional[int] = None):
+    """Every rank's ``t`` (all of one shape and dtype), as a list in axis
+    order on ``t``'s device: on every rank (``dst=None``, an all-gather), or
+    on axis rank ``dst`` alone (a gather; the others get ``None``).  The
     payload travels as raw bytes, so any dtype gathers bit for bit."""
     src = t.detach().contiguous()
     host = _staged(src, ax)
     if host:
         src = src.cpu()
     raw = src.reshape(-1).view(torch.uint8)
-    parts = [torch.empty_like(raw) for _ in range(ax.size)]
-    dist.all_gather(parts, raw, group=ax.group)
-    parts = [p.view(t.dtype).reshape(t.shape) for p in parts]
-    out = torch.cat(parts, dim=dim)
-    return out.to(t.device) if host else out
+    if dst is None:
+        parts = [torch.empty_like(raw) for _ in range(ax.size)]
+        dist.all_gather(parts, raw, group=ax.group)
+    else:
+        parts = [torch.empty_like(raw) for _ in range(ax.size)] if ax.rank == dst else None
+        dist.gather(raw, parts, dst=dist.get_global_rank(ax.group, dst), group=ax.group)
+        if parts is None:
+            return None
+    return [p.view(t.dtype).reshape(t.shape).to(t.device) for p in parts]
+
+
+def all_gather(t: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in axis order, bit for
+    bit (:func:`gather_blocks`)."""
+    return torch.cat(gather_blocks(t, ax), dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
+    """The SUM of ``t`` over the axis, this rank's ``1/size`` block of it
+    along ``dim`` (a new tensor on ``t``'s device).  NCCL reduce-scatters;
+    gloo has no reduce-scatter, so there every rank all-reduces and keeps
+    its block: every rank sums the same values in the same order."""
+    part = t.shape[dim] // ax.size
+    if ax.backend == "nccl":
+        src = t.detach().movedim(dim, 0).contiguous()
+        out = torch.empty((part,) + tuple(src.shape[1:]), dtype=t.dtype, device=t.device)
+        dist.reduce_scatter_tensor(out, src, group=ax.group)
+        return out.movedim(0, dim).contiguous()
+    return all_reduce(t, ax, "sum").narrow(dim, ax.rank * part, part).contiguous()
+
+
+def barrier(ax: Axis) -> None:
+    """Every rank of the axis waits for the others."""
+    dist.barrier(group=ax.group)
 
 
 def broadcast(t: torch.Tensor, ax: Axis, src: int = 0) -> torch.Tensor:
@@ -168,3 +219,174 @@ def model_axis() -> Optional[Axis]:
     """The model axis of the innermost :func:`model_parallel` context, or
     ``None`` (unsharded)."""
     return _MODEL_AXES[-1] if _MODEL_AXES else None
+
+
+class _ModelInput(torch.autograd.Function):
+    """Megatron's *f*: identity forward, SUM all-reduce backward."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.ax, "sum"), None
+
+
+class _ModelSum(torch.autograd.Function):
+    """Megatron's *g*: SUM all-reduce forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        return all_reduce(x, ax, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ModelGather(torch.autograd.Function):
+    """All-gather along ``dim`` forward, the rank's block backward."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim):
+        ctx.ax, ctx.dim, ctx.part = ax, dim, x.shape[dim]
+        return all_gather(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.ax.rank * ctx.part, ctx.part), None, None
+
+
+def model_input(x: torch.Tensor) -> torch.Tensor:
+    """A replicated activation entering a column-parallel group of the
+    model axis (*f*); ``x`` itself outside training or tensor parallelism."""
+    ax = model_axis()
+    if ax is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _ModelInput.apply(x, ax)
+
+
+def model_sum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
+    """The SUM of the ranks' partial ``x`` over ``ax`` (*g*)."""
+    return _ModelSum.apply(x, ax)
+
+
+def model_gather(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along ``dim``; the gradient of the
+    whole goes back as each rank's block."""
+    return _ModelGather.apply(x, ax, dim)
+
+
+# ---------------------------------------------------------------------------
+# FSDP: leaves sharded over "data", gathered just before use
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _DataShards:
+    axis: Axis
+    dims: dict                     # id(leaf) -> the dim sharded over "data"
+    reduce_dtype: Optional[torch.dtype]
+
+
+_DATA_SHARDS: list = []
+
+
+@contextlib.contextmanager
+def data_sharded(ax: Optional[Axis], dims: dict, reduce_dtype: Optional[torch.dtype] = None):
+    """A data-parallel training step over ``ax``: inside,
+    :func:`gather_params` all-gathers the leaves ``dims`` names
+    (``id(leaf)`` -> the leaf's dim sharded over ``ax``), whose gradients
+    come back reduce-scattered, divided by the axis size, in
+    ``reduce_dtype`` on the wire (default f32); :func:`batch_mean` and
+    :func:`batch_total` reduce over ``ax``.  ``ax=None``: one data rank."""
+    _DATA_SHARDS.append(None if ax is None else _DataShards(ax, dims, reduce_dtype))
+    try:
+        yield
+    finally:
+        _DATA_SHARDS.pop()
+
+
+def _data_shards() -> Optional[_DataShards]:
+    return _DATA_SHARDS[-1] if _DATA_SHARDS else None
+
+
+class _BatchMean(torch.autograd.Function):
+    """The mean over the data axis forward, identity backward: every rank's
+    loss carries the same global statistic, and the step's average of the
+    ranks' gradients then gives its exact gradient."""
+
+    @staticmethod
+    def forward(ctx, x, ax):
+        return mean_over(x, ax).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def batch_mean(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (a mean over this rank's rows) as the mean over every data
+    rank's rows inside a data-parallel step (equal rows a rank); ``t``
+    itself outside one."""
+    shards = _data_shards()
+    return t if shards is None else _BatchMean.apply(t, shards.axis)
+
+
+def batch_total(t: torch.Tensor):
+    """(data ranks, the SUM of ``t`` over them) inside a data-parallel
+    step, ``(1, t)`` outside one; no gradient flows through the sum."""
+    shards = _data_shards()
+    if shards is None:
+        return 1, t
+    return shards.axis.size, all_reduce(t.detach(), shards.axis, "sum")
+
+
+class _DataGather(torch.autograd.Function):
+    """FSDP's gather: all-gather along ``dim`` forward; backward, the
+    gradient reduce-scattered back to the rank's block and divided by the
+    axis size, summed in f32 (``reduce_dtype`` on the wire when set)."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim, reduce_dtype):
+        ctx.ax, ctx.dim, ctx.reduce_dtype = ax, dim, reduce_dtype
+        return all_gather(x, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return mean_over(g, ctx.ax, ctx.dim, ctx.reduce_dtype).to(g.dtype), None, None, None
+
+
+def mean_over(t: torch.Tensor, ax: Axis, dim: Optional[int] = None,
+              wire: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The mean of ``t`` over the axis in f32: whole (``dim=None``, a SUM
+    all-reduce) or this rank's block along ``dim`` (a reduce-scatter), with
+    ``wire`` the dtype on the wire (default f32)."""
+    payload = t.to(wire or torch.float32)
+    total = all_reduce(payload, ax, "sum") if dim is None else reduce_scatter(payload, ax, dim)
+    return total.float() / _size(ax, t.device)
+
+
+def gather_params(tree, period: Optional[int] = None):
+    """``tree`` (period ``period`` of a stacked tree: one slice at a time)
+    with every leaf that :func:`data_sharded` registered gathered whole
+    over "data"; other leaves as they are (views for a period)."""
+    shards = _data_shards()
+
+    def one(t):
+        dim = shards.dims.get(id(t)) if shards is not None else None
+        v = t if period is None else t[period]
+        if dim is None:
+            return v
+        return _DataGather.apply(v, shards.axis, dim - (period is not None),
+                                 shards.reduce_dtype)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        return one(node)
+
+    return walk(tree)

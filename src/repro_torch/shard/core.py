@@ -1,23 +1,35 @@
-"""Mesh construction and param/pool sharding for the serving path (the
-port of ``repro/shard/core.py``).
+"""Mesh construction and param/pool sharding (the port of
+``repro/shard/core.py``), and the sharded trees of training.
 
 The reference commits each leaf to a ``NamedSharding`` with
 ``jax.device_put``; here each rank slices the full leaf to its own part
-(:func:`shard_params`) and allocates only its part of the page pools
-(:func:`pool_shardings` gives the local shapes).  The layers find the
-model axis through ``runtime.collectives.model_parallel`` and run on the
-rank's local heads, columns, rows and experts (:func:`local_config`).
+(:func:`shard_params`, :func:`shard_opt_state`, or any tree and its specs
+with :func:`shard_tree`) and allocates only its part of the page pools
+(:func:`pool_shardings` gives the local shapes).  :func:`gather_tree` is
+the exact inverse: every rank takes part, and each gets the full leaves.
+The layers find the model axis through
+``runtime.collectives.model_parallel`` and run on the rank's local heads,
+columns, rows and experts (:func:`local_config`).
+
+Query heads sit on the model axis in the attention's (G, Hkv) order
+(:func:`_slice`), in every tree that holds ``wq`` / ``wo`` -- params,
+optimizer moments, a checkpoint restored onto a mesh -- so training,
+serving and restore lay heads out alike.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
+import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.launch.mesh import _make_mesh
-from repro_torch.runtime.sharding import param_specs, pool_specs, zip_map
+from repro_torch.runtime.collectives import gather_blocks, world
+from repro_torch.runtime.sharding import opt_state_specs, param_specs, pool_specs, zip_map
 
 # what tensor-parallel serving runs at tp > 1 (the rest: ROADMAP queue 1,
 # item 10.2)
@@ -53,23 +65,27 @@ def _coords(mesh) -> dict:
     return {a: mesh.axis_rank(a) for a in mesh.axis_names}
 
 
+def _names(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
 def _slice(t: torch.Tensor, spec, mesh, coords: dict, heads=None) -> torch.Tensor:
     """``t``'s block along each sharded dim of ``spec``.  ``heads`` =
-    (G, Hkv, D): the sharded dim holds query heads in the attention's
-    (G, Hkv) order (query head ``g * Hkv + j`` reads KV head ``j``), and
-    the block is every group's slice of this rank's KV heads -- so the
-    rank's query heads read exactly the KV heads it holds."""
+    (G, Hkv, D): the dim sharded over "model" holds query heads in the
+    attention's (G, Hkv) order (query head ``g * Hkv + j`` reads KV head
+    ``j``), and the block is every group's slice of this rank's KV heads --
+    so the rank's query heads read exactly the KV heads it holds."""
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
-        names = entry if isinstance(entry, tuple) else (entry,)
+        names = _names(entry)
         size, idx = 1, 0
         for n in names:
             size *= mesh.shape[n]
             idx = idx * mesh.shape[n] + coords[n]
         if size == 1 or t.shape[dim] % size:
             continue
-        if heads is not None:
+        if heads is not None and "model" in names:
             g, hkv, d = heads
             grouped = t.unflatten(dim, (g, hkv, d))
             part = hkv // size
@@ -88,27 +104,119 @@ def _query_heads(path, cfg):
     return (cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
 
 
-def shard_params(params, mesh, cfg, coords: Optional[dict] = None):
-    """This rank's part of the full params tree, by the Megatron rules with
-    no FSDP (``param_specs(fsdp=False)``, as the reference serves): each
-    sharded leaf is sliced along its spec's axes and copied, so the full
-    tree can be freed.  The query heads of ``wq`` / ``wo`` go to the rank
-    that holds their KV head (see :func:`_slice`).  ``coords`` (axis name
-    -> coordinate) names another rank's part (tests); by default this
-    rank's."""
+def _map_leaves(fn, tree, specs, path=()):
+    """``fn(path, leaf, spec)`` over ``tree`` and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, specs[k], path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, sp, path + (i,))
+                          for i, (v, sp) in enumerate(zip(tree, specs)))
+    return fn(path, tree, specs)
+
+
+def shard_leaf(t: torch.Tensor, spec, mesh, cfg, path=(), coords: Optional[dict] = None):
+    """This rank's block of the full leaf ``t`` (at ``path`` in its tree),
+    copied; a leaf the rank holds whole is ``t`` itself."""
+    if spec.count(None) == len(spec):
+        return t
     coords = _coords(mesh) if coords is None else coords
+    return _slice(t, spec, mesh, coords, _query_heads(path, cfg)).contiguous()
 
-    def walk(tree, spec, path):
-        if isinstance(tree, dict):
-            return {k: walk(v, spec[k], path + (k,)) for k, v in tree.items()}
-        if isinstance(tree, (list, tuple)):
-            return type(tree)(walk(v, sp, path + (i,))
-                              for i, (v, sp) in enumerate(zip(tree, spec)))
-        if spec.count(None) == len(spec):
-            return tree
-        return _slice(tree, spec, mesh, coords, _query_heads(path, cfg)).contiguous()
 
-    return walk(params, param_specs(params, mesh, cfg, fsdp=False), ())
+def shard_tree(tree, specs, mesh, cfg, coords: Optional[dict] = None):
+    """This rank's part of the full ``tree`` under ``specs`` (a spec tree
+    shaped like it): each sharded leaf sliced along its spec's axes and
+    copied, so the full tree can be freed; a leaf the rank holds whole is
+    the same tensor (an in-place update of one reaches the other).  The
+    query heads of ``wq`` / ``wo`` go to the rank that holds their KV head
+    (see :func:`_slice`).  ``coords`` (axis name -> coordinate) names
+    another rank's part (tests); by default this rank's."""
+    coords = _coords(mesh) if coords is None else coords
+    return _map_leaves(lambda path, t, spec: shard_leaf(t, spec, mesh, cfg, path, coords),
+                       tree, specs)
+
+
+def shard_params(params, mesh, cfg, coords: Optional[dict] = None, fsdp: bool = False):
+    """This rank's part of the full params tree by ``param_specs(fsdp=)``:
+    the Megatron rules, pure TP by default (as the reference serves), and
+    with ``fsdp=True`` each weight's other dim over "data" too (the
+    training layout).  See :func:`shard_tree`."""
+    return shard_tree(params, param_specs(params, mesh, cfg, fsdp=fsdp), mesh, cfg, coords)
+
+
+def shard_opt_state(opt, p_specs, mesh, zero1: bool, *, cfg, coords: Optional[dict] = None):
+    """This rank's part of the full AdamW state ``opt`` (``adamw_init`` of
+    the full params) by ``opt_state_specs(opt, p_specs, mesh, zero1)``:
+    the moments and the f32 master inherit each param's spec, and ZeRO-1
+    shards the largest dim the param leaves replicated over "data".  The
+    query heads of the moments of ``wq`` / ``wo`` sit as the params' do."""
+    return shard_tree(opt, opt_state_specs(opt, p_specs, mesh, zero1), mesh, cfg, coords)
+
+
+def _sharded(spec, mesh) -> bool:
+    """Whether a leaf under ``spec`` is split over any axis of size > 1."""
+    return any(mesh.shape[n] > 1 for entry in spec if entry is not None
+               for n in _names(entry))
+
+
+def _assemble(parts, spec, mesh, cfg, path):
+    """The full leaf from every world rank's block (``parts``, in rank
+    order; the inverse of :func:`shard_leaf`): the blocks keyed by their
+    mesh coordinates, concatenated along each sharded dim over its axes
+    (inner axis first), the (G, Hkv) grouping of query heads undone.
+    Replicas are equal, so an axis the spec does not shard over keeps
+    coordinate 0."""
+    ranks = mesh.device_mesh.mesh
+    coords = {int(r): idx for idx, r in zip(itertools.product(*map(range, ranks.shape)),
+                                           ranks.flatten().tolist())}
+    blocks = {coords[r]: p for r, p in enumerate(parts)}
+    axes = list(mesh.axis_names)
+    heads = _query_heads(path, cfg)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = _names(entry)
+        size = math.prod(mesh.shape[n] for n in names)
+        for n in reversed(names):
+            i = axes.index(n)
+            merged = {}
+            for key in sorted(blocks):
+                merged.setdefault(key[:i] + key[i + 1:], []).append(blocks[key])
+            blocks = {k: torch.cat(v, dim) for k, v in merged.items()}
+            axes.pop(i)
+        if heads is not None and "model" in names and size > 1:
+            # blocks of query heads in rank order, each (G, Hkv/size, D),
+            # back to the (G, Hkv, D) order
+            g, hkv, d = heads
+            blocks = {k: v.unflatten(dim, (size, g, hkv // size, d)).transpose(dim, dim + 1)
+                      .flatten(dim, dim + 3) for k, v in blocks.items()}
+    return blocks[min(blocks)].contiguous()
+
+
+def gather_leaf(t: torch.Tensor, spec, mesh, cfg, path=()) -> torch.Tensor:
+    """The full leaf of which ``t`` is this rank's block: every rank's
+    block all-gathered over the world and assembled (:func:`_assemble`).
+    Every rank of the mesh takes part; each gets the full leaf on ``t``'s
+    device."""
+    if not _sharded(spec, mesh):
+        return t.contiguous()
+    return _assemble(gather_blocks(t, world(mesh)), spec, mesh, cfg, path)
+
+
+def gather_leaf_to(t: torch.Tensor, spec, mesh, cfg, path=(), dst: int = 0):
+    """:func:`gather_leaf` into world rank ``dst`` alone: every rank sends
+    its block once (one gather over the world) and ``dst`` assembles the
+    full leaf, on ``t``'s device; the other ranks get ``None``."""
+    if not _sharded(spec, mesh):
+        return t.contiguous() if dist.get_rank() == dst else None
+    parts = gather_blocks(t, world(mesh), dst)
+    return None if parts is None else _assemble(parts, spec, mesh, cfg, path)
+
+
+def gather_tree(tree, specs, mesh, cfg):
+    """The full tree of which ``tree`` is this rank's part under ``specs``
+    (the exact inverse of :func:`shard_tree`); every rank takes part."""
+    return _map_leaves(lambda path, t, spec: gather_leaf(t, spec, mesh, cfg, path), tree, specs)
 
 
 def as_shapes(tree):
@@ -173,17 +281,17 @@ def local_config(cfg, tp: int):
         raise NotImplementedError(
             f"{cfg.name}: tensor-parallel execution of MLA, the recurrent cells, the "
             "local-attention ring and the encoder-decoder and frontend archs is not "
-            "ported yet (ROADMAP queue 1, item 10.2)")
+            "ported yet (ROADMAP queue 1, item 10.2 (b))")
     if cfg.numerics_watchdog:
         raise NotImplementedError("the numerics watchdog at tp>1 is not ported yet "
-                                  "(ROADMAP queue 1, item 10.2)")
+                                  "(ROADMAP queue 1, item 10.2 (b))")
     if cfg.n_heads % tp or cfg.n_kv_heads % tp:
         raise ValueError(f"{cfg.name}: tp={tp} must divide n_heads ({cfg.n_heads}) and "
                          f"n_kv_heads ({cfg.n_kv_heads})")
     if cfg.moe is not None and cfg.moe.num_experts % tp:
         raise NotImplementedError(
             f"{cfg.name}: tp={tp} does not divide {cfg.moe.num_experts} experts; tensor "
-            "parallelism inside the experts is not ported yet (ROADMAP queue 1, item 10.2)")
+            "parallelism inside the experts is not ported yet (ROADMAP queue 1, item 10.2 (b))")
     # the rules leave an FFN replicated where tp does not divide its width,
     # and a row-parallel sum of replicated halves would count it tp times
     for name, width in _ffn_widths(cfg, kinds).items():

@@ -17,6 +17,19 @@ def named_leaves(tree, path: str = ""):
         yield path, tree
 
 
+def leaf_paths(tree, path: tuple = ()):
+    """Each leaf's key path as a tuple (dict keys, sequence indices), in
+    :func:`named_leaves` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaf_paths(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaf_paths(v, path + (i,))
+    else:
+        yield path
+
+
 def leaves(tree) -> list:
     return [leaf for _, leaf in named_leaves(tree)]
 
