@@ -15,7 +15,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the int32 range, aligned and misaligned; each time the profiler's device
    time (the event time of back-to-back calls beside it), against the bound
    and ``torch._int_mm``; ``deas_combine`` warm and cold, each in one
-   profiler session with a no-op kernel on its grid;
+   profiler session with a no-op kernel on its grid; both GEMM kernels at
+   a tp=2 rank's projection shapes of minicpm3-4b, recurrentgemma-9b and
+   llava-next-mistral-7b (``TPA_KN``, M=4), bitwise and timed;
 3. paged-attention kernel: bf16 and int8 pools against the plain version at
    rtol/atol 2e-5, stale rows poisoned, two calls bitwise equal, at (a) the
    main path's decode shape and (b) an 8K-token table (B=16, 8 KV heads,
@@ -269,7 +271,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    rank's M=256 at full width, a 1x4 rank's M=1,024 at tp=4 widths) and at
    a tp=4 rank's decode step (``TP4_KN`` at M=4), bitwise against their
    plain versions, timed against the bound and ``torch._int_mm``;
-17. the ``kernels`` JSON line, then the ``ok`` line last.
+17. tensor-parallel serving of the other archs (after phase 16), at full
+   width and ``int8_spoga``, depth cut (``TPA_LAYERS``), weights from
+   ``init_params(seed=0)``, first unsharded here, then in two gloo ranks
+   spawned once on ``cuda:0``: (a) minicpm3-4b (2 of 62 layers),
+   xlstm-125m (4 of 12: one mLSTM/sLSTM period) and recurrentgemma-9b (3
+   of 38: two RG-LRU layers and the local-attention ring, one KV head)
+   through ``LLM(runtime=RuntimeConfig(mesh=MeshConfig(tp=2)))`` over int8
+   paged KV, 4 requests of 17-64 tokens, 8 new, 4 lanes, pages of 16; (b)
+   seamless-m4t-large-v2 (2 + 2 layers) and llava-next-mistral-7b (2 of
+   32) through ``serve_batch(mesh=)``, 4 rows of 32 frames or patches, 8
+   new tokens; (c) ``launch.serve.main`` of seamless-m4t-large-v2 at full
+   depth with ``--tp 2`` (its static path); (d) 2 layers of llama3.2-1b
+   with ``numerics_watchdog`` on, a prefill and 4 decode steps.  Gates:
+   every rank's tokens (the CLI's sample line) equal to the unsharded
+   run's; its param bytes ``tree_device_bytes`` and its cache bytes those
+   of ``pool_shardings`` of the full cache tree; its launches exact per
+   rank (``_tpa_launches``: at tp=2 the row-parallel projections on
+   ``spoga_gemm``, the rest on ``spoga_gemm_dequant``; no plain version);
+   the watchdog report the unsharded one's (the quant error within
+   ``TPA_ERR_RTOL``); every ``TPA_KN`` shape launched at M=4;
+18. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -5324,6 +5346,412 @@ def phase_sharded_train(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 17. tensor-parallel serving of MLA, the recurrent archs, the
+#     encoder-decoder and frontend archs and the numerics watchdog
+# ---------------------------------------------------------------------------
+
+TPA_LAYERS = {"minicpm3-4b": 2,              # of 62
+              "xlstm-125m": 4,               # of 12: one period, 3 mLSTM + 1 sLSTM
+              "recurrentgemma-9b": 3,        # of 38: one period, 2 RG-LRU + local attention
+              "seamless-m4t-large-v2": 2,    # of 24 encoder and 24 decoder layers (2 + 2)
+              "llava-next-mistral-7b": 2,    # of 32
+              "llama3.2-1b": 2}              # of 16: the watchdog's decode
+TPA_ENGINE_ARCHS = ("minicpm3-4b", "xlstm-125m", "recurrentgemma-9b")
+TPA_BATCH_ARCHS = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
+TPA_REQUESTS, TPA_NEW, TPA_PROMPT = 4, 8, (17, 64)
+TPA_ROWS, TPA_TOKENS = 4, 32       # serve_batch: rows of source frames / patches
+TPA_WATCH_STEPS = 4
+# the CLI at full depth (24 + 24 layers), a short static batch
+TPA_CLI_ARGV = ["--arch", "seamless-m4t-large-v2", "--quant-mode", "int8_spoga",
+                "--batch", "2", "--prompt-len", "16", "--gen", "2"]
+# the watchdog's mean relative error: a row-parallel site sums |err| and
+# |x| in f64 over the ranks' K slices, the unsharded one takes f32 means
+TPA_ERR_RTOL = 1e-5
+# a tp=2 rank's projections at M=4 (decode) of minicpm3-4b, recurrentgemma-9b
+# and llava-next-mistral-7b: (kernel, K, N), column-parallel and replicated
+# ones on spoga_gemm_dequant, row-parallel ones on spoga_gemm
+TPA_KN = {
+    "minicpm3-4b": [("spoga_gemm_dequant", 2560, 768), ("spoga_gemm_dequant", 768, 1920),
+                    ("spoga_gemm_dequant", 2560, 256), ("spoga_gemm_dequant", 2560, 32),
+                    ("spoga_gemm_dequant", 2560, 3200), ("spoga_gemm", 1280, 2560),
+                    ("spoga_gemm", 3200, 2560)],
+    "recurrentgemma-9b": [("spoga_gemm_dequant", 4096, 2048), ("spoga_gemm_dequant", 4096, 128),
+                          ("spoga_gemm_dequant", 4096, 6144), ("spoga_gemm", 2048, 4096),
+                          ("spoga_gemm", 6144, 4096)],
+    "llava-next-mistral-7b": [("spoga_gemm_dequant", 4096, 2048),
+                              ("spoga_gemm_dequant", 4096, 512),
+                              ("spoga_gemm_dequant", 4096, 7168), ("spoga_gemm", 2048, 4096),
+                              ("spoga_gemm", 7168, 4096)],
+}
+
+
+def _row_parallel(cfg):
+    """(row-parallel projections a decode step, a prefill) of the stack:
+    an attention, MLA or local-attention block's o and down, an RG-LRU
+    block's w_out and down, an mLSTM or sLSTM block's w_out; an
+    encoder-decoder's encoder layers 2 each in the prefill and each decoder
+    layer 2 plus its cross-attention o."""
+    from repro_torch.models.transformer import effective_kind, layer_layout
+    if cfg.is_encoder_decoder:
+        step = 3 * cfg.n_layers
+        return step, 2 * cfg.n_encoder_layers + step
+    lead, n_periods, tail = layer_layout(cfg)
+    kinds = ["dense_ffn_layer"] * lead + list(cfg.block_pattern) * n_periods + list(tail)
+    n = sum(1 if effective_kind(k, cfg) in ("mlstm", "slstm") else 2 for k in kinds)
+    return n, n
+
+
+def _tpa_launches(cfg, tp):
+    """{kernel: (launches a decode step, a prefill)} at ``int8_spoga``: at
+    tp=1 every projection on ``spoga_gemm_dequant`` (``_gemm_launches``,
+    ``_encdec_launches``); at tp>1 the row-parallel ones (``_row_parallel``)
+    on ``spoga_gemm`` and the rest on ``spoga_gemm_dequant``."""
+    if cfg.is_encoder_decoder or cfg.frontend is not None:
+        prefill, step = _encdec_launches(cfg)
+    else:
+        step, prefill, _ = _gemm_launches(cfg)
+    if tp == 1:
+        return {"spoga_gemm_dequant": (step, prefill), "spoga_gemm": (0, 0)}
+    row_step, row_prefill = _row_parallel(cfg)
+    return {"spoga_gemm_dequant": (step - row_step, prefill - row_prefill),
+            "spoga_gemm": (row_step, row_prefill)}
+
+
+class _RecordGemms:
+    """Notes (kernel, M, K, N) of every call the GEMM backends make to the
+    two wrappers while entered (the kernels and their counts unchanged)."""
+
+    def __init__(self, seen):
+        self.seen = seen
+
+    def __enter__(self):
+        from repro_torch.backends import impls
+        self._saved = {}
+        for name in ("spoga_gemm", "spoga_gemm_dequant"):
+            fn = self._saved[name] = getattr(impls, name)
+
+            def recording(x, w, *args, _name=name, _fn=fn, **kw):
+                self.seen.add((_name, x.shape[0], x.shape[1], w.shape[1]))
+                return _fn(x, w, *args, **kw)
+
+            setattr(impls, name, recording)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.backends import impls
+        for name, fn in self._saved.items():
+            setattr(impls, name, fn)
+        return False
+
+
+def _tpa_gate(label, cfg, tp, calls, seen=None):
+    """Read the counts since the last reset and gate them exactly:
+    ``calls`` = (decode steps, prefills) of the run."""
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    want = {k: s * calls[0] + p * calls[1] for k, (s, p) in _tpa_launches(cfg, tp).items()}
+    check_counts(launches, plain, tuple(k for k, v in want.items() if v), label)
+    for name, n in want.items():
+        require(launches[name] == n, f"{label}: {name} launched {launches[name]} times, "
+                                     f"want {n}")
+    return {k: launches[k] for k in want}
+
+
+def _tpa_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for _, t in _leaves(tree))
+
+
+def _tpa_specs(cfg, mesh):
+    """(the rank's param bytes by the serving specs, a function from a
+    full (shape, dtype) cache tree to the rank's bytes of it)."""
+    from repro_torch.models import param_shapes
+    from repro_torch.runtime.sharding import param_specs
+    from repro_torch.shard import pool_shardings, tree_device_bytes
+    from repro_torch.shard.core import as_shapes
+    meta = param_shapes(cfg)
+    if mesh is None:
+        return _tpa_bytes(meta), lambda shapes: _tpa_bytes(as_shapes(shapes))
+    return (tree_device_bytes(meta, param_specs(meta, mesh, cfg, fsdp=False), mesh),
+            lambda shapes: _tpa_bytes(as_shapes(pool_shardings(shapes, mesh))))
+
+
+def _tpa_traffic(vocab):
+    rng = np.random.default_rng(ENGINE_SEED + 17)
+    lens = rng.integers(TPA_PROMPT[0], TPA_PROMPT[1] + 1, TPA_REQUESTS)
+    return [(0, rng.integers(0, vocab, int(n)).tolist(), TPA_NEW) for n in lens]
+
+
+def _tpa_engine(arch, mesh, device, label, seen):
+    """``LLM(config=, runtime=)`` of ``arch`` at full width and
+    ``TPA_LAYERS`` depth on ``mesh`` (None: unsharded), ``init_params(seed)``
+    weights, int8 paged KV in pages of 16, 4 lanes: ``_tpa_traffic`` with
+    every count at 0 just before and read just after, gated exactly.  The
+    rank's param and cache bytes against the specs'."""
+    from repro_torch.api import KVConfig, LLM, MeshConfig, QuantRuntime, RuntimeConfig
+    from repro_torch.api import SchedulerConfig
+    from repro_torch.models.model import paged_cache_shapes
+    cfg = _tp_config(arch, TPA_LAYERS[arch])
+    tp = mesh.shape["model"] if mesh is not None else 1
+    runtime = RuntimeConfig(quant=QuantRuntime(mode="int8_spoga"),
+                            kv=KVConfig(mode="paged", dtype="int8", page_size=16),
+                            scheduler=SchedulerConfig(n_slots=TPA_REQUESTS),
+                            mesh=MeshConfig(tp=tp) if tp > 1 else MeshConfig())
+    llm = LLM(config=cfg, runtime=runtime, seed=ENGINE_SEED, device=device)
+    cfg = llm.config
+    engine = llm.build_engine(TPA_PROMPT[1], TPA_NEW)
+    arrivals = _tpa_traffic(cfg.vocab_size)
+    reset_counts()
+    t0 = time.perf_counter()
+    with _RecordGemms(seen):
+        metrics = engine.run(arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = metrics.report()
+    launches = _tpa_gate(label, cfg, tp, (rep["decode_steps"], rep["prefill_dispatches"]))
+    streams = _check_finished(metrics, arrivals, cfg.vocab_size, label)
+    store = engine.store
+    want_params, cache_bytes = _tpa_specs(cfg, mesh)
+    want_cache = cache_bytes(paged_cache_shapes(cfg, store.n_lanes, store.cache_len,
+                                                store.page_size, store.n_pages))
+    out = dict(streams=streams, launches=launches, wall_s=wall,
+               steps=(rep["decode_steps"], rep["prefill_dispatches"]),
+               param_bytes=(_tpa_bytes(llm.params), want_params),
+               cache_bytes=(_tpa_bytes(store.cache), want_cache))
+    del llm, engine, store
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpa_batch(arch, mesh, device, label, seen):
+    """``serve_batch(mesh=)`` of ``arch`` (full width, ``TPA_LAYERS``
+    depth): ``TPA_ROWS`` rows of ``TPA_TOKENS`` source frames or patch
+    embeddings, ``TPA_NEW`` new tokens, every count at 0 just before and
+    read just after, gated exactly; a prefill alone before it gives the
+    rank's cache bytes."""
+    from repro_torch.api import serve_batch
+    from repro_torch.configs import default_cache_len
+    from repro_torch.models import init_params, prefill
+    from repro_torch.models.model import cache_shapes
+    from repro_torch.shard import shard_params
+    cfg = _tp_config(arch, TPA_LAYERS[arch])
+    if cfg.is_encoder_decoder:
+        cfg = cfg.with_(n_encoder_layers=TPA_LAYERS[arch])
+    cfg = cfg.with_(quant_mode="int8_spoga")
+    tp = mesh.shape["model"] if mesh is not None else 1
+    params = init_params(cfg, seed=ENGINE_SEED, device=device)
+    if mesh is not None:
+        params = shard_params(params, mesh, cfg)
+    batch = _encdec_batch(cfg, device, batch=TPA_ROWS, src=TPA_TOKENS, patches=TPA_TOKENS)
+    cache_len = default_cache_len(TPA_TOKENS, TPA_NEW)
+    _, cache = prefill(params, cfg, batch, cache_len, mesh=mesh)
+    want_params, cache_bytes = _tpa_specs(cfg, mesh)
+    want_cache = cache_bytes(cache_shapes(cfg, TPA_ROWS, cache_len,
+                                          TPA_TOKENS if cfg.is_encoder_decoder else 0))
+    got_cache = _tpa_bytes(cache)
+    del cache
+    reset_counts()
+    t0 = time.perf_counter()
+    with _RecordGemms(seen):
+        toks, times = serve_batch(cfg, params, batch, cache_len=cache_len, gen_tokens=TPA_NEW,
+                                  mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _tpa_gate(label, cfg, tp, (TPA_NEW - 1, 1))
+    require(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()), f"{label}: token out of range")
+    out = dict(tokens=toks.cpu(), launches=launches, wall_s=wall,
+               param_bytes=(_tpa_bytes(params), want_params), cache_bytes=(got_cache, want_cache))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpa_watchdog(mesh, device):
+    """llama3.2-1b (full width, ``TPA_LAYERS`` depth) with
+    ``numerics_watchdog`` on: a prefill of 4 x 32 tokens and
+    ``TPA_WATCH_STEPS`` decode steps from a fresh registry; the report."""
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.obs import watchdog
+    from repro_torch.shard import shard_params
+    cfg = _tp_config("llama3.2-1b", TPA_LAYERS["llama3.2-1b"]).with_(
+        quant_mode="int8_spoga", numerics_watchdog=True)
+    params = init_params(cfg, seed=ENGINE_SEED, device=device)
+    if mesh is not None:
+        params = shard_params(params, mesh, cfg)
+    tokens = torch.from_numpy(np.random.default_rng(ENGINE_SEED + 18).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int32)).to(device)
+    watchdog.reset()
+    logits, cache = prefill(params, cfg, {"tokens": tokens}, 48, mesh=mesh)
+    for _ in range(TPA_WATCH_STEPS):
+        logits, cache = decode_step(params, cfg, logits.argmax(-1).to(torch.int32), cache,
+                                    mesh=mesh)
+    reg = watchdog.peek_registry()
+    out = dict(counters={k: c.value for k, c in reg.counters.items()},
+               gauges={k: g.value for k, g in reg.gauges.items()},
+               samples={k: list(h.samples) for k, h in reg.histograms.items()},
+               saturation=watchdog.saturation_report())
+    watchdog.reset()
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpa_cli(argv, label, tp):
+    """``launch.serve.main(argv)`` in this process (the static path of an
+    encoder-decoder), every count at 0 just before and read just after,
+    gated exactly for a prefill and ``--gen`` - 1 decode steps of the full
+    24 + 24 layers; returns (the sample line, launches, wall seconds)."""
+    import contextlib
+    import io
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    gen = int(argv[argv.index("--gen") + 1])
+    launches = _tpa_gate(label, get_config("seamless-m4t-large-v2"), tp, (gen - 1, 1))
+    lines = [ln for ln in text.splitlines() if ln.startswith("[serve] sample:")]
+    require(len(lines) == 1, f"{label}: expected one sample line, got {text!r}")
+    return lines[0], launches, wall
+
+
+def _tpa_run_all(mesh, device, tag):
+    """Every part of phase 17 on ``mesh`` (None: the unsharded run)."""
+    out, seen = {"times": {}}, set()
+    t0 = time.perf_counter()
+    for arch in TPA_ENGINE_ARCHS:
+        out[arch] = _tpa_engine(arch, mesh, device, f"(a) {tag} {arch}", seen)
+        out["times"][arch] = time.perf_counter() - t0
+    for arch in TPA_BATCH_ARCHS:
+        out[arch] = _tpa_batch(arch, mesh, device, f"(b) {tag} {arch}", seen)
+        out["times"][arch] = time.perf_counter() - t0
+    tp = mesh.shape["model"] if mesh is not None else 1
+    argv = TPA_CLI_ARGV + (["--tp", str(tp)] if tp > 1 else [])
+    out["cli"] = _tpa_cli(argv, f"(c) {tag} launch.serve.main", tp)
+    out["times"]["cli"] = time.perf_counter() - t0
+    out["watchdog"] = _tpa_watchdog(mesh, device)
+    out["times"]["watchdog"] = time.perf_counter() - t0
+    out["seen"] = seen
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _tpa_rank(rank, dev):
+    """Phase 17 in one of two gloo ranks that share ``cuda:0``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 2, backend="gloo", device=dev)
+    return _tpa_run_all(mesh, dev, f"rank {rank} tp=2")
+
+
+def _tpa_report_diff(got, want):
+    """What differs between two watchdog reports (empty: equal, the mean
+    relative errors within ``TPA_ERR_RTOL``)."""
+    bad = []
+    for key in ("counters", "gauges", "saturation"):
+        if got[key] != want[key]:
+            bad.append(key)
+    if set(got["samples"]) != set(want["samples"]):
+        return bad + ["labels"]
+    for key, ref in want["samples"].items():
+        mine = got["samples"][key]
+        if "watchdog_quant_err" in key:
+            a, b = np.sort(np.array(mine)), np.sort(np.array(ref))
+            if a.shape != b.shape or not np.allclose(a, b, rtol=TPA_ERR_RTOL, atol=0):
+                bad.append(key)
+        elif sorted(mine) != sorted(ref):
+            bad.append(key)
+    return bad
+
+
+def phase_tp_archs(card):
+    """17. minicpm3-4b, xlstm-125m and recurrentgemma-9b through the engine,
+    seamless-m4t-large-v2 and llava-next-mistral-7b through
+    ``serve_batch``, the CLI and the watchdog: unsharded here, then in two
+    gloo ranks sharing the card (one spawn); streams, bytes, launches and
+    the watchdog report gated."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    ref = _tpa_run_all(None, "cuda", "tp=1")
+    t_ref = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    ranks = spawn(_tpa_rank, 2, "gloo", device="shared")
+    t_ranks = time.perf_counter() - t1
+    for rank, res in enumerate(ranks):
+        for arch in TPA_ENGINE_ARCHS + TPA_BATCH_ARCHS:
+            got, want = res[arch], ref[arch]
+            key = "streams" if arch in TPA_ENGINE_ARCHS else "tokens"
+            same = (got[key] == want[key]) if key == "streams" else \
+                torch.equal(got[key], want[key])
+            require(same, f"(a)-(b) {arch}: rank {rank}'s tp=2 tokens differ from tp=1")
+            for what in ("param_bytes", "cache_bytes"):
+                require(got[what][0] == got[what][1],
+                        f"{arch}: rank {rank} holds {got[what][0]} {what}, the specs "
+                        f"{got[what][1]}")
+            print(f"[tp-archs] {arch} ({TPA_LAYERS[arch]} layers) rank {rank}: tokens equal "
+                  f"to tp=1; launches {got['launches']} (tp=1 {want['launches']}); params "
+                  f"{got['param_bytes'][0]} bytes (tp=1 {want['param_bytes'][0]}), cache "
+                  f"{got['cache_bytes'][0]} bytes (tp=1 {want['cache_bytes'][0]}), both the "
+                  f"specs'; run {got['wall_s']:.2f} s (tp=1 {want['wall_s']:.2f} s) [{card}]",
+                  flush=True)
+        require(res["cli"][0] == ref["cli"][0], f"(c) rank {rank}: the CLI's sample "
+                f"{res['cli'][0]!r} differs from tp=1's {ref['cli'][0]!r}")
+        print(f"[tp-archs] (c) rank {rank} launch.serve.main --tp 2: {res['cli'][0]} (tp=1 "
+              f"the same); launches {res['cli'][1]} (tp=1 {ref['cli'][1]}); main() "
+              f"{res['cli'][2]:.1f} s (tp=1 {ref['cli'][2]:.1f} s) [{card}]", flush=True)
+        bad = _tpa_report_diff(res["watchdog"], ref["watchdog"])
+        require(not bad, f"(d) rank {rank}: the watchdog report differs from tp=1 in {bad}")
+        n_labels = len({k for k in ref["watchdog"]["samples"]})
+        print(f"[tp-archs] (d) rank {rank} llama3.2-1b watchdog: {n_labels} series, counters, "
+              f"gauges, amax and bound samples equal to tp=1, quant error within "
+              f"{TPA_ERR_RTOL}; saturation {res['watchdog']['saturation']}", flush=True)
+        print(f"[tp-archs] rank {rank}: done at {res['times']}, peak "
+              f"{res['peak_gib']:.2f} GiB", flush=True)
+    seen = {(kernel, k, n) for kernel, m, k, n in ranks[0]["seen"] if m == TPA_REQUESTS}
+    for arch, shapes in TPA_KN.items():
+        missing = sorted(set(shapes) - seen)
+        require(not missing, f"(e) no tp=2 rank ran {arch}'s {missing} at M={TPA_REQUESTS}")
+    print(f"[tp-archs] phase 17: tp=1 in {t_ref:.1f} s, two ranks in {t_ranks:.1f} s "
+          f"[{card}]", flush=True)
+    return {"ref": ref, "ranks": ranks}
+
+
+def phase_tp_arch_gemms(card):
+    """Phases 2-3 at a tp=2 rank's projection shapes of minicpm3-4b,
+    recurrentgemma-9b and llava-next-mistral-7b (``TPA_KN``, M=4): both
+    GEMM kernels bitwise against their plain versions, timed against the
+    bound and ``torch._int_mm``."""
+    from repro_torch.kernels.spoga_gemm import spoga_gemm, spoga_gemm_plain
+    from repro_torch.kernels.spoga_gemm_dequant import (
+        spoga_gemm_dequant,
+        spoga_gemm_dequant_plain,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    table = {}
+    for arch, shapes in TPA_KN.items():
+        for kernel, k, n in shapes:
+            if any(key[0] == kernel and key[2:] == (k, n) for key in table):
+                continue
+            spec, x, w, xs, ws = _gemm_operands(4, k, n, "int8_spoga", gen)
+            if kernel == "spoga_gemm_dequant":
+                require(torch.equal(spoga_gemm_dequant(x, w, xs, ws),
+                                    spoga_gemm_dequant_plain(x, w, xs, ws)),
+                        f"{kernel} K={k} N={n} differs from its plain version")
+                t = _gemm_timing(f"tp=2 {arch}", "int8_spoga", 4, k, n, gen, tag="tp-archs")
+            else:
+                require(torch.equal(spoga_gemm(x, w), spoga_gemm_plain(x, w)),
+                        f"{kernel} K={k} N={n} differs from its plain version")
+                t = _int_gemm_timing(f"tp=2 {arch}", "int8_spoga", 4, k, n, gen,
+                                     tag="tp-archs")
+            table[(kernel, arch, k, n)] = t
+    return table
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -5347,6 +5775,7 @@ def main() -> int:
     int_gemm, int_err = phase_int_gemm()
     deas, nibble, deas_err, combine_err, combine_long = phase_deas(int_gemm)
     attn = phase_attention(card)
+    tp_arch_gemm = phase_tp_arch_gemms(card)
     print(f"[time] phases 2-3 done at {time.perf_counter() - t0:.1f} s", flush=True)
     params = full_width_params()
     launches, launches16, attn_profile, paged_rep = phase_main(card, params)
@@ -5383,6 +5812,8 @@ def main() -> int:
     print(f"[time] phase 15 done at {time.perf_counter() - t0:.1f} s", flush=True)
     sharded = phase_sharded_train(card)
     print(f"[time] phase 16 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    tp_archs = phase_tp_archs(card)
+    print(f"[time] phase 17 done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -5482,6 +5913,25 @@ def main() -> int:
             **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
             for (kname, m, k, n), t in sharded["gemm"].items() if kname == kernel}
 
+    def tp_arch_launches(name):
+        """A kernel's launches in each of phase 17's counted runs, per rank
+        for the tp=2 ranks."""
+        runs = {f"{arch} {who}": res[arch]["launches"]
+                for who, res in (("tp=1", tp_archs["ref"]),
+                                 *((f"tp=2 rank {r}", res)
+                                   for r, res in enumerate(tp_archs["ranks"])))
+                for arch in TPA_ENGINE_ARCHS + TPA_BATCH_ARCHS}
+        runs.update({f"launch.serve.main seamless-m4t-large-v2 {who}": res["cli"][1]
+                     for who, res in (("tp=1", tp_archs["ref"]),
+                                      *((f"--tp 2 rank {r}", res)
+                                        for r, res in enumerate(tp_archs["ranks"])))})
+        return {label: launches[name] for label, launches in runs.items()}
+
+    def tp_arch_shapes(kernel):
+        return {f"{arch} tp=2 W8A8 M=4 K={k} N={n}": {
+            **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
+            for (kname, arch, k, n), t in tp_arch_gemm.items() if kname == kernel}
+
     def train_shapes():
         return {f"W8A8 M={m} K={k} N={n}": {**t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
                 for (m, k, n), t in train["gemm"].items()}
@@ -5524,6 +5974,8 @@ def main() -> int:
                             "launches"]["spoga_gemm_dequant"]},
                         launches_sharded_training=sharded_launches("spoga_gemm_dequant"),
                         sharded_training_shapes=sharded_shapes("spoga_gemm_dequant"),
+                        launches_tp_archs=tp_arch_launches("spoga_gemm_dequant"),
+                        tp_arch_shapes=tp_arch_shapes("spoga_gemm_dequant"),
                         oracle_max_abs_err=serve_cli["d"]["dequant_max_abs_err"])]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
@@ -5568,7 +6020,9 @@ def main() -> int:
                                 "(b) launch.serve.main, set_default_backend('cuda_spoga')":
                                     serve_cli["b"]["launches"]["spoga_gemm"]},
                             launches_sharded_training=sharded_launches("spoga_gemm"),
-                            sharded_training_shapes=sharded_shapes("spoga_gemm")))
+                            sharded_training_shapes=sharded_shapes("spoga_gemm"),
+                            launches_tp_archs=tp_arch_launches("spoga_gemm"),
+                            tp_arch_shapes=tp_arch_shapes("spoga_gemm")))
     kernels.append(gemm_row("nibble_gemm", "src/repro_torch/csrc/deas_gemm.cu",
                             "src/repro/kernels/deas_gemm.py:50", deas_run["nibble_gemm"], 4,
                             deas_err, at(nibble, lambda m: (m, 2048, 8192)),

@@ -35,9 +35,11 @@ serves tensor-parallel: ``RuntimeConfig(mesh=MeshConfig(tp=N))`` in N
 launched ranks (``torchrun --nproc-per-node N`` or
 ``launch.mesh.spawn``), each rank building the same ``LLM``; the weights
 are made (or loaded) whole and sliced to the rank's part
-(``shard.shard_params``), so a rank must hold the whole tree once.  GQA
-and routed-expert archs run at tp>1; MLA, the recurrent archs and the
-numerics watchdog are refused there (ROADMAP queue 1, item 10.2).  Every runtime the
+(``shard.shard_params``), so a rank must hold the whole tree once.  Every
+arch runs at tp>1 (tensor parallelism inside the experts, where tp does
+not divide them, is refused: ROADMAP queue 1, item 10.2 (b)), the numerics
+watchdog too; the encoder-decoder and frontend archs serve through
+``api.serve_batch(..., mesh=llm.mesh)``.  Every runtime the
 reference can build for them serves, the five presets included
 (``load_runtime("int8-byte-serving")``): the prefix cache with
 prefix-aware admission, speculative decoding (``RuntimeConfig(spec=

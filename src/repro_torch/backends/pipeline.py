@@ -17,7 +17,9 @@ weight absmax through one MAX all-reduce, the accumulator clamp from the
 global K -- runs the backend's int32 ``gemm`` on its K slice, sums the
 accumulators with a SUM all-reduce (exact) and applies the f32 epilogue
 ``(acc * x_scale) * w_scale`` after it, so the output equals the unsharded
-call's bit for bit.
+call's bit for bit.  The numerics watchdog reports a row-parallel or a
+column-parallel (``col_axis``) call's stats as those of the global
+operands (``_stage_watchdog_stats``).
 """
 
 from __future__ import annotations
@@ -75,7 +77,8 @@ def _global_quant(x: torch.Tensor, w: torch.Tensor, a_bits: int, w_bits: int, ro
 
 
 def _stage_watchdog_stats(ctx, label: str, quant_mode: str, x, xq, xs, wq,
-                          a_bits: int, w_bits: int, nominal: int) -> None:
+                          a_bits: int, w_bits: int, nominal: int, row_axis=None,
+                          col_axis=None) -> None:
     """Stage this GEMM's numerics stats into the watchdog context ``ctx``.
 
     The reference's 8-vector (``repro/backends/pipeline.py``): at-rail
@@ -88,29 +91,58 @@ def _stage_watchdog_stats(ctx, label: str, quant_mode: str, x, xq, xs, wq,
     view of it) and the bits the accumulator clamp took off the nominal
     widths.  The five data-dependent ones stay on the device, stacked in
     one f32 tensor; the watchdog copies them to the host once per entry
-    point.  Nothing here feeds the GEMM."""
+    point.  Nothing here feeds the GEMM.
+
+    On a tensor-parallel mesh the stats are the global operands', as the
+    reference computes them on global arrays.  A row-parallel site
+    (``row_axis``: each rank holds a K slice of both operands) sums the
+    rail hits, the element counts and each row's ``sum_k |xq|`` over the
+    ranks, takes the max of ``amax`` and ``|wq|``, and divides the summed
+    error by the summed magnitude in f64; a column-parallel one
+    (``col_axis``: the rank's output columns) sums the weight's rail hits
+    and count and takes the max of ``|wq|``.  Counts, ``amax`` and the
+    bound are then the unsharded call's bits; the error's mean sums in
+    another order (within a few f32 ulps)."""
     xf = x.float()
     # |q| <= qmax: the integer passes are exact, as the reference's f32 are
     w_amax = torch.maximum(wq.amax(), wq.amin().neg())
     # xf - xq * xs rounded once, as the reference's compiled graph fuses it
     # (a multiply-add; the f32 product is exact in f64)
     err = (xf.double() - xq.double() * xs.double()).float()
-    dev = torch.stack([
-        rail_hits(xq, a_bits).float(),
-        rail_hits(wq, w_bits).float(),
-        xf.abs().max(),
-        err.abs().mean() / (xf.abs().mean() + 1e-12),
-        torch.log2(1.0 + xq.abs().float().sum(dim=-1).max() * w_amax.float()),
-    ])
+    a_hits, w_hits = rail_hits(xq, a_bits).float(), rail_hits(wq, w_bits).float()
+    amax = xf.abs().max()
+    rows = xq.abs().float().sum(dim=-1)
+    ways = 1
+    if row_axis is not None:
+        ways = row_axis.size
+        summed = all_reduce(torch.cat([torch.stack([a_hits, w_hits]).double(),
+                                       torch.stack([err.abs().double().sum(),
+                                                    xf.abs().double().sum()]),
+                                       rows.reshape(-1).double()]), row_axis, "sum")
+        a_hits, w_hits = summed[0].float(), summed[1].float()
+        n = xq.numel() * ways
+        rel = ((summed[2] / n) / (summed[3] / n + 1e-12)).float()
+        rows = summed[4:].float()
+        amax, w_amax = all_reduce(torch.stack([amax, w_amax.float()]), row_axis, "max")
+    else:
+        rel = err.abs().mean() / (xf.abs().mean() + 1e-12)
+        if col_axis is not None:
+            ways = col_axis.size
+            w_hits = all_reduce(w_hits, col_axis, "sum")
+            w_amax = all_reduce(w_amax.float(), col_axis, "max")
+    dev = torch.stack([a_hits, w_hits, amax, rel,
+                       torch.log2(1.0 + rows.max() * w_amax.float())])
+    a_elems = xq.numel() * (ways if row_axis is not None else 1)
     _watchdog.stage(ctx, label, quant_mode, dev,
-                    (xq.numel(), wq.numel(), nominal - (a_bits + w_bits)))
+                    (a_elems, wq.numel() * ways, nominal - (a_bits + w_bits)))
 
 
 def quantized_linear(x: torch.Tensor, w: torch.Tensor, quant_mode: str, *,
                      backend: Optional[str] = None,
                      out_dtype: Optional[torch.dtype] = None,
                      watch: Optional[bool] = None,
-                     layer: Optional[str] = None, row_axis=None) -> torch.Tensor:
+                     layer: Optional[str] = None, row_axis=None,
+                     col_axis=None) -> torch.Tensor:
     """x (..., K) fp @ w (K, N) fp -> (..., N) fp via the quantized pipeline,
     on ``backend`` (a registry name) or, by default, the backend that
     serves ``x``'s device.
@@ -122,7 +154,10 @@ def quantized_linear(x: torch.Tensor, w: torch.Tensor, quant_mode: str, *,
     straight away (one host copy for this GEMM).
 
     ``row_axis``: the row-parallel form (see the module docstring); it
-    launches the backend's int32 ``gemm``, never the fused one."""
+    launches the backend's int32 ``gemm``, never the fused one.
+    ``col_axis``: ``w`` is this rank's block of a column-parallel weight;
+    the GEMM is the plain one, and only the watchdog reads the axis (its
+    label and stats are the whole weight's)."""
     b, spec = resolve_backend(quant_mode, x.device.type, backend)
     k_all = x.shape[-1] * (row_axis.size if row_axis is not None else 1)
     a_bits, w_bits = effective_bits(spec, k_all)
@@ -134,13 +169,11 @@ def quantized_linear(x: torch.Tensor, w: torch.Tensor, quant_mode: str, *,
 
     ctx = _watchdog.trace_ctx()
     if watch if watch is not None else ctx is not None:
-        if row_axis is not None:
-            raise NotImplementedError("the numerics watchdog at tp>1 is not ported yet "
-                                      "(ROADMAP queue 1, item 10.2)")
-        label = layer or _watchdog.next_label(ctx, x.shape[-1], w.shape[-1])
+        n_all = w.shape[-1] * (col_axis.size if col_axis is not None else 1)
+        label = layer or _watchdog.next_label(ctx, k_all, n_all)
         sink = ctx if ctx is not None else _watchdog.standalone()
         _stage_watchdog_stats(sink, label, quant_mode, x, xq, xs, wq, a_bits, w_bits,
-                              spec.a_bits + spec.w_bits)
+                              spec.a_bits + spec.w_bits, row_axis, col_axis)
         if ctx is None:
             _watchdog.flush(sink)
 

@@ -166,6 +166,31 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """The config one rank of a ``tp``-way "model" axis runs
+    (``shard.local_config``): its own query (and KV) heads in
+    ``n_heads`` / ``n_kv_heads``, every other field the full model's.  The
+    layers and the cache layouts read ``tp`` for the widths they split
+    (MLA latents, the RG-LRU width, the single KV head's columns);
+    ``kv_split``: the one KV head of an MQA stack is not split by head but
+    by its ``head_dim`` columns over the model axis."""
+
+    tp: int = 1
+    kv_split: bool = False
+
+
+def model_ways(cfg) -> int:
+    """How many ways the "model" axis splits ``cfg``'s layers (1 for a
+    plain ``ModelConfig``)."""
+    return cfg.tp if isinstance(cfg, RankConfig) else 1
+
+
+def kv_split(cfg) -> bool:
+    """Whether ``cfg``'s one KV head is split by its columns
+    (``RankConfig.kv_split``; False for a plain ``ModelConfig``)."""
+    return isinstance(cfg, RankConfig) and cfg.kv_split
+
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:

@@ -94,7 +94,8 @@ def synthetic_workload(cfg, n_requests: int, prompt_len: int, gen: int,
 
 def _static_main(llm: LLM, args) -> None:
     """The lockstep baseline on a batch drawn from a ``torch.Generator``
-    seeded with 0 (the frontends' stand-in embeddings from seed 0)."""
+    seeded with 0 (the frontends' stand-in embeddings from seed 0), on the
+    ``LLM``'s mesh (``--tp``: every rank draws the same batch)."""
     cfg, params, dev = llm.config, llm.params, llm.device
     gen = torch.Generator(device=dev).manual_seed(0)
     if cfg.is_encoder_decoder:
@@ -110,7 +111,7 @@ def _static_main(llm: LLM, args) -> None:
                                          generator=gen, device=dev, dtype=torch.int32)}
     cache_len = default_cache_len(args.prompt_len, args.gen)
     tokens, stats = serve_batch(cfg, params, batch, cache_len=cache_len,
-                                gen_tokens=args.gen)
+                                gen_tokens=args.gen, mesh=llm.mesh)
     tps = args.batch * args.gen / stats["decode_s"]
     print(f"[serve] generated {tuple(tokens.shape)} tokens; prefill "
           f"{stats['prefill_s']:.2f}s, decode {stats['decode_s']:.2f}s ({tps:.1f} tok/s)")

@@ -40,20 +40,36 @@ non-absorbed form); decode and verify attend in latent space (the
 absorbed form, :func:`_mla_attend`), over a slot cache or over the
 gathered latent pages on either device: the reference's paged MLA path is
 its gather form only, so no kernel serves it.
+
+On a tensor-parallel mesh (a ``configs.base.RankConfig``) every block
+runs on the rank's query heads: q / k / v (and MLA's ``w_uq`` /
+``w_uk`` / ``w_uv``) are column-parallel, ``wo`` row-parallel.  Where the
+reference's specs split a width that the rank needs whole, the rank
+gathers it over the model axis (exact): an MQA head's columns after the
+K / V projections (:func:`_kv_proj`), so RoPE and the attention see the
+whole head; a slot cache's or ring's columns of that head before it
+attends; MLA's latent columns (``ckv`` / ``ckvp``, and the slot ``kr``)
+before the latent products.  The fresh rows it writes are its own block
+(``layers.rank_block``).  MLA's absorbed attention runs the rank's
+heads in place among zero heads (:func:`_mla_attend_rows`), so its
+products have the unsharded step's shapes and bits.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, kv_split, model_ways
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models.layers import (
     apply_rope,
     init_linear,
     linear,
+    rank_block,
     rmsnorm,
     rmsnorm_columns,
+    whole,
 )
 from repro_torch.runtime.collectives import model_axis, model_input
 
@@ -152,9 +168,9 @@ def attention_block(x, p, cfg: ModelConfig, positions, window=None, causal: bool
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     qm, be = cfg.quant_mode, cfg.gemm_backend
     x = model_input(x)
-    q = linear(x, p["wq"], qm, be).reshape(b, s, hq, hd)
-    k = linear(x, p["wk"], qm, be).reshape(b, s, hkv, hd)
-    v = linear(x, p["wv"], qm, be).reshape(b, s, hkv, hd)
+    q = linear(x, p["wq"], qm, be, col=True).reshape(b, s, hq, hd)
+    k, v = _kv_proj(x, p, cfg)
+    k, v = k.reshape(b, s, hkv, hd), v.reshape(b, s, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = multihead_attention(q, k, v, causal=causal, window=window)
@@ -176,7 +192,7 @@ def cross_attention_block(x, enc_kv, p, cfg: ModelConfig):
     b, s, _ = x.shape
     hd, hq = cfg.resolved_head_dim, cfg.n_heads
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    q = linear(x, p["wq"], qm, be).reshape(b, s, hq, hd)
+    q = linear(x, p["wq"], qm, be, col=True).reshape(b, s, hq, hd)
     k, v = enc_kv
     out = multihead_attention(q, k, v, causal=False)
     return linear(out.reshape(b, s, hq * hd), p["wo"], qm, be, row=True)
@@ -187,10 +203,20 @@ def encode_cross_kv(enc_out, p, cfg: ModelConfig):
     D) each, bf16 in every quant mode (``linear``'s output)."""
     b, s, _ = enc_out.shape
     hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    k, v = _kv_proj(enc_out, p, cfg)
+    return k.reshape(b, s, hkv, hd), v.reshape(b, s, hkv, hd)
+
+
+def _kv_proj(x, p, cfg: ModelConfig):
+    """The K and V projections of ``x``, (..., Hkv * D) each, column-parallel
+    on a tensor-parallel mesh.  An MQA head split by its columns
+    (``cfg.kv_split``: the spec splits ``wk`` / ``wv``'s ``head_dim``) is
+    gathered whole, so every rank attends (and applies RoPE, which mixes
+    the two halves of a head) with the whole head."""
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    k = linear(enc_out, p["wk"], qm, be).reshape(b, s, hkv, hd)
-    v = linear(enc_out, p["wv"], qm, be).reshape(b, s, hkv, hd)
-    return k, v
+    width = cfg.n_kv_heads * cfg.resolved_head_dim
+    return (whole(linear(x, p["wk"], qm, be, col=True), width),
+            whole(linear(x, p["wv"], qm, be, col=True), width))
 
 
 def quantize_kv(t):
@@ -208,9 +234,9 @@ def _decode_qkv(x_t, p, cfg: ModelConfig, pos):
     b = x_t.shape[0]
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    q = linear(x_t, p["wq"], qm, be).reshape(b, 1, hq, hd)
-    k = linear(x_t, p["wk"], qm, be).reshape(b, 1, hkv, hd)
-    v = linear(x_t, p["wv"], qm, be).reshape(b, 1, hkv, hd)
+    q = linear(x_t, p["wq"], qm, be, col=True).reshape(b, 1, hq, hd)
+    k, v = _kv_proj(x_t, p, cfg)
+    k, v = k.reshape(b, 1, hkv, hd), v.reshape(b, 1, hkv, hd)
     posb = pos[:, None]
     return apply_rope(q, posb, cfg.rope_theta), apply_rope(k, posb, cfg.rope_theta), v
 
@@ -221,9 +247,9 @@ def _verify_qkv(x, p, cfg: ModelConfig, pos):
     b, w, _ = x.shape
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    q = linear(x, p["wq"], qm, be).reshape(b, w, hq, hd)
-    k = linear(x, p["wk"], qm, be).reshape(b, w, hkv, hd)
-    v = linear(x, p["wv"], qm, be).reshape(b, w, hkv, hd)
+    q = linear(x, p["wq"], qm, be, col=True).reshape(b, w, hq, hd)
+    k, v = _kv_proj(x, p, cfg)
+    k, v = k.reshape(b, w, hkv, hd), v.reshape(b, w, hkv, hd)
     positions = pos[:, None] + torch.arange(w, dtype=pos.dtype, device=pos.device)[None, :]
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta), v)
@@ -287,23 +313,24 @@ def attention_decode(x_t, p, cfg: ModelConfig, cache, pos, *, window=None):
     lanes = torch.arange(b, device=pos.device)
     row = pos.long() % smax if window is not None else torch.clamp(pos.long(), 0, smax - 1)
     k_scale = v_scale = None
+    cols = k_cache.shape[-1]
     if int8_cache:
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
-        k_cache[lanes, row] = kq[:, 0]
-        v_cache[lanes, row] = vq[:, 0]
+        k_cache[lanes, row] = rank_block(kq[:, 0], cols)
+        v_cache[lanes, row] = rank_block(vq[:, 0], cols)
         k_scale, v_scale = cache["k_scale"], cache["v_scale"]
         k_scale[lanes, row] = ks[:, 0]
         v_scale[lanes, row] = vs[:, 0]
     else:
-        k_cache[lanes, row] = k[:, 0].to(k_cache.dtype)
-        v_cache[lanes, row] = v[:, 0].to(v_cache.dtype)
+        k_cache[lanes, row] = rank_block(k[:, 0], cols).to(k_cache.dtype)
+        v_cache[lanes, row] = rank_block(v[:, 0], cols).to(v_cache.dtype)
 
     qg = q.reshape(b, 1, hq // hkv, hkv, hd)
     valid = torch.arange(smax, device=pos.device)[None, :] <= pos[:, None]
     if window is not None:
         valid = valid | (pos[:, None] >= smax)
-    out = _decode_attend(qg, k_cache, v_cache, k_scale, v_scale, valid)
+    out = _decode_attend(qg, whole(k_cache, hd), whole(v_cache, hd), k_scale, v_scale, valid)
     out = out.to(x_t.dtype).reshape(b, 1, hq * hd)
     return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache
 
@@ -330,20 +357,22 @@ def attention_verify(x, p, cfg: ModelConfig, cache, pos):
     start = torch.clamp(pos.long(), 0, smax - w)
     rows = start[:, None] + torch.arange(w, device=pos.device)[None, :]
     k_scale = v_scale = None
+    cols = k_cache.shape[-1]
     if int8_cache:
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
-        k_cache[lanes, rows] = kq
-        v_cache[lanes, rows] = vq
+        k_cache[lanes, rows] = rank_block(kq, cols)
+        v_cache[lanes, rows] = rank_block(vq, cols)
         k_scale, v_scale = cache["k_scale"], cache["v_scale"]
         k_scale[lanes, rows] = ks
         v_scale[lanes, rows] = vs
     else:
-        k_cache[lanes, rows] = k.to(k_cache.dtype)
-        v_cache[lanes, rows] = v.to(v_cache.dtype)
+        k_cache[lanes, rows] = rank_block(k, cols).to(k_cache.dtype)
+        v_cache[lanes, rows] = rank_block(v, cols).to(v_cache.dtype)
 
     qg = q.reshape(b, w, hq // hkv, hkv, hd)
-    out = _decode_attend(qg, k_cache, v_cache, k_scale, v_scale, _verify_valid(pos, w, smax))
+    out = _decode_attend(qg, whole(k_cache, hd), whole(v_cache, hd), k_scale, v_scale,
+                         _verify_valid(pos, w, smax))
     out = out.to(x.dtype).reshape(b, w, hq * hd)
     return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache
 
@@ -359,14 +388,15 @@ def _resolve_paged_impl(cfg: ModelConfig, device: torch.device) -> str:
     return "kernel"
 
 
-def _split_lanes(b: int) -> int:
+def _split_lanes(b: int, cfg: ModelConfig) -> int:
     """The lane count the ``paged_attention`` kernel picks its split from:
     ``b``, times the model axis's size on a tensor-parallel mesh -- a rank
     launches 1/tp of the KV heads, and the kernel sizes its split by lanes
     x KV heads, so each lane and head splits as in the unsharded run and
-    its result is the same bits."""
+    its result is the same bits.  An MQA rank's pools hold the whole head
+    (``cfg.kv_split``), so it launches the unsharded run's heads."""
     ax = model_axis()
-    return b * (ax.size if ax is not None else 1)
+    return b * (ax.size if ax is not None and not kv_split(cfg) else 1)
 
 
 def _write_page(tables, pos, page_size, active):
@@ -435,7 +465,7 @@ def paged_attention_decode(x_t, p, cfg: ModelConfig, cache, pos, tables, *,
         out = paged_attention(
             qk, kp, vp, tables, (pos + 1).to(torch.int32),
             k_scale=cache.get("kp_scale"), v_scale=cache.get("vp_scale"),
-            split_lanes=_split_lanes(b))
+            split_lanes=_split_lanes(b, cfg))
         out = out.permute(0, 2, 1, 3)[:, None]          # (B, 1, G, Hkv, D)
     out = out.to(x_t.dtype).reshape(b, 1, hq * hd)
     return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache
@@ -504,7 +534,7 @@ def paged_attention_verify(x, p, cfg: ModelConfig, cache, pos, tables, *, active
             qk, kp, vp, tables.repeat_interleave(w, dim=0).contiguous(),
             lengths.reshape(b * w).to(torch.int32),
             k_scale=cache.get("kp_scale"), v_scale=cache.get("vp_scale"),
-            split_lanes=_split_lanes(b))
+            split_lanes=_split_lanes(b, cfg))
         out = out.permute(0, 2, 1, 3).reshape(b, w, g, hkv, hd)
     out = out.to(x.dtype).reshape(b, w, hq * hd)
     return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache
@@ -535,9 +565,9 @@ def attention_chunk(x, p, cfg: ModelConfig, cache, tables_row, start: int, *, po
     hd, hq, hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
     qm, be = cfg.quant_mode, cfg.gemm_backend
     int8_cache = "kp_scale" in cache
-    q = linear(x, p["wq"], qm, be).reshape(b, cs, hq, hd)
-    k = linear(x, p["wk"], qm, be).reshape(b, cs, hkv, hd)
-    v = linear(x, p["wv"], qm, be).reshape(b, cs, hkv, hd)
+    q = linear(x, p["wq"], qm, be, col=True).reshape(b, cs, hq, hd)
+    k, v = _kv_proj(x, p, cfg)
+    k, v = k.reshape(b, cs, hkv, hd), v.reshape(b, cs, hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -597,7 +627,7 @@ def _mla_qkv(x, p, cfg: ModelConfig, positions, norm=rmsnorm):
     b, s, _ = x.shape
     qm, be = cfg.quant_mode, cfg.gemm_backend
     cq = norm(linear(x, p["w_dq"], qm, be), p["q_norm"], cfg.norm_eps)
-    q = linear(cq, p["w_uq"], qm, be).reshape(b, s, h, -1)
+    q = linear(cq, p["w_uq"], qm, be, col=True).reshape(b, s, h, -1)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv = norm(linear(x, p["w_dkv"], qm, be), p["kv_norm"], cfg.norm_eps)
@@ -612,8 +642,8 @@ def _mla_kv(c_kv, k_rope, p, cfg: ModelConfig):
     m, h = cfg.mla, cfg.n_heads
     b, s, _ = c_kv.shape
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    k_nope = linear(c_kv, p["w_uk"], qm, be).reshape(b, s, h, m.qk_nope_head_dim)
-    v = linear(c_kv, p["w_uv"], qm, be).reshape(b, s, h, m.v_head_dim)
+    k_nope = linear(c_kv, p["w_uk"], qm, be, col=True).reshape(b, s, h, m.qk_nope_head_dim)
+    v = linear(c_kv, p["w_uv"], qm, be, col=True).reshape(b, s, h, m.v_head_dim)
     k = torch.cat([k_nope, k_rope.reshape(b, s, 1, -1).expand(b, s, h, m.qk_rope_head_dim)],
                   dim=-1)
     return k, v
@@ -634,9 +664,25 @@ def mla_block(x, p, cfg: ModelConfig, positions):
 
 
 def _mla_attend_rows(q_nope, q_rope, ckv_view, kr_view, valid, p, cfg: ModelConfig):
-    """Absorbed attention of one query row a lane; valid: (B, S)."""
+    """Absorbed attention of one query row a lane; valid: (B, S).
+
+    On a tensor-parallel mesh the rank's heads sit at their place among
+    the model's heads, the other heads' queries and ``w_uk`` / ``w_uv``
+    columns zero, so every product has the unsharded step's shapes: on
+    the card cuBLAS picks its kernel (so its summation order) by the heads
+    a product batches or folds into its rows, and a rank's heads then get
+    the unsharded step's bits with nothing gathered.  A decode row's heads
+    fit one tile of rows, so the zero heads ride in tiles the rank's own
+    heads launch anyway; the rank keeps its heads' outputs."""
     m, h = cfg.mla, cfg.n_heads
     w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, m.qk_nope_head_dim)
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
+    first, tp = 0, model_ways(cfg)
+    if tp > 1:
+        first = model_axis().rank * h
+        pad = (0, 0, first, (tp - 1) * h - first)
+        q_nope, q_rope = F.pad(q_nope, pad), F.pad(q_rope, pad)
+        w_uk, w_uv = F.pad(w_uk, pad), F.pad(w_uv, pad)
     # the reference's bf16 einsums accumulate in f32; bf16 values are
     # exact in f32, so f32 operands give its products
     q_lat = torch.einsum("bchd,lhd->bchl", q_nope.float(), w_uk.float())
@@ -649,8 +695,8 @@ def _mla_attend_rows(q_nope, q_rope, ckv_view, kr_view, valid, p, cfg: ModelConf
     probs = torch.softmax(scores, dim=-1)
     out_lat = torch.einsum("bchs,bsl->bchl", probs.to(ckv_view.dtype).float(),
                            ckv_view.float())
-    w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, m.v_head_dim)
-    return torch.einsum("bchl,lhv->bchv", out_lat, w_uv.float())
+    out = torch.einsum("bchl,lhv->bchv", out_lat, w_uv.float())
+    return out[:, :, first:first + h]
 
 
 def _mla_attend(q_nope, q_rope, ckv_view, kr_view, pos, p, cfg: ModelConfig):
@@ -698,9 +744,11 @@ def mla_verify(x, p, cfg: ModelConfig, ckv_cache, krope_cache, pos, norm=None):
     lanes = torch.arange(b, device=pos.device)[:, None]
     start = torch.clamp(pos.long(), 0, smax - w)
     rows = start[:, None] + torch.arange(w, device=pos.device)[None, :]
-    ckv_cache[lanes, rows] = c_kv.to(ckv_cache.dtype)
-    krope_cache[lanes, rows] = k_rope.reshape(b, w, m.qk_rope_head_dim).to(krope_cache.dtype)
-    out = _mla_attend(q_nope, q_rope, ckv_cache, krope_cache, pos, p, cfg).to(x.dtype)
+    ckv_cache[lanes, rows] = rank_block(c_kv, ckv_cache.shape[-1]).to(ckv_cache.dtype)
+    krope_cache[lanes, rows] = rank_block(k_rope.reshape(b, w, m.qk_rope_head_dim),
+                                          krope_cache.shape[-1]).to(krope_cache.dtype)
+    out = _mla_attend(q_nope, q_rope, whole(ckv_cache, m.kv_lora_rank),
+                      whole(krope_cache, m.qk_rope_head_dim), pos, p, cfg).to(x.dtype)
     return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), (ckv_cache, krope_cache)
 
 
@@ -729,10 +777,10 @@ def _mla_paged(x, p, cfg: ModelConfig, cache, pos, tables, active, norm):
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(x, p, cfg, positions, norm=norm)
     ckvp, krp = cache["ckvp"], cache["krp"]
     pg, off = _write_pages(tables, pos, w, ckvp.shape[1], active)
-    ckvp[pg, off] = c_kv.to(ckvp.dtype)
+    ckvp[pg, off] = rank_block(c_kv, ckvp.shape[-1]).to(ckvp.dtype)
     krp[pg, off] = k_rope.reshape(b, w, m.qk_rope_head_dim).to(krp.dtype)
-    out = _mla_attend(q_nope, q_rope, _gather_pages(ckvp, tables), _gather_pages(krp, tables),
-                      pos, p, cfg).to(x.dtype)
+    out = _mla_attend(q_nope, q_rope, whole(_gather_pages(ckvp, tables), m.kv_lora_rank),
+                      _gather_pages(krp, tables), pos, p, cfg).to(x.dtype)
     return linear(out, p["wo"], cfg.quant_mode, cfg.gemm_backend, row=True), cache
 
 
@@ -750,10 +798,10 @@ def mla_chunk(x, p, cfg: ModelConfig, cache, tables_row, start: int, *, position
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(x, p, cfg, positions)
     ckvp, krp = cache["ckvp"], cache["krp"]
     pg, off = _chunk_pages(tables_row, start, cs, ckvp.shape[1])
-    ckvp[pg, off] = c_kv[0].to(ckvp.dtype)
+    ckvp[pg, off] = rank_block(c_kv[0], ckvp.shape[-1]).to(ckvp.dtype)
     krp[pg, off] = k_rope.reshape(b, cs, m.qk_rope_head_dim)[0].to(krp.dtype)
-    k_all, v_all = _mla_kv(_gather_pages(ckvp, tables_row), _gather_pages(krp, tables_row),
-                           p, cfg)
+    k_all, v_all = _mla_kv(whole(_gather_pages(ckvp, tables_row), m.kv_lora_rank),
+                           _gather_pages(krp, tables_row), p, cfg)
     q = torch.cat([q_nope, q_rope], dim=-1)
     qg = q.reshape(b, cs, 1, h, q.shape[-1])
     out = _attend_chunk(qg, k_all.float(), v_all.float(), start, v_all.dtype)

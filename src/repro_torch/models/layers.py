@@ -23,6 +23,7 @@ gradient through.
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -80,11 +81,11 @@ class _QuantizedLinearSTE(torch.autograd.Function):
     gives its slice of ``dx``, and ``dw`` is its own rows'."""
 
     @staticmethod
-    def forward(ctx, x, w, quant_mode, backend, row_axis=None):
+    def forward(ctx, x, w, quant_mode, backend, row_axis=None, col_axis=None):
         ctx.save_for_backward(x.to(COMPUTE_DTYPE), w)
         ctx.x_dtype = x.dtype
         return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE,
-                                row_axis=row_axis)
+                                row_axis=row_axis, col_axis=col_axis)
 
     @staticmethod
     def backward(ctx, g):
@@ -96,10 +97,11 @@ class _QuantizedLinearSTE(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             x2 = xb.reshape(-1, xb.shape[-1]).float()
             dw = torch.matmul(x2.t(), gf.reshape(-1, gf.shape[-1])).to(w.dtype)
-        return dx, dw, None, None, None
+        return dx, dw, None, None, None, None
 
 
-def linear(x, w, quant_mode: str = "bf16", backend=None, row: bool = False):
+def linear(x, w, quant_mode: str = "bf16", backend=None, row: bool = False,
+           col: bool = False):
     """The single matmul entry point for every model layer; bf16 out.
 
     ``backend`` is an optional GEMM-backend registry name (from
@@ -115,8 +117,13 @@ def linear(x, w, quant_mode: str = "bf16", backend=None, row: bool = False):
     product; bf16 sums the ranks' f32 partial products and rounds once,
     which is allclose to the unsharded bf16 product, not bitwise.  Under
     autograd both forms have the straight-through gradients on the rank's
-    slices (see :class:`_QuantizedLinearSTE`)."""
+    slices (see :class:`_QuantizedLinearSTE`).
+
+    ``col``: the projection is column-parallel (``w`` holds this rank's
+    output columns).  The product needs nothing more; the numerics
+    watchdog labels and counts the whole weight."""
     ax = model_axis() if row else None
+    cax = model_axis() if col else None
     grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
     if quant_mode == "bf16":
         if ax is None:
@@ -124,9 +131,33 @@ def linear(x, w, quant_mode: str = "bf16", backend=None, row: bool = False):
         part = torch.matmul(x.to(COMPUTE_DTYPE).float(), w.to(COMPUTE_DTYPE).float())
         return model_sum(part, ax).to(COMPUTE_DTYPE)
     if grad:
-        return _QuantizedLinearSTE.apply(x, w, quant_mode, backend, ax)
+        return _QuantizedLinearSTE.apply(x, w, quant_mode, backend, ax, cax)
     return quantized_linear(x, w, quant_mode, backend=backend, out_dtype=COMPUTE_DTYPE,
-                            row_axis=ax)
+                            row_axis=ax, col_axis=cax)
+
+
+def rank_block(t, n: int, dim: int = -1):
+    """This model-axis rank's block of ``n`` along ``dim`` of the whole
+    ``t`` (``t`` itself when that dim is ``n`` long: unsharded, or a width
+    the rank holds whole)."""
+    if t.shape[dim] == n:
+        return t
+    ax = model_axis()
+    assert ax is not None and t.shape[dim] == n * ax.size, \
+        f"dim {dim} of {tuple(t.shape)} is neither {n} nor the whole of {n}-wide blocks"
+    return t.narrow(dim, ax.rank * n, n)
+
+
+def whole(t, n: int, dim: int = -1):
+    """``t`` whole along ``dim`` (``n`` long): the model-axis ranks' blocks
+    all-gathered in rank order, bit for bit (``t`` itself when it is
+    whole already)."""
+    if t.shape[dim] == n:
+        return t
+    ax = model_axis()
+    assert ax is not None and t.shape[dim] * ax.size == n, \
+        f"dim {dim} of {tuple(t.shape)} is neither {n} nor a rank's block of it"
+    return model_gather(t, ax, dim)
 
 
 def init_rmsnorm(d: int, device=None):
@@ -212,8 +243,8 @@ def glu_mlp(x, p, act="silu", quant_mode="bf16", backend=None):
     the excess precision there); a bf16 matmul rounds it to the same bf16
     either way."""
     x = model_input(x)
-    g = _ACTS[act](linear(x, p["w_gate"], quant_mode, backend))
-    u = linear(x, p["w_up"], quant_mode, backend)
+    g = _ACTS[act](linear(x, p["w_gate"], quant_mode, backend, col=True))
+    u = linear(x, p["w_up"], quant_mode, backend, col=True)
     return linear(g.float() * u.float(), p["w_down"], quant_mode, backend, row=True)
 
 
@@ -224,7 +255,7 @@ def init_mlp(gen, device, d_model: int, d_ff: int, stack=()):
 
 def mlp(x, p, act="gelu", quant_mode="bf16", backend=None):
     """The non-GLU MLP, ``out(act(in(x)))``."""
-    return linear(_ACTS[act](linear(model_input(x), p["w_in"], quant_mode, backend)),
+    return linear(_ACTS[act](linear(model_input(x), p["w_in"], quant_mode, backend, col=True)),
                   p["w_out"], quant_mode, backend, row=True)
 
 
@@ -246,6 +277,30 @@ def embed(tokens, table, shape=None):
     return model_gather(table[tokens.long()].to(COMPUTE_DTYPE), ax, -1)
 
 
+def tp_block(n: int) -> int:
+    """The block of a width ``n`` that the model axis splits, whose
+    multiples cut ``n`` at every tp in {2, 4, 8} that divides it:
+    ``n / gcd(n, 8)``.  A product run one such block at a time has the
+    same shapes on every rank and unsharded: on the card cuBLAS picks its
+    kernel, and with it the summation order, by a product's width or
+    batch, so a rank's blocks give the unsharded product's bits."""
+    return n // math.gcd(n, 8)
+
+
+def _head_product(x, rows, vocab: int):
+    """``x @ rows^T`` in bf16, ``rows`` the head's rows (all ``vocab`` of
+    them, or a vocab-parallel rank's block), in column blocks of
+    ``tp_block(vocab)`` (so a rank's logits are the unsharded head's bits).
+    Under autograd one product, whose backward forms ``dx`` with one
+    matmul over every row of the block the rank holds."""
+    xb, rb = x.to(COMPUTE_DTYPE), rows.to(COMPUTE_DTYPE)
+    if torch.is_grad_enabled() and (xb.requires_grad or rb.requires_grad):
+        return torch.matmul(xb, rb.t())
+    width = tp_block(vocab)
+    return torch.cat([torch.matmul(xb, rb[i:i + width].t())
+                      for i in range(0, rb.shape[0], width)], dim=-1)
+
+
 def unembed(x, table, shape=None):
     """Output head kept in bf16 even in quantized modes (logits need full
     range); returns f32 logits of the bf16 product.  ``shape`` as in
@@ -254,12 +309,12 @@ def unembed(x, table, shape=None):
     width-sharded one sums the ranks' f32 partial logits and rounds them to
     bf16 once, as the unsharded bf16 product does."""
     ax = model_axis()
+    vocab = shape[0] if shape is not None else table.shape[0]
     if ax is None or shape is None or tuple(table.shape) == tuple(shape):
-        return torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).float()
+        return _head_product(x, table, vocab).float()
     x = model_input(x)
     if table.shape[0] != shape[0]:
-        local = torch.matmul(x.to(COMPUTE_DTYPE), table.to(COMPUTE_DTYPE).t()).float()
-        return model_gather(local, ax, -1)
+        return model_gather(_head_product(x, table, vocab).float(), ax, -1)
     cols = table.shape[1]
     xs = x.to(COMPUTE_DTYPE)[..., ax.rank * cols:(ax.rank + 1) * cols]
     part = torch.matmul(xs.float(), table.to(COMPUTE_DTYPE).float().t())

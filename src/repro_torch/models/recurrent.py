@@ -30,6 +30,26 @@ The ``*_chunk`` cells run one chunk of a chunked prefill with only its
 first ``n_valid`` rows real, carrying the cell state across chunks; pad
 rows are neutralized in each cell's own algebra (identity recurrence,
 zero gate injection, carry freeze).
+
+On a tensor-parallel mesh (a ``configs.base.RankConfig``) the reference's
+specs make the input projections column-parallel and ``w_out``
+row-parallel, and each cell runs on the rank's part:
+
+* RG-LRU on its ``lru / tp`` channels (its ``conv_w`` and ``lam``
+  blocks); the two gates take the whole conv'd branch, gathered;
+* mLSTM on its ``H / tp`` heads (``wq`` / ``wk`` / ``wv`` / ``w_ogate``
+  split by head, the replicated ``w_igate`` / ``w_fgate`` read for its
+  heads); its ``C`` and ``n`` hold those heads whole, where the spec
+  splits every head's trailing ``dh``: the same bytes (ROADMAP queue 3);
+* sLSTM on its heads too: ``w_zifo``'s column block is not a head block
+  (at tp=2 one rank holds gates z and i of every head), so the gates are
+  gathered whole and the rank keeps its heads; the rank holds whole heads
+  of ``r_zifo``, where the spec splits its last dim: the same bytes
+  (``shard.core._by_head``, ROADMAP queue 3); ``c`` / ``n`` / ``h`` hold
+  its heads.
+
+Every cell's state advances on the rank's part alone: no collective runs
+inside a recurrence.
 """
 
 from __future__ import annotations
@@ -44,7 +64,9 @@ from repro_torch.models.layers import (
     init_conv1d,
     init_linear,
     linear,
+    rank_block,
     truncated_normal_init,
+    whole,
 )
 
 
@@ -164,9 +186,12 @@ def _gelu(x):
 
 
 def _rglru_coeffs(xb, p, quant_mode, backend=None):
-    """The recurrence's (a, b), f32 (B, S, lru), of the conv'd branch xb."""
-    r = torch.sigmoid(linear(xb, p["w_rec_gate"], quant_mode, backend).float())
-    i = torch.sigmoid(linear(xb, p["w_in_gate"], quant_mode, backend).float())
+    """The recurrence's (a, b), f32 (B, S, lru), of the conv'd branch xb.
+    On a tensor-parallel mesh ``xb`` holds the rank's channels: the gates
+    take the whole branch (gathered) and give the rank's columns."""
+    xw = whole(xb, p["w_rec_gate"].shape[-2])
+    r = torch.sigmoid(linear(xw, p["w_rec_gate"], quant_mode, backend, col=True).float())
+    i = torch.sigmoid(linear(xw, p["w_in_gate"], quant_mode, backend, col=True).float())
     log_a = -_RGLRU_C * F.softplus(p["lam"]) * r                # <= 0
     a = torch.exp(log_a)
     gated_x = i * xb.float()
@@ -204,11 +229,11 @@ def rglru_block(x, p, cfg: ModelConfig, state=None):
     lru)}`` after the last token: the conv state holds the last W-1 raw
     (pre-conv) branch rows in f32."""
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    gate = _gelu(linear(x, p["w_gate_branch"], qm, be).float())
-    xb_raw = linear(x, p["w_x_branch"], qm, be)
+    gate = _gelu(linear(x, p["w_gate_branch"], qm, be, col=True).float())
+    xb_raw = linear(x, p["w_x_branch"], qm, be, col=True)
     xb = causal_conv1d(xb_raw, p["conv_w"])
     h, h_last = rglru_scan(xb, p, qm, None, backend=be)
-    out = linear((gate * h).to(x.dtype), p["w_out"], qm, be)
+    out = linear((gate * h).to(x.dtype), p["w_out"], qm, be, row=True)
     if state is None:
         return out, None
     w = cfg.conv_width
@@ -225,8 +250,8 @@ def rglru_chunk(x, p, cfg: ModelConfig, state, n_valid: int):
     qm, be = cfg.quant_mode, cfg.gemm_backend
     w = cfg.conv_width
     c = x.shape[1]
-    gate = _gelu(linear(x, p["w_gate_branch"], qm, be).float())
-    xb_raw = linear(x, p["w_x_branch"], qm, be)
+    gate = _gelu(linear(x, p["w_gate_branch"], qm, be, col=True).float())
+    xb_raw = linear(x, p["w_x_branch"], qm, be, col=True)
     full_raw = torch.cat([state["conv"].float(), xb_raw.float()], dim=1)  # (B, W-1+C, lru)
     xb = torch.zeros_like(full_raw[:, w - 1:, :])
     for i in range(w):
@@ -237,20 +262,20 @@ def rglru_chunk(x, p, cfg: ModelConfig, state, n_valid: int):
     a = torch.where(valid, a, torch.ones_like(a))
     bcoef = torch.where(valid, bcoef, torch.zeros_like(bcoef))
     h, h_last = rglru_scan_coeffs(a, bcoef, state["h"])
-    out = linear((gate * h).to(x.dtype), p["w_out"], qm, be)
+    out = linear((gate * h).to(x.dtype), p["w_out"], qm, be, row=True)
     return out, {"h": h_last, "conv": full_raw[:, n_valid:n_valid + w - 1]}
 
 
 def rglru_decode(x_t, p, cfg: ModelConfig, state):
     """One step. x_t: (B, 1, d); state {"h": (B, lru), "conv": (B, W-1, lru)}."""
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    gate = _gelu(linear(x_t, p["w_gate_branch"], qm, be).float())
-    xb = linear(x_t, p["w_x_branch"], qm, be)[:, 0, :]
+    gate = _gelu(linear(x_t, p["w_gate_branch"], qm, be, col=True).float())
+    xb = linear(x_t, p["w_x_branch"], qm, be, col=True)[:, 0, :]
     xb_c, conv_state = conv1d_decode(xb, state["conv"], p["conv_w"])
     a, b = _rglru_coeffs(xb_c[:, None, :], p, qm, be)
     h = fma(a[:, 0, :], state["h"], b[:, 0, :])
     y = (gate[:, 0, :] * h).to(x_t.dtype)
-    out = linear(y[:, None, :], p["w_out"], qm, be)
+    out = linear(y[:, None, :], p["w_out"], qm, be, row=True)
     return out, {"h": h, "conv": conv_state}
 
 
@@ -304,28 +329,36 @@ def _mlstm_chunk_math(q, k, v, logf, logi, C0, n0):
     return h, C1, n1
 
 
+def _gates(x, p, name: str, cfg: ModelConfig):
+    """The (B, S, H) pre-activation of a per-head gate (``w_igate`` /
+    ``w_fgate``, replicated over a tensor-parallel mesh), the rank's heads."""
+    g = linear(x, p[name], cfg.quant_mode, cfg.gemm_backend).float()
+    return rank_block(g, cfg.n_heads)
+
+
 def _mlstm_inputs(x, p, cfg: ModelConfig):
-    """q, k, v (B, H, S, dh) f32 and the log gates (B, H, S)."""
+    """q, k, v (B, H, S, dh) f32 and the log gates (B, H, S): the rank's H
+    heads on a tensor-parallel mesh (``wq`` / ``wk`` / ``wv`` column-parallel
+    by head)."""
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    b, s, d = x.shape
-    hh = cfg.n_heads
-    dh = d // hh
+    b, s, _ = x.shape
+    hh, dh = cfg.n_heads, cfg.resolved_head_dim
 
     def heads(t):
         return t.reshape(b, s, hh, dh).transpose(1, 2).float()
 
-    q = heads(linear(x, p["wq"], qm, be)) * (dh ** -0.5)
-    k = heads(linear(x, p["wk"], qm, be)) * (dh ** -0.5)
-    v = heads(linear(x, p["wv"], qm, be))
-    logi = F.logsigmoid(linear(x, p["w_igate"], qm, be).float()).transpose(1, 2)
-    logf = F.logsigmoid(linear(x, p["w_fgate"], qm, be).float()).transpose(1, 2)
+    q = heads(linear(x, p["wq"], qm, be, col=True)) * (dh ** -0.5)
+    k = heads(linear(x, p["wk"], qm, be, col=True)) * (dh ** -0.5)
+    v = heads(linear(x, p["wv"], qm, be, col=True))
+    logi = F.logsigmoid(_gates(x, p, "w_igate", cfg)).transpose(1, 2)
+    logf = F.logsigmoid(_gates(x, p, "w_fgate", cfg)).transpose(1, 2)
     return q, k, v, logf, logi
 
 
 def _mlstm_scan(x, p, cfg: ModelConfig, q, k, v, logf, logi, C, n):
     """The chunk loop and the output gate.  Returns (out, C, n)."""
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    b, s, d = x.shape
+    b, s, _ = x.shape
     L = min(_MLSTM_CHUNK, s)
     assert s % L == 0, f"seq {s} not divisible by mLSTM chunk {L}"
     hs = []
@@ -334,18 +367,17 @@ def _mlstm_scan(x, p, cfg: ModelConfig, q, k, v, logf, logi, C, n):
                                     v[:, :, c0:c0 + L], logf[..., c0:c0 + L],
                                     logi[..., c0:c0 + L], C, n)
         hs.append(h)
-    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, s, d)
-    o = torch.sigmoid(linear(x, p["w_ogate"], qm, be).float())
-    return linear((o * h).to(x.dtype), p["w_out"], qm, be), C, n
+    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, s, -1)
+    o = torch.sigmoid(linear(x, p["w_ogate"], qm, be, col=True).float())
+    return linear((o * h).to(x.dtype), p["w_out"], qm, be, row=True), C, n
 
 
 def mlstm_block(x, p, cfg: ModelConfig, state=None):
     """x: (B, S, d) -> (out, new state or None).  ``state`` (``C``, ``n``)
     is the carried matrix memory; None starts from zeros and returns no
     state."""
-    b, _, d = x.shape
-    hh = cfg.n_heads
-    dh = d // hh
+    b = x.shape[0]
+    hh, dh = cfg.n_heads, cfg.resolved_head_dim
     q, k, v, logf, logi = _mlstm_inputs(x, p, cfg)
     if state is None:
         C0 = torch.zeros((b, hh, dh, dh), dtype=torch.float32, device=x.device)
@@ -372,25 +404,24 @@ def mlstm_chunk(x, p, cfg: ModelConfig, state, n_valid: int):
 def mlstm_decode(x_t, p, cfg: ModelConfig, state):
     """One recurrent step. state: {"C": (B, H, dh, dh), "n": (B, H, dh)}."""
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    b, _, d = x_t.shape
-    hh = cfg.n_heads
-    dh = d // hh
+    b = x_t.shape[0]
+    hh, dh = cfg.n_heads, cfg.resolved_head_dim
 
     def heads(t):
         return t.reshape(b, hh, dh).float()
 
-    q = heads(linear(x_t, p["wq"], qm, be)[:, 0]) * (dh ** -0.5)
-    k = heads(linear(x_t, p["wk"], qm, be)[:, 0]) * (dh ** -0.5)
-    v = heads(linear(x_t, p["wv"], qm, be)[:, 0])
-    i = torch.sigmoid(linear(x_t, p["w_igate"], qm, be).float())[:, 0][..., None]
-    f = torch.sigmoid(linear(x_t, p["w_fgate"], qm, be).float())[:, 0][..., None]
+    q = heads(linear(x_t, p["wq"], qm, be, col=True)[:, 0]) * (dh ** -0.5)
+    k = heads(linear(x_t, p["wk"], qm, be, col=True)[:, 0]) * (dh ** -0.5)
+    v = heads(linear(x_t, p["wv"], qm, be, col=True)[:, 0])
+    i = torch.sigmoid(_gates(x_t, p, "w_igate", cfg))[:, 0][..., None]
+    f = torch.sigmoid(_gates(x_t, p, "w_fgate", cfg))[:, 0][..., None]
     C = f[..., None] * state["C"] + (i * k)[..., :, None] * v[..., None, :]
     n = f * state["n"] + i * k
     num = torch.einsum("bhd,bhde->bhe", q, C)
     den = torch.clamp_min(torch.einsum("bhd,bhd->bh", q, n).abs()[..., None], 1.0)
-    h = (num / den).reshape(b, 1, d)
-    o = torch.sigmoid(linear(x_t, p["w_ogate"], qm, be).float())
-    out = linear((o * h).to(x_t.dtype), p["w_out"], qm, be)
+    h = (num / den).reshape(b, 1, hh * dh)
+    o = torch.sigmoid(linear(x_t, p["w_ogate"], qm, be, col=True).float())
+    out = linear((o * h).to(x_t.dtype), p["w_out"], qm, be, row=True)
     return out, {"C": C, "n": n}
 
 
@@ -425,30 +456,40 @@ def _slstm_step(r_zifo, carry, zifo_t):
 
 
 def _slstm_zifo(x, p, cfg: ModelConfig):
+    """The (B, S, 4, H, dh) f32 gate pre-activations of the rank's H heads.
+    ``w_zifo`` is column-parallel, and its column block is not a head
+    block (at tp=2 one rank holds gates z and i of every head): the
+    ranks' columns are gathered whole and the rank keeps its heads."""
     b, s, d = x.shape
-    hh = cfg.n_heads
-    return linear(x, p["w_zifo"], cfg.quant_mode, cfg.gemm_backend).float().reshape(
-        b, s, 4, hh, d // hh)
+    hh, dh = cfg.n_heads, cfg.resolved_head_dim
+    z = whole(linear(x, p["w_zifo"], cfg.quant_mode, cfg.gemm_backend, col=True), 4 * d)
+    return rank_block(z.float().reshape(b, s, 4, d // dh, dh), hh, dim=3)
+
+
+def _slstm_r(p, cfg: ModelConfig):
+    """``r_zifo`` (4, H, dh, dh) f32 of the rank's heads: a rank holds
+    whole heads of it (``shard.core._by_head``), so nothing is gathered."""
+    return p["r_zifo"].float()
 
 
 def _slstm_out(x, p, cfg: ModelConfig, hs):
-    b, s, d = x.shape
-    h = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype)
-    return linear(h, p["w_out"], cfg.quant_mode, cfg.gemm_backend)
+    b, s, _ = x.shape
+    h = torch.stack(hs, dim=1).reshape(b, s, -1).to(x.dtype)
+    return linear(h, p["w_out"], cfg.quant_mode, cfg.gemm_backend, row=True)
 
 
 def slstm_block(x, p, cfg: ModelConfig, state=None):
     """x: (B, S, d) -> (out, new state or None); ``state`` is the carried
     ``{"c","n","h"}`` (None starts from zeros and returns no state)."""
-    b, s, d = x.shape
-    hh = cfg.n_heads
+    b, s, _ = x.shape
     zifo = _slstm_zifo(x, p, cfg)
     if state is None:
-        zeros = torch.zeros((b, hh, d // hh), dtype=torch.float32, device=x.device)
+        zeros = torch.zeros((b, cfg.n_heads, cfg.resolved_head_dim), dtype=torch.float32,
+                            device=x.device)
         carry = (zeros, zeros, zeros)
     else:
         carry = (state["c"], state["n"], state["h"])
-    r = p["r_zifo"].float()
+    r = _slstm_r(p, cfg)
     hs = []
     for t in range(s):
         carry, h1 = _slstm_step(r, carry, zifo[:, t])
@@ -464,7 +505,7 @@ def slstm_chunk(x, p, cfg: ModelConfig, state, n_valid: int):
     carried (c, n, h) are the exact-length run's."""
     zifo = _slstm_zifo(x, p, cfg)
     carry = (state["c"], state["n"], state["h"])
-    r = p["r_zifo"].float()
+    r = _slstm_r(p, cfg)
     hs = []
     for t in range(x.shape[1]):
         stepped, h1 = _slstm_step(r, carry, zifo[:, t])
@@ -477,12 +518,12 @@ def slstm_chunk(x, p, cfg: ModelConfig, state, n_valid: int):
 
 
 def slstm_decode(x_t, p, cfg: ModelConfig, state):
-    b, _, d = x_t.shape
+    b = x_t.shape[0]
     zifo = _slstm_zifo(x_t, p, cfg)[:, 0]
-    (c, n, h), h_out = _slstm_step(p["r_zifo"].float(), (state["c"], state["n"], state["h"]),
+    (c, n, h), h_out = _slstm_step(_slstm_r(p, cfg), (state["c"], state["n"], state["h"]),
                                    zifo)
-    out = linear(h_out.reshape(b, 1, d).to(x_t.dtype), p["w_out"], cfg.quant_mode,
-                 cfg.gemm_backend)
+    out = linear(h_out.reshape(b, 1, -1).to(x_t.dtype), p["w_out"], cfg.quant_mode,
+                 cfg.gemm_backend, row=True)
     return out, {"c": c, "n": n, "h": h}
 
 

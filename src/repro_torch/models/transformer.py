@@ -29,6 +29,7 @@ from repro_torch.models.layers import (
     COMPUTE_DTYPE,
     glu_mlp,
     init_glu_mlp,
+    rank_block,
     rmsnorm,
     rmsnorm_columns,
 )
@@ -216,6 +217,10 @@ def apply_block_prefill(x, p, kind: str, cfg: ModelConfig, positions, cache_len:
         fresh = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
     else:
         fresh = {"k": fresh[0], "v": fresh[1]}
+    # the rank keeps its block of a width its cache splits (MLA latents, an
+    # MQA head's columns: models/kvcache.py)
+    widths = block_cache_shape(kind_e, cfg, x.shape[0], cache_len)
+    fresh = {name: rank_block(val, widths[name][0][-1]) for name, val in fresh.items()}
     s = x.shape[1]
     if kind_e == "local_attn" and cfg.sliding_window is not None:
         rows = min(cache_len, cfg.sliding_window)

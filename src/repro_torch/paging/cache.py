@@ -26,6 +26,7 @@ from repro_torch.configs.base import ModelConfig, default_page_count, pages_for
 from repro_torch.device import resolve_device
 from repro_torch.models import model as model_lib
 from repro_torch.models.kvcache import zeros_like_shapes
+from repro_torch.models.layers import whole
 from repro_torch.paging.manager import PageManager
 
 # paged-pool leaf -> the key holding the same rows in a contiguous prefill cache
@@ -50,7 +51,9 @@ def _scatter_block(pool_blk, multi_blk, page_ids, stacked: bool, src_row: int,
                 leaf[lane] = src[src_row].to(leaf.dtype)
         return
     for pk, leaf in pool_blk.items():
-        src = multi_blk[_POOL_KEY_MAP[pk]]
+        # a pool that holds a width whole which the slot layout splits (the
+        # MLA rope key, ``krp``) takes the ranks' blocks gathered
+        src = whole(multi_blk[_POOL_KEY_MAP[pk]], leaf.shape[-1])
         if stacked:
             rows = src[:, src_row]                            # (periods, S, ...)
             ps = leaf.shape[2]

@@ -79,9 +79,9 @@ rank samples are gathered, so they are the same bytes on every rank, and
 every rank samples the same tokens (a verify round: the same targets and
 accept lengths) with no collective of its own; ``debug_invariants``
 checks every step that the ranks' next tokens are model-axis rank 0's.
-A draft model runs unsharded on every rank.
-Tensor-parallel execution of MLA, the recurrent cells and the ring is
-refused (ROADMAP queue 1, item 10.2).
+A draft model runs unsharded on every rank.  Every decoder-only arch
+serves so: MLA, the recurrent cells and the local-attention ring hold
+their rank's blocks of the reference's cache specs (``models/kvcache.py``).
 """
 
 from __future__ import annotations

@@ -14,7 +14,11 @@ columns, rows and experts (:func:`local_config`).
 Query heads sit on the model axis in the attention's (G, Hkv) order
 (:func:`_slice`), in every tree that holds ``wq`` / ``wo`` -- params,
 optimizer moments, a checkpoint restored onto a mesh -- so training,
-serving and restore lay heads out alike.
+serving and restore lay heads out alike.  sLSTM's ``r_zifo`` is cut by
+head where its spec cuts columns (:func:`_by_head`).  An MQA stack (one KV head)
+splits its query heads in order and its KV head by columns; MLA's
+``w_uq`` / ``w_uk`` / ``w_uv`` hold whole heads in order, as the
+column-parallel rule cuts them.
 """
 
 from __future__ import annotations
@@ -27,14 +31,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.configs.base import ModelConfig, RankConfig
 from repro_torch.launch.mesh import _make_mesh
 from repro_torch.runtime.collectives import gather_blocks, world
 from repro_torch.runtime.sharding import opt_state_specs, param_specs, pool_specs, zip_map
-
-# what tensor-parallel serving runs at tp > 1 (the rest: ROADMAP queue 1,
-# item 10.2)
-_TP_KINDS = {"attn", "moe", "dense_ffn_layer"}
-
 
 def validate_mesh_config(mesh_cfg) -> None:
     """The reference's static check, under its name.  A ``MeshConfig``
@@ -69,12 +69,15 @@ def _names(entry) -> tuple:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
-def _slice(t: torch.Tensor, spec, mesh, coords: dict, heads=None) -> torch.Tensor:
+def _slice(t: torch.Tensor, spec, mesh, coords: dict, heads=None,
+           by_head=None) -> torch.Tensor:
     """``t``'s block along each sharded dim of ``spec``.  ``heads`` =
     (G, Hkv, D): the dim sharded over "model" holds query heads in the
     attention's (G, Hkv) order (query head ``g * Hkv + j`` reads KV head
     ``j``), and the block is every group's slice of this rank's KV heads --
-    so the rank's query heads read exactly the KV heads it holds."""
+    so the rank's query heads read exactly the KV heads it holds.
+    ``by_head``: the dim the "model" split cuts instead of the spec's
+    (:func:`_by_head`)."""
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
@@ -83,7 +86,8 @@ def _slice(t: torch.Tensor, spec, mesh, coords: dict, heads=None) -> torch.Tenso
         for n in names:
             size *= mesh.shape[n]
             idx = idx * mesh.shape[n] + coords[n]
-        if size == 1 or t.shape[dim] % size:
+        cut = by_head if by_head is not None and "model" in names else dim
+        if size == 1 or t.shape[cut] % size:
             continue
         if heads is not None and "model" in names:
             g, hkv, d = heads
@@ -91,17 +95,26 @@ def _slice(t: torch.Tensor, spec, mesh, coords: dict, heads=None) -> torch.Tenso
             part = hkv // size
             t = grouped.narrow(dim + 1, idx * part, part).flatten(dim, dim + 2)
         else:
-            part = t.shape[dim] // size
-            t = t.narrow(dim, idx * part, part)
+            part = t.shape[cut] // size
+            t = t.narrow(cut, idx * part, part)
     return t
 
 
 def _query_heads(path, cfg):
     """(G, Hkv, D) for a GQA query projection or output projection (whose
     sharded dim holds the query heads), else None."""
-    if cfg.use_mla or not path or path[-1] not in ("wq", "wo") or "attn" not in path:
+    if cfg.use_mla or cfg.n_kv_heads == 1 or not path or path[-1] not in ("wq", "wo") or \
+            not {"attn", "xattn"} & set(path):
         return None
     return (cfg.n_heads // cfg.n_kv_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+
+
+def _by_head(path, ndim: int):
+    """The head dim of sLSTM's ``r_zifo`` (4, H, dh, dh), else None.  Its
+    spec splits every head's output columns over "model"; a rank holds
+    whole heads instead (the same bytes), so its recurrence runs on its own
+    heads with no weight gathered (ROADMAP queue 3)."""
+    return ndim - 3 if path and path[-1] == "r_zifo" else None
 
 
 def _map_leaves(fn, tree, specs, path=()):
@@ -120,7 +133,8 @@ def shard_leaf(t: torch.Tensor, spec, mesh, cfg, path=(), coords: Optional[dict]
     if spec.count(None) == len(spec):
         return t
     coords = _coords(mesh) if coords is None else coords
-    return _slice(t, spec, mesh, coords, _query_heads(path, cfg)).contiguous()
+    return _slice(t, spec, mesh, coords, _query_heads(path, cfg),
+                  _by_head(path, t.dim())).contiguous()
 
 
 def shard_tree(tree, specs, mesh, cfg, coords: Optional[dict] = None):
@@ -172,17 +186,19 @@ def _assemble(parts, spec, mesh, cfg, path):
     blocks = {coords[r]: p for r, p in enumerate(parts)}
     axes = list(mesh.axis_names)
     heads = _query_heads(path, cfg)
+    by_head = _by_head(path, parts[0].dim())
     for dim, entry in enumerate(spec):
         if entry is None:
             continue
         names = _names(entry)
         size = math.prod(mesh.shape[n] for n in names)
+        cut = by_head if by_head is not None and "model" in names else dim
         for n in reversed(names):
             i = axes.index(n)
             merged = {}
             for key in sorted(blocks):
                 merged.setdefault(key[:i] + key[i + 1:], []).append(blocks[key])
-            blocks = {k: torch.cat(v, dim) for k, v in merged.items()}
+            blocks = {k: torch.cat(v, cut) for k, v in merged.items()}
             axes.pop(i)
         if heads is not None and "model" in names and size > 1:
             # blocks of query heads in rank order, each (G, Hkv/size, D),
@@ -254,11 +270,12 @@ def pool_shardings(cache_shapes_tree, mesh):
 
 def _ffn_widths(cfg, kinds) -> dict:
     """The hidden width of every FFN whose ``w_down`` is row-parallel, by
-    name: the dense MLP of attention layers, the dense FFN layers, the
-    shared experts (routed experts are split whole, by expert)."""
+    name: the dense MLP of attention and RG-LRU layers, the dense FFN
+    layers, the shared experts (routed experts are split whole, by
+    expert)."""
     m = cfg.moe
     widths = {}
-    if "attn" in kinds:
+    if kinds & {"attn", "local_attn", "rglru"}:
         widths["d_ff"] = cfg.d_ff
     if "dense_ffn_layer" in kinds:
         widths["the dense FFN layers' d_ff"] = m.d_ff_dense or cfg.d_ff
@@ -267,36 +284,51 @@ def _ffn_widths(cfg, kinds) -> dict:
     return widths
 
 
+def _split_widths(cfg, kinds) -> dict:
+    """Every other width a rank holds a 1/tp block of, by name: the MLA
+    latent rank, the RG-LRU width, the xLSTM model width (``w_ogate`` /
+    ``w_out`` / ``w_zifo`` columns)."""
+    widths = {}
+    if cfg.use_mla:
+        widths["kv_lora_rank"] = cfg.mla.kv_lora_rank
+    if "rglru" in kinds:
+        widths["lru_width"] = cfg.lru_width or cfg.d_model
+    if kinds & {"mlstm", "slstm"}:
+        widths["d_model"] = cfg.d_model
+    return widths
+
+
 def local_config(cfg, tp: int):
-    """The config a rank of a ``tp``-way model axis runs: its own query and
-    KV heads (``head_dim`` made explicit).  Widths the weights carry
-    (``d_ff``, experts) need no change.  Refuses what tensor-parallel
-    serving does not run yet, and a ``tp`` that does not divide the heads,
-    the experts or an FFN's width."""
+    """The config a rank of a ``tp``-way model axis runs (a
+    ``configs.base.RankConfig``): its own query heads, its own KV heads
+    (an MQA stack's one KV head stays whole in the config and is split
+    by its ``head_dim`` columns, ``kv_split``), ``head_dim`` made
+    explicit, and ``tp``.  Widths the weights carry (``d_ff``, experts,
+    the latent and recurrent widths) need no change.  Refuses a ``tp``
+    that does not divide the query heads, the KV heads (more than one),
+    an FFN's width or a split width, and tensor parallelism inside the
+    experts."""
     if tp == 1:
         return cfg
     kinds = {cfg.layer_type(i) for i in range(cfg.n_layers)}
-    if cfg.use_mla or cfg.is_encoder_decoder or cfg.frontend is not None or \
-            not kinds <= _TP_KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel execution of MLA, the recurrent cells, the "
-            "local-attention ring and the encoder-decoder and frontend archs is not "
-            "ported yet (ROADMAP queue 1, item 10.2 (b))")
-    if cfg.numerics_watchdog:
-        raise NotImplementedError("the numerics watchdog at tp>1 is not ported yet "
-                                  "(ROADMAP queue 1, item 10.2 (b))")
-    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+    mqa = cfg.n_kv_heads == 1
+    if cfg.n_heads % tp or (cfg.n_kv_heads % tp and not mqa):
         raise ValueError(f"{cfg.name}: tp={tp} must divide n_heads ({cfg.n_heads}) and "
                          f"n_kv_heads ({cfg.n_kv_heads})")
+    if mqa and cfg.resolved_head_dim % tp:
+        raise ValueError(f"{cfg.name}: tp={tp} must divide the one KV head's head_dim "
+                         f"({cfg.resolved_head_dim})")
     if cfg.moe is not None and cfg.moe.num_experts % tp:
         raise NotImplementedError(
             f"{cfg.name}: tp={tp} does not divide {cfg.moe.num_experts} experts; tensor "
             "parallelism inside the experts is not ported yet (ROADMAP queue 1, item 10.2 (b))")
     # the rules leave an FFN replicated where tp does not divide its width,
     # and a row-parallel sum of replicated halves would count it tp times
-    for name, width in _ffn_widths(cfg, kinds).items():
+    for name, width in {**_ffn_widths(cfg, kinds), **_split_widths(cfg, kinds)}.items():
         if width % tp:
             raise ValueError(f"{cfg.name}: tp={tp} must divide {name} ({width})")
-    return cfg.with_(n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
-                     head_dim=cfg.resolved_head_dim)
-
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}
+    fields.update(n_heads=cfg.n_heads // tp,
+                  n_kv_heads=1 if mqa else cfg.n_kv_heads // tp,
+                  head_dim=cfg.resolved_head_dim)
+    return RankConfig(**fields, tp=tp, kv_split=mqa)

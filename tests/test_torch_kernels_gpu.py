@@ -66,6 +66,16 @@ SHAPES += [(m, k, n) for k, n in [(1024, 1024), (1024, 8192), (8192, 1024)]
            for m in (4, 32, 128, 512)]
 SHAPES += [(m, k, n) for k, n in [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)]
            for m in (4, 128, 2304)]
+# a tp=2 rank's projections of minicpm3-4b (MLA: w_uq, gate/up by
+# columns, w_dq / w_dkv / w_kr whole, w_uk / w_uv over the latent prefix),
+# recurrentgemma-9b (the RG-LRU branches and gates, the MQA head's half
+# columns, the GLU) and llava-next-mistral-7b (q, k/v, gate/up) on
+# spoga_gemm_dequant, and their row-parallel o / w_out / down halves on
+# spoga_gemm, at the decode step's 4 lanes and a prefill's 64 rows
+TP_ARCH_DEQUANT_KN = [(2560, 768), (768, 1920), (2560, 256), (2560, 32), (2560, 3200),
+                      (256, 1280), (4096, 2048), (4096, 128), (4096, 6144), (4096, 512),
+                      (4096, 7168)]
+TP_ARCH_INT_KN = [(1280, 2560), (3200, 2560), (2048, 4096), (6144, 4096), (7168, 4096)]
 # llama3.2-1b's four projection shapes at a training step's M = B * S =
 # 4 x 1,024 rows
 LLAMA_KN = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
@@ -644,6 +654,91 @@ def test_mla_verify_rows_are_the_decode_steps_on_card():
         assert torch.equal(got[:, c], want[:, 0]), c
     for k in pools:
         assert torch.equal(pools[k], vpools[k]), k
+
+
+@pytest.mark.parametrize("kernel", ["spoga_gemm_dequant", "spoga_gemm"])
+def test_gemm_tp_rank_shapes_bitwise(kernel):
+    """Both GEMM kernels at a tp=2 rank's projection shapes of minicpm3-4b,
+    recurrentgemma-9b and llava-next-mistral-7b (column-parallel and
+    replicated on ``spoga_gemm_dequant``, row-parallel halves on
+    ``spoga_gemm``) at M = 4 and 64: bitwise the plain versions, one
+    launch a call."""
+    _card()
+    kns = TP_ARCH_DEQUANT_KN if kernel == "spoga_gemm_dequant" else TP_ARCH_INT_KN
+    mod = gemm_mod if kernel == "spoga_gemm_dequant" else int_gemm_mod
+    for k, n in kns:
+        for m in (4, 64):
+            spec, ops = _operands(m, k, n, "int8_spoga", seed=3 * m + k + n)
+            kw = dict(n_x_slices=spec.n_a_slices, n_w_slices=spec.n_w_slices,
+                      slice_bits=spec.slice_bits)
+            launches = mod.LAUNCHES
+            if kernel == "spoga_gemm_dequant":
+                got, want = spoga_gemm_dequant(*ops, **kw), spoga_gemm_dequant_plain(*ops)
+            else:
+                got, want = spoga_gemm(*ops[:2], **kw), spoga_gemm_plain(*ops[:2])
+            assert mod.LAUNCHES == launches + 1
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (kernel, m, k, n)
+
+
+@pytest.mark.parametrize("vocab,tp", [(73448, 2), (73448, 4), (128256, 2), (32000, 8)])
+def test_head_rank_block_is_the_unsharded_heads_columns(vocab, tp):
+    """The head's bf16 product on the card (``layers._head_product``): a
+    vocab-parallel rank's block of rows gives exactly its columns of the
+    whole head's logits, at 4 decode rows and a 37-row prefill (the
+    product runs in column blocks a rank's rows never cut)."""
+    from repro_torch.models.layers import _head_product
+    _card()
+    gen = torch.Generator(device="cuda").manual_seed(vocab + tp)
+    d = 2560
+    table = (torch.randn((vocab, d), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    part = vocab // tp
+    for m in (4, 37):
+        x = torch.randn((m, d), generator=gen, device="cuda").to(torch.bfloat16)
+        full = _head_product(x, table, vocab)
+        for r in range(tp):
+            got = _head_product(x, table[r * part:(r + 1) * part], vocab)
+            assert torch.equal(got, full[:, r * part:(r + 1) * part]), (vocab, tp, m, r)
+
+
+@pytest.mark.parametrize("tp", [2, 4, 8])
+def test_mla_rank_heads_are_the_unsharded_heads(tp):
+    """MLA's absorbed attention on the card (``attention._mla_attend_rows``)
+    over a tp rank's heads gives exactly those heads' outputs of the
+    unsharded run, at minicpm3-4b's full width, 4 lanes and 300 latent
+    rows (the rank's heads run in place among zero heads)."""
+    from repro_torch import configs
+    from repro_torch.models.attention import _mla_attend_rows
+    from repro_torch.runtime import collectives
+    from repro_torch.shard import local_config
+    _card()
+    cfg = configs.get_config("minicpm3-4b")
+    m, h, b, s = cfg.mla, cfg.n_heads, 4, 300
+    gen = torch.Generator(device="cuda").manual_seed(tp)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    q_nope, q_rope = rnd(b, 1, h, m.qk_nope_head_dim), rnd(b, 1, h, m.qk_rope_head_dim)
+    ckv, kr = rnd(b, s, m.kv_lora_rank), rnd(b, s, m.qk_rope_head_dim)
+    p = {"w_uk": rnd(m.kv_lora_rank, h * m.qk_nope_head_dim, scale=0.05),
+         "w_uv": rnd(m.kv_lora_rank, h * m.v_head_dim, scale=0.05)}
+    lens = torch.tensor([300, 17, 150, 64], device="cuda")
+    valid = torch.arange(s, device="cuda")[None, :] < lens[:, None]
+    full = _mla_attend_rows(q_nope, q_rope, ckv, kr, valid, p, cfg)
+    local, hl = local_config(cfg, tp), h // tp
+    for r in range(tp):
+        heads = slice(r * hl, (r + 1) * hl)
+        pr = {"w_uk": p["w_uk"][:, r * hl * m.qk_nope_head_dim:(r + 1) * hl * m.qk_nope_head_dim],
+              "w_uv": p["w_uv"][:, r * hl * m.v_head_dim:(r + 1) * hl * m.v_head_dim]}
+        # the rank's coordinate on the model axis (no collective runs)
+        collectives._MODEL_AXES.append(collectives.Axis(None, tp, r, "gloo"))
+        try:
+            got = _mla_attend_rows(q_nope[:, :, heads], q_rope[:, :, heads], ckv, kr, valid,
+                                   pr, local)
+        finally:
+            collectives._MODEL_AXES.pop()
+        assert torch.equal(got, full[:, :, heads]), (tp, r)
 
 
 def test_gemm_recurrent_shapes_bitwise():

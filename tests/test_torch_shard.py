@@ -286,9 +286,19 @@ def test_shard_params_slices_by_spec_and_kv_group():
     shapes = pool_shardings(paged_cache_shapes(cfg, **POOL), mesh)
     assert shapes["blocks"][0]["kp"][0][-2] == cfg.n_kv_heads // 2
     assert shapes["block_tables"][0] == paged_cache_shapes(cfg, **POOL)["block_tables"][0]
-    for arch, err in (("minicpm3-4b", NotImplementedError), ("xlstm-125m", NotImplementedError)):
-        with pytest.raises(err, match="item 10.2"):
-            local_config(tconfigs.reduced(tconfigs.get_config(arch)), 2)
+    # MLA and the xLSTM cells run at tp=2 on the rank's heads; the MLA
+    # latents and the xLSTM width split two ways (models/kvcache.py)
+    for arch in ("minicpm3-4b", "xlstm-125m"):
+        full = tconfigs.reduced(tconfigs.get_config(arch))
+        local = local_config(full, 2)
+        assert (local.n_heads, local.n_kv_heads, local.tp, local.kv_split) == \
+            (full.n_heads // 2, full.n_kv_heads // 2, 2, False)
+        assert local.resolved_head_dim == full.resolved_head_dim
+        assert local.mla == full.mla and local.d_model == full.d_model
+    # tensor parallelism inside the experts stays refused
+    moe = tconfigs.reduced(tconfigs.get_config("deepseek-moe-16b"))
+    with pytest.raises(NotImplementedError, match=r"item 10\.2 \(b\)"):
+        local_config(moe.with_(moe=dataclasses.replace(moe.moe, num_experts=6)), 4)
 
 
 @pytest.mark.parametrize("arch,field", [("llama3.2-1b", "d_ff"),
