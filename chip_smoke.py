@@ -43,7 +43,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    tolerance at every step; at ``int8_spoga`` (2 layers, full depth) the
    difference printed;
 5. the paper's dataflows through the ``LLM`` facade: the same weights (the
-   first ``DATAFLOW_LAYERS`` (4) of phase 4's 16 layers) and
+   first ``DATAFLOW_LAYERS`` (2) of phase 4's 16 layers) and
    prompts served by ``int8_spoga`` fused, ``int8_spoga`` with
    ``gemm_backend="cuda_spoga"``, ``int8_deas`` and ``int8_direct``, in
    two rounds of opposite order, each run's kernel counts read around it;
@@ -163,20 +163,22 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``layers.layernorm`` at d 2048 on the card against the CPU, the int32
    accumulators of the MLP's ``int8_spoga`` projections bitwise;
 12. observability on the main path (after phase 11): phase 4's weights
-   and traffic, ``int8_spoga``, int8 paged KV, every run's launches exact
+   (their first ``OBS_LAYERS`` (4) layers in (a)-(d), all 16 in (e)) and
+   traffic, ``int8_spoga``, int8 paged KV, every run's launches exact
    through ``_counted``: (a) spans and events off against on (fenced
    spans, trace and event sinks), greedy streams bitwise equal, the event
    kinds; the mean fenced ``decode`` span of 4 busy lanes against the
    profiler's device time a step (not shorter); (b) the numerics watchdog
-   on against off: streams bitwise, 112 ``spoga_gemm_dequant`` launches a
-   step still, the saturation report's labels all ``prefill.``/``decode.``,
+   on against off: streams bitwise, the ``spoga_gemm_dequant`` launches a
+   step unchanged, the saturation report's labels all ``prefill.``/``decode.``,
    the extra device and wall time a step; (c) ``/metrics`` (port 0)
    scraped mid-run and at the end, ``validate_exposition`` clean both times,
    the server gone after ``LLM.close()``; (d) a ``StepProfiler`` over 5
-   decode steps (after its warm-up step), its Chrome trace holding 5 x 112
-   ``spoga_gemm_dequant`` kernels (no other profiler runs while it is
-   armed); (e) the traffic
-   recorded to a flight-recorder bundle, replayed on the card by
+   decode steps (after its warm-up step), its Chrome trace holding 5 x a
+   step's ``spoga_gemm_dequant`` kernels (no other profiler runs while it is
+   armed); (e) the traffic served
+   with no recorder, then recorded to a flight-recorder bundle (streams
+   equal), replayed on the card by
    ``LLM.replay`` (bitwise, the replay's launches the recording's) and by
    ``python -m repro_torch.launch.replay`` in a subprocess (exit 0); the
    phase's time printed (budget 120 s);
@@ -210,7 +212,7 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    row-parallel ones on ``spoga_gemm``; ``paged_attention`` once a layer a
    decode step; no plain version): nvidia-smi's compute mode printed (an
    exclusive mode fails here: (b)-(e) share the card); (a) full-width
-   llama3.2-1b (``TP_LLAMA_LAYERS``, 8 of its 16 layers)
+   llama3.2-1b (``TP_LLAMA_LAYERS``, 4 of its 16 layers)
    unsharded and with ``MeshConfig(enable=True)`` on one NCCL rank,
    streams bitwise equal; mistral-large-123b at full width
    (``TP_MISTRAL_LAYERS`` of its 88 layers) and deepseek-moe-16b
@@ -291,7 +293,30 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    ``spoga_gemm``, the rest on ``spoga_gemm_dequant``; no plain version);
    the watchdog report the unsharded one's (the quant error within
    ``TPA_ERR_RTOL``); every ``TPA_KN`` shape launched at M=4;
-18. the ``kernels`` JSON line, then the ``ok`` line last.
+18. tensor-parallel training of the other archs (after phase 17): two
+   gloo ranks on ``cuda:0``, a (data, model) = (1, 2) mesh,
+   ``TrainConfig(**TRAIN_LR)`` (FSDP and ZeRO-1 on, as by default), one
+   step of ``TPT_BATCH`` x ``TPT_SEQ`` tokens at full width and
+   ``int8_spoga``, remat off, depth cut (``TPT_LAYERS``): deepseek-moe-16b
+   (1 dense + 1 MoE layer, 32 experts a rank), minicpm3-4b, xlstm-125m,
+   recurrentgemma-9b, seamless-m4t-large-v2 (64 source frames) and
+   llava-next-mistral-7b (128 patch embeddings, each row's first labels
+   masked).  The unsharded step runs first on the card in each rank (one
+   rank at a time for ``TPT_ONE_AT_A_TIME``), from the same weights and
+   batch: its forward and backward over
+   the whole model, its clip by the global norm, and its AdamW update --
+   elementwise -- evaluated on the rank's blocks (the whole AdamW state of
+   recurrentgemma-9b does not fit beside the other rank).  Gates, per rank: the loss
+   within ``TPT_LOSS_TOL``; every gradient leaf (``gather_tree``) within
+   ``SHARDED_GRAD_TOL`` of its largest magnitude; the AdamW blocks after
+   the step by ``_update_errors``; param and optimizer bytes
+   ``tree_device_bytes``; every leaf the specs replicate over "model"
+   bitwise equal on both ranks (sha256); both steps' GEMM launches exact
+   (``_tpa_launches``' prefill column: a training step's forward, none in
+   the backward), no plain version; then (b) both GEMM kernels at every
+   (kernel, M, K, N) the tp=2 steps launched, bitwise against their plain
+   versions and timed;
+19. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -1549,7 +1574,7 @@ DATAFLOWS = [
     ("direct", ("int8_direct", None), ("torch._int_mm",)),
 ]
 FACADE_NEW_TOKENS = 24
-DATAFLOW_LAYERS = 4        # of llama3.2-1b's 16 in phase 5's dataflow runs
+DATAFLOW_LAYERS = 2        # of llama3.2-1b's 16 in phase 5's dataflow runs
 
 
 def phase_dataflows(card, params):
@@ -3762,6 +3787,9 @@ def phase_encdec(card):
 # 12. observability on the main path
 # ---------------------------------------------------------------------------
 
+OBS_LAYERS = 4             # of llama3.2-1b's 16 in phase 12 (a)-(d)
+
+
 def _obs_engine(cfg, params, obs=None):
     """Phase 4's engine geometry (4 lanes, pages of 16, buckets (32, 64,
     128), ``cache_len`` 168) with the observability bundle ``obs``."""
@@ -3817,19 +3845,20 @@ def _obs_step_costs(cfg, params, label, obs=None, steps=5):
 
 def phase_obs(card):
     """12. Observability on the main path: phase 4's full-width llama3.2-1b
-    weights and traffic, ``int8_spoga``, int8 paged KV, every run under
-    ``_counted``: (a) spans and events off against on (fenced, trace and
-    event sinks), streams bitwise equal, the fenced ``decode`` span against
-    the profiler's device time a step; (b) the numerics watchdog on against
-    off: streams bitwise, 112 GEMM launches a step still, the saturation
-    report, its device and wall cost a step; (c) ``/metrics`` scraped mid-run
-    and at the end, valid both times, stopped by ``close()``; (d) a
-    ``StepProfiler`` over 5 decode steps after its warm-up step, its trace
-    holding 5 x 112
-    ``spoga_gemm_dequant`` kernels; (e) the traffic recorded to a bundle and
-    replayed on the card by ``LLM.replay`` and by ``python -m
-    repro_torch.launch.replay``, bitwise, the replay's launches the
-    recording's."""
+    weights (the first ``OBS_LAYERS`` layers in (a)-(d)) and traffic,
+    ``int8_spoga``, int8 paged KV, every run under ``_counted``: (a) spans
+    and events off against on (fenced, trace and event sinks), streams
+    bitwise equal, the fenced ``decode`` span against the profiler's device
+    time a step; (b) the numerics watchdog on against off: streams bitwise,
+    the GEMM launches a step unchanged, the saturation report, its device
+    and wall cost a step; (c) ``/metrics`` scraped mid-run and at the end,
+    valid both times, stopped by ``close()``; (d) a ``StepProfiler`` over 5
+    decode steps after its warm-up step, its trace holding 5 x the step's
+    ``spoga_gemm_dequant`` kernels; (e) at full depth (a replay rebuilds
+    the model by its arch name), the traffic served with no recorder, then
+    recorded to a bundle and replayed on the card by ``LLM.replay`` and by
+    ``python -m repro_torch.launch.replay``, bitwise, the replay's launches
+    the recording's."""
     import os
     import tempfile
     import urllib.error
@@ -3839,8 +3868,10 @@ def phase_obs(card):
     from repro_torch.configs import get_config
     from repro_torch.obs import split_labels, validate_exposition, watchdog
     t0 = time.perf_counter()
-    params = full_width_params()
-    cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
+    full = full_width_params()
+    params = _first_layers(full, OBS_LAYERS)
+    base = get_config("llama3.2-1b").with_(n_layers=OBS_LAYERS)
+    cfg = base.with_(quant_mode="int8_spoga", kv_cache_dtype="int8")
     arrivals = _traffic(8, cfg.vocab_size, ENGINE_SEED)
     per_step = _gemm_launches(cfg)[0]
     out = {}
@@ -3911,7 +3942,7 @@ def phase_obs(card):
                            kv=KVConfig(mode="paged", dtype="int8", page_size=16),
                            scheduler=SchedulerConfig(n_slots=4, prefill_buckets=(32, 64, 128)),
                            obs=ObsConfig(metrics_port=0))
-        llm = LLM("llama3.2-1b", runtime=rt, params=params, device="cuda")
+        llm = LLM(config=base, runtime=rt, params=params, device="cuda")
         engine = llm.build_engine(128, 32)
         url = llm.metrics_server.url
         scrapes = []
@@ -3971,16 +4002,21 @@ def phase_obs(card):
         del engine
         parts["d"] = time.perf_counter() - t0
 
-        # (e) record, then replay twice on the card
+        # (e) at full depth: served with no recorder, then recorded, then
+        # replayed twice on the card
+        del params
+        full_cfg = get_config("llama3.2-1b").with_(quant_mode="int8_spoga",
+                                                  kv_cache_dtype="int8")
+        plain, plain_s, _ = _obs_serve(full_cfg, full, arrivals, "(e) no recorder")
         bundle = f"{d}/bundle"
         llm = LLM("llama3.2-1b", runtime=dataclasses.replace(
-            rt, obs=ObsConfig(record_path=bundle)), params=params, device="cuda")
+            rt, obs=ObsConfig(record_path=bundle)), params=full, device="cuda")
         engine = llm.build_engine(128, 32)
         t1 = time.perf_counter()
         metrics, rec_launches = _counted(engine, "(e) record", lambda e: e.run(arrivals))
         rec_s = time.perf_counter() - t1
         recorded = _check_finished(metrics, arrivals, cfg.vocab_size, "(e) record")
-        require(recorded == off, "(e) the recorded streams differ from (a)'s")
+        require(recorded == plain, "(e) the recorded streams differ from the unrecorded run's")
         llm.close()
         del llm, engine
         torch.cuda.empty_cache()
@@ -4004,15 +4040,15 @@ def phase_obs(card):
         require(cli.returncode == 0, f"(e) launch.replay exited {cli.returncode}:\n"
                                      f"{cli.stdout[-2000:]}\n{cli.stderr[-2000:]}")
         size = sum(p.stat().st_size for p in Path(bundle).iterdir())
-        print(f"[obs] (e) recorded 8 requests in {rec_s:.2f} s ((a) off {off_s:.2f} s: "
-              f"{1e3 * (rec_s - off_s) / 8:.1f} ms a request), bundle {size} bytes; "
+        print(f"[obs] (e) recorded 8 requests in {rec_s:.2f} s (no recorder {plain_s:.2f} s: "
+              f"{1e3 * (rec_s - plain_s) / 8:.1f} ms a request), bundle {size} bytes; "
               f"LLM.replay bitwise ({res.n_replayed_events} events, {replay_s:.1f} s, "
               f"launches equal the recording's), launch.replay exit 0 ({cli_s:.1f} s) "
               f"[{card}]", flush=True)
-        out["record"] = {"record_s": rec_s, "off_s": off_s, "bundle_bytes": size,
+        out["record"] = {"record_s": rec_s, "off_s": plain_s, "bundle_bytes": size,
                          "replay_s": replay_s, "cli_s": cli_s}
         out["launches"] = rec_launches
-    del params
+    del full
     torch.cuda.empty_cache()
     out["wall_s"] = time.perf_counter() - t0
     ends = [0.0] + list(parts.values()) + [out["wall_s"]]
@@ -4363,7 +4399,7 @@ def phase_train(card):
 # 14. distribution
 # ---------------------------------------------------------------------------
 
-TP_LLAMA_LAYERS = 8        # of llama3.2-1b's 16 in (a) and (b)
+TP_LLAMA_LAYERS = 4        # of llama3.2-1b's 16 in (a) and (b)
 TP_MISTRAL_LAYERS = 4      # of mistral-large-123b's 88
 TP_DEEPSEEK_LAYERS = 4     # of deepseek-moe-16b's 28: 1 dense + 3 MoE
 TP_REQUESTS = 4            # of phase 4's 8 requests in (c) and (d)
@@ -5002,10 +5038,12 @@ def _sharded_lr(tcfg, step: int) -> float:
     return tcfg.learning_rate * warm * decay
 
 
-def _update_errors(opt, params, master0, ref, specs, mesh, cfg, tcfg, label):
+def _update_errors(opt, params, master0, ref, specs, mesh, cfg, tcfg, label, scales=None):
     """This rank's AdamW blocks ``opt`` and param blocks ``params`` after a
-    step, from the master blocks ``master0`` before it, against the
-    unsharded step's full moments ``ref`` (``{"m", "v"}``): m within
+    step, from the master blocks ``master0`` before it (on any device), against the
+    unsharded step's full moments ``ref`` (``{"m", "v"}``; with ``scales``,
+    ``{"m", "v"}`` -> each full leaf's largest magnitude, ``ref`` holds the
+    rank's blocks already, on any device): m within
     ``SHARDED_GRAD_TOL`` and v within ``SHARDED_V_TOL`` of each leaf's
     largest magnitude; the master ``master0`` moved by AdamW's rule from the
     rank's own m and v within ``SHARDED_UPDATE_TOL`` of the lr (a step that
@@ -5024,10 +5062,13 @@ def _update_errors(opt, params, master0, ref, specs, mesh, cfg, tcfg, label):
     paths = list(leaf_paths(ref["m"]))
     for key, tol in (("m", SHARDED_GRAD_TOL), ("v", SHARDED_V_TOL)):
         worst[key] = 0.0
-        for (name, a), (_, f), spec, path in zip(_leaves(opt[key]), _leaves(ref[key]),
-                                                spec_leaves(o_specs[key], ref[key]), paths):
-            b = shard_leaf(f, spec, mesh, cfg, path)
-            share = (a - b).abs().max().item() / max(f.abs().max().item(), 1e-30)
+        for i, ((name, a), (_, f), spec, path) in enumerate(zip(
+                _leaves(opt[key]), _leaves(ref[key]), spec_leaves(o_specs[key], ref[key]),
+                paths)):
+            b = f if scales else shard_leaf(f, spec, mesh, cfg, path)
+            top = scales[key][i] if scales else f.abs().max().item()
+            share = _chunked_max(lambda sl: (a.reshape(-1)[sl] - b.reshape(-1)[sl].to(a.device))
+                                 .abs(), a.numel()) / max(top, 1e-30)
             worst[key] = max(worst[key], share)
             require(share <= tol, f"{label}: {key} {name} off the unsharded step's by "
                                   f"{share:.4%} of its largest magnitude")
@@ -5037,10 +5078,15 @@ def _update_errors(opt, params, master0, ref, specs, mesh, cfg, tcfg, label):
             _leaves(opt["master"]), _leaves(master0), _leaves(opt["m"]), _leaves(opt["v"]),
             _leaves(params), spec_leaves(p_specs, ref["m"]), spec_leaves(o_specs["master"],
                                                                          ref["m"])):
-        w0, m, v = w0.double(), m.double(), v.double()
-        rule = w0 - lr * ((m / bc1) / ((v / bc2).sqrt() + 1e-8) + tcfg.weight_decay * w0)
-        err = (w1.double() - rule).abs().max().item() / lr
-        del w0, m, v, rule
+
+        def off(sl, w1=w1, w0=w0, m=m, v=v):
+            w0c = w0.reshape(-1)[sl].to(w1.device).double()
+            mc, vc = m.reshape(-1)[sl].double(), v.reshape(-1)[sl].double()
+            rule = w0c - lr * ((mc / bc1) / ((vc / bc2).sqrt() + 1e-8)
+                               + tcfg.weight_decay * w0c)
+            return (w1.reshape(-1)[sl].double() - rule).abs()
+
+        err = _chunked_max(off, w1.numel()) / lr
         worst["master"] = max(worst["master"], err)
         require(err <= SHARDED_UPDATE_TOL, f"{label}: master {name} off AdamW's rule from its "
                                            f"own m and v by {err:.3g} of the lr")
@@ -5052,6 +5098,13 @@ def _update_errors(opt, params, master0, ref, specs, mesh, cfg, tcfg, label):
                 p = p.narrow(dim, data * part, part)
         require(torch.equal(p, w1.to(p.dtype)), f"{label}: param {name} is not its master cast")
     return worst
+
+
+def _chunked_max(fn, n: int, chunk: int = 1 << 26) -> float:
+    """The largest element of ``fn(slice)`` over the slices of ``range(n)``
+    in chunks of ``chunk``: the f64 copies of a whole vocab leaf's block do
+    not fit beside another rank's state on one card."""
+    return max(fn(slice(i, i + chunk)).max().item() for i in range(0, n, chunk))
 
 
 def _unsharded_steps(cfg, tcfg, params, opt, batches):
@@ -5752,6 +5805,311 @@ def phase_tp_arch_gemms(card):
     return table
 
 
+# ---------------------------------------------------------------------------
+# 18. tensor-parallel training of the MoE, MLA, recurrent, encoder-decoder
+#     and frontend stacks
+# ---------------------------------------------------------------------------
+
+TPT_LAYERS = {"deepseek-moe-16b": 2,         # of 28: 1 dense + 1 MoE (32 experts a rank)
+              "minicpm3-4b": 2,              # of 62
+              "xlstm-125m": 4,               # of 12: one period, 3 mLSTM + 1 sLSTM
+              "recurrentgemma-9b": 3,        # of 38: one period, 2 RG-LRU + local attention
+              "seamless-m4t-large-v2": 2,    # of 24 encoder and 24 decoder layers (2 + 2)
+              "llava-next-mistral-7b": 2}    # of 32
+TPT_BATCH, TPT_SEQ = 2, 128
+TPT_SRC = 64                   # seamless-m4t-large-v2's source frames
+TPT_MASKED = (32, 48)          # llava: each row's first label positions masked (its image)
+TPT_LOSS_TOL = SHARDED_LOSS_TOL
+# the archs whose unsharded step runs one rank at a time, its reference kept
+# on the host: recurrentgemma-9b's (2.75 B parameters, 44 GB with its AdamW
+# state) does not fit beside the other rank's; the others run on both ranks
+# at once and keep their references on the card
+TPT_ONE_AT_A_TIME = ("recurrentgemma-9b",)
+
+
+def _tpt_config(arch):
+    cfg = _tp_config(arch, TPT_LAYERS[arch]).with_(quant_mode="int8_spoga", remat=False)
+    return cfg.with_(n_encoder_layers=TPT_LAYERS[arch]) if cfg.is_encoder_decoder else cfg
+
+
+def _tpt_batch(cfg, device):
+    """One global batch of ``TPT_BATCH`` x ``TPT_SEQ`` from ``ENGINE_SEED``:
+    tokens; source frames and target tokens; or patch embeddings and
+    labels with each row's first ``TPT_MASKED`` positions masked (-1)."""
+    from repro_torch.models.frontends import fake_audio_frames, fake_vision_embeds
+    gen = torch.Generator(device=device).manual_seed(ENGINE_SEED + 18)
+    tokens = torch.randint(0, cfg.vocab_size, (TPT_BATCH, TPT_SEQ), generator=gen,
+                           device=device, dtype=torch.int32)
+    if cfg.is_encoder_decoder:
+        return {"src_embeds": fake_audio_frames(ENGINE_SEED, cfg, TPT_BATCH, TPT_SRC,
+                                                device=device), "tgt_tokens": tokens}
+    if cfg.frontend is not None:
+        labels = tokens.clone()
+        for r, n in enumerate(TPT_MASKED):
+            labels[r, :n] = -1
+        return {"embeds": fake_vision_embeds(ENGINE_SEED, cfg, TPT_BATCH, TPT_SEQ,
+                                             device=device), "labels": labels}
+    return {"tokens": tokens}
+
+
+def _tpt_gate(label, cfg, tp):
+    """Read the counts since the last reset: one training step's exact GEMM
+    launches at ``tp`` (a prefill's projections, ``_tpa_launches``: the
+    straight-through backward launches none), no plain version."""
+    torch.cuda.synchronize()
+    launches, plain = read_counts()
+    want = {k: p for k, (_, p) in _tpa_launches(cfg, tp).items()}
+    check_counts(launches, plain, tuple(k for k, v in want.items() if v), label)
+    for name, n in want.items():
+        require(launches[name] == n, f"{label}: {name} launched {launches[name]} times, "
+                                     f"want {n}")
+    return {k: launches[k] for k in want}
+
+
+def _tpt_reference(grads, params, cfg, tcfg, layout, mesh, dev, keep):
+    """The rest of the unsharded step after its forward and backward
+    (``grads``, the whole model's): its clip by the global norm over every
+    leaf, then its AdamW update -- elementwise, so evaluated on copies of
+    this rank's param blocks ``params`` with the clipped gradients' blocks,
+    bit for bit the whole update's elements (``grad_clip`` then infinite:
+    a scale of 1).  The whole AdamW state of recurrentgemma-9b (33 GB) and
+    its temporaries do not fit beside the other rank on one card.  Returns
+    the gradients and the moments' blocks on ``keep`` (the card or the
+    host) and each block's largest magnitude."""
+    from repro_torch.optim.optimizers import adamw_init, adamw_update, clip_by_global_norm
+    from repro_torch.runtime.sharding import spec_leaves
+    from repro_torch.shard.core import shard_leaf
+    from repro_torch.tree import leaf_paths, rebuild, tree_map
+    kept_grads = [g.to(keep) for _, g in _leaves(grads)]
+    clipped, _ = clip_by_global_norm(grads, tcfg.grad_clip)
+    blocks = [shard_leaf(g, spec, mesh, cfg, path) for (_, g), spec, path in zip(
+        _leaves(clipped), spec_leaves(layout.g_specs, clipped), leaf_paths(clipped))]
+    del clipped
+    own = tree_map(torch.clone, params)
+    opt = adamw_init(own, device=dev)
+    adamw_update(own, rebuild(params, iter(blocks)), opt,
+                 dataclasses.replace(tcfg, grad_clip=float("inf")))
+    tops = [t.abs().max().item() for key in ("m", "v") for _, t in _leaves(opt[key])]
+    moments = {key: tree_map(lambda t: t.to(keep), opt[key]) for key in ("m", "v")}
+    del own, opt, blocks
+    return dict(grads=kept_grads, moments=moments, tops=tops)
+
+
+def _tpt_arch(arch, mesh, dev, rank, seen):
+    """One arch in a rank: the unsharded step (one rank at a time for
+    ``TPT_ONE_AT_A_TIME``, the other waiting), then the tp=2 gradients
+    (gathered) and the counted tp=2 step, gated against it."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.launch.steps import (
+        _loss_and_grads,
+        _sharded_loss_and_grads,
+        make_train_step,
+        sharded_layout,
+    )
+    from repro_torch.models import init_params, param_shapes
+    from repro_torch.optim.optimizers import adamw_init
+    from repro_torch.runtime.collectives import all_reduce, barrier, world
+    from repro_torch.shard import tree_device_bytes
+    from repro_torch.shard.core import gather_tree, shard_params
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    label = f"(a) {arch} rank {rank}"
+    cfg = _tpt_config(arch)
+    tcfg = TrainConfig(**TRAIN_LR)
+    batch = _tpt_batch(cfg, dev)
+    layout = sharded_layout(cfg, tcfg, mesh)
+    alone = arch in TPT_ONE_AT_A_TIME
+    times = {}
+
+    def reference():
+        t = time.perf_counter()
+        full = init_params(cfg, seed=ENGINE_SEED, device=dev)
+        params = tree_map(torch.clone, shard_params(full, mesh, cfg, fsdp=tcfg.fsdp))
+        torch.cuda.synchronize()
+        times["init"] = time.perf_counter() - t
+        reset_counts()
+        t = time.perf_counter()
+        ref_loss, grads = _loss_and_grads(full, cfg, tcfg, batch)
+        ref_launches = _tpt_gate(f"{label} unsharded forward and backward", cfg, 1)
+        times["forward and backward"] = time.perf_counter() - t
+        del full
+        t = time.perf_counter()
+        ref = _tpt_reference(grads, params, cfg, tcfg, layout, mesh, dev,
+                             "cpu" if alone else dev)
+        torch.cuda.synchronize()
+        times["clip, AdamW, keep"] = time.perf_counter() - t
+        ref.update(loss=float(ref_loss), launches=ref_launches)
+        del grads
+        torch.cuda.empty_cache()
+        return params, ref
+
+    if alone:
+        for r in range(mesh.size):
+            if r == rank:
+                params, ref = reference()
+            barrier(world(mesh))
+    else:
+        params, ref = reference()
+    t_ref = time.perf_counter() - t0
+    # each full moment leaf's largest magnitude: the MAX of the ranks' blocks'
+    tops = all_reduce(torch.tensor(ref["tops"], device=dev), world(mesh), "max").tolist()
+    n = len(_leaves(ref["moments"]["m"]))
+    scales = {"m": tops[:n], "v": tops[n:]}
+    _, grads = _sharded_loss_and_grads(params, layout, tcfg, batch)
+    grads = gather_tree(grads, layout.g_specs, mesh, cfg)
+    grad_share = 0.0
+    for (name, g), want in zip(_leaves(grads), ref["grads"]):
+        share = _chunked_share(g, want)
+        grad_share = max(grad_share, share)
+        require(share <= SHARDED_GRAD_TOL, f"{label}: gradient {name} off the unsharded "
+                f"step's by {share:.4%} of its largest magnitude")
+    del grads, ref["grads"]
+    torch.cuda.empty_cache()
+    # the rank's AdamW blocks: at data=1 ZeRO-1 splits nothing, so they are
+    # adamw_init of the rank's param blocks; the master before the step is
+    # the params' values (kept on the host)
+    opt = adamw_init(params, device=dev)
+    master0 = tree_map(lambda t: t.to("cpu", copy=True), params)
+    step = make_train_step(cfg, tcfg, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    t = time.perf_counter()
+    with _RecordGemms(seen):
+        params, opt, m = step(params, opt, batch)
+    loss = float(m["loss"])
+    step_s = time.perf_counter() - t
+    launches = _tpt_gate(f"{label} tp=2 step", cfg, 2)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    require(abs(loss - ref["loss"]) <= TPT_LOSS_TOL * (1 + abs(ref["loss"])),
+            f"{label}: loss {loss} against the unsharded step's {ref['loss']}")
+    # one rank at a time, each holding its state alone (no cached blocks)
+    torch.cuda.empty_cache()
+    for r in range(mesh.size):
+        if r == rank:
+            update = _update_errors(opt, params, master0, ref["moments"],
+                                    (layout.p_specs, layout.o_specs), mesh, cfg, tcfg, label,
+                                    scales=scales)
+            torch.cuda.empty_cache()
+        barrier(world(mesh))
+    meta = param_shapes(cfg)
+    want_bytes = (tree_device_bytes(meta, layout.p_specs, mesh),
+                  tree_device_bytes(adamw_init(meta, device="meta"), layout.o_specs, mesh))
+    got_bytes = (_tpa_bytes(params), _tpa_bytes(opt))
+    require(got_bytes == want_bytes, f"{label}: param / optimizer bytes {got_bytes} differ "
+                                     f"from tree_device_bytes {want_bytes}")
+    # the leaves the specs replicate over "model", for the replicas check
+    from repro_torch.runtime.sharding import spec_leaves
+    replicated = {}
+    for key, tree, specs in (("params", params, layout.p_specs), ("opt", opt, layout.o_specs)):
+        for (name, leaf), spec in zip(_leaves(tree), spec_leaves(specs, tree)):
+            if not any(e is not None and "model" in (e if isinstance(e, tuple) else (e,))
+                       for e in spec):
+                replicated[f"{key}.{name}"] = _leaf_digests(leaf)[0]
+    out = dict(loss=loss, ref_loss=ref["loss"], ref_launches=ref["launches"], launches=launches,
+               grad_share=grad_share, update=update, bytes=got_bytes, step_s=step_s,
+               peak_gib=peak, replicated=replicated, ref_s=t_ref, ref_split=times,
+               wall_s=time.perf_counter() - t0)
+    del params, opt, master0, ref
+    torch.cuda.empty_cache()
+    print(f"[tp-train] {label}: loss {loss:.6f} (unsharded {out['ref_loss']:.6f}), launches "
+          f"{launches} (unsharded forward {out['ref_launches']}), worst gradient leaf "
+          f"{100 * grad_share:.3f}%, m {100 * update['m']:.3f}%, v {100 * update['v']:.3f}%, "
+          f"master {update['master']:.3g} lr; params {got_bytes[0]} + optimizer "
+          f"{got_bytes[1]} bytes = tree_device_bytes; step {step_s:.2f} s, peak above its "
+          f"start {peak:.2f} GiB; unsharded {t_ref:.1f} s ("
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in times.items())}"
+          f"{', one rank at a time' if alone else ''}), {out['wall_s']:.1f} s in all",
+          flush=True)
+    return out
+
+
+def _chunked_share(got, want, chunk=1 << 26):
+    """``max |got - want| / max |want|`` of one leaf (``want`` on any
+    device), in chunks of ``chunk`` elements: the f32 copies of a whole
+    vocab leaf beside the other rank's do not fit on the card."""
+    g, w = got.reshape(-1), want.reshape(-1)
+    err = top = 0.0
+    for i in range(0, g.numel(), chunk):
+        a, b = g[i:i + chunk].float(), w[i:i + chunk].to(got.device).float()
+        err = max(err, (a - b).abs().max().item())
+        top = max(top, b.abs().max().item())
+    return err / max(top, 1e-30)
+
+
+def _tpt_rank(rank, dev):
+    """Phase 18 (a) in one of two gloo ranks that share ``cuda:0``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(1, 2, backend="gloo", device=dev)
+    seen = set()
+    out = {arch: _tpt_arch(arch, mesh, dev, rank, seen) for arch in TPT_LAYERS}
+    out["seen"] = sorted(seen)
+    return out
+
+
+def phase_tp_train(card):
+    """18. One training step of each of ``TPT_LAYERS``'s archs at full width
+    on a (data, model) = (1, 2) mesh of two gloo ranks sharing the card,
+    each held to the unsharded step on the card (loss, gathered gradients,
+    AdamW blocks, bytes, replicas, exact launches); then (b) both GEMM
+    kernels at every shape the tp=2 steps launched, bitwise against their
+    plain versions and timed."""
+    from repro_torch.kernels.spoga_gemm import spoga_gemm, spoga_gemm_plain
+    from repro_torch.kernels.spoga_gemm_dequant import (
+        spoga_gemm_dequant,
+        spoga_gemm_dequant_plain,
+    )
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    print(f"[tp-train] two gloo ranks on cuda:0, (data, model) = (1, 2), int8_spoga, "
+          f"{TPT_BATCH} x {TPT_SEQ} tokens, TrainConfig(fsdp=True, zero1=True), depths "
+          f"{TPT_LAYERS}; this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          f"[{card}]", flush=True)
+    # the ranks' allocators grow segments in place: recurrentgemma-9b's two
+    # ranks share the card with about 10 GB to spare
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn(_tpt_rank, 2, "gloo", device="shared")
+    finally:
+        if alloc is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    t_ranks = time.perf_counter() - t0
+    for arch in TPT_LAYERS:
+        a, b = (r[arch] for r in ranks)
+        require(a["loss"] == b["loss"], f"(a) {arch}: the ranks' losses differ")
+        require(a["replicated"].keys() == b["replicated"].keys(), f"(a) {arch}: replicated "
+                "leaves differ between the ranks")
+        bad = sorted(k for k in a["replicated"] if a["replicated"][k] != b["replicated"][k])
+        require(not bad, f"(a) {arch}: replicas differ between the ranks: {bad[:4]}")
+        print(f"[tp-train] (a) {arch}: {len(a['replicated'])} replicated leaves bitwise equal "
+              f"on both ranks (sha256)", flush=True)
+    # (b) every (kernel, M, K, N) the counted tp=2 steps launched
+    cases = sorted({tuple(key) for r in ranks for key in r["seen"]})
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    table = {}
+    for kernel, m, k, n in cases:
+        spec, x, w, xs, ws = _gemm_operands(m, k, n, "int8_spoga", gen)
+        if kernel == "spoga_gemm_dequant":
+            same = torch.equal(spoga_gemm_dequant(x, w, xs, ws),
+                               spoga_gemm_dequant_plain(x, w, xs, ws))
+            timing = _gemm_timing
+        else:
+            same = torch.equal(spoga_gemm(x, w), spoga_gemm_plain(x, w))
+            timing = _int_gemm_timing
+        require(same, f"(b) {kernel} M={m} K={k} N={n} differs from its plain version")
+        table[(kernel, m, k, n)] = timing("a tp=2 training rank", "int8_spoga", m, k, n, gen,
+                                          tag="tp-train")
+    print(f"[tp-train] (b) {len(cases)} GEMM cases bitwise their plain versions; phase 18 in "
+          f"{time.perf_counter() - t0:.1f} s (two ranks {t_ranks:.1f} s) [{card}]", flush=True)
+    return {"ranks": ranks, "gemm": table}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -5814,6 +6172,8 @@ def main() -> int:
     print(f"[time] phase 16 done at {time.perf_counter() - t0:.1f} s", flush=True)
     tp_archs = phase_tp_archs(card)
     print(f"[time] phase 17 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    tp_train = phase_tp_train(card)
+    print(f"[time] phase 18 done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -5932,6 +6292,21 @@ def main() -> int:
             **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
             for (kname, arch, k, n), t in tp_arch_gemm.items() if kname == kernel}
 
+    def tp_train_launches(name):
+        """A kernel's launches in each of phase 18's counted training steps:
+        the unsharded step and each tp=2 rank's."""
+        runs = {}
+        for arch in TPT_LAYERS:
+            runs[f"{arch} unsharded step"] = tp_train["ranks"][0][arch]["ref_launches"]
+            for r, res in enumerate(tp_train["ranks"]):
+                runs[f"{arch} tp=2 rank {r} step"] = res[arch]["launches"]
+        return {label: launches[name] for label, launches in runs.items()}
+
+    def tp_train_shapes(kernel):
+        return {f"a tp=2 training rank W8A8 M={m} K={k} N={n}": {
+            **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
+            for (kname, m, k, n), t in tp_train["gemm"].items() if kname == kernel}
+
     def train_shapes():
         return {f"W8A8 M={m} K={k} N={n}": {**t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
                 for (m, k, n), t in train["gemm"].items()}
@@ -5976,6 +6351,8 @@ def main() -> int:
                         sharded_training_shapes=sharded_shapes("spoga_gemm_dequant"),
                         launches_tp_archs=tp_arch_launches("spoga_gemm_dequant"),
                         tp_arch_shapes=tp_arch_shapes("spoga_gemm_dequant"),
+                        launches_tp_training=tp_train_launches("spoga_gemm_dequant"),
+                        tp_training_shapes=tp_train_shapes("spoga_gemm_dequant"),
                         oracle_max_abs_err=serve_cli["d"]["dequant_max_abs_err"])]
     for kind, count in (("int8", launches["paged_attention"]),
                         ("bf16", launches16["paged_attention"])):
@@ -6022,7 +6399,9 @@ def main() -> int:
                             launches_sharded_training=sharded_launches("spoga_gemm"),
                             sharded_training_shapes=sharded_shapes("spoga_gemm"),
                             launches_tp_archs=tp_arch_launches("spoga_gemm"),
-                            tp_arch_shapes=tp_arch_shapes("spoga_gemm")))
+                            tp_arch_shapes=tp_arch_shapes("spoga_gemm"),
+                            launches_tp_training=tp_train_launches("spoga_gemm"),
+                            tp_training_shapes=tp_train_shapes("spoga_gemm")))
     kernels.append(gemm_row("nibble_gemm", "src/repro_torch/csrc/deas_gemm.cu",
                             "src/repro/kernels/deas_gemm.py:50", deas_run["nibble_gemm"], 4,
                             deas_err, at(nibble, lambda m: (m, 2048, 8192)),

@@ -36,9 +36,9 @@ launched ranks (``torchrun --nproc-per-node N`` or
 ``launch.mesh.spawn``), each rank building the same ``LLM``; the weights
 are made (or loaded) whole and sliced to the rank's part
 (``shard.shard_params``), so a rank must hold the whole tree once.  Every
-arch runs at tp>1 (tensor parallelism inside the experts, where tp does
-not divide them, is refused: ROADMAP queue 1, item 10.2 (b)), the numerics
-watchdog too; the encoder-decoder and frontend archs serve through
+arch runs at tp>1 (a MoE stack expert-parallel where tp divides its
+experts, with tensor parallelism inside the experts where it does not),
+the numerics watchdog too; the encoder-decoder and frontend archs serve through
 ``api.serve_batch(..., mesh=llm.mesh)``.  Every runtime the
 reference can build for them serves, the five presets included
 (``load_runtime("int8-byte-serving")``): the prefix cache with

@@ -33,7 +33,7 @@ from repro_torch.backends.registry import resolve_backend
 from repro_torch.backends.spec import parse_quant_mode
 from repro_torch.obs import watchdog as _watchdog
 from repro_torch.quant.qtensor import quantize, rail_hits, scale_of_absmax
-from repro_torch.runtime.collectives import all_reduce
+from repro_torch.runtime.collectives import all_reduce, global_absmax
 
 __all__ = ["ACC_BITS", "dynamic_quant", "effective_bits", "gemm_int",
            "quant_mode_summary", "quantized_linear"]
@@ -65,14 +65,11 @@ def effective_bits(spec, k: int) -> tuple[int, int]:
 def _global_quant(x: torch.Tensor, w: torch.Tensor, a_bits: int, w_bits: int, row_axis):
     """``dynamic_quant`` of the K slices of ``x`` (per row) and ``w`` (per
     column) against the absmax of the whole K: both absmax vectors travel
-    in one MAX all-reduce over ``row_axis``.  Returns (xq, xs, wq, ws)."""
-    xa = x.float().abs().amax(dim=-1, keepdim=True)
-    wa = w.float().abs().amax(dim=0, keepdim=True)
-    both = all_reduce(torch.cat([xa.reshape(-1), wa.reshape(-1)]), row_axis, "max")
-    xq = quantize(x, scale=scale_of_absmax(both[:xa.numel()].reshape(xa.shape), a_bits),
-                  bits=a_bits)
-    wq = quantize(w, scale=scale_of_absmax(both[xa.numel():].reshape(wa.shape), w_bits),
-                  bits=w_bits)
+    in one MAX all-reduce over ``row_axis`` (``collectives.global_absmax``).
+    Returns (xq, xs, wq, ws)."""
+    xa, wa = global_absmax(row_axis, [(x, -1), (w, 0)])
+    xq = quantize(x, scale=scale_of_absmax(xa, a_bits), bits=a_bits)
+    wq = quantize(w, scale=scale_of_absmax(wa, w_bits), bits=w_bits)
     return xq.data, xq.scale, wq.data, wq.scale
 
 

@@ -42,10 +42,13 @@ over every data rank's rows (``collectives.batch_total`` /
 ``batch_mean``), and the metrics' loss is the mean of the ranks' shares
 (the replicated step, as the reference's ``shard_map`` step, averages
 each rank's own loss).  Tensor-parallel
-training covers the GQA stacks (``llama3.2-1b``, the mistral configs);
-MoE, MLA, recurrent, encoder-decoder and frontend stacks at tp>1 are not
-ported yet (ROADMAP queue 1, item 10.2 (b)).  ``ShapeConfig`` and
-``cell_program`` / ``lower_cell`` belong to the dry run (item 10.2 (d)).
+training runs every arch: GQA, MLA, the MoE stacks (expert-parallel where
+tp divides the experts, tensor parallelism inside the experts where it
+does not), the recurrent cells, the encoder-decoder and the frontend
+stacks, each layer on the rank's heads, columns and experts with
+Megatron's *f*, *g* and scatter on the gradient path
+(``runtime.collectives``).  ``ShapeConfig`` and ``cell_program`` /
+``lower_cell`` belong to the dry run (ROADMAP queue 1, item 10.2 (d)).
 """
 
 from __future__ import annotations
@@ -94,10 +97,6 @@ class ShardedLayout:
         return self.data.size if self.data is not None else 1
 
 
-# what tensor-parallel training runs at tp>1: GQA attention and the dense MLP
-_TP_TRAIN_KINDS = {"attn"}
-
-
 def _data_dim(spec):
     for i, entry in enumerate(spec):
         if entry is not None and "data" in (entry if isinstance(entry, tuple) else (entry,)):
@@ -107,16 +106,9 @@ def _data_dim(spec):
 
 def sharded_layout(cfg: ModelConfig, tcfg: TrainConfig, mesh, grad_specs=None) -> ShardedLayout:
     """The layout of the sharded step on ``mesh`` (see the module
-    docstring); refuses what it does not run."""
+    docstring); refuses ``grad_specs`` that do not fit the param specs, and
+    a tp that ``shard.local_config`` refuses."""
     tp = mesh.shape.get("model", 1)
-    if tp > 1:
-        kinds = {cfg.layer_type(i) for i in range(cfg.n_layers)}
-        if cfg.moe is not None or cfg.use_mla or cfg.is_encoder_decoder or \
-                cfg.frontend is not None or not kinds <= _TP_TRAIN_KINDS:
-            raise NotImplementedError(
-                f"{cfg.name}: tensor-parallel training of MoE, MLA, recurrent, "
-                "encoder-decoder and frontend stacks is not ported yet (ROADMAP queue 1, "
-                "item 10.2 (b)); train it on a mesh with model=1")
     shapes = model_lib.param_shapes(cfg)
     p_specs = param_specs(shapes, mesh, cfg, fsdp=tcfg.fsdp)
     g_specs = p_specs if grad_specs is None else grad_specs

@@ -21,7 +21,11 @@ command line, ``--dp D --tp T`` under ``torchrun --nproc-per-node D*T``:
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --dp 2 --tp 2
 
 (``--grad-compression`` selects the replicated data-parallel step, the
-one that compresses, with the int8 all-reduce).
+one that compresses, with the int8 all-reduce).  Every arch trains at
+``--tp`` > 1; on the CPU, gloo ranks:
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --arch \
+        deepseek-moe-16b --reduced --tp 2 --steps 2 --device cpu --backend gloo
 """
 
 from __future__ import annotations
@@ -106,6 +110,7 @@ def train_loop(cfg, tcfg: TrainConfig, *, steps: int, batch: int, seq: int,
 
 
 def main(argv=None):
+    """The command line; returns the losses of the steps run."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--reduced", action="store_true",
@@ -146,7 +151,11 @@ def main(argv=None):
         from repro_torch.launch.mesh import make_host_mesh
 
         backend = args.backend or ("nccl" if args.device in (None, "cuda") else "gloo")
-        dist.init_process_group(backend)     # torchrun's environment
+        # torchrun's environment, unless the caller's ranks already joined
+        # one (launch.mesh.spawn)
+        owned = not dist.is_initialized()
+        if owned:
+            dist.init_process_group(backend)
         if args.device in (None, "cuda"):
             args.device = f"cuda:{dist.get_rank()}"
         mesh = make_host_mesh(data=args.dp, model=args.tp, backend=backend,
@@ -156,8 +165,9 @@ def main(argv=None):
                            mesh=mesh)
     if mesh is None or collectives.world(mesh).rank == 0:
         print(f"[train] first loss {losses[0]:.4f} -> last loss {losses[-1]:.4f}")
-    if mesh is not None:
+    if mesh is not None and owned:
         dist.destroy_process_group()
+    return losses
 
 
 if __name__ == "__main__":

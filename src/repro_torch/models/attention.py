@@ -192,7 +192,7 @@ def cross_attention_block(x, enc_kv, p, cfg: ModelConfig):
     b, s, _ = x.shape
     hd, hq = cfg.resolved_head_dim, cfg.n_heads
     qm, be = cfg.quant_mode, cfg.gemm_backend
-    q = linear(x, p["wq"], qm, be, col=True).reshape(b, s, hq, hd)
+    q = linear(model_input(x), p["wq"], qm, be, col=True).reshape(b, s, hq, hd)
     k, v = enc_kv
     out = multihead_attention(q, k, v, causal=False)
     return linear(out.reshape(b, s, hq * hd), p["wo"], qm, be, row=True)
@@ -200,10 +200,12 @@ def cross_attention_block(x, enc_kv, p, cfg: ModelConfig):
 
 def encode_cross_kv(enc_out, p, cfg: ModelConfig):
     """The encoder output's cross K/V for one decoder layer, (B, Ssrc, Hkv,
-    D) each, bf16 in every quant mode (``linear``'s output)."""
+    D) each, bf16 in every quant mode (``linear``'s output).  The
+    replicated ``enc_out`` enters each decoder layer's split K/V
+    projections through its own *f*."""
     b, s, _ = enc_out.shape
     hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
-    k, v = _kv_proj(enc_out, p, cfg)
+    k, v = _kv_proj(model_input(enc_out), p, cfg)
     return k.reshape(b, s, hkv, hd), v.reshape(b, s, hkv, hd)
 
 
@@ -212,11 +214,18 @@ def _kv_proj(x, p, cfg: ModelConfig):
     on a tensor-parallel mesh.  An MQA head split by its columns
     (``cfg.kv_split``: the spec splits ``wk`` / ``wv``'s ``head_dim``) is
     gathered whole, so every rank attends (and applies RoPE, which mixes
-    the two halves of a head) with the whole head."""
+    the two halves of a head) with the whole head.  The rank's query heads
+    read that gathered head, so *f* follows the gather: its backward sums
+    the ranks' gradients of the head before the rank keeps its columns."""
     qm, be = cfg.quant_mode, cfg.gemm_backend
     width = cfg.n_kv_heads * cfg.resolved_head_dim
-    return (whole(linear(x, p["wk"], qm, be, col=True), width),
-            whole(linear(x, p["wv"], qm, be, col=True), width))
+
+    def head(w):
+        t = linear(x, w, qm, be, col=True)
+        full = whole(t, width)
+        return full if full is t else model_input(full)
+
+    return head(p["wk"]), head(p["wv"])
 
 
 def quantize_kv(t):
@@ -622,12 +631,15 @@ def _mla_qkv(x, p, cfg: ModelConfig, positions, norm=rmsnorm):
     nope), q_rope (B, S, H, rope) after RoPE, c_kv (B, S, rank) after its
     norm, k_rope (B, S, 1, rope) after RoPE.  ``norm`` is
     ``layers.rmsnorm_columns`` for a verify window (see
-    ``transformer.apply_block_verify``)."""
+    ``transformer.apply_block_verify``).  ``x`` feeds the replicated
+    ``w_dq`` / ``w_dkv`` / ``w_kr`` whole, so it needs no *f*; the
+    replicated ``cq`` enters the column-parallel ``w_uq`` through *f* here,
+    ``c_kv`` and ``k_rope`` their split products in :func:`_mla_kv`."""
     m, h = cfg.mla, cfg.n_heads
     b, s, _ = x.shape
     qm, be = cfg.quant_mode, cfg.gemm_backend
     cq = norm(linear(x, p["w_dq"], qm, be), p["q_norm"], cfg.norm_eps)
-    q = linear(cq, p["w_uq"], qm, be, col=True).reshape(b, s, h, -1)
+    q = linear(model_input(cq), p["w_uq"], qm, be, col=True).reshape(b, s, h, -1)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv = norm(linear(x, p["w_dkv"], qm, be), p["kv_norm"], cfg.norm_eps)
@@ -638,10 +650,12 @@ def _mla_qkv(x, p, cfg: ModelConfig, positions, norm=rmsnorm):
 
 def _mla_kv(c_kv, k_rope, p, cfg: ModelConfig):
     """Reconstruct K (B, S, H, nope + rope) and V (B, S, H, v) from the
-    latents (the non-absorbed form of prefill and chunk steps)."""
+    latents (the non-absorbed form of prefill and chunk steps).  The
+    replicated latents feed the rank's heads, each through one *f*."""
     m, h = cfg.mla, cfg.n_heads
     b, s, _ = c_kv.shape
     qm, be = cfg.quant_mode, cfg.gemm_backend
+    c_kv, k_rope = model_input(c_kv), model_input(k_rope)
     k_nope = linear(c_kv, p["w_uk"], qm, be, col=True).reshape(b, s, h, m.qk_nope_head_dim)
     v = linear(c_kv, p["w_uv"], qm, be, col=True).reshape(b, s, h, m.v_head_dim)
     k = torch.cat([k_nope, k_rope.reshape(b, s, 1, -1).expand(b, s, h, m.qk_rope_head_dim)],

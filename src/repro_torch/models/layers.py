@@ -17,7 +17,9 @@ activation enters each column-parallel group through Megatron's *f*
 (``collectives.model_input``), whose backward sums the ranks' partial
 input gradients, and the row-parallel sum is *g* (``collectives.model_sum``
 or the int32 sum inside ``quantized_linear``), whose backward passes the
-gradient through.
+gradient through; a rank's block of a replicated tensor
+(:func:`rank_block`) is Megatron's scatter, whose backward all-gathers
+the ranks' gradient blocks.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from repro_torch.runtime.collectives import (
     model_axis,
     model_gather,
     model_input,
+    model_scatter,
     model_sum,
 )
 
@@ -139,19 +142,25 @@ def linear(x, w, quant_mode: str = "bf16", backend=None, row: bool = False,
 def rank_block(t, n: int, dim: int = -1):
     """This model-axis rank's block of ``n`` along ``dim`` of the whole
     ``t`` (``t`` itself when that dim is ``n`` long: unsharded, or a width
-    the rank holds whole)."""
+    the rank holds whole).  Under autograd it is Megatron's scatter
+    (``collectives.model_scatter``): the gradient of the whole ``t`` comes
+    back as every rank's block, so the replicated ``t``'s producer gets
+    its whole gradient on every rank."""
     if t.shape[dim] == n:
         return t
     ax = model_axis()
     assert ax is not None and t.shape[dim] == n * ax.size, \
         f"dim {dim} of {tuple(t.shape)} is neither {n} nor the whole of {n}-wide blocks"
-    return t.narrow(dim, ax.rank * n, n)
+    return model_scatter(t, ax, dim % t.dim(), n)
 
 
 def whole(t, n: int, dim: int = -1):
     """``t`` whole along ``dim`` (``n`` long): the model-axis ranks' blocks
     all-gathered in rank order, bit for bit (``t`` itself when it is
-    whole already)."""
+    whole already).  Its backward keeps the rank's block of the gradient,
+    which is whole only where every rank computes alike from the gathered
+    ``t``; where split computation reads it, *f*
+    (``collectives.model_input``) follows the gather."""
     if t.shape[dim] == n:
         return t
     ax = model_axis()

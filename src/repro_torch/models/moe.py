@@ -20,12 +20,30 @@ radix combine is :func:`core.spoga.sliced_dot_planes`, so the int32
 accumulators equal the reference's bit for bit in every dataflow.  The
 router stays f32.
 
-On a tensor-parallel mesh whose model axis divides the expert count
-(the reference's rule, ``sharding._param_rule``) the experts are
-expert-parallel: a rank holds E/tp experts (``shard.shard_params``), runs
-them on their rows of the dispatch buffer, and the ranks' outputs are
-gathered along the expert axis before the weighted top-k combine, which
-then adds in the unsharded order.  The router is replicated; the shared
+On a tensor-parallel mesh the experts follow the reference's rule
+(``sharding._param_rule``):
+
+* where the model axis divides the expert count they are
+  expert-parallel: a rank holds E/tp experts (``shard.shard_params``),
+  runs them on its experts' rows of the dispatch buffer (Megatron's
+  scatter, ``collectives.model_scatter``), and the ranks' outputs are
+  gathered along the expert axis (``collectives.model_gather``) before the
+  weighted top-k combine, which then adds in the unsharded order;
+* otherwise tensor parallelism runs inside the experts: a rank holds
+  every expert's ``d_expert / tp`` block (``experts_gate`` / ``experts_up``
+  columns, ``experts_down`` rows) and runs every expert on it.  The
+  dispatch buffer enters through *f* (``collectives.model_input``); the
+  down product quantizes against the whole ``d_expert``'s scales (one MAX
+  all-reduce, ``collectives.global_absmax``) and sums the ranks' integer
+  accumulators before it wraps and scales them, so the integer modes are
+  bitwise the unsharded product; bf16 sums the ranks' f32 partials and
+  rounds once (within one bf16 ulp of the unsharded product).
+
+The experts' weights have no straight-through estimator, as in the
+reference: their gradient flows through the absmax scales alone, and a
+scale taken over the ranks sends it to the element that holds the
+maximum, on the rank that holds it.  The router is replicated (routing,
+capacity and the load-balance loss run alike on every rank); the shared
 experts follow their ``w_gate`` / ``w_up`` / ``w_down`` specs (column- and
 row-parallel, bitwise the unsharded GLU).
 """
@@ -48,7 +66,17 @@ from repro_torch.models.layers import (
     init_glu_mlp,
     truncated_normal_init,
 )
-from repro_torch.runtime.collectives import all_gather, batch_mean, model_axis
+from repro_torch.quant.qtensor import quantize, scale_of_absmax
+from repro_torch.runtime.collectives import (
+    all_reduce,
+    batch_mean,
+    global_absmax,
+    model_axis,
+    model_gather,
+    model_input,
+    model_scatter,
+    model_sum,
+)
 
 
 def init_moe(cfg: ModelConfig, gen: torch.Generator, device, stack=()):
@@ -84,32 +112,53 @@ def _grouped_int(xq, wq, spec, family: str) -> torch.Tensor:
                              materialize=(family == "deas"))
 
 
-def _grouped_matmul(x, w, quant_mode: str, backend=None):
+def _grouped_matmul(x, w, quant_mode: str, backend=None, row_axis=None):
     """x: (..., E, C, K), w: (E, K, N) -> (..., E, C, N) bf16.
 
     Integer modes quantize x per row and w per (expert, output channel) to
     the spec's accumulator-aware widths, then take the int32 accumulator
     of :func:`_grouped_int`; ``backend`` (a registry name) only picks the
-    dataflow family, as in the reference."""
+    dataflow family, as in the reference.
+
+    ``row_axis``: x and w hold this rank's K slice (the down product inside
+    the experts).  The scales are the whole K's (:func:`global_absmax`),
+    the ranks' accumulators are summed exactly before the int32 wrap, and
+    the output is the unsharded product's bits; bf16 sums the ranks' f32
+    partials (*g*) and rounds once."""
     if quant_mode == "bf16":
         xb, wb = x.to(COMPUTE_DTYPE), w.to(COMPUTE_DTYPE)
-        return torch.einsum("...eck,ekn->...ecn", xb.float(), wb.float()).to(COMPUTE_DTYPE)
+        prod = torch.einsum("...eck,ekn->...ecn", xb.float(), wb.float())
+        if row_axis is not None:
+            prod = model_sum(prod, row_axis)
+        return prod.to(COMPUTE_DTYPE)
     spec, family = parse_quant_mode(quant_mode)
     if backend is not None:
         family = get_backend(backend).family
-    a_bits, w_bits = effective_bits(spec, x.shape[-1])
-    xq, xs = dynamic_quant(x.float(), dim=-1, bits=a_bits)
-    wq, ws = dynamic_quant(w.float(), dim=1, bits=w_bits)
-    acc = _grouped_int(xq, wq, spec, family)
+    ways = row_axis.size if row_axis is not None else 1
+    a_bits, w_bits = effective_bits(spec, x.shape[-1] * ways)
+    if row_axis is None:
+        xq, xs = dynamic_quant(x.float(), dim=-1, bits=a_bits)
+        wq, ws = dynamic_quant(w.float(), dim=1, bits=w_bits)
+        acc = _grouped_int(xq, wq, spec, family)
+    else:
+        xa, wa = global_absmax(row_axis, [(x, -1), (w, 1)])
+        xs, ws = scale_of_absmax(xa, a_bits), scale_of_absmax(wa, w_bits)
+        xq = quantize(x, scale=xs.detach(), bits=a_bits).data
+        wq = quantize(w, scale=ws.detach(), bits=w_bits).data
+        part = _grouped_int(xq, wq, spec, family).to(torch.int64)
+        acc = wrap_int32(all_reduce(part, row_axis, "sum"))
     return (acc.float() * xs * ws).to(COMPUTE_DTYPE)
 
 
-def _grouped_glu(x, p, act: str, quant_mode: str, backend=None):
+def _grouped_glu(x, p, act: str, quant_mode: str, backend=None, row_axis=None):
     """``down(act(gate(x)) * up(x))`` per expert.  The product stays f32
-    into the down projection, as in ``layers.glu_mlp``."""
+    into the down projection, as in ``layers.glu_mlp``.  ``row_axis``: the
+    rank holds every expert's ``d_expert`` block (gate / up columns, down
+    rows), and the down product sums over the axis."""
     g = _ACTS[act](_grouped_matmul(x, p["experts_gate"], quant_mode, backend))
     u = _grouped_matmul(x, p["experts_up"], quant_mode, backend)
-    return _grouped_matmul(g.float() * u.float(), p["experts_down"], quant_mode, backend)
+    return _grouped_matmul(g.float() * u.float(), p["experts_down"], quant_mode, backend,
+                           row_axis)
 
 
 def capacity(cfg: ModelConfig, s: int) -> int:
@@ -161,13 +210,15 @@ def moe_ffn(x, p, cfg: ModelConfig):
     buf[rows, dest] = x_sorted
     grouped = buf[:, :e * cap].reshape(b, e, cap, d)
     held = p["experts_gate"].shape[0]
-    if held == e:
-        y = _grouped_glu(grouped, p, cfg.act, cfg.quant_mode, cfg.gemm_backend)  # (B, E, C, d)
-    else:                                                            # expert-parallel
-        ax = model_axis()
-        mine = grouped[:, ax.rank * held:(ax.rank + 1) * held]
-        y = all_gather(_grouped_glu(mine, p, cfg.act, cfg.quant_mode, cfg.gemm_backend),
-                       ax, dim=1)
+    qm, be = cfg.quant_mode, cfg.gemm_backend
+    ax = model_axis()
+    if held != e:                                                    # expert-parallel
+        mine = model_scatter(grouped, ax, 1, held)
+        y = model_gather(_grouped_glu(mine, p, cfg.act, qm, be), ax, 1)
+    elif p["experts_down"].shape[-2] != m.d_expert:                  # inside the experts
+        y = _grouped_glu(model_input(grouped), p, cfg.act, qm, be, row_axis=ax)
+    else:
+        y = _grouped_glu(grouped, p, cfg.act, qm, be)                # (B, E, C, d)
 
     y_flat = torch.cat([y.reshape(b, e * cap, d),
                         torch.zeros((b, 1, d), dtype=y.dtype, device=y.device)], dim=1)

@@ -68,6 +68,7 @@ from repro_torch.models.layers import (
     truncated_normal_init,
     whole,
 )
+from repro_torch.runtime.collectives import model_input
 
 
 def fma(a, b, c):
@@ -188,8 +189,9 @@ def _gelu(x):
 def _rglru_coeffs(xb, p, quant_mode, backend=None):
     """The recurrence's (a, b), f32 (B, S, lru), of the conv'd branch xb.
     On a tensor-parallel mesh ``xb`` holds the rank's channels: the gates
-    take the whole branch (gathered) and give the rank's columns."""
-    xw = whole(xb, p["w_rec_gate"].shape[-2])
+    take the whole branch (gathered) and give the rank's columns, so *f*
+    follows the gather."""
+    xw = model_input(whole(xb, p["w_rec_gate"].shape[-2]))
     r = torch.sigmoid(linear(xw, p["w_rec_gate"], quant_mode, backend, col=True).float())
     i = torch.sigmoid(linear(xw, p["w_in_gate"], quant_mode, backend, col=True).float())
     log_a = -_RGLRU_C * F.softplus(p["lam"]) * r                # <= 0
@@ -229,6 +231,7 @@ def rglru_block(x, p, cfg: ModelConfig, state=None):
     lru)}`` after the last token: the conv state holds the last W-1 raw
     (pre-conv) branch rows in f32."""
     qm, be = cfg.quant_mode, cfg.gemm_backend
+    x = model_input(x)
     gate = _gelu(linear(x, p["w_gate_branch"], qm, be, col=True).float())
     xb_raw = linear(x, p["w_x_branch"], qm, be, col=True)
     xb = causal_conv1d(xb_raw, p["conv_w"])
@@ -331,7 +334,10 @@ def _mlstm_chunk_math(q, k, v, logf, logi, C0, n0):
 
 def _gates(x, p, name: str, cfg: ModelConfig):
     """The (B, S, H) pre-activation of a per-head gate (``w_igate`` /
-    ``w_fgate``, replicated over a tensor-parallel mesh), the rank's heads."""
+    ``w_fgate``, replicated over a tensor-parallel mesh), the rank's heads
+    (``layers.rank_block``: under autograd its backward gathers every
+    rank's heads, so the replicated gate gets its whole gradient).  ``x``
+    is the replicated input itself, not its *f*."""
     g = linear(x, p[name], cfg.quant_mode, cfg.gemm_backend).float()
     return rank_block(g, cfg.n_heads)
 
@@ -339,17 +345,18 @@ def _gates(x, p, name: str, cfg: ModelConfig):
 def _mlstm_inputs(x, p, cfg: ModelConfig):
     """q, k, v (B, H, S, dh) f32 and the log gates (B, H, S): the rank's H
     heads on a tensor-parallel mesh (``wq`` / ``wk`` / ``wv`` column-parallel
-    by head)."""
+    by head, fed through *f*; the replicated gates read ``x`` itself)."""
     qm, be = cfg.quant_mode, cfg.gemm_backend
     b, s, _ = x.shape
     hh, dh = cfg.n_heads, cfg.resolved_head_dim
+    xf = model_input(x)
 
     def heads(t):
         return t.reshape(b, s, hh, dh).transpose(1, 2).float()
 
-    q = heads(linear(x, p["wq"], qm, be, col=True)) * (dh ** -0.5)
-    k = heads(linear(x, p["wk"], qm, be, col=True)) * (dh ** -0.5)
-    v = heads(linear(x, p["wv"], qm, be, col=True))
+    q = heads(linear(xf, p["wq"], qm, be, col=True)) * (dh ** -0.5)
+    k = heads(linear(xf, p["wk"], qm, be, col=True)) * (dh ** -0.5)
+    v = heads(linear(xf, p["wv"], qm, be, col=True))
     logi = F.logsigmoid(_gates(x, p, "w_igate", cfg)).transpose(1, 2)
     logf = F.logsigmoid(_gates(x, p, "w_fgate", cfg)).transpose(1, 2)
     return q, k, v, logf, logi
@@ -368,7 +375,7 @@ def _mlstm_scan(x, p, cfg: ModelConfig, q, k, v, logf, logi, C, n):
                                     logi[..., c0:c0 + L], C, n)
         hs.append(h)
     h = torch.cat(hs, dim=2).transpose(1, 2).reshape(b, s, -1)
-    o = torch.sigmoid(linear(x, p["w_ogate"], qm, be, col=True).float())
+    o = torch.sigmoid(linear(model_input(x), p["w_ogate"], qm, be, col=True).float())
     return linear((o * h).to(x.dtype), p["w_out"], qm, be, row=True), C, n
 
 
@@ -459,10 +466,14 @@ def _slstm_zifo(x, p, cfg: ModelConfig):
     """The (B, S, 4, H, dh) f32 gate pre-activations of the rank's H heads.
     ``w_zifo`` is column-parallel, and its column block is not a head
     block (at tp=2 one rank holds gates z and i of every head): the
-    ranks' columns are gathered whole and the rank keeps its heads."""
+    ranks' columns are gathered whole and the rank keeps its heads.  Under
+    autograd the gather's backward keeps the rank's columns of a gradient
+    that ``rank_block``'s backward made whole (every rank's heads), and
+    ``x`` enters the column-parallel ``w_zifo`` through *f*."""
     b, s, d = x.shape
     hh, dh = cfg.n_heads, cfg.resolved_head_dim
-    z = whole(linear(x, p["w_zifo"], cfg.quant_mode, cfg.gemm_backend, col=True), 4 * d)
+    z = whole(linear(model_input(x), p["w_zifo"], cfg.quant_mode, cfg.gemm_backend,
+                     col=True), 4 * d)
     return rank_block(z.float().reshape(b, s, 4, d // dh, dh), hh, dim=3)
 
 

@@ -32,7 +32,11 @@ tensor-parallel layer: *f* (:func:`model_input`: identity forward, SUM
 all-reduce backward) where a replicated activation enters a
 column-parallel group, *g* (:func:`model_sum`: SUM all-reduce forward,
 identity backward) for the row-parallel sum; :func:`model_gather`
-all-gathers the vocab-parallel logits and takes the rank's slice back.
+all-gathers a split tensor and takes the rank's slice back,
+:func:`model_scatter` (Megatron's scatter) takes a replicated tensor's
+block and all-gathers the blocks' gradients back; :func:`global_absmax`
+takes a quantization scale over a contraction split across the axis,
+its gradient going to the element that holds the maximum.
 Inside a data-parallel training step (:func:`data_sharded`), the leaves
 that are sharded over "data" (FSDP) are all-gathered just before use
 (:func:`gather_params`) and the gather's backward reduce-scatters the
@@ -259,6 +263,74 @@ class _ModelGather(torch.autograd.Function):
         return g.narrow(ctx.dim, ctx.ax.rank * ctx.part, ctx.part), None, None
 
 
+class _ModelScatter(torch.autograd.Function):
+    """Megatron's scatter: the rank's block along ``dim`` forward, the
+    ranks' gradient blocks all-gathered backward."""
+
+    @staticmethod
+    def forward(ctx, x, ax, dim, part):
+        ctx.ax, ctx.dim = ax, dim
+        return x.narrow(dim, ax.rank * part, part)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.ax, ctx.dim), None, None, None
+
+
+class _GlobalAbsmax(torch.autograd.Function):
+    """The absmax of each of ``ts`` along its dim in ``dims`` (kept, size 1)
+    over the ranks' slices of that dim: one MAX all-reduce forward.
+    Backward, the gradient of a maximum goes to the elements that hold it,
+    on the ranks that hold them, split evenly among them as ``amax``
+    splits a tie (the tie count summed over the ranks in one SUM
+    all-reduce), signed as ``abs``'s gradient is."""
+
+    @staticmethod
+    def forward(ctx, ax, dims, *ts):
+        outs = _absmax_over(ax, ts, dims)
+        ctx.ax, ctx.dims = ax, dims
+        ctx.save_for_backward(*ts, *outs)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        n = len(gs)
+        ts, outs = ctx.saved_tensors[:n], ctx.saved_tensors[n:]
+        hits = [(t.float().abs() == o).float() for t, o in zip(ts, outs)]
+        counts = [h.sum(dim=d, keepdim=True) for h, d in zip(hits, ctx.dims)]
+        total = all_reduce(torch.cat([c.reshape(-1) for c in counts]), ctx.ax, "sum")
+        grads, at = [], 0
+        for t, h, c, g in zip(ts, hits, counts, gs):
+            share = total[at:at + c.numel()].reshape(c.shape)
+            at += c.numel()
+            grads.append((g * h * torch.sign(t.float()) / share).to(t.dtype))
+        return (None, None, *grads)
+
+
+def global_absmax(ax: Axis, pairs):
+    """``[(t, dim), ...]`` -> each ``t``'s absmax along ``dim`` (kept) over
+    the whole of that dim, of which every rank of ``ax`` holds a slice:
+    the scales of a product whose contraction is split over the axis,
+    bitwise the unsharded ``amax``, with the gradient an unsharded
+    ``amax`` of ``abs`` would give each rank's slice."""
+    ts, dims = [t for t, _ in pairs], tuple(d for _, d in pairs)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        return list(_GlobalAbsmax.apply(ax, dims, *ts))
+    return _absmax_over(ax, ts, dims)
+
+
+def _absmax_over(ax: Axis, ts, dims) -> list:
+    """Each of ``ts``'s local absmax along its dim, then their MAX over
+    ``ax`` in one all-reduce."""
+    local = [t.float().abs().amax(dim=d, keepdim=True) for t, d in zip(ts, dims)]
+    both = all_reduce(torch.cat([a.reshape(-1) for a in local]), ax, "max")
+    outs, at = [], 0
+    for a in local:
+        outs.append(both[at:at + a.numel()].reshape(a.shape))
+        at += a.numel()
+    return outs
+
+
 def model_input(x: torch.Tensor) -> torch.Tensor:
     """A replicated activation entering a column-parallel group of the
     model axis (*f*); ``x`` itself outside training or tensor parallelism."""
@@ -277,6 +349,16 @@ def model_gather(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
     """The ranks' ``x`` concatenated along ``dim``; the gradient of the
     whole goes back as each rank's block."""
     return _ModelGather.apply(x, ax, dim)
+
+
+def model_scatter(x: torch.Tensor, ax: Axis, dim: int, part: int) -> torch.Tensor:
+    """This rank's block (``part`` long along ``dim``) of the replicated
+    ``x``.  Under autograd the gradient of the whole comes back as every
+    rank's block all-gathered, so a replicated producer of ``x`` gets its
+    whole gradient on every rank; without grad a plain ``narrow``."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return x.narrow(dim, ax.rank * part, part)
+    return _ModelScatter.apply(x, ax, dim, part)
 
 
 # ---------------------------------------------------------------------------

@@ -9,7 +9,9 @@ with :func:`shard_tree`) and allocates only its part of the page pools
 the exact inverse: every rank takes part, and each gets the full leaves.
 The layers find the model axis through
 ``runtime.collectives.model_parallel`` and run on the rank's local heads,
-columns, rows and experts (:func:`local_config`).
+columns, rows and experts (:func:`local_config`): whole experts where tp
+divides their count, every expert's ``d_expert`` block where it does not
+(tensor parallelism inside the experts), in serving and training alike.
 
 Query heads sit on the model axis in the attention's (G, Hkv) order
 (:func:`_slice`), in every tree that holds ``wq`` / ``wo`` -- params,
@@ -268,11 +270,12 @@ def pool_shardings(cache_shapes_tree, mesh):
     return zip_map(local, metas, specs)
 
 
-def _ffn_widths(cfg, kinds) -> dict:
+def _ffn_widths(cfg, kinds, tp: int) -> dict:
     """The hidden width of every FFN whose ``w_down`` is row-parallel, by
     name: the dense MLP of attention and RG-LRU layers, the dense FFN
-    layers, the shared experts (routed experts are split whole, by
-    expert)."""
+    layers, the shared experts, and the routed experts' ``d_expert`` where
+    ``tp`` does not divide the experts (tensor parallelism inside them;
+    otherwise they are split whole, by expert)."""
     m = cfg.moe
     widths = {}
     if kinds & {"attn", "local_attn", "rglru"}:
@@ -281,6 +284,8 @@ def _ffn_widths(cfg, kinds) -> dict:
         widths["the dense FFN layers' d_ff"] = m.d_ff_dense or cfg.d_ff
     if "moe" in kinds and m.num_shared_experts:
         widths["the shared experts' width"] = m.num_shared_experts * m.d_expert
+    if "moe" in kinds and m.num_experts % tp:
+        widths["d_expert"] = m.d_expert
     return widths
 
 
@@ -306,8 +311,8 @@ def local_config(cfg, tp: int):
     explicit, and ``tp``.  Widths the weights carry (``d_ff``, experts,
     the latent and recurrent widths) need no change.  Refuses a ``tp``
     that does not divide the query heads, the KV heads (more than one),
-    an FFN's width or a split width, and tensor parallelism inside the
-    experts."""
+    an FFN's width (``d_expert`` too where it does not divide the experts)
+    or a split width."""
     if tp == 1:
         return cfg
     kinds = {cfg.layer_type(i) for i in range(cfg.n_layers)}
@@ -318,13 +323,9 @@ def local_config(cfg, tp: int):
     if mqa and cfg.resolved_head_dim % tp:
         raise ValueError(f"{cfg.name}: tp={tp} must divide the one KV head's head_dim "
                          f"({cfg.resolved_head_dim})")
-    if cfg.moe is not None and cfg.moe.num_experts % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: tp={tp} does not divide {cfg.moe.num_experts} experts; tensor "
-            "parallelism inside the experts is not ported yet (ROADMAP queue 1, item 10.2 (b))")
     # the rules leave an FFN replicated where tp does not divide its width,
     # and a row-parallel sum of replicated halves would count it tp times
-    for name, width in {**_ffn_widths(cfg, kinds), **_split_widths(cfg, kinds)}.items():
+    for name, width in {**_ffn_widths(cfg, kinds, tp), **_split_widths(cfg, kinds)}.items():
         if width % tp:
             raise ValueError(f"{cfg.name}: tp={tp} must divide {name} ({width})")
     fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ModelConfig)}

@@ -295,27 +295,44 @@ def test_shard_params_slices_by_spec_and_kv_group():
             (full.n_heads // 2, full.n_kv_heads // 2, 2, False)
         assert local.resolved_head_dim == full.resolved_head_dim
         assert local.mla == full.mla and local.d_model == full.d_model
-    # tensor parallelism inside the experts stays refused
+    # tp=4 does not divide 6 experts: tensor parallelism inside them, every
+    # rank holding every expert's d_expert / 4 block (gate / up columns,
+    # down rows) by the reference's specs
     moe = tconfigs.reduced(tconfigs.get_config("deepseek-moe-16b"))
-    with pytest.raises(NotImplementedError, match=r"item 10\.2 \(b\)"):
-        local_config(moe.with_(moe=dataclasses.replace(moe.moe, num_experts=6)), 4)
+    moe = moe.with_(moe=dataclasses.replace(moe.moe, num_experts=6))
+    local = local_config(moe, 4)
+    assert (local.n_heads, local.n_kv_heads, local.tp) == (moe.n_heads // 4, moe.n_kv_heads // 4, 4)
+    assert local.moe == moe.moe
+    mesh4 = _mesh(4)
+    blk = shard_params(init_params(moe, device="cpu"), mesh4, moe,
+                       coords={"data": 0, "model": 1})["blocks"][0]["moe"]
+    de = moe.moe.d_expert
+    assert tuple(blk["experts_gate"].shape[-3:]) == (6, moe.d_model, de // 4)
+    assert tuple(blk["experts_up"].shape[-3:]) == (6, moe.d_model, de // 4)
+    assert tuple(blk["experts_down"].shape[-3:]) == (6, de // 4, moe.d_model)
 
 
 @pytest.mark.parametrize("arch,field", [("llama3.2-1b", "d_ff"),
                                         ("deepseek-moe-16b", "dense FFN"),
-                                        ("deepseek-moe-16b", "shared experts")])
+                                        ("deepseek-moe-16b", "shared experts"),
+                                        ("deepseek-moe-16b", "d_expert")])
 def test_local_config_refuses_an_ffn_width_tp_does_not_divide(arch, field):
     """The rules leave such an FFN replicated, and its row-parallel sum
     would add tp copies of the product: refused, not served tp times too
-    large."""
+    large.  The routed experts' ``d_expert`` is such a width where tp does
+    not divide the experts (tensor parallelism inside them)."""
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
     local_config(cfg, 2)
     if field == "d_ff":
         cfg = cfg.with_(d_ff=cfg.d_ff + 1)
     elif field == "dense FFN":
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, d_ff_dense=cfg.moe.d_ff_dense + 1))
-    else:
+    elif field == "shared experts":
         cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, d_expert=cfg.moe.d_expert + 1,
                                                 num_shared_experts=1))
+    else:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, num_experts=7,
+                                                d_expert=cfg.moe.d_expert + 1,
+                                                num_shared_experts=2))
     with pytest.raises(ValueError, match=f"tp=2 must divide .*{field}"):
         local_config(cfg, 2)

@@ -31,9 +31,10 @@ once for the whole file (``launch.mesh.spawn``), each building the
   every gradient leaf against the unsharded step's;
 * ranks that hold the same block of a param or of the AdamW state hold
   the same bits; each rank's bytes equal ``shard.tree_device_bytes``;
-* the refusals: tensor-parallel training of MoE, MLA and recurrent stacks
-  (``NotImplementedError`` naming item 10.2 (b)), and ``grad_compression``
-  with FSDP or ZeRO-1 (``ValueError``).
+* the sharded step builds on 2x2 for the MoE, MLA and recurrent stacks
+  too, each rank on its ``local_config`` (their steps are held in
+  ``tests/test_torch_tp_train.py``); ``grad_compression`` with FSDP or
+  ZeRO-1 is refused (``ValueError``).
 
 About 45 s (the JAX subprocess about 30 s of it).
 """
@@ -75,6 +76,8 @@ MODES = ("bf16", "int8_spoga")
 DP_ARCHS = ("deepseek-moe-16b", "granite-moe-3b-a800m", "minicpm3-4b", "xlstm-125m",
             "recurrentgemma-9b", "seamless-m4t-large-v2", "llava-next-mistral-7b")
 MESHES = ((2, 2), (4, 1), (1, 4))
+# the stacks whose tensor-parallel training the sharded step once refused
+TP_ARCHS = ("deepseek-moe-16b", "minicpm3-4b", "xlstm-125m", "recurrentgemma-9b")
 STEPS = 2
 TCFG = dict(learning_rate=1e-3, warmup_steps=2, total_steps=4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -253,6 +256,7 @@ def _rank(rank, dev, jax_dir):
         if shape == (4, 1):
             out["archs"] = {arch: _arch_grads(arch, mesh) for arch in DP_ARCHS}
         if shape == (2, 2):
+            out["builds"] = {arch: _builds(arch, mesh) for arch in TP_ARCHS}
             out["remat"] = _remat_gathers(params, layout, tcfg, local)
             zero1_grads = dict(grad_specs=layout.o_specs["m"])
             for name, kw, step_kw in (
@@ -287,6 +291,18 @@ def _arch_grads(arch, mesh):
     loss, grads = _sharded_loss_and_grads(params, layout, tcfg, batch)
     loss = collectives.all_reduce(loss, layout.data, "sum") / layout.dp
     return float(loss), gather_tree(grads, layout.g_specs, mesh, cfg)
+
+
+def _builds(arch, mesh):
+    """Whether the sharded step builds for ``arch`` (reduced) on ``mesh``
+    with each rank's config the one ``shard.local_config`` gives."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.steps import make_train_step, sharded_layout
+    from repro_torch.shard.core import local_config
+    cfg = reduced(get_config(arch))
+    tp = mesh.shape["model"]
+    return callable(make_train_step(cfg, _tcfg(), mesh=mesh)) and \
+        sharded_layout(cfg, _tcfg(), mesh).cfg == local_config(cfg, tp)
 
 
 def _remat_gathers(params, layout, tcfg, batch):
@@ -555,14 +571,15 @@ def test_rank_bytes_equal_tree_device_bytes(shape):
         assert r["meshes"][shape]["opt_bytes"] == want_o
 
 
-@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "minicpm3-4b", "xlstm-125m",
-                                  "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", TP_ARCHS)
 def test_tensor_parallel_training_refuses_other_stacks(arch):
-    from repro_torch.configs import get_config, reduced
-    from repro_torch.launch.steps import make_train_step
-    cfg = reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match=r"10\.2 \(b\)"):
-        make_train_step(cfg, _tcfg(), mesh=_stub_mesh((2, 2)))
+    """The refusal of tensor-parallel training of the MoE, MLA and
+    recurrent stacks is lifted: on the 2x2 mesh the sharded step builds
+    for each, every rank running the config ``local_config`` gives it
+    (``tests/test_torch_tp_train.py`` holds their steps to the reference
+    and to the unsharded step)."""
+    for r in _results()[1]:
+        assert r["builds"][arch]
 
 
 @pytest.mark.parametrize("fsdp,zero1,shape", [(True, True, (2, 1)), (True, False, (2, 1)),
