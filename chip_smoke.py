@@ -316,7 +316,20 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    the backward), no plain version; then (b) both GEMM kernels at every
    (kernel, M, K, N) the tp=2 steps launched, bitwise against their plain
    versions and timed;
-19. the ``kernels`` JSON line, then the ``ok`` line last.
+19. the dry run (after phase 18): (a) ``launch.dryrun.run_cell`` on meta
+   tensors, 16x16, ``int8_spoga``, no calibration, for deepseek-moe-16b x
+   ``decode_32k``, recurrentgemma-9b x ``long_500k`` and
+   seamless-m4t-large-v2 x ``prefill_32k``: each ``ok``, its argument
+   bytes ``shard.tree_device_bytes`` of the cell's trees and specs, its
+   record printed; (b) the card check: rank 0 of deepseek-moe-16b x
+   ``decode_32k`` x 16x16 run for real on the card (``device="cuda"``,
+   placeholder collectives): each kernel's launches exactly the meta
+   run's ``META_CALLS``, no plain version, the collectives and argument
+   bytes equal to the meta run's, the record's counts a meta run's
+   (``counted_on``), finite logits of the rank's lanes, and the peak
+   allocated above the start within ``DRY_PEAK_TOL`` (2%) of the meta
+   run's ``hbm_per_device_gib``; the step's device time printed;
+20. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Needs a CUDA card; exits non-zero without one, or without the repo's ``src/``.
 """
@@ -6110,6 +6123,134 @@ def phase_tp_train(card):
     return {"ranks": ranks, "gemm": table}
 
 
+# ---------------------------------------------------------------------------
+# 19. the dry run: one rank's program of a cell on meta, then on the card
+# ---------------------------------------------------------------------------
+
+DRY_CELLS = (("deepseek-moe-16b", "decode_32k"), ("recurrentgemma-9b", "long_500k"),
+             ("seamless-m4t-large-v2", "prefill_32k"))
+DRY_CARD_CELL = ("deepseek-moe-16b", "decode_32k")
+# card peak against the meta run's hbm_per_device_gib: tight enough that
+# a tracker missing its temp term (~7% of this cell's total) fails
+DRY_PEAK_TOL = 0.02
+
+
+def _dry_argument_bytes(arch, shape_name):
+    """``tree_device_bytes`` of the cell's global trees under its specs on
+    the dry 16x16 mesh."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import cell_program
+    from repro_torch.shard.memory import tree_device_bytes
+
+    mesh = make_production_mesh(dry=True)
+    _, kwargs, in_specs, _, _ = cell_program(get_config(arch), SHAPES[shape_name], mesh)
+    return sum(tree_device_bytes(kwargs[n], in_specs[n], mesh) for n in kwargs)
+
+
+def phase_dryrun(card):
+    from repro_torch.launch.dryrun import KERNELS, kernel_counts, run_cell
+
+    out = {"meta": {}}
+    for arch, shape_name in DRY_CELLS:
+        before = kernel_counts()
+        t0 = time.perf_counter()
+        rec = run_cell(arch, shape_name, False, "int8_spoga", calibrate=False)
+        after = kernel_counts()
+        label = f"phase 19 (a) {arch} x {shape_name} 16x16"
+        require(rec["ok"], f"{label}: {rec.get('error')}")
+        want = _dry_argument_bytes(arch, shape_name)
+        require(rec["memory"]["argument_bytes"] == want,
+                f"{label}: argument bytes {rec['memory']['argument_bytes']} != "
+                f"tree_device_bytes {want}")
+        meta = {k: after[k][2] - before[k][2] for k in KERNELS}
+        require(all(after[k][0] == before[k][0] and after[k][1] == before[k][1]
+                    for k in KERNELS), f"{label}: a meta run launched or ran a plain version")
+        require(meta == {k: rec["kernels"].get(k, 0) for k in KERNELS},
+                f"{label}: META_CALLS {meta} != the run's kernel calls {rec['kernels']}")
+        print(f"[dryrun] {label}: {time.perf_counter() - t0:.1f} s, "
+              f"{json.dumps(rec)}", flush=True)
+        out["meta"][(arch, shape_name)] = (rec, meta)
+
+    arch, shape_name = DRY_CARD_CELL
+    label = f"phase 19 (b) {arch} x {shape_name} 16x16 rank 0 on the card"
+    meta_rec, meta_calls = out["meta"][DRY_CARD_CELL]
+    torch.cuda.empty_cache()
+    reset_counts()
+    before = kernel_counts()
+    rec = run_cell(arch, shape_name, False, "int8_spoga", calibrate=False, device="cuda")
+    after = kernel_counts()
+    launches, plain = read_counts()
+    require(rec["ok"], f"{label}: {rec.get('error')}")
+    got = rec["card"]
+    print(f"[dryrun] {label}: launches {got['launches']} (meta run's META_CALLS "
+          f"{meta_calls}), plain calls {got['plain_calls']}", flush=True)
+    # the card check's first run counts; its second, timed run launches as many again
+    require(got["launches"] == meta_calls,
+            f"{label}: launches {got['launches']} != META_CALLS {meta_calls}")
+    require(all(n == 0 for n in got["plain_calls"].values()) and
+            all(v == 0 for v in plain.values()), f"{label}: a plain version ran on the card")
+    # the record's counts come from a meta run of the cell after the card's
+    require(rec["counted_on"] == "meta" and rec["kernels"] == meta_rec["kernels"] and
+            all(after[k][2] - before[k][2] == meta_calls[k] for k in KERNELS),
+            f"{label}: a meta branch ran on the card, or the record's meta run differs")
+    require(launches["spoga_gemm_dequant"] == 2 * meta_calls["spoga_gemm_dequant"] and
+            launches["spoga_gemm"] == 2 * meta_calls["spoga_gemm"],
+            f"{label}: counted launches {launches} != two runs of {meta_calls}")
+    require(got["collectives"] == meta_rec["collectives"],
+            f"{label}: collectives {got['collectives']} != the meta run's "
+            f"{meta_rec['collectives']}")
+    require(got["argument_bytes"] == meta_rec["memory"]["argument_bytes"],
+            f"{label}: argument bytes {got['argument_bytes']} differ from the meta run's")
+    peak_gib = got["peak_allocated_bytes"] / 2**30
+    hbm = meta_rec["hbm_per_device_gib"]
+    mem = meta_rec["memory"]
+    temp = mem["output_bytes"] + mem["temp_bytes"] - mem["alias_bytes"]
+    print(f"[dryrun] {label}: peak allocated above the start {peak_gib:.3f} GiB, meta "
+          f"run's hbm_per_device_gib {hbm:.3f} GiB; above the arguments "
+          f"{got['peak_allocated_bytes'] - got['argument_bytes']} B on the card, {temp} B "
+          f"(output + temp - alias) on meta; step {got['step_ms']:.3f} ms (CUDA "
+          f"events, one step), {card}", flush=True)
+    require(abs(peak_gib - hbm) <= DRY_PEAK_TOL * hbm,
+            f"{label}: peak {peak_gib:.3f} GiB not within {DRY_PEAK_TOL:.0%} of {hbm:.3f} GiB")
+    return {"meta": out["meta"], "card": rec, "meta_calls": meta_calls,
+            "launches": {k: launches[k] for k in ("spoga_gemm_dequant", "spoga_gemm")},
+            "profile": _dry_profile(arch, shape_name, card)}
+
+
+def _dry_profile(arch, shape_name, card):
+    """Device time by kernel of one more step of the card check's rank
+    program (a warm step first), beside its wall time; the logits of the
+    rank's lanes finite."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.steps import lower_cell
+
+    cfg = get_config(arch).with_(quant_mode="int8_spoga")
+    lowered = lower_cell(cfg, SHAPES[shape_name], make_production_mesh(dry=True, device="cuda"))
+    logits, _ = lowered.fn(**lowered.inputs)
+    require(tuple(logits.shape) == (SHAPES[shape_name].global_batch // 16, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "phase 19 (b): the rank's logits")
+    t0 = time.perf_counter()
+    _, prof = _profiled(lambda: lowered.fn(**lowered.inputs))
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    if total <= 0:
+        print("[dryrun] phase 19 (b) profile: no device time recorded: not measured", flush=True)
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"[dryrun] phase 19 (b) profile, one step: device {total:.3f} ms, "
+          f"{sum(e.count for e in kernels)} kernels [{card}]", flush=True)
+    for e in top:
+        print(f"[dryrun]   {e.self_device_time_total / 1e3:.3f} ms, {e.count} launches  "
+              f"{e.key[:90]}", flush=True)
+    del lowered
+    torch.cuda.empty_cache()
+    return {"device_ms": total, "profiled_window_ms": wall_ms,
+            "top": [(e.key[:90], e.self_device_time_total / 1e3, e.count) for e in top]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -6174,6 +6315,8 @@ def main() -> int:
     print(f"[time] phase 17 done at {time.perf_counter() - t0:.1f} s", flush=True)
     tp_train = phase_tp_train(card)
     print(f"[time] phase 18 done at {time.perf_counter() - t0:.1f} s", flush=True)
+    dry = phase_dryrun(card)
+    print(f"[time] phase 19 done at {time.perf_counter() - t0:.1f} s", flush=True)
 
     from repro_torch.configs import get_config
     calls_per_step = 7 * get_config("llama3.2-1b").n_layers   # GEMM calls per decode step
@@ -6307,6 +6450,11 @@ def main() -> int:
             **t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
             for (kname, m, k, n), t in tp_train["gemm"].items() if kname == kernel}
 
+    def dry_launches(name):
+        """A kernel's launches in phase 19 (b)'s card check (its two runs of
+        the rank's decode step)."""
+        return {"deepseek-moe-16b decode_32k 16x16 rank 0, 2 steps": dry["launches"][name]}
+
     def train_shapes():
         return {f"W8A8 M={m} K={k} N={n}": {**t, "fraction_of_bound": t["bound_ms"] / t["ms"]}
                 for (m, k, n), t in train["gemm"].items()}
@@ -6352,6 +6500,7 @@ def main() -> int:
                         launches_tp_archs=tp_arch_launches("spoga_gemm_dequant"),
                         tp_arch_shapes=tp_arch_shapes("spoga_gemm_dequant"),
                         launches_tp_training=tp_train_launches("spoga_gemm_dequant"),
+                        launches_dryrun=dry_launches("spoga_gemm_dequant"),
                         tp_training_shapes=tp_train_shapes("spoga_gemm_dequant"),
                         oracle_max_abs_err=serve_cli["d"]["dequant_max_abs_err"])]
     for kind, count in (("int8", launches["paged_attention"]),
@@ -6401,6 +6550,7 @@ def main() -> int:
                             launches_tp_archs=tp_arch_launches("spoga_gemm"),
                             tp_arch_shapes=tp_arch_shapes("spoga_gemm"),
                             launches_tp_training=tp_train_launches("spoga_gemm"),
+                            launches_dryrun=dry_launches("spoga_gemm"),
                             tp_training_shapes=tp_train_shapes("spoga_gemm")))
     kernels.append(gemm_row("nibble_gemm", "src/repro_torch/csrc/deas_gemm.cu",
                             "src/repro/kernels/deas_gemm.py:50", deas_run["nibble_gemm"], 4,

@@ -17,7 +17,8 @@
 =======================  ====================================================
 
 The ``cuda_*`` backends serve CPU tensors too, through their wrappers'
-plain versions.  All are bit-exact against one another in int32
+plain versions, and ``"meta"`` tensors (the dry run), through their meta
+branches.  All are bit-exact against one another in int32
 arithmetic.
 """
 
@@ -33,7 +34,7 @@ from repro_torch.kernels.deas_gemm import deas_gemm
 from repro_torch.kernels.spoga_gemm import spoga_gemm
 from repro_torch.kernels.spoga_gemm_dequant import spoga_gemm_dequant
 
-_CUDA_AND_CPU = ("cuda", "cpu")
+_CUDA_AND_CPU = ("cuda", "cpu", "meta")
 
 # torch._int_mm calls of the ``cuda_direct`` backend on CUDA tensors
 INT_MM_CALLS = 0
@@ -75,7 +76,8 @@ def _cuda_direct_gemm(x_q, w_q, spec: QuantSpec):
     global INT_MM_CALLS
     if x_q.device.type == "cpu":
         return _spoga.direct_matmul(x_q, w_q)
-    INT_MM_CALLS += 1
+    if x_q.device.type == "cuda":
+        INT_MM_CALLS += 1
     return int_mm_padded(x_q, w_q)
 
 

@@ -104,6 +104,10 @@ _AUTO = {
     ("spoga", "cpu"): "torch_spoga",
     ("deas", "cpu"): "torch_deas",
     ("direct", "cpu"): "direct",
+    # "meta" tensors (the dry run) stand for the card's program
+    ("spoga", "meta"): "cuda_spoga_dequant",
+    ("deas", "meta"): "cuda_deas",
+    ("direct", "meta"): "cuda_direct",
 }
 
 

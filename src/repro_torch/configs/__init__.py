@@ -25,6 +25,8 @@ from repro_torch.configs.base import (
     MLAConfig,
     ModelConfig,
     MoEConfig,
+    SHAPES,
+    ShapeConfig,
     default_cache_len,
     default_page_count,
     pages_for,
@@ -54,7 +56,10 @@ __all__ = [
     "MLAConfig",
     "ModelConfig",
     "MoEConfig",
+    "SHAPES",
     "SUBQUADRATIC",
+    "ShapeConfig",
+    "cells",
     "default_cache_len",
     "default_page_count",
     "get_config",
@@ -67,6 +72,20 @@ def get_config(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def cells(include_skipped: bool = False):
+    """All assigned (arch x shape) dry-run cells, as ``(arch, shape name,
+    skipped)``: 40 in all, 32 runnable (the 500k-token decode runs on the
+    two ``SUBQUADRATIC`` archs only)."""
+    out = []
+    for arch in ARCHS:
+        for shape in SHAPES.values():
+            skipped = shape.name == "long_500k" and arch not in SUBQUADRATIC
+            if skipped and not include_skipped:
+                continue
+            out.append((arch, shape.name, skipped))
+    return out
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

@@ -8,7 +8,7 @@ workload.  Every one of the reference's architectures builds.  The
 training fields (``remat``, ``remat_policy``, plus ``scan_layers`` and
 ``scan_unroll``, which the port's Python loop over periods reads as the
 reference's fully unrolled scan) and ``TrainConfig``.  ``ShapeConfig``
-belongs to the dry-run (ROADMAP queue 1, item 10.2 (d)).
+and ``SHAPES`` are the dry run's cells (``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -190,6 +190,23 @@ def kv_split(cfg) -> bool:
     """Whether ``cfg``'s one KV head is split by its columns
     (``RankConfig.kv_split``; False for a plain ``ModelConfig``)."""
     return isinstance(cfg, RankConfig) and cfg.kv_split
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell of the dry run."""
+    name: str           # train_4k | prefill_32k | decode_32k | long_500k
+    kind: str           # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,8 +20,32 @@ from typing import Optional
 
 import torch
 
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.serving.sampling import _MASK64, _splitmix64
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """One global batch of the shape cell as a ``(shape, dtype)``-leaf
+    tree (``shard.core.as_shapes`` turns it into ``"meta"`` tensors): the
+    tokens, or the frontend's embeddings and labels, or an
+    encoder-decoder's source embeddings and target tokens."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, f = torch.int32, torch.bfloat16
+    if shape.kind == "train":
+        if cfg.is_encoder_decoder:
+            return {"src_embeds": ((b, s, cfg.d_model), f), "tgt_tokens": ((b, s), i32)}
+        if cfg.frontend is not None:
+            return {"embeds": ((b, s, cfg.d_model), f), "labels": ((b, s), i32)}
+        return {"tokens": ((b, s), i32)}
+    if shape.kind == "prefill":
+        if cfg.is_encoder_decoder:
+            return {"src_embeds": ((b, s, cfg.d_model), f), "tgt_tokens": ((b, 1), i32)}
+        if cfg.frontend is not None:
+            return {"embeds": ((b, s, cfg.d_model), f)}
+        return {"tokens": ((b, s), i32)}
+    # decode: one new token against a cache of seq_len
+    return {"tokens": ((b,), i32)}
 
 
 @dataclasses.dataclass(frozen=True)

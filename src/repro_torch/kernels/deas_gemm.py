@@ -21,7 +21,10 @@ two.  :func:`nibble_gemm` and :func:`deas_combine` are the wrappers of the
 two kernels, each beside its plain version.  ``CALLS`` counts
 ``deas_gemm`` calls that launched, ``NIBBLE_LAUNCHES`` and
 ``COMBINE_LAUNCHES`` the launches of each kernel (4 and 1 per call), and
-``PLAIN_CALLS`` calls of any plain version.
+``PLAIN_CALLS`` calls of any plain version.  On ``"meta"`` tensors (the
+dry run) :func:`deas_gemm` returns an empty meta result, counts
+``META_CALLS`` and reports the product's work, as ``kernels.spoga_gemm``
+does.
 """
 
 from __future__ import annotations
@@ -32,16 +35,18 @@ from repro_torch.core.slicing import RADIX_BITS, slice_tc
 from repro_torch.core.spoga import deas_matmul, direct_matmul, wrap_int32
 from repro_torch.kernels import _build
 from repro_torch.kernels.spoga_gemm import check_launchable
+from repro_torch.runtime import counters
 
 CALLS = 0
 NIBBLE_LAUNCHES = 0
 COMBINE_LAUNCHES = 0
 PLAIN_CALLS = 0
+META_CALLS = 0
 
 
 def reset_counts() -> None:
-    global CALLS, NIBBLE_LAUNCHES, COMBINE_LAUNCHES, PLAIN_CALLS
-    CALLS = NIBBLE_LAUNCHES = COMBINE_LAUNCHES = PLAIN_CALLS = 0
+    global CALLS, NIBBLE_LAUNCHES, COMBINE_LAUNCHES, PLAIN_CALLS, META_CALLS
+    CALLS = NIBBLE_LAUNCHES = COMBINE_LAUNCHES = PLAIN_CALLS = META_CALLS = 0
 
 
 def deas_gemm_plain(x, w):
@@ -77,6 +82,7 @@ def nibble_gemm(a, b):
     (M, N) buffer: one ``nibble_gemm`` launch on CUDA tensors."""
     global NIBBLE_LAUNCHES
     _check_int8("nibble_gemm", a, b)
+    check_launchable("nibble_gemm", a, b)
     if a.device.type == "cpu":
         return nibble_gemm_plain(a, b)
     m, k = a.shape
@@ -117,15 +123,21 @@ def _check_int8(name, x, w):
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
         raise ValueError(f"expected x (M, K) and w (K, N), got {tuple(x.shape)} "
                          f"and {tuple(w.shape)}")
-    check_launchable(name, x, w)
 
 
 def deas_gemm(x, w):
     """(M, K) int8 @ (K, N) int8 -> (M, N) int32 via 4 materialized slices."""
-    global CALLS
+    global CALLS, META_CALLS
     _check_int8("deas_gemm", x, w)
+    if x.device.type == "meta":
+        counters.check_meta("deas_gemm", x, w)
+        META_CALLS += 1
+        with counters.gemm("deas_gemm", x, w, torch.int32):
+            return torch.empty((x.shape[0], w.shape[1]), dtype=torch.int32, device="meta")
+    check_launchable("deas_gemm", x, w)
     if x.device.type == "cpu":
-        return deas_gemm_plain(x, w)
+        with counters.gemm("deas_gemm", x, w, torch.int32):
+            return deas_gemm_plain(x, w)
     xm, xl = slice_tc(x)
     wm, wl = slice_tc(w)
     # four separate cores -> four device-resident intermediate matrices

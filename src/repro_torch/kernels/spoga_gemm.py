@@ -9,7 +9,11 @@ W8A8, (2, 1, 4) serves ``w4a8``, (4, 4, 4) ``w16a16``; any
 :func:`spoga_gemm` launches ``csrc/spoga_gemm.cu`` for CUDA tensors and
 runs :func:`spoga_gemm_plain` for CPU tensors; there is no fallback
 between the two.  ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS``
-calls of the plain version.
+calls of the plain version.  ``"meta"`` tensors (the dry run,
+``launch.dryrun``) hold no values, so nothing can launch on them: the
+wrapper returns an empty meta result of the output's shape and dtype,
+counts it in ``META_CALLS`` and reports the kernel's work to the dry
+run's counters (``runtime.counters``), as the CPU branch does.
 """
 
 from __future__ import annotations
@@ -19,17 +23,20 @@ import torch
 from repro_torch.core.slicing import RADIX_BITS
 from repro_torch.core.spoga import direct_matmul
 from repro_torch.kernels import _build
+from repro_torch.runtime import counters
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
+META_CALLS = 0
 
 _INT_TYPES = (torch.int8, torch.int16)
 
 
 def reset_counts() -> None:
-    global LAUNCHES, PLAIN_CALLS
+    global LAUNCHES, PLAIN_CALLS, META_CALLS
     LAUNCHES = 0
     PLAIN_CALLS = 0
+    META_CALLS = 0
 
 
 def check_operands(name: str, x, w, slice_bits: int) -> None:
@@ -69,11 +76,17 @@ def spoga_gemm(x, w, *, n_x_slices: int = 2, n_w_slices: int = 2,
 
     Operands must honor their plane budget (``n * slice_bits`` bits), as
     the quantizer's clip guarantees."""
-    global LAUNCHES
+    global LAUNCHES, META_CALLS
     check_operands("spoga_gemm", x, w, slice_bits)
+    if x.device.type == "meta":
+        counters.check_meta("spoga_gemm", x, w)
+        META_CALLS += 1
+        with counters.gemm("spoga_gemm", x, w, torch.int32):
+            return torch.empty((x.shape[0], w.shape[1]), dtype=torch.int32, device="meta")
     check_launchable("spoga_gemm", x, w)
     if x.device.type == "cpu":
-        return spoga_gemm_plain(x, w)
+        with counters.gemm("spoga_gemm", x, w, torch.int32):
+            return spoga_gemm_plain(x, w)
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)

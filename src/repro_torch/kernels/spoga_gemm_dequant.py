@@ -8,7 +8,8 @@ int8|int16 with x_scale (M, 1) f32; w (K, N) int8|int16 with w_scale
 tensors and runs :func:`spoga_gemm_dequant_plain` for CPU tensors; there is
 no fallback between the two.  ``LAUNCHES`` counts kernel launches and
 ``PLAIN_CALLS`` calls of the plain version, so a run can show which one it
-went through.
+went through.  On ``"meta"`` tensors (the dry run) it returns an empty
+meta result and counts ``META_CALLS``, as ``kernels.spoga_gemm`` does.
 """
 
 from __future__ import annotations
@@ -19,15 +20,18 @@ from repro_torch.core.slicing import RADIX_BITS
 from repro_torch.core.spoga import direct_matmul
 from repro_torch.kernels import _build
 from repro_torch.kernels.spoga_gemm import check_launchable, check_operands
+from repro_torch.runtime import counters
 
 LAUNCHES = 0
 PLAIN_CALLS = 0
+META_CALLS = 0
 
 
 def reset_counts() -> None:
-    global LAUNCHES, PLAIN_CALLS
+    global LAUNCHES, PLAIN_CALLS, META_CALLS
     LAUNCHES = 0
     PLAIN_CALLS = 0
+    META_CALLS = 0
 
 
 def spoga_gemm_dequant_plain(x, w, x_scale, w_scale):
@@ -47,7 +51,6 @@ def _check(x, w, x_scale, w_scale, slice_bits):
                          f"{tuple(x_scale.shape)} and {tuple(w_scale.shape)}")
     if x_scale.dtype != torch.float32 or w_scale.dtype != torch.float32:
         raise TypeError("x_scale and w_scale must be float32")
-    check_launchable("spoga_gemm_dequant", x, w, x_scale, w_scale)
 
 
 def spoga_gemm_dequant(x, w, x_scale, w_scale, *, n_x_slices: int = 2,
@@ -58,10 +61,17 @@ def spoga_gemm_dequant(x, w, x_scale, w_scale, *, n_x_slices: int = 2,
     ``w4a8``, (4, 4, 4) ``w16a16``.  Operands must honor their plane budget
     (``n * slice_bits`` bits), as the quantizer's clip guarantees.
     """
-    global LAUNCHES
+    global LAUNCHES, META_CALLS
     _check(x, w, x_scale, w_scale, slice_bits)
+    if x.device.type == "meta":
+        counters.check_meta("spoga_gemm_dequant", x, w, x_scale, w_scale)
+        META_CALLS += 1
+        with counters.gemm("spoga_gemm_dequant", x, w, torch.float32, x_scale, w_scale):
+            return torch.empty((x.shape[0], w.shape[1]), dtype=torch.float32, device="meta")
+    check_launchable("spoga_gemm_dequant", x, w, x_scale, w_scale)
     if x.device.type == "cpu":
-        return spoga_gemm_dequant_plain(x, w, x_scale, w_scale)
+        with counters.gemm("spoga_gemm_dequant", x, w, torch.float32, x_scale, w_scale):
+            return spoga_gemm_dequant_plain(x, w, x_scale, w_scale)
     m, k = x.shape
     n = w.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)

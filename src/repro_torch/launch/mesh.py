@@ -18,6 +18,13 @@ which sets the rendezvous environment) or from :func:`spawn`.  Backends:
   refuses two ranks on one device; gloo reduces CUDA tensors only through
   host memory, which ``runtime.collectives`` does openly.
 
+A :class:`DryMesh` is a mesh of any shape -- ``(16, 16)`` or ``(2, 16,
+16)`` -- with no process group behind it: one rank's coordinates, given
+(rank 0's by default), and axes whose collectives return placeholders
+(``runtime.collectives``, backend ``"dry"``).  The dry run
+(``launch.dryrun``) runs one rank's program on it, on ``"meta"`` tensors
+or on the card.
+
 Defined as functions: importing this module starts no process group.
 """
 
@@ -32,6 +39,8 @@ from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.runtime.collectives import DRY
 
 AXES = ("data", "model")
 
@@ -56,13 +65,45 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.shape.values())
 
-    def group(self, axis: str):
-        """The process group of ``axis`` that holds this rank."""
-        return self.device_mesh.get_group(axis)
+    def group(self, axis):
+        """The process group of ``axis`` that holds this rank; a tuple of
+        axis names: their ranks as one group (made once, by every rank)."""
+        if not isinstance(axis, tuple):
+            return self.device_mesh.get_group(axis)
+        groups = self.__dict__.setdefault("_flat_groups", {})
+        if axis not in groups:
+            groups[axis] = self.device_mesh[axis]._flatten("_".join(axis)).get_group()
+        return groups[axis]
 
     def axis_rank(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
         return self.device_mesh.get_local_rank(axis)
+
+
+@dataclasses.dataclass
+class DryMesh(Mesh):
+    """A mesh of any shape with no process group: one rank's view of it
+    (``coords``: axis name -> this rank's coordinate)."""
+
+    coords: dict = dataclasses.field(default_factory=dict)
+
+    def group(self, axis):
+        raise RuntimeError("a dry mesh has no process groups; its collectives "
+                           "return placeholders (runtime.collectives)")
+
+    def axis_rank(self, axis: str) -> int:
+        return self.coords[axis]
+
+
+def make_dry_mesh(shape, axes, *, coords: Optional[dict] = None, device="meta") -> DryMesh:
+    """A :class:`DryMesh` of ``shape`` over ``axes``, seen from the rank at
+    ``coords`` (default: every coordinate 0) with its tensors on
+    ``device``."""
+    coords = {a: 0 for a in axes} if coords is None else dict(coords)
+    for a, n in zip(axes, shape):
+        if not 0 <= coords.get(a, -1) < n:
+            raise ValueError(f"coordinate {coords.get(a)} of axis {a!r} outside 0..{n - 1}")
+    return DryMesh(dict(zip(axes, shape)), None, DRY, torch.device(device), coords)
 
 
 def _one_rank_group(backend: str) -> None:
@@ -110,10 +151,16 @@ def _make_mesh(shape, axes, *, backend: Optional[str] = None, device=None) -> Me
     return Mesh(dict(zip(axes, shape)), dm, pg_backend, torch.device(device))
 
 
-def make_production_mesh(*, multi_pod: bool = False, backend: str = "nccl", device=None):
-    """The reference's production layouts: (16, 16) or (2, 16, 16) ranks."""
+def make_production_mesh(*, multi_pod: bool = False, backend: str = "nccl", device=None,
+                         dry: bool = False):
+    """The reference's production layouts: (16, 16) or (2, 16, 16) ranks.
+    ``dry=True``: a :class:`DryMesh` of that layout (no ranks started),
+    seen from rank 0, with its tensors on ``device`` (default
+    ``"meta"``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else AXES
+    if dry:
+        return make_dry_mesh(shape, axes, device=device or "meta")
     return _make_mesh(shape, axes, backend=backend, device=device)
 
 

@@ -34,10 +34,11 @@ cache in place.
 :func:`_chunked_ce` plus the MoE load-balance loss; with ``cfg.remat``
 each period recomputes in the backward (:func:`_remat_period`).  Under
 FSDP (``runtime.collectives.data_sharded``, entered by the sharded train
-step) every layer's leaves are gathered over "data" just before the layer
-runs, one period's slice of a stacked leaf at a time
-(``collectives.gather_params``); a rematerialized period gathers again in
-its recompute instead of keeping the gathered weights alive.  On a
+step, or a dry-run cell's prefill or decode step) every layer's leaves
+are gathered over "data" just before the layer runs, one period's slice
+of a stacked leaf at a time (``collectives.gather_params``); a
+rematerialized period gathers again in its recompute instead of keeping
+the gathered weights alive.  On a
 tensor-parallel mesh the head's logits are vocab-parallel and gathered
 over "model" before the cross-entropy.
 
@@ -503,7 +504,7 @@ def prefill(params, cfg: ModelConfig, batch, cache_len: int, lengths=None):
     head_caches, tail_caches = [], []
     per_slot = [[] for _ in cfg.block_pattern]
     for group, idx, period, kind, carry, cross in _plan(cfg):
-        x, c = tfm.apply_block_prefill(x, tfm.plan_entry(params, group, idx, period), kind,
+        x, c = tfm.apply_block_prefill(x, gather_params(params[group][idx], period), kind,
                                        cfg, positions, cache_len, carry=carry)
         (per_slot[idx] if group == "blocks" else
          head_caches if group == "head_blocks" else tail_caches).append(c)
@@ -549,7 +550,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache, active=None):
     else:
         x = tokens[:, None, :].to(COMPUTE_DTYPE)
     for group, idx, period, kind, carry, cross in _plan(cfg, carry_out=True):
-        x, _ = tfm.apply_block_decode(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
+        x, _ = tfm.apply_block_decode(x, gather_params(params[group][idx], period), kind, cfg,
                                       tfm.plan_entry(cache, group, idx, period), pos,
                                       tables=tables, active=active, carry=carry)
         if cross:
@@ -580,7 +581,7 @@ def verify_step(params, cfg: ModelConfig, tokens, cache, active=None):
     tables = cache.get("block_tables")
     x = embed_tokens(tokens, params, cfg)
     for group, idx, period, kind, carry, _ in _plan(cfg):
-        x, _ = tfm.apply_block_verify(x, tfm.plan_entry(params, group, idx, period), kind, cfg,
+        x, _ = tfm.apply_block_verify(x, gather_params(params[group][idx], period), kind, cfg,
                                       tfm.plan_entry(cache, group, idx, period), pos,
                                       tables=tables, active=active, carry=carry)
     h = rmsnorm_columns(x, params["final_norm"], cfg.norm_eps)

@@ -231,7 +231,10 @@ def moe_ffn(x, p, cfg: ModelConfig):
 
     # Switch-style load-balance aux loss, over all B*S tokens (every data
     # rank's in a data-parallel training step)
-    dispatch_frac = torch.nn.functional.one_hot(topi.long(), e).float().sum(2).mean(dim=(0, 1))
+    # one-hot by comparison: the same ops on every device (``F.one_hot``
+    # checks its range on the host, which a "meta" tensor cannot)
+    experts = torch.arange(e, device=topi.device)
+    dispatch_frac = (topi.long()[..., None] == experts).float().sum(2).mean(dim=(0, 1))
     aux = e * torch.sum(batch_mean(dispatch_frac) * batch_mean(probs.mean(dim=(0, 1)))) / k
     return out, aux
 

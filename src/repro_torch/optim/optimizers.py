@@ -16,8 +16,9 @@ the reference's, op for op, in f32.
 **Sharded trees** (``mesh=`` and the spec trees of ``runtime.sharding``):
 each rank holds its blocks.  The global norm sums the squares of the
 elements a rank holds -- a leaf replicated over some axes only on the
-first rank along them, so each element counts once -- and one SUM
-all-reduce over the world gives the total.  AdamW updates the rank's
+first rank along them (the others add a 0 selected in its place, so
+every rank runs the same ops), so each element counts once -- and one
+SUM all-reduce over the world gives the total.  AdamW updates the rank's
 blocks of ``m``, ``v`` and ``master``: under ZeRO-1 the optimizer specs
 shard a dim over "data" that the param and gradient specs leave whole, so
 the rank takes its block of the gradient, and afterwards all-gathers the
@@ -58,10 +59,14 @@ def global_norm(tree, specs=None, mesh=None) -> torch.Tensor:
     flat = _leaves(tree)
     if mesh is None:
         return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in flat))
-    total = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    dev = flat[0].device
+    total = torch.zeros((), dtype=torch.float32, device=dev)
+    keep = {c: torch.full((), c, dtype=torch.bool, device=dev) for c in (False, True)}
     for x, spec in zip(flat, spec_leaves(specs, tree)):
-        if _counted(spec, mesh):
-            total = total + torch.sum(torch.square(x.float()))
+        # every rank runs the same ops (as a compiled step would): a replica
+        # after the first selects 0 in place of its sum, even an inf one
+        s = torch.sum(torch.square(x.float()))
+        total = total + torch.where(keep[_counted(spec, mesh)], s, 0.0)
     return torch.sqrt(collectives.all_reduce(total, collectives.world(mesh), "sum"))
 
 

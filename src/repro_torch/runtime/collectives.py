@@ -43,7 +43,39 @@ that are sharded over "data" (FSDP) are all-gathered just before use
 gradient back to the rank's shard, averaged over the axis; a statistic
 of the whole batch (the MoE load-balance means, the count of labelled
 tokens) is taken over every data rank's rows (:func:`batch_mean`,
-:func:`batch_total`), so the step's loss is the global batch's.
+:func:`batch_total`), so the step's loss is the global batch's.  On a
+multi-pod mesh the ("pod", "data") pair is one data axis for the batch
+(:func:`data_axis`), while FSDP gathers over "data" alone and sums the
+gradient over "pod" after the reduce-scatter (the reference's specs keep
+the params whole over "pod").
+
+**Dry axes and counting.**  An axis of a dry mesh (``launch.mesh.DryMesh``,
+``backend == "dry"``) has no process group: each primitive returns a
+placeholder of its result's shape and dtype, with finite values (a copy
+of the rank's own block where the result would hold others' too), and
+never communicates -- one rank's program then runs alone, on ``"meta"``
+tensors or on the card.  A real mesh never takes that branch.  While a
+``runtime.counters.counting`` count is open (the dry run's, or a test's
+around a real run), each primitive records one ``(kind, dtype, shape)``
+of its result buffer, in the kinds that XLA's HLO names and the
+reference's ``collective_stats`` sums:
+
+==========================  =====================  ==========================
+primitive                   kind                   result buffer
+==========================  =====================  ==========================
+:func:`all_reduce`          ``all-reduce``         ``t``'s shape
+:func:`gather_blocks`,      ``all-gather``         ``(size, *t.shape)``, the
+:func:`all_gather`                                 blocks of every rank
+:func:`reduce_scatter`      ``reduce-scatter``     the rank's block
+:func:`broadcast`           ``all-reduce``         ``t``'s shape (XLA has no
+                                                   broadcast; a masked sum
+                                                   carries it)
+==========================  =====================  ==========================
+
+``global_absmax``, ``compressed_psum_mean``, ``psum_mean``, ``mean_over``
+and the autograd operators reach these.  :func:`barrier` moves no data
+and records nothing; ``all-to-all`` and ``collective-permute`` have no
+caller in the port.
 """
 
 from __future__ import annotations
@@ -52,9 +84,12 @@ import contextlib
 import dataclasses
 from typing import Optional
 
+import math
+
 import torch
 import torch.distributed as dist
 
+from repro_torch.runtime import counters
 from repro_torch.tree import leaves, rebuild
 
 INT8_MAX = 127.0
@@ -70,15 +105,46 @@ class Axis:
     backend: str
 
 
-def axis(mesh, name: str) -> Axis:
-    """``mesh``'s axis ``name`` (a ``launch.mesh.Mesh``)."""
+DRY = "dry"
+
+
+def axis(mesh, name) -> Axis:
+    """``mesh``'s axis ``name`` (a ``launch.mesh.Mesh``), or the axes of a
+    tuple of names as one (the first name major)."""
+    names = name if isinstance(name, tuple) else (name,)
+    size = math.prod(mesh.shape[n] for n in names)
+    rank = 0
+    for n in names:
+        rank = rank * mesh.shape[n] + mesh.axis_rank(n)
+    if getattr(mesh, "backend", None) == DRY:
+        return Axis(None, size, rank, DRY)
     g = mesh.group(name)
-    return Axis(g, mesh.shape[name], mesh.axis_rank(name), str(dist.get_backend(g)))
+    return Axis(g, size, rank, str(dist.get_backend(g)))
+
+
+def data_axis(mesh) -> Optional[Axis]:
+    """The data-parallel axis of ``mesh``: ("pod", "data") as one axis on a
+    multi-pod mesh, "data" on a (data, model) mesh; ``None`` where it has
+    one rank."""
+    names = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    if math.prod(mesh.shape[n] for n in names) == 1:
+        return None
+    return axis(mesh, names if len(names) > 1 else names[0])
 
 
 def world(mesh) -> Axis:
     """Every rank of ``mesh`` (the default process group) as one axis."""
+    if getattr(mesh, "backend", None) == DRY:
+        return axis(mesh, tuple(mesh.axis_names))
     return Axis(dist.group.WORLD, mesh.size, dist.get_rank(), str(dist.get_backend()))
+
+
+def _counted(kind: str, dtype, shape, ax: Axis, real, dry):
+    """Record one collective while a count is open, then run
+    ``real`` -- or, on a dry axis, ``dry`` -- with its aten ops opaque."""
+    counters.collective(kind, dtype, shape)
+    with counters.opaque():
+        return dry() if ax.backend == DRY else real()
 
 
 def _staged(t: torch.Tensor, ax: Axis) -> bool:
@@ -91,6 +157,13 @@ _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 def all_reduce(t: torch.Tensor, ax: Axis, op: str = "sum") -> torch.Tensor:
     """The ``op`` ("sum" or "max") of ``t`` over the axis; a new tensor on
     ``t``'s device.  Sums of integers are exact; callers sum floats in f32."""
+    if ax.backend == DRY or counters.ACTIVE:
+        return _counted("all-reduce", t.dtype, t.shape, ax, lambda: _all_reduce(t, ax, op),
+                        lambda: t.detach().clone())
+    return _all_reduce(t, ax, op)
+
+
+def _all_reduce(t: torch.Tensor, ax: Axis, op: str) -> torch.Tensor:
     buf = t.detach().cpu().clone() if _staged(t, ax) else t.detach().clone()
     dist.all_reduce(buf, op=_OPS[op], group=ax.group)
     return buf.to(t.device)
@@ -101,6 +174,17 @@ def gather_blocks(t: torch.Tensor, ax: Axis, dst: Optional[int] = None):
     order on ``t``'s device: on every rank (``dst=None``, an all-gather), or
     on axis rank ``dst`` alone (a gather; the others get ``None``).  The
     payload travels as raw bytes, so any dtype gathers bit for bit."""
+    if ax.backend == DRY or counters.ACTIVE:
+        def dry():
+            if dst is not None and ax.rank != dst:
+                return None
+            return [t.detach().clone() for _ in range(ax.size)]
+        return _counted("all-gather", t.dtype, (ax.size, *t.shape), ax,
+                        lambda: _gather_blocks(t, ax, dst), dry)
+    return _gather_blocks(t, ax, dst)
+
+
+def _gather_blocks(t: torch.Tensor, ax: Axis, dst: Optional[int]):
     src = t.detach().contiguous()
     host = _staged(src, ax)
     if host:
@@ -129,21 +213,39 @@ def reduce_scatter(t: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:
     gloo has no reduce-scatter, so there every rank all-reduces and keeps
     its block: every rank sums the same values in the same order."""
     part = t.shape[dim] // ax.size
+    if ax.backend == DRY or counters.ACTIVE:
+        shape = list(t.shape)
+        shape[dim] = part
+        return _counted("reduce-scatter", t.dtype, shape, ax,
+                        lambda: _reduce_scatter(t, ax, dim, part),
+                        lambda: t.detach().narrow(dim, ax.rank * part, part).contiguous())
+    return _reduce_scatter(t, ax, dim, part)
+
+
+def _reduce_scatter(t: torch.Tensor, ax: Axis, dim: int, part: int) -> torch.Tensor:
     if ax.backend == "nccl":
         src = t.detach().movedim(dim, 0).contiguous()
         out = torch.empty((part,) + tuple(src.shape[1:]), dtype=t.dtype, device=t.device)
         dist.reduce_scatter_tensor(out, src, group=ax.group)
         return out.movedim(0, dim).contiguous()
-    return all_reduce(t, ax, "sum").narrow(dim, ax.rank * part, part).contiguous()
+    return _all_reduce(t, ax, "sum").narrow(dim, ax.rank * part, part).contiguous()
 
 
 def barrier(ax: Axis) -> None:
-    """Every rank of the axis waits for the others."""
-    dist.barrier(group=ax.group)
+    """Every rank of the axis waits for the others (nothing on a dry axis)."""
+    if ax.backend != DRY:
+        dist.barrier(group=ax.group)
 
 
 def broadcast(t: torch.Tensor, ax: Axis, src: int = 0) -> torch.Tensor:
     """Axis rank ``src``'s ``t`` on every rank (a new tensor)."""
+    if ax.backend == DRY or counters.ACTIVE:
+        return _counted("all-reduce", t.dtype, t.shape, ax, lambda: _broadcast(t, ax, src),
+                        lambda: t.detach().clone())
+    return _broadcast(t, ax, src)
+
+
+def _broadcast(t: torch.Tensor, ax: Axis, src: int) -> torch.Tensor:
     buf = t.detach().cpu().clone() if _staged(t, ax) else t.detach().clone()
     dist.broadcast(buf, src=dist.get_global_rank(ax.group, src), group=ax.group)
     return buf.to(t.device)
@@ -184,10 +286,11 @@ def compressed_psum_mean(tree, ax: Axis, generator: Optional[torch.Generator] = 
     return rebuild(tree, iter(out))
 
 
-def _size(ax: Axis, device) -> torch.Tensor:
-    """The axis size as a 0-d f32 tensor (a divisor that stays a true
-    division on every device)."""
-    return torch.full((), float(ax.size), dtype=torch.float32, device=device)
+def _size(ax, device) -> torch.Tensor:
+    """The axis size (an ``Axis`` or an int) as a 0-d f32 tensor (a divisor
+    that stays a true division on every device)."""
+    n = ax.size if isinstance(ax, Axis) else ax
+    return torch.full((), float(n), dtype=torch.float32, device=device)
 
 
 def psum_mean(tree, ax: Axis):
@@ -367,23 +470,31 @@ def model_scatter(x: torch.Tensor, ax: Axis, dim: int, part: int) -> torch.Tenso
 
 @dataclasses.dataclass(frozen=True)
 class _DataShards:
-    axis: Axis
+    axis: Optional[Axis]           # the FSDP axis ("data")
     dims: dict                     # id(leaf) -> the dim sharded over "data"
     reduce_dtype: Optional[torch.dtype]
+    batch: Optional[Axis]          # the axis batch statistics reduce over
+    pod: Optional[Axis]            # the replicas the FSDP gradient also sums over
 
 
 _DATA_SHARDS: list = []
+_SAME = object()
 
 
 @contextlib.contextmanager
-def data_sharded(ax: Optional[Axis], dims: dict, reduce_dtype: Optional[torch.dtype] = None):
-    """A data-parallel training step over ``ax``: inside,
-    :func:`gather_params` all-gathers the leaves ``dims`` names
-    (``id(leaf)`` -> the leaf's dim sharded over ``ax``), whose gradients
-    come back reduce-scattered, divided by the axis size, in
-    ``reduce_dtype`` on the wire (default f32); :func:`batch_mean` and
-    :func:`batch_total` reduce over ``ax``.  ``ax=None``: one data rank."""
-    _DATA_SHARDS.append(None if ax is None else _DataShards(ax, dims, reduce_dtype))
+def data_sharded(ax: Optional[Axis], dims: dict, reduce_dtype: Optional[torch.dtype] = None,
+                 batch=_SAME, pod: Optional[Axis] = None):
+    """A data-parallel step over ``ax``: inside, :func:`gather_params`
+    all-gathers the leaves ``dims`` names (``id(leaf)`` -> the leaf's dim
+    sharded over ``ax``), whose gradients come back reduce-scattered (and
+    summed over ``pod``, a multi-pod mesh's replicas of the shards),
+    divided by the ranks' count, in ``reduce_dtype`` on the wire (default
+    f32); :func:`batch_mean` and :func:`batch_total` reduce over ``batch``
+    (default ``ax``; ``None``: each rank's own rows, as a serving step
+    keeps them).  ``ax=None``: one data rank."""
+    batch = ax if batch is _SAME else batch
+    _DATA_SHARDS.append(None if ax is None and batch is None
+                        else _DataShards(ax, dims, reduce_dtype, batch, pod))
     try:
         yield
     finally:
@@ -413,16 +524,16 @@ def batch_mean(t: torch.Tensor) -> torch.Tensor:
     rank's rows inside a data-parallel step (equal rows a rank); ``t``
     itself outside one."""
     shards = _data_shards()
-    return t if shards is None else _BatchMean.apply(t, shards.axis)
+    return t if shards is None or shards.batch is None else _BatchMean.apply(t, shards.batch)
 
 
 def batch_total(t: torch.Tensor):
     """(data ranks, the SUM of ``t`` over them) inside a data-parallel
     step, ``(1, t)`` outside one; no gradient flows through the sum."""
     shards = _data_shards()
-    if shards is None:
+    if shards is None or shards.batch is None:
         return 1, t
-    return shards.axis.size, all_reduce(t.detach(), shards.axis, "sum")
+    return shards.batch.size, all_reduce(t.detach(), shards.batch, "sum")
 
 
 class _DataGather(torch.autograd.Function):
@@ -431,23 +542,28 @@ class _DataGather(torch.autograd.Function):
     axis size, summed in f32 (``reduce_dtype`` on the wire when set)."""
 
     @staticmethod
-    def forward(ctx, x, ax, dim, reduce_dtype):
-        ctx.ax, ctx.dim, ctx.reduce_dtype = ax, dim, reduce_dtype
+    def forward(ctx, x, ax, dim, reduce_dtype, pod):
+        ctx.ax, ctx.dim, ctx.reduce_dtype, ctx.pod = ax, dim, reduce_dtype, pod
         return all_gather(x, ax, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return mean_over(g, ctx.ax, ctx.dim, ctx.reduce_dtype).to(g.dtype), None, None, None
+        return (mean_over(g, ctx.ax, ctx.dim, ctx.reduce_dtype, ctx.pod).to(g.dtype),
+                None, None, None, None)
 
 
 def mean_over(t: torch.Tensor, ax: Axis, dim: Optional[int] = None,
-              wire: Optional[torch.dtype] = None) -> torch.Tensor:
+              wire: Optional[torch.dtype] = None, pod: Optional[Axis] = None) -> torch.Tensor:
     """The mean of ``t`` over the axis in f32: whole (``dim=None``, a SUM
     all-reduce) or this rank's block along ``dim`` (a reduce-scatter), with
-    ``wire`` the dtype on the wire (default f32)."""
+    ``wire`` the dtype on the wire (default f32); ``pod``: the sum then
+    runs over ``pod`` too (a SUM all-reduce of the result), and the mean
+    is over both axes' ranks."""
     payload = t.to(wire or torch.float32)
     total = all_reduce(payload, ax, "sum") if dim is None else reduce_scatter(payload, ax, dim)
-    return total.float() / _size(ax, t.device)
+    if pod is None:
+        return total.float() / _size(ax, t.device)
+    return all_reduce(total, pod, "sum").float() / _size(ax.size * pod.size, t.device)
 
 
 def gather_params(tree, period: Optional[int] = None):
@@ -457,12 +573,12 @@ def gather_params(tree, period: Optional[int] = None):
     shards = _data_shards()
 
     def one(t):
-        dim = shards.dims.get(id(t)) if shards is not None else None
+        dim = shards.dims.get(id(t)) if shards is not None and shards.axis is not None else None
         v = t if period is None else t[period]
         if dim is None:
             return v
         return _DataGather.apply(v, shards.axis, dim - (period is not None),
-                                 shards.reduce_dtype)
+                                 shards.reduce_dtype, shards.pod)
 
     def walk(node):
         if isinstance(node, dict):

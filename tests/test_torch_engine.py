@@ -283,6 +283,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "import repro_torch.spec, repro_torch.spec.draft_model, repro_torch.prefix\n"
         "import repro_torch.quant, repro_torch.optim, repro_torch.data, repro_torch.runtime\n"
         "import repro_torch.launch.steps, repro_torch.launch.train, repro_torch.tree\n"
+        "import repro_torch.launch.dryrun, repro_torch.runtime.counters\n"
         "import repro_torch.launch.serve, repro_torch.kernels.ref, repro_torch.core\n"
         "import repro_torch.core.photonic_model, repro_torch.core.energy_model\n"
         "import repro_torch.core.workloads, repro_torch.core.accelerator_sim\n"

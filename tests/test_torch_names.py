@@ -4,8 +4,7 @@
 public name (a module's ``__all__``, else what the module itself defines)
 that the port's module at the same relative path lacks.  The list must be
 exactly ``MISSING``: names that exist only because of JAX or Pallas, each
-with its reason, and the names of ROADMAP item 10.2 (the rest of
-distribution).  Then the small names the port added under the reference's
+with its reason.  Then the small names the port added under the reference's
 names are held to the reference: ``serving.FIFOScheduler``,
 ``layers.init_embedding`` / ``init_rmsnorm`` / ``truncated_normal_init``,
 ``model.param_shapes`` / ``cache_shapes``,
@@ -28,7 +27,6 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _PALLAS_TILES = ("Pallas BlockSpec tile sizes; the CUDA kernels take no block "
                  "arguments (their tiling is compiled in csrc/spoga_tile.cuh)")
-_ITEM_10_2 = "ROADMAP item 10.2 (distribution, the rest)"
 
 # module -> {name: why the port has no such name}
 MISSING = {
@@ -61,16 +59,6 @@ MISSING = {
         "sp_enter": "GSPMD sequence-parallel resharding hint",
         "sp_exit": "GSPMD sequence-parallel resharding hint",
     },
-    "repro.configs": {"SHAPES": _ITEM_10_2, "cells": _ITEM_10_2},
-    "repro.configs.base": {"SHAPES": _ITEM_10_2, "ShapeConfig": _ITEM_10_2},
-    "repro.data": {"batch_specs": _ITEM_10_2},
-    "repro.data.pipeline": {"batch_specs": _ITEM_10_2},
-    "repro.launch.steps": {"cell_program": _ITEM_10_2, "lower_cell": _ITEM_10_2,
-                           "CROSS_LEN_FOR_DECODE": _ITEM_10_2 + " (cell_program's "
-                                                                "cross length)"},
-    "repro.launch.dryrun": {n: _ITEM_10_2 + " (launch/dryrun.py)"
-                            for n in ("SHAPES", "TRAIN_MICROBATCHES", "calibrated_costs",
-                                      "collective_stats", "main", "run_cell")},
 }
 
 
